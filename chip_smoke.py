@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cached serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's cached serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    is fp32 and loads as fp32, as in the JAX package).  The kernels'
    launch counters are reset before the runs and must show both kernels
    on the path.
-5. Print one JSON line of per-kernel results, then the final status line.
+5. Hold the training kernels against their plain versions: the
+   user-encoder forward in train mode (dropout 0.1, bf16, batch 64, the
+   same Philox masks on both sides) and the user-encoder backward at
+   batch 64 and 1, train mode, bf16 and fp32, ``gx`` and every parameter
+   gradient.  Two planted faults (the backward run with another seed than
+   the forward, and the ReLU's gradient dropped) must break the backward's
+   bound.
+6. Train at the benchmark's cached configuration (``bench.py``: the
+   ``IISANConfig`` defaults with lr 2e-4, batch 64, K=7, D=768, R=64, emb
+   64, dropout 0.1, bf16) over a synthetic Scientific-size corpus (12,076
+   users, 20,825 items: 189 steps an epoch): one full epoch and a valid
+   evaluation on the default SAN route, then on ``use_pallas=True``.  The
+   launch counters must show the encoder kernels once per step on both
+   routes and the cascade kernel twice per step on the kernel route only;
+   the loss must be finite and its last 20 steps lower than its first 20.
+   Then, from one set of weights at dropout 0, five steps through the
+   kernels and five through the module path must give losses within 2e-2
+   and a nonzero gradient for every parameter on both.
+7. Print one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -65,6 +84,18 @@ SEED = 12345
 # whose every term moves the carry by O(1), and shows that the bound
 # rejects a planted fault in each branch.
 UE_TOL = (5e-2, 5e-2)
+# Encoder backward: per tensor (gx and each parameter gradient), |diff| <=
+# tol * (max|plain| + |plain|): the kernel sums a sequence's rows and then
+# the sequences, the plain version all rows at once.  bf16 as the forward;
+# fp32 1e-4 (summation order only).
+BWD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# The benchmark's training configuration (bench.py), over the field names
+# of iisan_tpu_torch.config.IISANConfig.
+TRAIN_CFG = dict(batch_size=64, epoch=1, lr=2e-4, adapter_cv_lr=1e-4,
+                 adapter_bert_lr=1e-4, fine_tune_lr_image=1e-4,
+                 fine_tune_lr_text=5e-5, embedding_dim=EMB,
+                 bert_adapter_down_size=BOTTLENECK,
+                 cv_adapter_down_size=BOTTLENECK, seed=SEED)
 
 
 def log(msg: str) -> None:
@@ -248,29 +279,282 @@ def check_cascade(device):
     return max(errs.values()), ms, plain_ms
 
 
-def synthetic_valid_split(rng):
-    """Valid split of a synthetic corpus (the layout of the JAX package's
-    ``data/synthetic.py``): sequences of 5..13 uniform items, left-padded
-    tokens of the sequence up to its second-to-last item, the
-    second-to-last item as target, the training prefix as history."""
-    import numpy as np
+def grad_ratio(got, want, tol, unpack):
+    """Largest |got - want| / (tol * (max|want| + |want|)) over gx and each
+    parameter gradient; the backward agrees when it is <= 1."""
+    worst = 0.0
+    pairs = [(got[0], want[0])] + list(zip(unpack(got[1]), unpack(want[1])))
+    for g, w in pairs:
+        g, w = g.float(), w.float()
+        if not torch_finite(g):
+            return float("inf")
+        bound = tol * (w.abs().max() + w.abs())
+        worst = max(worst, float(((g - w).abs() / bound.clamp_min(1e-30)).max()))
+    return worst
 
-    L = SEQ_LEN
-    tokens = np.zeros((USERS, L), np.int32)
-    log_mask = np.zeros((USERS, L), np.float32)
-    target = np.zeros(USERS, np.int32)
-    history = np.zeros((USERS, L + 2), np.int32)
-    seqs = []
-    for u in range(USERS):
-        n = int(rng.integers(5, L + 4))
-        seq = rng.integers(1, ITEMS + 1, size=n)
-        vt = seq[-(L + 2):-1][:-1]
-        tokens[u, L - len(vt):] = vt
-        log_mask[u, L - len(vt):] = 1.0
-        target[u] = seq[-2]
-        history[u, :n - 2] = seq[:-2]
-        seqs.append(seq[:-1].tolist())
-    return (tokens, log_mask, target, history), seqs
+
+def relu_grad_dropped(x, mask3, params, gout, kw):
+    """The gradients a backward without the ReLU's gradient would give:
+    autograd of the plain forward with the ReLU's gradient passed on
+    unmasked (its values unchanged)."""
+    import torch
+
+    from iisan_tpu_torch.ops import fused_user_encoder as fue
+
+    relu = torch.relu
+    torch.relu = lambda t: t + (relu(t) - t).detach()
+    try:
+        xx = x.detach().clone().requires_grad_(True)
+        pp = params.detach().clone().requires_grad_(True)
+        y = fue.user_encoder_fwd_plain(xx, mask3, pp, **kw)
+        return torch.autograd.grad(y, (xx, pp), gout)
+    finally:
+        torch.relu = relu
+
+
+def check_user_encoder_train(device):
+    """Train-mode forward and the backward kernel against their plain
+    versions at the training shapes; returns the kernel JSON numbers."""
+    import torch
+
+    from iisan_tpu_torch.models.user_encoder import (UserEncoder,
+                                                     causal_additive_mask)
+    from iisan_tpu_torch.ops import fused_user_encoder as fue
+
+    seed, rate = 20251016, DROP
+    kw = dict(n_layers=BLOCKS, n_heads=HEADS, d_ff=4 * EMB, n_position=SEQ_LEN)
+
+    def unpack(t):
+        return fue.unpack_encoder_params(t, EMB, 4 * EMB, BLOCKS, SEQ_LEN)
+
+    gen = torch.Generator().manual_seed(SEED)
+    enc = UserEncoder(EMB, SEQ_LEN, HEADS, BLOCKS, DROP, generator=gen)
+    with torch.no_grad():  # move LayerNorms and biases off their init
+        for p in enc.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    enc = enc.to(device)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        params = enc.packed_params(dtype)
+        for b in (64, 1):
+            x = torch.randn(b, SEQ_LEN, EMB, generator=gen).to(device, dtype)
+            lengths = torch.randint(1, SEQ_LEN + 1, (b,), generator=gen)
+            lengths[-1] = 0 if b > 1 else lengths[-1]  # an all-pad row
+            log_mask = torch.arange(SEQ_LEN)[None] >= SEQ_LEN - lengths[:, None]
+            mask3 = causal_additive_mask(log_mask.float().to(device)).reshape(
+                b, SEQ_LEN, SEQ_LEN)
+            gout = torch.randn(b, SEQ_LEN, EMB, generator=gen).to(device, dtype)
+            tkw = dict(kw, seed=seed, rate=rate)
+            if b == 64 and dtype == torch.bfloat16:
+                got = fue.user_encoder_fwd(x, mask3, params, **tkw)
+                want = fue.user_encoder_fwd_plain(x, mask3, params, **tkw)
+                torch.cuda.synchronize()
+                out["fwd_err"] = max_err(got, want, UE_TOL)
+                out["fwd_ms"] = cuda_timed(
+                    lambda: fue.user_encoder_fwd(x, mask3, params, **tkw), 50)
+                out["fwd_plain_ms"] = cuda_timed(
+                    lambda: fue.user_encoder_fwd_plain(x, mask3, params, **tkw), 10)
+                log(f"user_encoder_fwd train B=64 rate {rate} bf16: max|kernel-"
+                    f"plain| {out['fwd_err']:.6g} (tol atol {UE_TOL[0]} rtol "
+                    f"{UE_TOL[1]}); kernel {out['fwd_ms']:.4f} ms, plain "
+                    f"{out['fwd_plain_ms']:.4f} ms (medians, CUDA events)")
+            want = fue.user_encoder_bwd_plain(x, mask3, params, gout, **tkw)
+            got = fue.user_encoder_bwd(x, mask3, params, gout, **tkw)
+            torch.cuda.synchronize()
+            tol = BWD_TOL[name]
+            ratio = grad_ratio(got, want, tol, unpack)
+            err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+            log(f"user_encoder_bwd B={b} {name} train: max |diff| / bound "
+                f"{ratio:.4f} (must be <= 1; tol {tol} * (max|plain| + "
+                f"|plain|) per tensor), max|kernel-plain| {err:.6g}")
+            if ratio > 1.0:
+                raise AssertionError(f"user_encoder_bwd B={b} {name} disagrees "
+                                     "with its plain version")
+            out["bwd_err"] = max(out.get("bwd_err", 0.0), err)
+            if b != 64:
+                continue
+            faults = {
+                "backward seed != forward seed": fue.user_encoder_bwd(
+                    x, mask3, params, gout, **dict(tkw, seed=seed + 1)),
+                "ReLU gradient dropped": relu_grad_dropped(
+                    x, mask3, params, gout, tkw),
+            }
+            for fault, fgot in faults.items():
+                fr = grad_ratio(fgot, want, tol, unpack)
+                log(f"  planted fault '{fault}': max |diff| / bound {fr:.4g} "
+                    "(must be > 1)")
+                if fr <= 1.0:
+                    raise AssertionError(f"the backward bound admits '{fault}'")
+            if dtype == torch.bfloat16:
+                out["bwd_ms"] = cuda_timed(
+                    lambda: fue.user_encoder_bwd(x, mask3, params, gout, **tkw), 50)
+                out["bwd_plain_ms"] = cuda_timed(
+                    lambda: fue.user_encoder_bwd_plain(x, mask3, params, gout,
+                                                       **tkw), 10)
+                log(f"user_encoder_bwd B=64 bf16 train: kernel "
+                    f"{out['bwd_ms']:.4f} ms, plain {out['bwd_plain_ms']:.4f} ms "
+                    "(medians, CUDA events)")
+    return out
+
+
+# Device-kernel families of a training step, by kernel name (the first
+# pattern that matches wins).
+KERNEL_FAMILIES = (("encoder kernels", ("user_encoder", "grad_reduce")),
+                   ("cascade kernel", ("san_cascade",)),
+                   ("Adam", ("adam", "multi_tensor")),
+                   ("matmul", ("gemm", "xmma", "cutlass", "splitk")),
+                   ("other", ("",)))
+
+
+def step_breakdown(tr, batch, reps):
+    """Where one training step's time goes: host-clock medians of its
+    phases, each ended by a synchronise (gather, SAN + heads + com_dense,
+    user encoder + loss, backward, Adam), and the device time of the
+    step's kernels by family (profiler, ``reps`` steps).  Returns
+    (phase ms, family ms), both per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iisan_tpu_torch.ops.losses import sequence_train_loss
+
+    model, ids, log_mask = tr.model, *batch
+    phases = {k: [] for k in ("gather", "SAN + heads", "encoder + loss",
+                              "backward", "Adam")}
+
+    def step(times):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        flat = ids.reshape(-1)
+        cv, text = tr.cv_table[flat], tr.text_table[flat]
+        mark()
+        score = model.fuse(*model.san(cv, text))
+        mark()
+        loss = sequence_train_loss(model.user_encoder, score, ids, log_mask,
+                                   tr.pop_prob, SEQ_LEN, EMB, False,
+                                   tr.generator)
+        mark()
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark()
+        tr.optimizer.step()
+        mark()
+        if times is not None:
+            for k, a, b in zip(phases, marks, marks[1:]):
+                times[k].append((b - a) * 1e3)
+
+    step(None)
+    for _ in range(reps):
+        step(phases)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(None)
+        torch.cuda.synchronize()
+    families = {name: 0.0 for name, _ in KERNEL_FAMILIES}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        key = e.key.lower()
+        name = next(n for n, pats in KERNEL_FAMILIES
+                    if any(pat in key for pat in pats))
+        families[name] += e.self_device_time_total / 1e3 / reps
+    return ({k: sorted(v)[len(v) // 2] for k, v in phases.items()}, families)
+
+
+def train_route(device, corpus, taps, use_pallas, counters):
+    """One full epoch and a valid evaluation of the cached trainer on one
+    SAN route; returns the trainer and the epoch's kernel launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.train.cached import CachedTrainer
+
+    name = "use_pallas" if use_pallas else "default"
+    cfg = IISANConfig(use_pallas=use_pallas, **TRAIN_CFG)
+    tr = CachedTrainer(cfg, corpus, *taps, device=device)
+    steps = -(-USERS // cfg.batch_size)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_loss = tr.run_epoch(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    losses = tr._last_step_losses.float().cpu().numpy()
+    t0 = time.perf_counter()
+    hit, ndcg = tr.evaluate_split("valid")
+    eval_s = time.perf_counter() - t0
+    perm = torch.as_tensor(tr.epoch_permutation(2), device=device).long()
+    batch = (tr.train_seqs[perm[0]], tr.train_log_mask[perm[0]])
+    busy = device_ms(lambda: tr.train_step(*batch), 10)
+    phases, families = step_breakdown(tr, batch, 10)
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    log(f"train[{name}]: {steps} steps in {epoch_s:.3f} s "
+        f"({epoch_s / steps * 1e3:.3f} ms/step, host clock); device-busy "
+        f"{busy:.3f} ms/step (profiler, 10 steps); mean loss {mean_loss:.5f}, "
+        f"first 20 steps {first:.5f}, last 20 {last:.5f}; valid HR@10 "
+        f"{hit:.6f} nDCG@10 {ndcg:.6f} in {eval_s:.3f} s; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log(f"train[{name}] step breakdown: host-clock medians of 10, each phase "
+        "ended by a synchronise: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in phases.items())
+        + "; device time per step by kernel family (profiler): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items()))
+    if len(losses) != steps or not np.isfinite(losses).all() or last >= first:
+        raise AssertionError(f"train[{name}]: the loss did not fall")
+    if not (np.isfinite(hit) and 0 <= ndcg <= hit <= 1):
+        raise AssertionError(f"train[{name}]: bad metrics {hit} {ndcg}")
+    want = {"user_encoder_fwd": steps, "user_encoder_bwd": steps,
+            "san_cascade_fwd": 2 * steps if use_pallas else 0}
+    if launches != want:
+        raise AssertionError(f"train[{name}]: launches {launches}, expected {want}")
+    return tr, launches
+
+
+def check_gradients_reach_parameters(device, corpus, taps):
+    """Five steps through the kernels (use_pallas, fused encoder) and five
+    through the module path (default route, fused=False) from the same
+    weights at dropout 0: the losses agree and every parameter gets a
+    nonzero gradient on both."""
+    import torch
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.train.cached import CachedTrainer
+
+    runs = {}
+    for name, kw in (("kernels", dict(use_pallas=True)),
+                     ("module", dict(fused_user_encoder=False))):
+        cfg = IISANConfig(**dict(TRAIN_CFG, drop_rate=0.0, **kw))
+        runs[name] = CachedTrainer(cfg, corpus, *taps, device=device)
+    runs["module"].model.load_state_dict(runs["kernels"].model.state_dict())
+    perm = torch.as_tensor(runs["kernels"].epoch_permutation(1), device=device)
+    losses = {}
+    for name, tr in runs.items():
+        losses[name] = []
+        for step in range(5):
+            ids = perm[step].long()
+            losses[name].append(float(tr.train_step(tr.train_seqs[ids],
+                                                    tr.train_log_mask[ids])))
+            if step == 0:
+                dead = [n for n, p in tr.model.named_parameters()
+                        if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+                if dead:
+                    raise AssertionError(f"{name}: no gradient for {dead[:5]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["module"]))
+    log("5 steps from one set of weights at dropout 0: kernels "
+        + ", ".join(f"{v:.5f}" for v in losses["kernels"]) + "; module path "
+        + ", ".join(f"{v:.5f}" for v in losses["module"])
+        + f"; max relative difference {rel:.3g} (tol 2e-2); every parameter "
+        "has a nonzero gradient on both")
+    if rel > 2e-2:
+        raise AssertionError("the kernel path's losses leave the module path's")
 
 
 def post(url, payload):
@@ -410,9 +694,15 @@ def main() -> int:
 
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
-    split, seqs = synthetic_valid_split(rng)
-    requests = {b: seqs[:b] for b in (1, 32, 256)}
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=USERS, item_num=ITEMS,
+                              max_seq_len=SEQ_LEN, seed=SEED)
+    split = (corpus.valid_tokens, corpus.valid_log_mask, corpus.valid_target,
+             corpus.valid_history)
+    # a request is a user's items but the last (the test target)
+    requests = {b: [row[row > 0].tolist() for row in corpus.test_history[:b]]
+                for b in (1, 32, 256)}
     gen = torch.Generator(device=device).manual_seed(SEED)
     taps = []
     for _ in range(2):  # cv, text: (items + pad, K, D) in bf16 on the card
@@ -462,17 +752,40 @@ def main() -> int:
     log(f"user encoder, kernel vs module path at batch {EVAL_BATCH}: max "
         f"|diff| {ue_diff:.6g} (tol atol {UE_TOL[0]} rtol {UE_TOL[1]})")
 
+    # Training: the kernels at the training shapes, then the trainer on
+    # both SAN routes over the same tap tables.
+    train = check_user_encoder_train(device)
+    del model, table_plain, table_kernel, embs, fused, module
+    torch.cuda.empty_cache()
+    counters = (fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd)
+    trained = {}
+    for use_pallas in (False, True):
+        tr, trained[use_pallas] = train_route(device, corpus, taps, use_pallas,
+                                              counters)
+        del tr
+        torch.cuda.empty_cache()
+    check_gradients_reach_parameters(device, corpus, taps)
+    train_counts = {k: trained[False][k] + trained[True][k]
+                    for k in trained[False]}
+
     kernels = [
         {"name": "user_encoder_fwd", "route": "cuda",
          "source": "iisan_tpu_torch/csrc/user_encoder_fwd.cu",
          "replaces": "iisan_tpu/ops/fused_user_encoder.py:264",
-         "launches": counts[0],
-         "max_abs_err": max(r[0] for r in ue.values()),
+         "launches": counts[0] + train_counts["user_encoder_fwd"],
+         "max_abs_err": max([r[0] for r in ue.values()] + [train["fwd_err"]]),
          "ms": ue[256][1], "plain_ms": ue[256][2]},
+        {"name": "user_encoder_bwd", "route": "cuda",
+         "source": "iisan_tpu_torch/csrc/user_encoder_bwd.cu",
+         "replaces": "iisan_tpu/ops/fused_user_encoder.py:327",
+         "launches": train_counts["user_encoder_bwd"],
+         "max_abs_err": train["bwd_err"],
+         "ms": train["bwd_ms"], "plain_ms": train["bwd_plain_ms"]},
         {"name": "san_cascade_fwd", "route": "cuda",
          "source": "iisan_tpu_torch/csrc/san_cascade_fwd.cu",
          "replaces": "iisan_tpu/ops/fused_san.py:49",
-         "launches": counts[1], "max_abs_err": cascade[0],
+         "launches": counts[1] + train_counts["san_cascade_fwd"],
+         "max_abs_err": cascade[0],
          "ms": cascade[1], "plain_ms": cascade[2]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,322 @@
+// The fused SASRec user encoder's forward body, shared by the forward
+// kernel (user_encoder_fwd.cu) and the backward kernel's recompute
+// (user_encoder_bwd.cu), so the two compute the same values by the same
+// code: positional add, input LayerNorm (+ dropout), then per block
+// bias-free Q/K/V/O attention with an fp32 softmax over the additive mask
+// (+ dropout of the probabilities and of the projected output), post-LN,
+// ReLU FFN (+ dropout of its output), post-LN.
+//
+// Cast chain (that of `_encoder_fwd_body` and `_attn_fwd` in
+// iisan_tpu/ops/fused_user_encoder.py): products take T-rounded operands
+// with fp32 accumulation and are rounded to T; the FFN bias adds in T; the
+// scores are fp32 products of T-valued q and k; the softmax is fp32 and
+// its probabilities are rounded to T, then multiplied by the dropout keep
+// factor in fp32 before PV; the dropout of the attention output and of the
+// FFN output multiplies in fp32 and rounds to T; LayerNorm statistics are
+// fp32.  The mask is additive 0 / -1e9, so a query row whose keys are all
+// masked gets the uniform softmax, never NaN.  Dropout bits come from
+// Philox (philox.cuh), addressed by (seed, sequence, site, element).
+#pragma once
+
+#include <cuda_pipeline.h>
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace iisan {
+
+constexpr int kThreads = 256;
+constexpr float kEps = 1e-6f;
+constexpr int kWBuf = 16384;  // floats of shared memory for staged weights
+
+struct EncoderDims {
+  int L, D, H, F, n_layers, n_position;
+};
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// Shared-memory layout, in floats.  One layer's "slot" holds what its
+// forward leaves behind: the forward kernel reuses one slot for every
+// layer; the backward kernel gives each layer its own, and the slots are
+// its stash.  Every offset is a multiple of 4 floats (linear() stores
+// float4s).
+struct EncoderLayout {
+  int LD, LF, HLL;
+  // offsets inside a slot
+  int q, k, v, ctx, xhat1, x1, xhat2, hid, p, rstd1, rstd2, slot;
+  // offsets from the start of shared memory
+  int res, sc, xhat0, rstd0, slots;
+  __host__ __device__ explicit EncoderLayout(const EncoderDims& d)
+      : LD(d.L * d.D), LF(d.L * d.F), HLL(d.H * d.L * d.L) {
+    // slot: x_in at 0, then q k v (consecutive: one linear() call
+    // projects all three), ctx, the LayerNorm stats and outputs, the FFN
+    // hidden, the raw probabilities, the two rstd vectors
+    q = LD;
+    k = 2 * LD;
+    v = 3 * LD;
+    ctx = 4 * LD;
+    xhat1 = 5 * LD;
+    x1 = 6 * LD;
+    xhat2 = 7 * LD;
+    hid = 8 * LD;
+    p = hid + LF;
+    rstd1 = p + HLL;
+    rstd2 = rstd1 + d.L;
+    slot = pad4(rstd2 + d.L);
+    res = kWBuf;
+    sc = res + LD;
+    xhat0 = sc + pad4(HLL);
+    rstd0 = xhat0 + LD;
+    slots = rstd0 + pad4(d.L);
+  }
+};
+
+// Dropout site numbers of one sequence (ops/philox.encoder_sites).
+__device__ __forceinline__ unsigned site_probs(int layer, int h, int H) {
+  return 1u + layer * (H + 2) + h;
+}
+__device__ __forceinline__ unsigned site_attn_out(int layer, int H) {
+  return 1u + layer * (H + 2) + H;
+}
+__device__ __forceinline__ unsigned site_ffn_out(int layer, int H) {
+  return 2u + layer * (H + 2) + H;
+}
+
+// Packed parameters of one block, in the order of flatten_encoder_params.
+struct BlockParams {
+  const float *wq, *wk, *wv, *wo, *ln1_s, *ln1_b, *w1, *b1, *w2, *b2, *ln2_s, *ln2_b;
+  __device__ BlockParams(const float* p, int D, int F)
+      : wq(p), wk(wq + D * D), wv(wk + D * D), wo(wv + D * D), ln1_s(wo + D * D),
+        ln1_b(ln1_s + D), w1(ln1_b + D), b1(w1 + D * F), w2(b1 + F), b2(w2 + F * D),
+        ln2_s(b2 + D), ln2_b(ln2_s + D) {}
+  __device__ static int size(int D, int F) { return 4 * D * D + 2 * D * F + F + 5 * D; }
+};
+
+// For each of n_mat matrices W_m = W + m*K*N (outputs at out + m*L*N):
+// out_m[l, j] = round_T(sum_d in[l, d] * W_m[d, j]), then, with a bias,
+// round_T(out + bias[j]) and optionally ReLU.  W and bias hold values
+// already rounded to T (pack_encoder_params rounds them); N % 4 == 0 and W,
+// out 16-byte aligned.
+//
+// Every row of the output reads every weight, so the weights are staged in
+// shared memory (`wbuf`, kWBuf floats) first, as many rows of all n_mat
+// matrices as fit (at the serving geometry, whole matrices): the block
+// reads each weight from L2 once, all threads copying at once.  Then
+// a thread computes four adjacent columns of one row: per step one
+// broadcast load of x and one 16-byte load of W feed four independent FMA
+// chains.  With K in several chunks, the fp32 partial sums wait in `out`;
+// a thread owns the same outputs in every chunk, so they need no barrier.
+template <typename T>
+__device__ void linear(const float* in, const float* __restrict__ W,
+                       const float* __restrict__ bias, float* out, float* wbuf,
+                       int n_mat, int L, int K, int N, bool relu) {
+  const int ng = N / 4, per_mat = L * ng;
+  const int kc_max = max(1, min(K, kWBuf / (n_mat * N)));
+  float4* wbuf4 = reinterpret_cast<float4*>(wbuf);
+  for (int k0 = 0; k0 < K; k0 += kc_max) {
+    const int kc = min(kc_max, K - k0);
+    const int chunk4 = kc * ng;  // float4s of one matrix's chunk
+    __syncthreads();             // the previous contents of wbuf are used
+    // Asynchronous 16-byte copies: a thread has all of its copies in
+    // flight at once instead of one load-then-store at a time.
+    for (int idx = threadIdx.x; idx < n_mat * chunk4; idx += blockDim.x) {
+      const int m = idx / chunk4, e = idx - m * chunk4;
+      __pipeline_memcpy_async(
+          wbuf4 + idx,
+          reinterpret_cast<const float4*>(W + static_cast<size_t>(m) * K * N +
+                                          static_cast<size_t>(k0) * N) + e,
+          sizeof(float4));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const bool last = k0 + kc == K;
+    for (int idx = threadIdx.x; idx < n_mat * per_mat; idx += blockDim.x) {
+      const int m = idx / per_mat, rem = idx - m * per_mat;
+      const int r = rem / ng, j4 = rem - r * ng;
+      const float* x = in + r * K + k0;
+      const float4* w = wbuf4 + m * chunk4 + j4;
+      float4* o = reinterpret_cast<float4*>(out + m * L * N + r * N) + j4;
+      float4 acc = k0 == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *o;
+#pragma unroll 8
+      for (int d = 0; d < kc; ++d) {
+        const float xv = x[d];
+        const float4 wv = w[d * ng];
+        acc.x = fmaf(xv, wv.x, acc.x);
+        acc.y = fmaf(xv, wv.y, acc.y);
+        acc.z = fmaf(xv, wv.z, acc.z);
+        acc.w = fmaf(xv, wv.w, acc.w);
+      }
+      if (last) {
+        acc = make_float4(round_to<T>(acc.x), round_to<T>(acc.y),
+                          round_to<T>(acc.z), round_to<T>(acc.w));
+        if (bias != nullptr) {
+          const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + j4);
+          acc = make_float4(round_to<T>(acc.x + b.x), round_to<T>(acc.y + b.y),
+                            round_to<T>(acc.z + b.z), round_to<T>(acc.w + b.w));
+        }
+        if (relu)
+          acc = make_float4(fmaxf(acc.x, 0.f), fmaxf(acc.y, 0.f), fmaxf(acc.z, 0.f),
+                            fmaxf(acc.w, 0.f));
+      }
+      *o = acc;
+    }
+  }
+}
+
+// out[l] = round_T(xhat[l] * scale + bias) with xhat = (pre[l] - mean) *
+// rstd, one warp per row, fp32 statistics; xhat and rstd are kept for the
+// backward.  `out` must not alias `pre`.
+template <typename T>
+__device__ void layer_norm_rows(const float* pre, const float* __restrict__ scale,
+                                const float* __restrict__ bias, float* out, float* xhat,
+                                float* rstd_out, int L, int D) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  for (int l = warp; l < L; l += n_warps) {
+    const float* x = pre + l * D;
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s += x[d];
+    const float mu = warp_sum(s) / D;
+    float v = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float c = x[d] - mu;
+      v = fmaf(c, c, v);
+    }
+    const float rstd = rsqrtf(warp_sum(v) / D + kEps);
+    if (lane == 0) rstd_out[l] = rstd;
+    for (int d = lane; d < D; d += 32) {
+      const float xh = (x[d] - mu) * rstd;
+      xhat[l * D + d] = xh;
+      out[l * D + d] = round_to<T>(xh * __ldg(scale + d) + __ldg(bias + d));
+    }
+  }
+}
+
+// The whole encoder forward of sequence b (xb, mb: its input and mask) in
+// shared memory `smem`, laid out as EncoderLayout.  Layer i works in the
+// slot at `slots + i * slot_stride` (stride 0: one slot for all layers);
+// the last layer's output lands in `out`.  Ends with a barrier.
+template <typename T>
+__device__ void encoder_forward(const T* __restrict__ xb, const float* __restrict__ mb,
+                                const float* __restrict__ params, const EncoderDims& dims,
+                                const EncoderLayout& lay, float inv_sqrt_dk,
+                                const Dropout& drop, unsigned b, float* smem,
+                                int slot_stride, float* out) {
+  const int L = dims.L, D = dims.D, H = dims.H, F = dims.F;
+  const int LD = L * D, dk = D / H;
+  float* wbuf = smem;
+  float* res = smem + lay.res;  // (L, D) pre-LayerNorm sums
+  float* sc = smem + lay.sc;    // (H, L, L) scores, then probabilities used by PV
+
+  const float* pos = params;
+  const float* ln0_s = pos + static_cast<size_t>(dims.n_position) * D;
+  const float* ln0_b = ln0_s + D;
+  const float* p = ln0_b + D;
+
+  // x + pos in T arithmetic, then the input LayerNorm (and its dropout).
+  for (int i = threadIdx.x; i < LD; i += blockDim.x)
+    res[i] = round_to<T>(to_f32(xb[i]) + round_to<T>(__ldg(pos + i)));
+  __syncthreads();
+  float* x_in = smem + lay.slots;
+  layer_norm_rows<T>(res, ln0_s, ln0_b, x_in, smem + lay.xhat0, smem + lay.rstd0, L, D);
+  __syncthreads();
+  if (drop.on) {
+    for (int i = threadIdx.x; i < LD; i += blockDim.x)
+      x_in[i] = round_to<T>(x_in[i] * drop.keep(0u, b, i));
+    __syncthreads();
+  }
+
+  for (int layer = 0; layer < dims.n_layers; ++layer) {
+    const BlockParams w(p, D, F);
+    p += BlockParams::size(D, F);
+    float* s = smem + lay.slots + layer * slot_stride;
+    float* q = s + lay.q;
+    float* k = s + lay.k;
+    float* v = s + lay.v;
+    float* ctx = s + lay.ctx;
+    float* praw = s + lay.p;
+    float* x1 = s + lay.x1;
+    float* hid = s + lay.hid;
+    float* next = layer + 1 < dims.n_layers ? s + slot_stride : out;
+
+    // wq, wk, wv are consecutive in the packed vector, as q, k, v are in
+    // shared memory: one call projects all three.
+    linear<T>(s, w.wq, nullptr, q, wbuf, 3, L, D, D, false);
+    __syncthreads();
+
+    for (int idx = threadIdx.x; idx < H * L * L; idx += blockDim.x) {
+      const int h = idx / (L * L), r = idx - h * L * L;
+      const int l = r / L, m = r - l * L;
+      const float* qr = q + l * D + h * dk;
+      const float* kr = k + m * D + h * dk;
+      float acc = 0.f;
+      // Start each key row at its own offset: neighbouring threads (other
+      // keys m, rows D apart) then read distinct shared-memory banks.
+      for (int i = 0; i < dk; ++i) {
+        const int d = (i + m) % dk;
+        acc = fmaf(qr[d], kr[d], acc);
+      }
+      sc[idx] = acc * inv_sqrt_dk + mb[r];
+    }
+    __syncthreads();
+
+    for (int row = threadIdx.x; row < H * L; row += blockDim.x) {
+      float* sr = sc + row * L;
+      float mx = sr[0];
+      for (int m = 1; m < L; ++m) mx = fmaxf(mx, sr[m]);
+      float sum = 0.f;
+      for (int m = 0; m < L; ++m) {
+        sr[m] = expf(sr[m] - mx);
+        sum += sr[m];
+      }
+      const int h = row / L, l = row - h * L;
+      for (int m = 0; m < L; ++m) {
+        const float pr = sr[m] / sum;
+        praw[row * L + m] = pr;
+        sr[m] = drop.on ? round_to<T>(pr) * drop.keep(site_probs(layer, h, H), b, l * L + m)
+                        : round_to<T>(pr);
+      }
+    }
+    __syncthreads();
+
+    for (int idx = threadIdx.x; idx < LD; idx += blockDim.x) {
+      const int l = idx / D, c = idx - l * D, h = c / dk;
+      const float* pr = sc + (h * L + l) * L;
+      float acc = 0.f;
+      for (int m = 0; m < L; ++m) acc = fmaf(pr[m], v[m * D + c], acc);
+      ctx[idx] = round_to<T>(acc);
+    }
+    __syncthreads();
+
+    linear<T>(ctx, w.wo, nullptr, res, wbuf, 1, L, D, D, false);
+    __syncthreads();
+    for (int i = threadIdx.x; i < LD; i += blockDim.x) {
+      float o = res[i];
+      if (drop.on) o = round_to<T>(o * drop.keep(site_attn_out(layer, H), b, i));
+      res[i] = o + s[i];
+    }
+    __syncthreads();
+    layer_norm_rows<T>(res, w.ln1_s, w.ln1_b, x1, s + lay.xhat1, s + lay.rstd1, L, D);
+    __syncthreads();
+
+    linear<T>(x1, w.w1, w.b1, hid, wbuf, 1, L, D, F, true);
+    __syncthreads();
+    linear<T>(hid, w.w2, w.b2, res, wbuf, 1, L, F, D, false);
+    __syncthreads();
+    for (int i = threadIdx.x; i < LD; i += blockDim.x) {
+      float h2 = res[i];
+      if (drop.on) h2 = round_to<T>(h2 * drop.keep(site_ffn_out(layer, H), b, i));
+      res[i] = h2 + x1[i];
+    }
+    __syncthreads();
+    layer_norm_rows<T>(res, w.ln2_s, w.ln2_b, next, s + lay.xhat2, s + lay.rstd2, L, D);
+    __syncthreads();
+  }
+}
+
+inline Dropout make_dropout(int seed, float rate, float scale) {
+  return Dropout{rate > 0.f, static_cast<unsigned>(seed), rate, scale};
+}
+
+}  // namespace iisan

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which is loaded with ``ctypes``.  The build runs at first use,
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per source,
+all started together, and links them into one shared library with a plain
+C interface, which is loaded with ``ctypes``.  The build runs at first use,
 never at import, so the package imports on machines without ``nvcc`` or a
 GPU.  The library lands in ``build/iisan_tpu_torch/<hash>/`` at the root of
 the checkout; the hash covers the sources and the compiler flags, so an
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "iisan_tpu_torch"
-NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas=-v")
 LIB_NAME = "libiisan_kernels.so"
 
@@ -68,24 +69,46 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    nvcc, tag = nvcc_path(), os.getpid()
     t0 = time.perf_counter()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in cu]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(cu, objs))]
+    report = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        report.append(f"{' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     (out_dir / "build.log").write_text(
-        f"{' '.join(cmd)}\n{time.perf_counter() - t0:.1f} s\n"
-        f"{proc.stdout}{proc.stderr}")
+        "".join(report) + f"{' '.join(cmd)}\n"
+        f"{time.perf_counter() - t0:.1f} s\n")
     os.replace(tmp, lib)
     return lib
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.iisan_user_encoder_fwd.argtypes = [p, p, p, p] + [i] * 8 + [p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.iisan_user_encoder_fwd.argtypes = [p] * 4 + [i] * 9 + [f, f, p]
     lib.iisan_user_encoder_fwd.restype = i
+    lib.iisan_user_encoder_bwd.argtypes = [p] * 7 + [i] * 9 + [f, f, i, p]
+    lib.iisan_user_encoder_bwd.restype = i
+    lib.iisan_philox_check.argtypes = [i] * 4 + [p] * 3
+    lib.iisan_philox_check.restype = i
     lib.iisan_san_cascade_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.iisan_san_cascade_fwd.restype = i
     lib.iisan_cuda_error_string.argtypes = [i]

@@ -1,9 +1,9 @@
 """Top-level recommendation model: SAN -> com_dense -> SASRec user encoder.
 
-Port of ``IISANRecModel`` and ``ComDense`` from ``iisan_tpu/models/model.py``
-for the serving path: ``item_embeddings`` (the SAN over tap tensors),
-``fuse_embeddings`` (``com_dense``) and ``user_scores`` (the user
-encoder).  The training forward and its loss come with the training port.
+Port of ``IISANRecModel`` and ``ComDense`` from ``iisan_tpu/models/model.py``:
+``item_embeddings`` (the SAN over tap tensors), ``fuse_embeddings``
+(``com_dense``), ``user_scores`` (the user encoder) and ``forward``, the
+training loss.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.losses import sequence_train_loss
 from .modules import TorchLinear
 from .san import SideAdapterNetwork, san_from_config
 from .user_encoder import UserEncoder
@@ -79,6 +80,23 @@ class IISANRecModel(nn.Module):
     def user_scores(self, input_embs, log_mask, deterministic: bool = True):
         """Run the user tower; returns (B, L, emb)."""
         return self.user_encoder(input_embs, log_mask, deterministic)
+
+    def forward(self, item_ids, cv_states, text_states, log_mask, pop_prob,
+                deterministic: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Training forward -> scalar fp32 loss.
+
+        item_ids (bs, L+1); cv_states / text_states (bs*(L+1), K, dim) tap
+        tensors; log_mask (bs, L); pop_prob (item_num+1,).  Train-mode
+        dropout draws from ``generator``.
+        """
+        emb_cv, emb_text, emb_mm = self.san(cv_states, text_states)
+        score_embs = self.fuse(emb_cv, emb_text, emb_mm)
+        return sequence_train_loss(self.user_encoder, score_embs, item_ids,
+                                   log_mask, pop_prob,
+                                   self.user_encoder.max_seq_len,
+                                   score_embs.shape[-1], deterministic,
+                                   generator)
 
 
 def rec_model_from_config(cfg, device=None, generator=None) -> IISANRecModel:

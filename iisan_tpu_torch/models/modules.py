@@ -102,8 +102,17 @@ class LayerNorm(nn.Module):
                             self.eps)
 
 
-def _dropout(x, rate: float, deterministic: bool):
-    return x if deterministic or rate == 0.0 else F.dropout(x, rate)
+def _dropout(x, rate: float, deterministic: bool, generator=None):
+    """Inverted dropout, as flax's ``nn.Dropout``: kept values scaled by
+    1/(1-rate) in x's dtype.  The bits come from ``generator`` (an explicit
+    ``torch.Generator``, never the global one); train mode needs it."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = (u >= rate).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class MultiHeadedAttention(nn.Module):
@@ -123,7 +132,8 @@ class MultiHeadedAttention(nn.Module):
         self.w_Q, self.w_K, self.w_V, self.fc = proj(), proj(), proj(), proj()
         self.layer_norm = LayerNorm(d_model, device=device)
 
-    def forward(self, x, additive_mask, deterministic: bool = True):
+    def forward(self, x, additive_mask, deterministic: bool = True,
+                generator=None):
         b, l, d_model = x.shape
         d_k = d_model // self.n_heads
         dt = self.dtype or x.dtype
@@ -135,9 +145,9 @@ class MultiHeadedAttention(nn.Module):
         attn = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d_k)
         attn = attn + additive_mask.float()
         p = torch.softmax(attn, dim=-1).to(dt)
-        p = _dropout(p, self.dropout, deterministic)
+        p = _dropout(p, self.dropout, deterministic, generator)
         o = (p.float() @ v.float()).to(dt).transpose(1, 2).reshape(b, l, d_model)
-        o = _dropout(self.fc(o), self.dropout, deterministic)
+        o = _dropout(self.fc(o), self.dropout, deterministic, generator)
         return self.layer_norm(x + o).to(dt)
 
 
@@ -155,10 +165,10 @@ class PositionwiseFeedForward(nn.Module):
                                 generator=generator)
         self.layer_norm = LayerNorm(d_model, device=device)
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator=None):
         dt = self.dtype or x.dtype
         h = self.w_2(torch.relu(self.w_1(x)))
-        h = _dropout(h, self.dropout, deterministic)
+        h = _dropout(h, self.dropout, deterministic, generator)
         return self.layer_norm(x + h).to(dt)
 
 
@@ -172,9 +182,11 @@ class TransformerBlock(nn.Module):
         self.feed_forward = PositionwiseFeedForward(
             d_model, d_inner, dropout, dtype, device, generator)
 
-    def forward(self, x, additive_mask, deterministic: bool = True):
-        x = self.multi_head_attention(x, additive_mask, deterministic)
-        return self.feed_forward(x, deterministic)
+    def forward(self, x, additive_mask, deterministic: bool = True,
+                generator=None):
+        x = self.multi_head_attention(x, additive_mask, deterministic,
+                                      generator)
+        return self.feed_forward(x, deterministic, generator)
 
 
 class TransformerEncoder(nn.Module):
@@ -198,12 +210,13 @@ class TransformerEncoder(nn.Module):
         return [getattr(self, f"transformer_blocks_{i}")
                 for i in range(self.n_layers)]
 
-    def forward(self, input_embs, additive_mask, deterministic: bool = True):
+    def forward(self, input_embs, additive_mask, deterministic: bool = True,
+                generator=None):
         dt = self.dtype or input_embs.dtype
         seq_len = input_embs.shape[1]
         x = input_embs + self.position_embedding[:seq_len].to(dt)
         x = self.layer_norm(x).to(dt)
-        x = _dropout(x, self.dropout, deterministic)
+        x = _dropout(x, self.dropout, deterministic, generator)
         for block in self.blocks():
-            x = block(x, additive_mask, deterministic)
+            x = block(x, additive_mask, deterministic, generator)
         return x

@@ -3,11 +3,17 @@
 Port of ``iisan_tpu/models/user_encoder.py``.  The additive attention mask
 is 0 where (key <= query and log_mask[key] != 0) and -1e9 elsewhere.
 
-Dispatch: unless ``fused`` is False, a CUDA input runs the fused forward
-kernel over the same parameters, and a shape the kernel does not take
-(``fused_user_encoder.supported``) raises there; there is no fallback on
-the card.  A CPU input, or ``fused=False``, runs the module path, the
-semantic reference, as the JAX module does off the TPU.
+Dispatch: unless ``fused`` is False, a CUDA input runs the fused kernels
+(``FusedEncoderFn``: the forward kernel, and the backward kernel under
+autograd) over the same parameters, and a shape a kernel does not take
+raises there; there is no fallback on the card.  A CPU input, or
+``fused=False``, runs the module path, the semantic reference, as the JAX
+module does off the TPU.
+
+Train-mode dropout (``deterministic=False``) draws from an explicit
+``torch.Generator``: the fused path takes one seed per call from it (the
+JAX module's ``jax.random.randint(dropout_rng, ...)``) and the kernels
+expand it with Philox; the module path draws its masks from it.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ class UserEncoder(nn.Module):
 
     def packed_params(self, compute_dtype: torch.dtype) -> torch.Tensor:
         """The kernel's packed parameter vector for ``compute_dtype``,
-        rebuilt when a parameter changes."""
+        detached, for serving under ``torch.no_grad()``; rebuilt when a
+        parameter changes."""
         flat = fue.flatten_encoder_params(self.transformer_encoder,
                                           self.n_layers)
         key = (compute_dtype,) + tuple((p.data_ptr(), p._version) for p in flat)
@@ -60,21 +67,32 @@ class UserEncoder(nn.Module):
             self._packed = (key, fue.pack_encoder_params(flat, compute_dtype))
         return self._packed[1]
 
-    def forward(self, input_embs, log_mask, deterministic: bool = True):
+    def forward(self, input_embs, log_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         mask = causal_additive_mask(log_mask)
-        if self._use_fused(input_embs):
-            if not deterministic and self.dropout > 0.0:
-                raise NotImplementedError(
-                    "the fused user-encoder kernel is eval-mode only; pass "
-                    "fused=False for train-mode dropout")
-            dt = self.dtype or input_embs.dtype
-            out = fue.apply_fused_encoder(
-                self.packed_params(dt), input_embs, mask,
-                n_layers=self.n_layers, n_heads=self.num_attention_heads,
-                d_ff=4 * input_embs.shape[-1], n_position=self.max_seq_len,
-                compute_dtype=dt)
-            return out.to(dt)
-        return self.transformer_encoder(input_embs, mask, deterministic)
+        if not self._use_fused(input_embs):
+            return self.transformer_encoder(input_embs, mask, deterministic,
+                                            generator)
+        dt = self.dtype or input_embs.dtype
+        if torch.is_grad_enabled():
+            packed = fue.pack_encoder_params(
+                fue.flatten_encoder_params(self.transformer_encoder,
+                                           self.n_layers),
+                dt, differentiable=True)
+        else:
+            packed = self.packed_params(dt)
+        seed = None
+        if not deterministic and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("train-mode dropout needs a torch.Generator")
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=generator))
+        out = fue.apply_fused_encoder(
+            packed, input_embs, mask, n_layers=self.n_layers,
+            n_heads=self.num_attention_heads, d_ff=4 * input_embs.shape[-1],
+            n_position=self.max_seq_len, compute_dtype=dt,
+            drop_rate=self.dropout, seed=seed)
+        return out.to(dt)
 
     def _use_fused(self, x) -> bool:
         return self.fused is not False and x.is_cuda

@@ -1,14 +1,16 @@
 """SAN adapter cascade: CUDA kernel wrapper, plain versions, references.
 
-Port of ``iisan_tpu/ops/fused_san.py`` (forward only).  The cascade is
+Port of ``iisan_tpu/ops/fused_san.py``.  The cascade is
 
     f_i   = a_i * tap_i + b_i * c_i      (gated: a = sigmoid(theta/0.1), b = 1 - a;
                                           additive: a = b = 1)
     c_i+1 = W_up_i @ act(W_dn_i @ f_i + b_dn_i) + b_up_i + f_i
 
 ``san_cascade_fwd`` is the kernel wrapper (``csrc/san_cascade_fwd.cu``): S
-branches in one launch, per-step coefficients (S, K).  With S=1 and
-``cascade_coefs`` it is exactly ``fused_cascade``.  ``san_cascade_fwd_plain``
+branches in one launch, per-step coefficients (S, K).  ``fused_cascade``
+is one branch under autograd: its forward is the kernel with S=1 and
+``cascade_coefs``, its backward ``cascade_bwd``, the JAX custom VJP's
+plain backward (the JAX package has no kernel for it either).  ``san_cascade_fwd_plain``
 is its arithmetic in plain PyTorch, following the cast chain of the JAX
 Pallas kernel ``_cascade_kernel`` (one rounding of the carry per step).
 ``reference_cascade`` and ``multi_reference_cascade`` are the module
@@ -176,13 +178,88 @@ def san_cascade_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
 san_cascade_fwd.launches = 0
 
 
+def _act_grad(z, activation: str):
+    """d act(z) / dz, fp32."""
+    if activation == "GELU":
+        cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+        return cdf + z * torch.exp(-0.5 * z * z) * 0.3989422804014327
+    return (z > 0).float()
+
+
+def cascade_bwd(gates, taps, wd, bd, wu, bu, c0, dc_out, activation="RELU",
+                gated=True):
+    """Gradients of one branch's cascade, the JAX ``_recompute_carries`` +
+    ``_bwd``: the carries are recomputed in fp32 from the inputs, then the
+    K steps are walked back.  The gate gradient of step i is
+    ``sum(df * (tap_i - c_i)) * g(1-g) / T``; additive fusion gives the
+    gates zero.  Returns (dgates, dtaps, dwd, dbd, dwu, dbu, dc0), each in
+    its input's dtype."""
+    f32 = torch.float32
+    k = taps.shape[1]
+    coef = (torch.sigmoid(gates.float() / GATE_TEMPERATURE) if gated
+            else torch.ones(k, dtype=f32, device=taps.device))
+    c = c0.float()
+    carries = [c]
+    for i in range(k - 1):
+        f = coef[i] * taps[:, i].float() + (1.0 - coef[i]) * c if gated \
+            else taps[:, i].float() + c
+        z = f @ wd[i].float() + bd[i].float()
+        c = _act(z, activation) @ wu[i].float() + bu[i].float() + f
+        carries.append(c)
+    dc = dc_out.float()
+    dgates, dtaps = torch.zeros(k, dtype=f32, device=taps.device), []
+    dwd, dbd, dwu, dbu = [], [], [], []
+    for i in range(k - 1, -1, -1):
+        c_i, t_i, g = carries[i], taps[:, i].float(), coef[i]
+        f = g * t_i + (1.0 - g) * c_i if gated else t_i + c_i
+        z = f @ wd[i].float() + bd[i].float()
+        dwu.append(_act(z, activation).T @ dc)
+        dbu.append(dc.sum(0))
+        dz = (dc @ wu[i].float().T) * _act_grad(z, activation)
+        dwd.append(f.T @ dz)
+        dbd.append(dz.sum(0))
+        df = dz @ wd[i].float().T + dc
+        if gated:
+            dtaps.append(g * df)
+            dgates[i] = (df * (t_i - c_i)).sum() * g * (1.0 - g) / GATE_TEMPERATURE
+            dc = (1.0 - g) * df
+        else:
+            dtaps.append(df)
+            dc = df
+    return (dgates.to(gates.dtype), torch.stack(dtaps[::-1], 1).to(taps.dtype),
+            torch.stack(dwd[::-1]).to(wd.dtype), torch.stack(dbd[::-1]).to(bd.dtype),
+            torch.stack(dwu[::-1]).to(wu.dtype), torch.stack(dbu[::-1]).to(bu.dtype),
+            dc.to(c0.dtype))
+
+
+class FusedCascadeFn(torch.autograd.Function):
+    """One branch's cascade under autograd: forward ``san_cascade_fwd``
+    (the kernel on CUDA) with S=1, backward ``cascade_bwd``.  Only the
+    inputs are saved; the backward recomputes the carries."""
+
+    @staticmethod
+    def forward(ctx, gates, taps, wd, bd, wu, bu, c0, activation, gated):
+        ctx.activation, ctx.gated = activation, gated
+        ctx.save_for_backward(gates, taps, wd, bd, wu, bu, c0)
+        a, b = cascade_coefs(gates, gated)
+        return san_cascade_fwd(a[None], b[None], taps[None], wd[None],
+                               bd[None], wu[None], bu[None], c0[None],
+                               activation)[0]
+
+    @staticmethod
+    def backward(ctx, dc_out):
+        grads = cascade_bwd(*ctx.saved_tensors, dc_out, ctx.activation,
+                            ctx.gated)
+        return grads + (None, None)
+
+
 def fused_cascade(gates, taps, wd, bd, wu, bu, c0, activation="RELU",
                   gated=True):
-    """One branch's fused K-step cascade (forward).
+    """One branch's fused K-step cascade, under autograd.
 
     gates (K,), taps (N, K, D), wd (K, D, R), bd (K, R), wu (K, R, D),
-    bu (K, D), c0 (N, D) -> (N, D): the kernel with S=1.
+    bu (K, D), c0 (N, D) -> (N, D): the kernel with S=1 forward,
+    ``cascade_bwd`` backward.
     """
-    a, b = cascade_coefs(gates, gated)
-    return san_cascade_fwd(a[None], b[None], taps[None], wd[None], bd[None],
-                           wu[None], bu[None], c0[None], activation)[0]
+    return FusedCascadeFn.apply(gates, taps, wd, bd, wu, bu, c0, activation,
+                                gated)

@@ -1,27 +1,40 @@
-"""Fused SASRec user-encoder forward: CUDA kernel wrapper and plain version.
+"""Fused SASRec user encoder: CUDA kernels, plain versions and autograd.
 
-Port of the forward half of ``iisan_tpu/ops/fused_user_encoder.py``.  The
-kernel (``csrc/user_encoder_fwd.cu``) runs the whole eval-mode encoder in one
-launch; see its header for the design.  Training-mode dropout and the
-backward kernel come with the training port.
+Port of ``iisan_tpu/ops/fused_user_encoder.py``.  Two kernels:
 
-The kernel reads its parameters as one packed fp32 vector, in the order of
-``flatten_encoder_params`` (the JAX kernel's own order):
+- ``user_encoder_fwd`` (``csrc/user_encoder_fwd.cu``) runs the whole
+  encoder forward in one launch, eval or train mode;
+- ``user_encoder_bwd`` (``csrc/user_encoder_bwd.cu``) recomputes the
+  forward from ``(x, mask, seed)`` and back-propagates through it in one
+  launch, writing ``gx`` and the packed parameter gradient.
+
+``FusedEncoderFn`` ties them into autograd, as the JAX package's custom VJP
+does; it is the one entry point on every device.  On a CPU tensor each
+wrapper runs its plain PyTorch version (``user_encoder_fwd_plain``,
+``user_encoder_bwd_plain``, transcriptions of the JAX kernels' bodies); on
+a CUDA tensor it launches the kernel or raises.
+
+Train-mode dropout draws its bits from Philox (``ops/philox.py``,
+``csrc/philox.cuh``), addressed by (seed, sequence, site, element), so the
+plain versions regenerate the kernels' masks bit for bit.
+
+The kernels read their parameters as one packed fp32 vector, in the order
+of ``flatten_encoder_params`` (the JAX kernel's own order):
 ``position_embedding, ln scale, ln bias`` then per block
 ``wq wk wv wo ln1s ln1b w1 b1 w2 b2 ln2s ln2b``.  ``pack_encoder_params``
 builds it and ``unpack_encoder_params`` splits it back into views, so the
-kernel and its plain version read the same tensor.
-
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+kernel and its plain version read the same tensor; the parameter gradient
+comes back in the same layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+
+from . import philox
 
 _EPS = 1e-6
 PER_BLOCK = 12  # wq wk wv wo ln1s ln1b w1 b1 w2 b2 ln2s ln2b
@@ -52,17 +65,28 @@ _ROUNDED_BLOCK = (True, True, True, True, False, False,
 
 
 def pack_encoder_params(flat: Sequence[torch.Tensor],
-                        compute_dtype: torch.dtype = torch.float32
-                        ) -> torch.Tensor:
+                        compute_dtype: torch.dtype = torch.float32,
+                        differentiable: bool = False) -> torch.Tensor:
     """One contiguous fp32 vector of the flattened parameters, for the
     kernel at ``compute_dtype``: the entries the cast chain rounds are
     stored rounded to it already, so the kernel's inner loops convert
     nothing.  Rounding twice changes nothing, so the plain version reads
-    the same vector."""
+    the same vector.
+
+    ``differentiable=True`` keeps the vector in the autograd graph: the
+    packed gradient flows back to each parameter through ``cat``, and the
+    rounding passes it on unchanged (the JAX kernel's VJP hands its fp32
+    gradient straight to the fp32 parameter)."""
     n_layers = (len(flat) - 3) // PER_BLOCK
     rounded = _ROUNDED_HEAD + _ROUNDED_BLOCK * n_layers
-    return torch.cat([(p.detach().to(compute_dtype) if r else p.detach())
-                      .float().reshape(-1) for p, r in zip(flat, rounded)])
+    parts = []
+    for p, r in zip(flat, rounded):
+        p = p.float() if differentiable else p.detach().float()
+        if r and compute_dtype != torch.float32:
+            value = p.detach().to(compute_dtype).float()
+            p = p + (value - p.detach()) if differentiable else value
+        parts.append(p.reshape(-1))
+    return torch.cat(parts)
 
 
 def param_shapes(D: int, F: int, n_layers: int, n_position: int):
@@ -80,49 +104,116 @@ def unpack_encoder_params(packed: torch.Tensor, D: int, F: int, n_layers: int,
     return [t.view(s) for t, s in zip(torch.split(packed, sizes), shapes)]
 
 
-_WBUF = 16384  # floats of the kernel's staged-weight buffer
+_WBUF = 16384  # floats of the kernels' staged-weight buffer
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _layout(L: int, D: int, H: int, F: int):
+    """(floats before the first layer slot, floats of one slot), as
+    ``EncoderLayout`` in csrc/user_encoder.cuh: the staged-weight buffer,
+    the pre-LayerNorm sums, the scores and the input LayerNorm's stats,
+    then per slot the layer's activations, stats and probabilities."""
+    LD, HLL = L * D, H * L * L
+    slot = _pad4(8 * LD + L * F + HLL + 2 * L)
+    return _WBUF + LD + _pad4(HLL) + LD + _pad4(L), slot
 
 
 def smem_bytes(L: int, D: int, H: int, F: int) -> int:
-    """Shared memory of one kernel block, all fp32: the staged-weight
-    buffer, five (L, D) activations, the (L, F) FFN hidden and the
-    (H, L, L) scores."""
-    return 4 * (_WBUF + 5 * L * D + L * F + H * L * L)
+    """Shared memory of one forward-kernel block (fp32): one layer slot,
+    reused by every layer."""
+    head, slot = _layout(L, D, H, F)
+    return 4 * (head + slot)
+
+
+def bwd_smem_bytes(L: int, D: int, H: int, F: int, n_layers: int) -> int:
+    """Shared memory of one backward-kernel block (fp32): a slot per layer
+    (the recompute stash) and the gradient working set."""
+    head, slot = _layout(L, D, H, F)
+    return 4 * (head + n_layers * slot + 6 * L * D + L * F + _pad4(H * L * L))
 
 
 def supported(B: int, L: int, D: int, H: int, F: int = None,
               n_position: int = None) -> bool:
-    """Shapes the Hopper kernel accepts: any batch, heads dividing the
+    """Shapes the forward kernel accepts: any batch, heads dividing the
     width, widths in multiples of 8 (16-byte weight loads), a sequence no
-    longer than the position table, and a working set that fits one
-    block's shared memory."""
+    longer than the position table, weights whose staged rows fit the
+    weight buffer, and a working set that fits one block's shared
+    memory."""
     F = 4 * D if F is None else F
     return (B >= 1 and L >= 1 and H >= 1 and D % H == 0
             and D % 8 == 0 and F % 8 == 0
+            and 3 * D <= _WBUF and F <= _WBUF
             and (n_position is None or L <= n_position)
             and smem_bytes(L, D, H, F) <= _SMEM_LIMIT)
 
 
+def bwd_supported(B: int, L: int, D: int, H: int, F: int, n_layers: int,
+                  n_position: int = None) -> bool:
+    """Shapes the backward kernel accepts: the forward's, with every
+    layer's stash in shared memory, and transposed weight chunks of at
+    least one padded column (``linear_t``)."""
+    return (supported(B, L, D, H, F, n_position)
+            and 9 * D <= _WBUF and 3 * F <= _WBUF
+            and bwd_smem_bytes(L, D, H, F, n_layers) <= _SMEM_LIMIT)
+
+
+# ----------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------
+
+
 def _layernorm(x32, scale, bias):
+    """fp32 LayerNorm; returns (y, xhat, rstd)."""
     mu = x32.mean(-1, keepdim=True)
     xc = x32 - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    return xc * torch.rsqrt(var + _EPS) * scale.float() + bias.float()
+    rstd = torch.rsqrt(var + _EPS)
+    xhat = xc * rstd
+    return xhat * scale.float() + bias.float(), xhat, rstd
 
 
-def user_encoder_fwd_plain(x, mask3, params, *, n_layers: int, n_heads: int,
-                           d_ff: int, n_position: int) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch (cast chain of the JAX
-    kernel's ``_encoder_fwd_body`` / ``_attn_fwd`` with train=False).
+def _layernorm_bwd(gy, xhat, rstd, scale):
+    """``_layernorm_bwd`` of the JAX kernel, rows flattened: returns
+    (gx, gscale, gbias)."""
+    D = gy.shape[-1]
+    gy, xhat, rstd = gy.reshape(-1, D), xhat.reshape(-1, D), rstd.reshape(-1, 1)
+    gxhat = gy * scale.float()
+    m1 = gxhat.mean(-1, keepdim=True)
+    m2 = (gxhat * xhat).mean(-1, keepdim=True)
+    return (rstd * (gxhat - m1 - xhat * m2), (gy * xhat).sum(0), gy.sum(0))
 
-    x (B, L, D) in the compute dtype; mask3 (B, L, L) fp32 additive;
-    params the packed fp32 vector (``pack_encoder_params`` at x's dtype).
-    Returns (B, L, D) in x's dtype.
-    """
+
+def dropout_masks(seed: int, rate: float, B: int, L: int, D: int, H: int,
+                  n_layers: int, device=None) -> Optional[dict]:
+    """The scaled keep masks of one train-mode call, site by site
+    (``philox.encoder_sites``): ``input`` (B, L, D), and per block
+    ``probs`` (B, H, L, L), ``attn_out`` and ``ffn_out`` (B, L, D).  None
+    when ``rate`` is 0 (eval mode)."""
+    if rate <= 0.0:
+        return None
+    sites = philox.encoder_sites(n_layers, H)
+
+    def mask(site, shape):
+        return philox.dropout_mask(seed, site, B, shape, rate, device)
+
+    return {"input": mask(sites["input"], (L, D)),
+            "blocks": [{"probs": torch.stack([mask(s, (L, L)) for s in blk["probs"]], 1),
+                        "attn_out": mask(blk["attn_out"], (L, D)),
+                        "ffn_out": mask(blk["ffn_out"], (L, D))}
+                       for blk in sites["blocks"]]}
+
+
+def _encoder_fwd(x, mask3, flat, n_layers: int, n_heads: int, masks,
+                 stash: Optional[list] = None):
+    """The forward body (``_encoder_fwd_body`` / ``_attn_fwd`` of the JAX
+    kernel) over the whole batch.  With ``stash`` a list, it is filled
+    with what the backward needs."""
     dt = x.dtype
     B, L, D = x.shape
     H, dk = n_heads, D // n_heads
-    flat = unpack_encoder_params(params, D, d_ff, n_layers, n_position)
 
     def bdot(a, w):  # T-rounded operands, fp32 accumulation, T result
         return (a.to(dt).float() @ w.to(dt).float()).to(dt)
@@ -131,25 +222,174 @@ def user_encoder_fwd_plain(x, mask3, params, *, n_layers: int, n_heads: int,
         return t.float().reshape(B, L, H, dk).transpose(1, 2)
 
     pos, ln0s, ln0b = flat[:3]
-    x = _layernorm((x + pos[:L].to(dt)).float(), ln0s, ln0b).to(dt)
+    y0, xhat0, rstd0 = _layernorm((x + pos[:L].to(dt)).float(), ln0s, ln0b)
+    x = y0.to(dt)
+    if masks is not None:
+        x = (x.float() * masks["input"]).to(dt)
+    if stash is not None:
+        stash.append((xhat0, rstd0))
     for i in range(n_layers):
         (wq, wk, wv, wo, s1, b1n, w1, b1, w2, b2, s2, b2n) = \
             flat[3 + PER_BLOCK * i:3 + PER_BLOCK * (i + 1)]
+        m = masks["blocks"][i] if masks is not None else None
         q, k, v = split(bdot(x, wq)), split(bdot(x, wk)), split(bdot(x, wv))
         s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dk)) + mask3[:, None]
-        p = torch.softmax(s, dim=-1).to(dt).float()
-        o = (p @ v).to(dt).transpose(1, 2).reshape(B, L, D)
+        p = torch.softmax(s, dim=-1)
+        pd = p.to(dt).float()
+        if m is not None:
+            pd = pd * m["probs"]
+        o = (pd @ v).to(dt).transpose(1, 2).reshape(B, L, D)
         o2 = bdot(o, wo)
-        x1 = _layernorm(x.float() + o2.float(), s1, b1n).to(dt)
+        if m is not None:
+            o2 = (o2.float() * m["attn_out"]).to(dt)
+        y1, xhat1, rstd1 = _layernorm(x.float() + o2.float(), s1, b1n)
+        x1 = y1.to(dt)
         hf = torch.relu(bdot(x1, w1) + b1.to(dt))
         h2 = bdot(hf, w2) + b2.to(dt)
-        x = _layernorm(x1.float() + h2.float(), s2, b2n).to(dt)
+        if m is not None:
+            h2 = (h2.float() * m["ffn_out"]).to(dt)
+        if stash is not None:
+            stash.append((x, q, k, v, p, o, xhat1, rstd1, x1, hf))
+        y2, xhat2, rstd2 = _layernorm(x1.float() + h2.float(), s2, b2n)
+        if stash is not None:
+            stash[-1] += (xhat2, rstd2)
+        x = y2.to(dt)
     return x
 
 
+def user_encoder_fwd_plain(x, mask3, params, *, n_layers: int, n_heads: int,
+                           d_ff: int, n_position: int, seed: int = 0,
+                           rate: float = 0.0) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain PyTorch.
+
+    x (B, L, D) in the compute dtype; mask3 (B, L, L) fp32 additive;
+    params the packed fp32 vector (``pack_encoder_params`` at x's dtype).
+    ``rate`` > 0 is train mode, with the Philox masks of ``seed``.
+    Returns (B, L, D) in x's dtype.
+    """
+    B, L, D = x.shape
+    flat = unpack_encoder_params(params, D, d_ff, n_layers, n_position)
+    masks = dropout_masks(seed, rate, B, L, D, n_heads, n_layers, x.device)
+    return _encoder_fwd(x, mask3, flat, n_layers, n_heads, masks)
+
+
+def user_encoder_bwd_plain(x, mask3, params, gout, *, n_layers: int,
+                           n_heads: int, d_ff: int, n_position: int,
+                           seed: int = 0, rate: float = 0.0):
+    """The backward kernel's arithmetic in plain PyTorch: the JAX
+    ``_bwd_kernel`` (with ``_attn_bwd`` and ``_layernorm_bwd``) over the
+    whole batch.  It recomputes the forward, masks included, then
+    back-propagates with the kernel's cast chain: weight- and
+    input-gradient products take operands rounded to the compute dtype
+    with fp32 results; bias, LayerNorm and softmax gradients are fp32.
+
+    gout (B, L, D) in x's dtype.  Returns (gx (B, L, D) in x's dtype, the
+    fp32 parameter gradient in the packed layout); the position gradient
+    is zero past row L.
+    """
+    dt = x.dtype
+    B, L, D = x.shape
+    H, dk = n_heads, D // n_heads
+    flat = unpack_encoder_params(params, D, d_ff, n_layers, n_position)
+    masks = dropout_masks(seed, rate, B, L, D, H, n_layers, x.device)
+    stash: list = []
+    _encoder_fwd(x, mask3, flat, n_layers, H, masks, stash)
+
+    def r(t):  # round to the compute dtype, carry in fp32
+        return t.to(dt).float()
+
+    def rows(t):  # (B, L, D) -> (B*L, D) fp32
+        return t.float().reshape(B * L, -1)
+
+    def merge(t):  # (B, H, L, dk) -> (B*L, D), rounded
+        return r(t.transpose(1, 2).reshape(B * L, D))
+
+    g = gout.float().reshape(B * L, D)
+    gflat: list = [None] * len(flat)
+    for i in range(n_layers - 1, -1, -1):
+        k0 = 3 + PER_BLOCK * i
+        (wq, wk, wv, wo, s1, b1n, w1, b1, w2, b2, s2, b2n) = flat[k0:k0 + PER_BLOCK]
+        (x_in, q, k, v, p, o, xhat1, rstd1, x1, hf, xhat2, rstd2) = stash[1 + i]
+        m = masks["blocks"][i] if masks is not None else None
+
+        # x_out = LN2(x1 + dropout(hf @ w2 + b2))
+        g_pre2, g_s2, g_b2n = _layernorm_bwd(g, xhat2, rstd2, s2)
+        g_h2 = g_pre2 * rows(m["ffn_out"]) if m is not None else g_pre2
+        g_b2 = g_h2.sum(0)
+        g_w2 = rows(hf).T @ r(g_h2)
+        g_hf = r(g_h2) @ r(w2).T
+        g_hpre = torch.where(rows(hf) > 0, g_hf, torch.zeros_like(g_hf))
+        g_b1 = g_hpre.sum(0)
+        g_w1 = rows(x1).T @ r(g_hpre)
+        g_x1 = g_pre2 + r(g_hpre) @ r(w1).T
+
+        # x1 = LN1(x_in + dropout(o @ wo))
+        g_pre1, g_s1, g_b1n = _layernorm_bwd(g_x1, xhat1, rstd1, s1)
+        g_o2 = r(g_pre1 * rows(m["attn_out"]) if m is not None else g_pre1)
+        g_wo = rows(o).T @ g_o2
+        g_o = (g_o2 @ r(wo).T).reshape(B, L, H, dk).transpose(1, 2)
+
+        # attention (``_attn_bwd``), all heads at once
+        pd = r(p) * m["probs"] if m is not None else r(p)
+        g_pd = g_o @ v.transpose(-1, -2)
+        g_v = pd.transpose(-1, -2) @ g_o
+        g_p = g_pd * m["probs"] if m is not None else g_pd
+        g_s = p * (g_p - (g_p * p).sum(-1, keepdim=True)) * (1.0 / math.sqrt(dk))
+        g_q, g_k, g_v = merge(g_s @ k), merge(g_s.transpose(-1, -2) @ q), merge(g_v)
+        xr = rows(x_in)
+        g = g_pre1 + g_q @ r(wq).T + g_k @ r(wk).T + g_v @ r(wv).T
+        gflat[k0:k0 + PER_BLOCK] = [xr.T @ g_q, xr.T @ g_k, xr.T @ g_v, g_wo,
+                                    g_s1, g_b1n, g_w1, g_b1, g_w2, g_b2,
+                                    g_s2, g_b2n]
+
+    xhat0, rstd0 = stash[0]
+    if masks is not None:
+        g = g * rows(masks["input"])
+    g_x, g_ln0s, g_ln0b = _layernorm_bwd(g, xhat0, rstd0, flat[1])
+    g_pos = torch.zeros((n_position, D), dtype=torch.float32, device=x.device)
+    g_pos[:L] = g_x.reshape(B, L, D).sum(0)
+    gflat[:3] = [g_pos, g_ln0s, g_ln0b]
+    return (g_x.reshape(B, L, D).to(dt),
+            torch.cat([t.reshape(-1) for t in gflat]))
+
+
+# ----------------------------------------------------------------------
+# Kernel wrappers
+# ----------------------------------------------------------------------
+
+
+def _check(name, x, mask3, params, n_layers, n_heads, d_ff, n_position, seed,
+           rate, ok):
+    B, L, D = x.shape
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    if not ok:
+        raise ValueError(f"{name} does not take B={B} L={L} D={D} H={n_heads} "
+                         f"F={d_ff} n_layers={n_layers} n_position={n_position}")
+    if mask3.shape != (B, L, L) or mask3.dtype != torch.float32:
+        raise ValueError(f"mask must be ({B}, {L}, {L}) float32, got "
+                         f"{tuple(mask3.shape)} {mask3.dtype}")
+    if params.dtype != torch.float32 or params.numel() != sum(
+            math.prod(s) for s in param_shapes(D, d_ff, n_layers, n_position)):
+        raise ValueError("params must be the packed float32 encoder vector")
+    if not 0 <= seed < 2 ** 31 or not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout seed {seed} or rate {rate} out of range")
+    for t in (mask3, params):
+        if t.device != x.device:
+            raise ValueError(f"all tensors must be on {x.device}")
+
+
+def _dropout_args(seed: int, rate: float):
+    """(seed, rate, keep scale) for the C entry points; the scale is
+    1/(1-rate), rounded to fp32 by ctypes as the plain version rounds
+    it."""
+    return seed, rate, 1.0 / (1.0 - rate)
+
+
 def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
-                     d_ff: int, n_position: int) -> torch.Tensor:
-    """Eval-mode encoder forward; the CUDA kernel for a CUDA ``x``.
+                     d_ff: int, n_position: int, seed: int = 0,
+                     rate: float = 0.0) -> torch.Tensor:
+    """Encoder forward; the CUDA kernel for a CUDA ``x``.
 
     Same arguments and result as ``user_encoder_fwd_plain``, which runs
     for a CPU ``x``.  ``user_encoder_fwd.launches`` counts kernel launches.
@@ -157,24 +397,14 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
     if not x.is_cuda:
         return user_encoder_fwd_plain(x, mask3, params, n_layers=n_layers,
                                       n_heads=n_heads, d_ff=d_ff,
-                                      n_position=n_position)
+                                      n_position=n_position, seed=seed,
+                                      rate=rate)
     from ..kernels.build import check, library
 
     B, L, D = x.shape
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"user_encoder_fwd takes float32 or bfloat16, got {x.dtype}")
-    if not supported(B, L, D, n_heads, d_ff, n_position):
-        raise ValueError(f"user_encoder_fwd does not take B={B} L={L} D={D} "
-                         f"H={n_heads} F={d_ff} n_position={n_position}")
-    if mask3.shape != (B, L, L) or mask3.dtype != torch.float32:
-        raise ValueError(f"mask must be ({B}, {L}, {L}) float32, got "
-                         f"{tuple(mask3.shape)} {mask3.dtype}")
-    if params.dtype != torch.float32 or params.numel() != sum(
-            math.prod(s) for s in param_shapes(D, d_ff, n_layers, n_position)):
-        raise ValueError("params must be the packed float32 encoder vector")
-    for t in (mask3, params):
-        if t.device != x.device:
-            raise ValueError(f"all tensors must be on {x.device}")
+    _check("user_encoder_fwd", x, mask3, params, n_layers, n_heads, d_ff,
+           n_position, seed, rate,
+           supported(B, L, D, n_heads, d_ff, n_position))
     x, mask3, params = x.contiguous(), mask3.contiguous(), params.contiguous()
     if params.data_ptr() % 16:
         raise ValueError("packed params must be 16-byte aligned")
@@ -182,7 +412,7 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
     err = library().iisan_user_encoder_fwd(
         x.data_ptr(), mask3.data_ptr(), params.data_ptr(), out.data_ptr(),
         B, L, D, n_heads, d_ff, n_layers, n_position,
-        int(x.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate),
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "user_encoder_fwd")
     user_encoder_fwd.launches += 1
@@ -192,18 +422,89 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
 user_encoder_fwd.launches = 0
 
 
+def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
+                     d_ff: int, n_position: int, seed: int = 0,
+                     rate: float = 0.0):
+    """Encoder backward; the CUDA kernel for a CUDA ``x``.
+
+    Same arguments and results as ``user_encoder_bwd_plain``, which runs
+    for a CPU ``x``.  The kernel writes each sequence's parameter gradient
+    to a row of an fp32 (B, P) scratch, which its second pass sums in a
+    fixed order.  ``user_encoder_bwd.launches`` counts kernel launches.
+    """
+    if not x.is_cuda:
+        return user_encoder_bwd_plain(x, mask3, params, gout,
+                                      n_layers=n_layers, n_heads=n_heads,
+                                      d_ff=d_ff, n_position=n_position,
+                                      seed=seed, rate=rate)
+    from ..kernels.build import check, library
+
+    B, L, D = x.shape
+    _check("user_encoder_bwd", x, mask3, params, n_layers, n_heads, d_ff,
+           n_position, seed, rate,
+           bwd_supported(B, L, D, n_heads, d_ff, n_layers, n_position))
+    if gout.shape != x.shape or gout.dtype != x.dtype or gout.device != x.device:
+        raise ValueError(f"gout must be {tuple(x.shape)} {x.dtype} on {x.device}")
+    x, mask3, params = x.contiguous(), mask3.contiguous(), params.contiguous()
+    gout = gout.contiguous()
+    P = params.numel()
+    gx = torch.empty_like(x)
+    part = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    gparams = torch.empty(P, dtype=torch.float32, device=x.device)
+    err = library().iisan_user_encoder_bwd(
+        x.data_ptr(), mask3.data_ptr(), params.data_ptr(), gout.data_ptr(),
+        gx.data_ptr(), part.data_ptr(), gparams.data_ptr(),
+        B, L, D, n_heads, d_ff, n_layers, n_position,
+        int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate), P,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "user_encoder_bwd")
+    user_encoder_bwd.launches += 1
+    return gx, gparams
+
+
+user_encoder_bwd.launches = 0
+
+
+class FusedEncoderFn(torch.autograd.Function):
+    """The fused encoder under autograd: forward ``user_encoder_fwd``,
+    backward ``user_encoder_bwd``, which recomputes the forward (and its
+    dropout masks) from the saved (x, mask, seed).
+
+    apply(x, mask3, packed, seed, rate, dims) with ``dims`` =
+    (n_layers, n_heads, d_ff, n_position); ``rate`` > 0 is train mode.
+    The gradient reaches ``x`` and ``packed``."""
+
+    @staticmethod
+    def forward(ctx, x, mask3, packed, seed: int, rate: float, dims):
+        n_layers, n_heads, d_ff, n_position = dims
+        ctx.kw = dict(n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
+                      n_position=n_position, seed=seed, rate=rate)
+        ctx.save_for_backward(x, mask3, packed)
+        return user_encoder_fwd(x, mask3, packed, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask3, packed = ctx.saved_tensors
+        gx, gpacked = user_encoder_bwd(x, mask3, packed, g.to(x.dtype), **ctx.kw)
+        return gx, None, gpacked, None, None, None
+
+
 def apply_fused_encoder(params, x, additive_mask, *, n_layers: int,
                         n_heads: int, d_ff: int, n_position: int,
-                        compute_dtype: torch.dtype = torch.bfloat16):
-    """Fused TransformerEncoder forward (eval mode).
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        drop_rate: float = 0.0, seed: Optional[int] = None):
+    """Fused TransformerEncoder under autograd.
 
     params: the packed vector (``pack_encoder_params`` at
-    ``compute_dtype``); x (B, L, D);
-    additive_mask (B, 1, L, L) fp32.  Returns (B, L, D) in x's dtype.
+    ``compute_dtype``); x (B, L, D); additive_mask (B, 1, L, L) fp32.
+    ``seed`` (in [0, 2^31)) with ``drop_rate`` > 0 is train mode; None is
+    eval mode.  Returns (B, L, D) in x's dtype.
     """
     B, L, _ = x.shape
     mask3 = additive_mask.reshape(B, L, L).float()
-    out = user_encoder_fwd(x.to(compute_dtype), mask3, params,
-                           n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
-                           n_position=n_position)
+    train = seed is not None and drop_rate > 0.0
+    out = FusedEncoderFn.apply(x.to(compute_dtype), mask3, params,
+                               seed if train else 0,
+                               drop_rate if train else 0.0,
+                               (n_layers, n_heads, d_ff, n_position))
     return out.to(x.dtype)

@@ -8,16 +8,21 @@ without it the tests run with
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX).
 
-Shapes cover the serving path's and awkward ones: batch 1, all-pad
-sequences, row counts that are not a multiple of the kernel's 16-row
-tile, widths that are not a multiple of its 256 threads, and every
-bottleneck that divides 256.
+Shapes cover the serving and training paths' and awkward ones: batch 1
+and 3, all-pad sequences, one block, row counts that are not a multiple of
+the cascade kernel's 16-row tile, widths that are not a multiple of its
+256 threads, and every bottleneck that divides 256.  Train mode uses the
+same Philox masks in kernel and plain version, so it is held to the same
+bounds as eval mode.
 
 Tolerances.  fp32: |kernel - plain| <= 1e-4 * (1 + |plain|) (summation
 order differs over up to 768 terms).  bf16 user encoder: the same form at
 5e-2, as the JAX package's own bf16 encoder test (a value may round to the
 neighbouring bf16 number, 2^-8 relative, and LayerNorm carries it on).
-bf16 cascade: element by element, four bf16 ulps of the row's largest
+Encoder backward: gx and each parameter gradient per tensor, |diff| <=
+tol * (max|plain| + |plain|), tol 1e-4 fp32 and 5e-2 bf16 (the kernel
+sums each sequence's gradient then the sequences; the plain version sums
+all rows at once).  bf16 cascade: element by element, four bf16 ulps of the row's largest
 |carry| plus 1e-3 (``fused_san.carry_tolerance``): the carry is additive
 across the K steps, so a one-ulp rounding difference at a large
 intermediate value survives into a final value that may be small.  The
@@ -32,6 +37,7 @@ import torch
 from iisan_tpu_torch.models.user_encoder import UserEncoder, causal_additive_mask
 from iisan_tpu_torch.ops import fused_san as fs
 from iisan_tpu_torch.ops import fused_user_encoder as fue
+from iisan_tpu_torch.ops import philox
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -179,3 +185,102 @@ def test_cascade_wrapper_rejects_bad_input(cuda_device):
     args[3] = args[3].half()
     with pytest.raises(TypeError):
         fs.san_cascade_fwd(*args)
+
+
+def _assert_grad_close(got, want, dtype):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(got).all()
+    bound = TOL[dtype] * (want.abs().max() + want.abs())
+    assert ((got - want).abs() <= bound).all(), f"max |diff| {(got - want).abs().max()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,L,D,H,NL", [(64, 10, 64, 2, 2), (1, 10, 64, 2, 2),
+                                         (3, 10, 64, 2, 1), (37, 7, 48, 3, 1)])
+def test_user_encoder_train_kernels_match_plain(cuda_device, dtype, B, L, D, H, NL):
+    enc, x, mask3 = _encoder_inputs(cuda_device, B, L, D, H, NL, dtype)
+    gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda_device, dtype)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L, seed=4242,
+              rate=0.1)
+    params = enc.packed_params(dtype)
+    f0, b0 = fue.user_encoder_fwd.launches, fue.user_encoder_bwd.launches
+    got = fue.user_encoder_fwd(x, mask3, params, **kw)
+    want = fue.user_encoder_fwd_plain(x, mask3, params, **kw)
+    gx, gp = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    gx_p, gp_p = fue.user_encoder_bwd_plain(x, mask3, params, gout, **kw)
+    torch.cuda.synchronize()
+    assert fue.user_encoder_fwd.launches == f0 + 1
+    assert fue.user_encoder_bwd.launches == b0 + 1
+    _assert_close(got, want, dtype)
+    assert gx.dtype == dtype and gp.dtype == torch.float32
+    _assert_grad_close(gx, gx_p, dtype)
+    for g, w in zip(fue.unpack_encoder_params(gp, D, 4 * D, NL, L),
+                    fue.unpack_encoder_params(gp_p, D, 4 * D, NL, L)):
+        _assert_grad_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+def test_philox_matches_curand(cuda_device):
+    for seed, site in ((0, 0), (12345, 7), (2 ** 31 - 2, 33)):
+        ours, theirs = philox.curand_check(seed, site, 5, 1001, cuda_device)
+        plain = philox.random_bits(seed, site, torch.arange(5), 1001)
+        assert torch.equal(ours.cpu(), theirs.cpu())
+        assert torch.equal(ours.cpu(), plain)
+
+
+@pytest.mark.cuda
+def test_encoder_loss_backward_reaches_every_parameter(cuda_device):
+    enc, x, mask3 = _encoder_inputs(cuda_device, 8, 10, 64, 2, 2, torch.float32)
+    log_mask = (mask3[:, -1] == 0).float()
+    proj = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to(
+        cuda_device)
+    grads = []
+    for fused in (None, False):
+        enc.fused = fused
+        enc.zero_grad()
+        xx = x.clone().requires_grad_(True)
+        b0 = fue.user_encoder_bwd.launches
+        (enc(xx, log_mask) * proj).sum().backward()
+        assert fue.user_encoder_bwd.launches == b0 + (fused is None)
+        grads.append([xx.grad] + [p.grad for p in enc.parameters()])
+    for g, w in zip(*grads):
+        assert g is not None
+        _assert_grad_close(g, w, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cascade_loss_backward_reaches_every_input(cuda_device):
+    args = _cascade_inputs(cuda_device, 1, 300, 4, 96, 16, torch.float32)
+    # gates well inside sigmoid(g / 0.1)'s range: a saturated gate (fp32
+    # sigmoid of 20 is exactly 1) has, rightly, no gradient, nor has c0
+    gates = (0.1 * torch.randn(4, generator=torch.Generator().manual_seed(4))
+             ).to(cuda_device)
+    inputs = [gates] + [t[0] for t in args[2:]]
+    proj = torch.randn(300, 96, generator=torch.Generator().manual_seed(3)).to(
+        cuda_device)
+    grads = []
+    for run in (fs.fused_cascade, fs.reference_cascade):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        before = fs.san_cascade_fwd.launches
+        (run(*leaves) * proj).sum().backward()
+        assert fs.san_cascade_fwd.launches == before + (run is fs.fused_cascade)
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert g is not None and g.abs().sum() > 0
+        _assert_grad_close(g, w, torch.float32)
+
+
+@pytest.mark.cuda
+def test_user_encoder_bwd_raises_on_unsupported_shape(cuda_device):
+    # Six blocks' recompute stash does not fit one block's shared memory.
+    enc, x, mask3 = _encoder_inputs(cuda_device, 2, 10, 64, 2, 6, torch.float32)
+    kw = dict(n_layers=6, n_heads=2, d_ff=256, n_position=10)
+    params = enc.packed_params(torch.float32)
+    assert fue.supported(2, 10, 64, 2, 256, 10)
+    assert not fue.bwd_supported(2, 10, 64, 2, 256, 6, 10)
+    before = fue.user_encoder_bwd.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fue.user_encoder_bwd(x, mask3, params, torch.zeros_like(x), **kw)
+    assert fue.user_encoder_bwd.launches == before

@@ -1,6 +1,7 @@
 """The port imports no JAX and builds nothing at import time.
 
-A fresh interpreter imports every module of iisan_tpu_torch; afterwards
+A fresh interpreter imports every module of iisan_tpu_torch (the trainer
+included); afterwards
 no ``jax`` / ``flax`` / ``optax`` module is loaded and the kernel library
 has not been built or loaded.
 """
@@ -33,5 +34,6 @@ def test_port_imports_no_jax_and_builds_nothing():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "iisan_tpu_torch.serve" in out["modules"]
     assert "iisan_tpu_torch.ops.fused_san" in out["modules"]
+    assert "iisan_tpu_torch.train.cached" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert not out["built"]
