@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cached serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's cached serving and training paths and its
+uncached training paths (IISAN and full fine-tuning) once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -48,7 +49,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
    Then, from one set of weights at dropout 0, five steps through the
    kernels and five through the module path must give losses within 2e-2
    and a nonzero gradient for every parameter on both.
-7. Print one JSON line of per-kernel results, then the final status line.
+7. Hold the tower-attention kernels against their plain versions in bf16
+   (``check_attention``): the forward at the BERT step geometry (704
+   titles x 30 tokens, D=768, 12 heads, padded key bias with an all-pad
+   row) in eval mode and in train mode (dropout 0.1, the same Philox masks
+   on both sides), at the ViT step geometry (704 images x 197 tokens,
+   compared on a 64-image slice, timed at 704) in eval mode; the backward
+   at the FFT step's shapes (88 rows), BERT in train mode and ViT in eval
+   mode; the mask replay kernel bit for bit.  Planted faults (the key bias
+   dropped on the padded batch, the backward run with another seed, the
+   softmax row term dropped from the backward) must break the bounds;
+   all-pad rows must stay finite.  The library call
+   ``scaled_dot_product_attention`` is timed on the eval-mode shapes.
+8. IISAN (Uncached) training at the published configuration
+   (``scripts/bench_uncached.py``'s, at the default batch of 64):
+   BERT-base and ViT-base geometry (12 layers, 768 wide, 12 heads, 224 x
+   224 images, 30-word titles), SAN K=7 R=64, embedding 64, bf16, BERT
+   dropout 0.1, ViT 0.0, seeded random tower weights, a synthetic corpus
+   of 512 users over 800 items: one epoch (8 steps), then the item table
+   over 801 items and a valid evaluation.  Per step the launch counters
+   must show 24 ``mha_fwd`` (12 BERT layers in train mode, 12 ViT), one
+   ``user_encoder_fwd`` and ``_bwd`` and no ``mha_bwd``; the loss must be
+   finite; the tower weights must be bit-unchanged and a SAN weight moved.
+   Host step time, device-busy time and device time by kernel family are
+   printed.
+9. The full fine-tuning baseline at the same geometry, batch 8 (88 images
+   a step), 3 steps: 24 ``mha_bwd`` launches a step, a finite loss and a
+   nonzero gradient for every tower parameter.
+10. From one set of weights at tower and user-encoder dropout 0, 3 IISAN
+   and 3 FFT steps through the kernels and through the module path: the
+   losses agree within 2e-2.
+11. Print one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -89,6 +120,21 @@ UE_TOL = (5e-2, 5e-2)
 # the sequences, the plain version all rows at once.  bf16 as the forward;
 # fp32 1e-4 (summation order only).
 BWD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# Tower attention (bf16): per tensor, |diff| <= tol * (max|plain| + |plain|),
+# 2e-2 forward and 5e-2 backward: a probability may round to the
+# neighbouring bf16 value on one side only.
+MHA_TOL = {"fwd": 2e-2, "bwd": 5e-2}
+# The uncached step: BERT-base titles and ViT-base images of a batch of 64
+# users x (L+1) items.
+TOWER_D, TOWER_H, TITLE_T, IMAGE_T = 768, 12, 30, 197
+STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
+# The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# scripts/bench_uncached.py's configuration at the published batch of 64.
+UNCACHED_CFG = dict(batch_size=64, epoch=1, embedding_dim=EMB,
+                    adapter_type="IISAN", adding_adapter_to="all",
+                    fine_tune_to="None", lr=2e-4, adapter_cv_lr=1e-4,
+                    adapter_bert_lr=1e-4, seed=SEED)
 # The benchmark's training configuration (bench.py), over the field names
 # of iisan_tpu_torch.config.IISANConfig.
 TRAIN_CFG = dict(batch_size=64, epoch=1, lr=2e-4, adapter_cv_lr=1e-4,
@@ -403,9 +449,28 @@ def check_user_encoder_train(device):
 # pattern that matches wins).
 KERNEL_FAMILIES = (("encoder kernels", ("user_encoder", "grad_reduce")),
                    ("cascade kernel", ("san_cascade",)),
+                   ("attention kernels", ("mha_",)),
                    ("Adam", ("adam", "multi_tensor")),
-                   ("matmul", ("gemm", "xmma", "cutlass", "splitk")),
+                   ("matmul", ("gemm", "xmma", "cutlass", "splitk", "nvjet")),
                    ("other", ("",)))
+
+
+def kernel_families(prof, reps):
+    """Device ms per step by ``KERNEL_FAMILIES`` from a profile of ``reps``
+    steps, and the (ms, name) of each kernel in "other"."""
+    families = {name: 0.0 for name, _ in KERNEL_FAMILIES}
+    other = []
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        key = e.key.lower()
+        name = next(n for n, pats in KERNEL_FAMILIES
+                    if any(pat in key for pat in pats))
+        ms = e.self_device_time_total / 1e3 / reps
+        families[name] += ms
+        if name == "other":
+            other.append((ms, e.key[:60]))
+    return families, other
 
 
 def step_breakdown(tr, batch, reps):
@@ -455,14 +520,7 @@ def step_breakdown(tr, batch, reps):
         for _ in range(reps):
             step(None)
         torch.cuda.synchronize()
-    families = {name: 0.0 for name, _ in KERNEL_FAMILIES}
-    for e in prof.key_averages():
-        if e.self_device_time_total <= 0:
-            continue
-        key = e.key.lower()
-        name = next(n for n, pats in KERNEL_FAMILIES
-                    if any(pat in key for pat in pats))
-        families[name] += e.self_device_time_total / 1e3 / reps
+    families, _ = kernel_families(prof, reps)
     return ({k: sorted(v)[len(v) // 2] for k, v in phases.items()}, families)
 
 
@@ -555,6 +613,416 @@ def check_gradients_reach_parameters(device, corpus, taps):
         "has a nonzero gradient on both")
     if rel > 2e-2:
         raise AssertionError("the kernel path's losses leave the module path's")
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the H100 could take
+    to move ``nbytes`` and do ``flops`` bf16 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mha_bound(B, T, D, H, bias: bool, bwd: bool):
+    """The attention kernels' bound at one shape: q, k, v (and g) read,
+    o (or gq, gk, gv) written, bf16, the bias read once; the forward's two
+    products, the backward's five (the scores are recomputed)."""
+    tensors = 7 if bwd else 4
+    nbytes = tensors * B * T * D * 2 + (B * T * 4 if bias else 0)
+    flops = (10 if bwd else 4) * B * H * T * T * (D // H)
+    return bound(nbytes, flops)
+
+
+def encoder_flops(B: int) -> float:
+    """Forward operations of the user encoder over B sequences: per block
+    the four projections, the two attention products and the FFN."""
+    L, D, F = SEQ_LEN, EMB, 4 * EMB
+    return B * BLOCKS * (8 * L * D * D + 4 * L * L * D + 4 * L * D * F)
+
+
+def encoder_param_count() -> int:
+    import math
+
+    from iisan_tpu_torch.ops import fused_user_encoder as fue
+
+    return sum(math.prod(s) for s in fue.param_shapes(EMB, 4 * EMB, BLOCKS, SEQ_LEN))
+
+
+def encoder_bounds(B_fwd: int, B_bwd: int):
+    """Bounds of the user-encoder kernels: the forward reads x, the mask
+    and the packed fp32 parameters and writes its output; the backward
+    also reads g and writes gx and the fp32 parameter gradient, and does
+    the forward's products three times (recompute, two gradients)."""
+    P, L, D = encoder_param_count(), SEQ_LEN, EMB
+    fwd = bound(2 * B_fwd * L * D * 2 + B_fwd * L * L * 4 + P * 4,
+                encoder_flops(B_fwd))
+    bwd = bound(3 * B_bwd * L * D * 2 + B_bwd * L * L * 4 + 2 * P * 4,
+                3 * encoder_flops(B_bwd))
+    return fwd, bwd
+
+
+def cascade_bound(S: int, N: int):
+    """The cascade reads its taps, carry and bf16 weights once and writes
+    the final carry; two products of D x R per tap."""
+    K, D, R = K_TAPS, TAP_DIM, BOTTLENECK
+    nbytes = (S * N * K * D + 2 * S * N * D + S * K * (2 * D * R + R + D)) * 2
+    return bound(nbytes, S * N * K * 4 * D * R)
+
+
+def mha_ratio(got, want):
+    """max |got - want| / (max|want| + |want|) over paired tensors; inf
+    when a value of ``got`` is not finite."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not torch_finite(a):
+            return float("inf")
+        scale = (b.abs().max() + b.abs()).clamp_min(1e-30)
+        worst = max(worst, float(((a - b).abs() / scale).max()))
+    return worst
+
+
+def check_attention(device):
+    """The tower-attention kernels against their plain versions at the
+    uncached step's shapes; returns their JSON entries' numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from iisan_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    D, H = TOWER_D, TOWER_H
+
+    def qkvg(B, T):
+        return [torch.randn(B, T, D, generator=gen, device=device).to(torch.bfloat16)
+                for _ in range(4)]
+
+    def require(ratio, tol, what):
+        if not ratio <= tol:
+            raise AssertionError(f"{what}: |diff| / bound {ratio:.4g} > {tol}")
+
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+
+    def err(got, want):
+        return max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+
+    # BERT titles: 30 tokens, padded keys, the pad item's all-pad row
+    B, T = STEP_ROWS, TITLE_T
+    q, k, v, g = qkvg(B, T)
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
+    lengths[0] = 0
+    bias = torch.where(torch.arange(T, device=device)[None] < lengths[:, None],
+                       0.0, -1e9)
+    seed, rate = 20251016, DROP
+    for name, kw in (("eval", dict(n_heads=H)),
+                     ("train", dict(n_heads=H, seed=seed, rate=rate, layer=5))):
+        got = fa.mha_fwd(q, k, v, bias, **kw)
+        want = fa.mha_fwd_plain(q, k, v, bias, **kw)
+        torch.cuda.synchronize()
+        ratio = mha_ratio([got], [want])
+        out["fwd_err"] = max(out["fwd_err"], err([got], [want]))
+        log(f"mha_fwd BERT {name} B={B} T={T} D={D} H={H} bf16, padded keys: "
+            f"max |diff| / (max|plain| + |plain|) {ratio:.4g} (tol "
+            f"{MHA_TOL['fwd']}); all-pad row finite {torch_finite(got[0])}")
+        require(ratio, MHA_TOL["fwd"], f"mha_fwd BERT {name}")
+        if not torch_finite(got[0]):
+            raise AssertionError("mha_fwd: the all-pad row is not finite")
+    r0 = fa.mha_mask_replay.launches
+    masks = fa.mha_mask_replay(seed, B, T, H, rate, 5, device)
+    plain_masks = fa.attention_dropout_masks(seed, B, T, H, rate, 5, device)
+    oracle = fa.reference_mha_masked(q, k, v, bias, H, torch.bfloat16, masks)
+    got = fa.mha_fwd(q, k, v, bias, n_heads=H, seed=seed, rate=rate, layer=5)
+    keep = float((masks > 0).float().mean())
+    log(f"mha_mask_replay B={B} T={T} H={H} rate {rate}: bit-equal to the "
+        f"plain masks {torch.equal(masks, plain_masks)}, keep share {keep:.4f}; "
+        f"train-mode mha_fwd vs the explicit-mask oracle: "
+        f"{mha_ratio([got], [oracle]):.4g} (tol {MHA_TOL['fwd']})")
+    if not torch.equal(masks, plain_masks) or abs(keep - (1 - rate)) > 0.01:
+        raise AssertionError("mha_mask_replay differs from its plain version")
+    require(mha_ratio([got], [oracle]), MHA_TOL["fwd"], "mha_fwd vs the mask oracle")
+    out["replay_ms"] = cuda_timed(
+        lambda: fa.mha_mask_replay(seed, B, T, H, rate, 5, device), 20)
+    out["replay_plain_ms"] = cuda_timed(
+        lambda: fa.attention_dropout_masks(seed, B, T, H, rate, 5, device), 5)
+    out["replay_oracle_launches"] = fa.mha_mask_replay.launches - r0
+    out["replay_bound"] = bound(B * H * T * T * 4, 0)
+    fault = mha_ratio([fa.mha_fwd(q, k, v, None, n_heads=H)],
+                      [fa.mha_fwd_plain(q, k, v, bias, n_heads=H)])
+    log(f"  planted fault 'key bias dropped' (padded batch): {fault:.4g} "
+        f"(must be > {MHA_TOL['fwd']})")
+    if fault <= MHA_TOL["fwd"]:
+        raise AssertionError("the forward bound admits a dropped key bias")
+    sdpa_mask = bias[:, None, None, :].to(torch.bfloat16)
+    heads = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous() for t in (q, k, v)]
+    out["bert_fwd_ms"] = cuda_timed(lambda: fa.mha_fwd(q, k, v, bias, n_heads=H), 20)
+    out["bert_fwd_plain_ms"] = cuda_timed(
+        lambda: fa.mha_fwd_plain(q, k, v, bias, n_heads=H), 10)
+    out["bert_sdpa_ms"] = cuda_timed(
+        lambda: F.scaled_dot_product_attention(*heads, attn_mask=sdpa_mask), 20)
+    log(f"mha_fwd BERT eval B={B}: kernel {out['bert_fwd_ms']:.4f} ms, plain "
+        f"{out['bert_fwd_plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{out['bert_sdpa_ms']:.4f} ms (medians, CUDA events); bound "
+        f"{mha_bound(B, T, D, H, True, False)[0]:.4f} ms")
+
+    # ViT images: 197 tokens, eval mode, no bias
+    T = IMAGE_T
+    q, k, v, g = qkvg(B, T)
+    got = fa.mha_fwd(q, k, v, None, n_heads=H)[:64]
+    want = fa.mha_fwd_plain(q[:64], k[:64], v[:64], None, n_heads=H)
+    torch.cuda.synchronize()
+    ratio = mha_ratio([got], [want])
+    out["fwd_err"] = max(out["fwd_err"], err([got], [want]))
+    log(f"mha_fwd ViT eval B={B} T={T} (first 64 rows vs plain): {ratio:.4g} "
+        f"(tol {MHA_TOL['fwd']})")
+    require(ratio, MHA_TOL["fwd"], "mha_fwd ViT")
+    heads = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous() for t in (q, k, v)]
+    out["fwd_ms"] = cuda_timed(lambda: fa.mha_fwd(q, k, v, None, n_heads=H), 10)
+    out["fwd_sdpa_ms"] = cuda_timed(
+        lambda: F.scaled_dot_product_attention(*heads), 10)
+    out["fwd_plain_ms"] = cuda_timed(
+        lambda: fa.mha_fwd_plain(q, k, v, None, n_heads=H), 5)
+    out["fwd_bound"] = mha_bound(B, T, D, H, False, False)
+    log(f"mha_fwd ViT eval B={B}: kernel {out['fwd_ms']:.4f} ms, plain "
+        f"{out['fwd_plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{out['fwd_sdpa_ms']:.4f} ms; bound {out['fwd_bound'][0]:.4f} ms "
+        f"({out['fwd_bound'][1]})")
+    del heads
+
+    # The backward at the FFT step's shapes (88 rows)
+    B = FFT_BATCH * (SEQ_LEN + 1)
+    cases = (("BERT train", TITLE_T, True, dict(n_heads=H, seed=seed, rate=rate, layer=3)),
+             ("ViT eval", IMAGE_T, False, dict(n_heads=H)))
+    for name, T, padded, kw in cases:
+        q, k, v, g = qkvg(B, T)
+        b = None
+        if padded:
+            lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
+            lengths[0] = 0
+            b = torch.where(torch.arange(T, device=device)[None] < lengths[:, None],
+                            0.0, -1e9)
+        got = fa.mha_bwd(q, k, v, b, g, **kw)
+        want = fa.mha_bwd_plain(q, k, v, b, g, **kw)
+        torch.cuda.synchronize()
+        ratio = mha_ratio(got, want)
+        out["bwd_err"] = max(out["bwd_err"], err(got, want))
+        log(f"mha_bwd {name} B={B} T={T} bf16: gq, gk, gv max |diff| / (max|plain| "
+            f"+ |plain|) {ratio:.4g} (tol {MHA_TOL['bwd']}); finite "
+            f"{all(torch_finite(t) for t in got)}")
+        require(ratio, MHA_TOL["bwd"], f"mha_bwd {name}")
+        faults = {}
+        if padded:
+            faults["backward seed != forward seed"] = fa.mha_bwd(
+                q, k, v, b, g, **dict(kw, seed=seed + 1))
+        softmax_bwd = fa._softmax_bwd
+        fa._softmax_bwd = lambda p32, gp: p32 * gp
+        try:
+            faults["softmax row term dropped"] = fa.mha_bwd_plain(q, k, v, b, g, **kw)
+        finally:
+            fa._softmax_bwd = softmax_bwd
+        for fault, fgot in faults.items():
+            fr = mha_ratio(fgot, got)
+            log(f"  planted fault '{fault}': {fr:.4g} (must be > {MHA_TOL['bwd']})")
+            if fr <= MHA_TOL["bwd"]:
+                raise AssertionError(f"the backward bound admits '{fault}'")
+        ms = cuda_timed(lambda: fa.mha_bwd(q, k, v, b, g, **kw), 10)
+        plain_ms = cuda_timed(lambda: fa.mha_bwd_plain(q, k, v, b, g, **kw), 5)
+        bnd = mha_bound(B, T, D, H, padded, True)
+        log(f"mha_bwd {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not padded:
+            out["bwd_ms"], out["bwd_plain_ms"], out["bwd_bound"] = ms, plain_ms, bnd
+    return out
+
+
+def uncached_trainer(device, corpus, **kw):
+    import torch
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.data.images import (SyntheticImageStore,
+                                             synthetic_token_table)
+    from iisan_tpu_torch.train.uncached import UncachedTrainer
+
+    cfg = IISANConfig(**{**UNCACHED_CFG, **kw})
+    tokens = synthetic_token_table(corpus.item_num, cfg.num_words_title, seed=0)
+    tr = UncachedTrainer(cfg, corpus, tokens, SyntheticImageStore(cfg.CV_resize),
+                         device=device)
+    torch.cuda.synchronize()
+    return tr
+
+
+def staged_batch(tr, step: int = 0):
+    """One training batch of the trainer's epoch-1 order, on the card."""
+    c = tr.corpus
+    users = tr.epoch_permutation(1)[step]
+    flat = c.train_seqs[users].reshape(-1)
+    images = next(iter(tr.loader.iter_batches([tr._names(flat)])))
+    return (tr._put(c.train_seqs[users]), tr._put(images),
+            tr._put(tr.token_table[flat]), tr._put(c.train_log_mask[users]))
+
+
+def uncached_breakdown(tr, batch, reps):
+    """(host ms per step, median of ``reps`` synchronised steps on a
+    staged batch; device-busy ms per step; device ms per step by kernel
+    family, from the profiler).  Also logs the largest kernels of the
+    "other" family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    host = host_timed(lambda: (tr.train_step(*batch), torch.cuda.synchronize()), reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tr.train_step(*batch)
+        torch.cuda.synchronize()
+    families, other = kernel_families(prof, reps)
+    log("  largest 'other' kernels per step: " + "; ".join(
+        f"{k} {ms:.2f} ms" for ms, k in sorted(other, reverse=True)[:6]))
+    return host, sum(families.values()), families
+
+
+def counted(counters, fn):
+    """Run ``fn`` with every counter at 0; returns (its result, the
+    counts)."""
+    for c in counters:
+        c.launches = 0
+    result = fn()
+    return result, {c.__name__: c.launches for c in counters}
+
+
+def train_iisan_uncached(device, counters):
+    """Phase 8: one IISAN (Uncached) epoch, the item table and a valid
+    evaluation at the published configuration; returns the launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=512, item_num=800, max_seq_len=SEQ_LEN, seed=0)
+    tr = uncached_trainer(device, corpus)
+    steps = tr.epoch_permutation(1).shape[0]
+    model = tr.model
+    towers = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(("text_tower.", "image_tower."))}
+    san_before = model.san.fc_cv.kernel.detach().clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_loss, launches = counted(counters, lambda: tr.run_epoch(1))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    losses = tr._last_step_losses.float().cpu().numpy()
+    t0 = time.perf_counter()
+    table, table_launches = counted(counters, tr.item_embedding_tables)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hit, ndcg = tr.evaluate_split("valid")
+    eval_s = time.perf_counter() - t0
+    unchanged = all(torch.equal(p, towers[n]) for n, p in model.named_parameters()
+                    if n in towers)
+    moved = not torch.equal(model.san.fc_cv.kernel, san_before)
+    batch = staged_batch(tr, 1)
+    host, busy, families = uncached_breakdown(tr, batch, 5)
+    log(f"uncached IISAN: {steps} steps of {tr.cfg.batch_size} users "
+        f"({STEP_ROWS} images + titles) in {epoch_s:.3f} s ({epoch_s / steps * 1e3:.1f} "
+        f"ms/step with image decoding, host clock); losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" (mean {mean_loss:.5f}); "
+        f"launches {launches}; tower weights unchanged {unchanged}, SAN moved {moved}")
+    log(f"uncached IISAN item table: {table.shape[0]} rows in {table_s:.3f} s, "
+        f"launches {table_launches}; valid HR@10 {hit:.6f} nDCG@10 {ndcg:.6f} "
+        f"(table + evaluation {eval_s:.3f} s)")
+    log(f"uncached IISAN step on a staged batch: host {host:.2f} ms (median of 5, "
+        f"synchronised), device-busy {busy:.2f} ms (profiler): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+    want = {"mha_fwd": 24 * steps, "mha_bwd": 0, "user_encoder_fwd": steps,
+            "user_encoder_bwd": steps}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"uncached IISAN: launches {launches}, expected {want}")
+    if not np.isfinite(losses).all() or len(losses) != steps:
+        raise AssertionError("uncached IISAN: the loss is not finite")
+    if not (unchanged and moved):
+        raise AssertionError("uncached IISAN: a frozen tower moved or the SAN did not")
+    if table.shape != (801, EMB) or not torch_finite(table):
+        raise AssertionError(f"uncached IISAN: bad item table {tuple(table.shape)}")
+    if not (np.isfinite(hit) and 0 <= ndcg <= hit <= 1):
+        raise AssertionError(f"uncached IISAN: bad metrics {hit} {ndcg}")
+    if table_launches["mha_fwd"] != 24 * 4:
+        raise AssertionError(f"uncached IISAN table: launches {table_launches}")
+    return {k: launches[k] + table_launches[k] for k in launches}
+
+
+def train_fft(device, counters):
+    """Phase 9: three full fine-tuning steps of batch 8; returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=3 * FFT_BATCH, item_num=800,
+                              max_seq_len=SEQ_LEN, seed=0)
+    tr = uncached_trainer(device, corpus, batch_size=FFT_BATCH,
+                          adding_adapter_to="None", adapter_type="houslby")
+    if tr.method != "fft":
+        raise AssertionError(f"expected the fft method, got {tr.method}")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    mean_loss, launches = counted(counters, lambda: tr.run_epoch(1))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    losses = tr._last_step_losses.float().cpu().numpy()
+    towers = [(n, p) for n, p in tr.model.named_parameters()
+              if n.startswith(("text_tower.", "image_tower."))]
+    dead = [n for n, p in towers if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    host, busy, families = uncached_breakdown(tr, staged_batch(tr, 0), 3)
+    log(f"FFT: 3 steps of {FFT_BATCH} users ({FFT_BATCH * (SEQ_LEN + 1)} images) in "
+        f"{epoch_s:.3f} s; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches}; {len(towers) - len(dead)} of {len(towers)} tower "
+        f"parameters have a nonzero gradient; peak memory {peak:.2f} GiB")
+    log(f"FFT step on a staged batch: host {host:.2f} ms (median of 3, "
+        f"synchronised), device-busy {busy:.2f} ms (profiler): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+    if launches["mha_bwd"] != 24 * 3 or launches["mha_fwd"] != 24 * 3:
+        raise AssertionError(f"FFT: launches {launches}")
+    if not np.isfinite(losses).all() or dead:
+        raise AssertionError(f"FFT: loss {losses}, no gradient for {dead[:5]}")
+    return launches
+
+
+def check_uncached_routes(device):
+    """Phase 10: 3 IISAN and 3 FFT steps from one set of weights at dropout
+    0, through the kernels and through the module path."""
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    for name, corpus, kw in (
+            ("IISAN", synthetic_corpus(n_users=3 * 64, item_num=800,
+                                       max_seq_len=SEQ_LEN, seed=0), {}),
+            ("FFT", synthetic_corpus(n_users=3 * FFT_BATCH, item_num=800,
+                                     max_seq_len=SEQ_LEN, seed=0),
+             dict(batch_size=FFT_BATCH, adding_adapter_to="None",
+                  adapter_type="houslby"))):
+        losses = {}
+        state = None
+        for route, rkw in (("kernels", {}),
+                           ("module", dict(fused_tower_attention=False,
+                                           fused_user_encoder=False))):
+            tr = uncached_trainer(device, corpus, tower_dropout=0.0,
+                                  drop_rate=0.0, **kw, **rkw)
+            if state is None:
+                state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+            else:
+                tr.model.load_state_dict(state)
+            tr.run_epoch(1)
+            losses[route] = tr._last_step_losses.float().cpu().tolist()
+            del tr
+            torch.cuda.empty_cache()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["module"]))
+        log(f"{name}, 3 steps from one set of weights at dropout 0: kernels "
+            + ", ".join(f"{v:.5f}" for v in losses["kernels"]) + "; module path "
+            + ", ".join(f"{v:.5f}" for v in losses["module"])
+            + f"; max relative difference {rel:.3g} (tol 2e-2)")
+        if rel > 2e-2:
+            raise AssertionError(f"{name}: the kernel route's losses leave the module path's")
 
 
 def post(url, payload):
@@ -767,26 +1235,54 @@ def main() -> int:
     check_gradients_reach_parameters(device, corpus, taps)
     train_counts = {k: trained[False][k] + trained[True][k]
                     for k in trained[False]}
+    del taps
+    torch.cuda.empty_cache()
+
+    # Uncached training: the attention kernels at the step's shapes, then
+    # IISAN (Uncached), the FFT baseline and the two attention routes.
+    from iisan_tpu_torch.ops import fused_attention as fa
+
+    attn = check_attention(device)
+    torch.cuda.empty_cache()
+    ucounters = (fa.mha_fwd, fa.mha_bwd, fa.mha_mask_replay,
+                 fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd)
+    iisan_counts = train_iisan_uncached(device, ucounters)
+    torch.cuda.empty_cache()
+    fft_counts = train_fft(device, ucounters)
+    torch.cuda.empty_cache()
+    check_uncached_routes(device)
+    uncached = {k: iisan_counts[k] + fft_counts[k] for k in iisan_counts}
+    ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
+
+    def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"iisan_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
     kernels = [
-        {"name": "user_encoder_fwd", "route": "cuda",
-         "source": "iisan_tpu_torch/csrc/user_encoder_fwd.cu",
-         "replaces": "iisan_tpu/ops/fused_user_encoder.py:264",
-         "launches": counts[0] + train_counts["user_encoder_fwd"],
-         "max_abs_err": max([r[0] for r in ue.values()] + [train["fwd_err"]]),
-         "ms": ue[256][1], "plain_ms": ue[256][2]},
-        {"name": "user_encoder_bwd", "route": "cuda",
-         "source": "iisan_tpu_torch/csrc/user_encoder_bwd.cu",
-         "replaces": "iisan_tpu/ops/fused_user_encoder.py:327",
-         "launches": train_counts["user_encoder_bwd"],
-         "max_abs_err": train["bwd_err"],
-         "ms": train["bwd_ms"], "plain_ms": train["bwd_plain_ms"]},
-        {"name": "san_cascade_fwd", "route": "cuda",
-         "source": "iisan_tpu_torch/csrc/san_cascade_fwd.cu",
-         "replaces": "iisan_tpu/ops/fused_san.py:49",
-         "launches": counts[1] + train_counts["san_cascade_fwd"],
-         "max_abs_err": cascade[0],
-         "ms": cascade[1], "plain_ms": cascade[2]},
+        entry("user_encoder_fwd", "iisan_tpu/ops/fused_user_encoder.py:264",
+              counts[0] + train_counts["user_encoder_fwd"]
+              + uncached["user_encoder_fwd"],
+              max([r[0] for r in ue.values()] + [train["fwd_err"]]),
+              ue[256][1], ue[256][2], ue_bound, None),
+        entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
+              train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"],
+              train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
+              ue_bwd_bound, None),
+        entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
+              counts[1] + train_counts["san_cascade_fwd"], cascade[0],
+              cascade[1], cascade[2], cascade_bound(3, TABLE_CHUNK), None),
+        entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
+              uncached["mha_fwd"], attn["fwd_err"], attn["fwd_ms"],
+              attn["fwd_plain_ms"], attn["fwd_bound"], attn["fwd_sdpa_ms"]),
+        entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",
+              uncached["mha_bwd"], attn["bwd_err"], attn["bwd_ms"],
+              attn["bwd_plain_ms"], attn["bwd_bound"], None),
+        entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
+              uncached["mha_mask_replay"], 0.0, attn["replay_ms"],
+              attn["replay_plain_ms"], attn["replay_bound"], None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

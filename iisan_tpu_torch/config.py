@@ -1,18 +1,18 @@
-"""Configuration of the port's cached pipeline.
+"""Configuration of the port's cached and uncached pipelines.
 
 ``IISANConfig`` here holds the fields of ``iisan_tpu.config.IISANConfig``
 that the port reads, with the same names and defaults (the published
-cached configuration), so that either object drives the port's model and
-trainer: they take their configuration duck-typed.  The JAX package's
-full dataclass (CLI flags, uncached and asymmetric pipelines, meshes) is
-not needed here.
+configuration), so that either object drives the port's models and
+trainers: they take their configuration duck-typed.  The JAX package's
+full dataclass (CLI flags, asymmetric pipelines, meshes) is not needed
+here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Tuple
 
 
 def _parse_int_list(s: str) -> Tuple[int, ...]:
@@ -35,6 +35,13 @@ class IISANConfig:
     logging_num: int = 8
     early_stop_patience: int = 10
     eval_batch_size: int = 256
+    num_workers: int = 4
+    # adapter method (IISAN, or the full fine-tuning baseline)
+    adapter_type: str = "houslby"
+    adding_adapter_to: str = "None"
+    fine_tune_to: str = "all"
+    finetune_layernorm: str = "None"
+    freeze_paras_before: int = 0
     # model
     embedding_dim: int = 64
     num_attention_heads: int = 2
@@ -43,6 +50,14 @@ class IISANConfig:
     min_seq_len: int = 5
     word_embedding_dim: int = 768
     image_embedding_dim: int = 768
+    text_layers: int = 12
+    image_layers: int = 12
+    CV_resize: int = 224
+    # text items: packed [ids | mask] rows per attribute
+    num_words_title: int = 30
+    num_words_abstract: int = 50
+    num_words_body: int = 50
+    news_attributes: Tuple[str, ...] = ("title",)
     # side adapter network
     bert_adapter_down_size: int = 64
     cv_adapter_down_size: int = 64
@@ -59,6 +74,13 @@ class IISANConfig:
     batch_intra_branches: bool = True
     fused_user_encoder: bool = True
     cache_quant: str = "none"
+    # uncached towers: dropout override (< 0 keeps BERT 0.1 / ViT 0.0),
+    # attention route (True: the fused kernels on the card), rematerialised
+    # layers and W8A8 projections (the last two are not ported)
+    tower_dropout: float = -1.0
+    fused_tower_attention: Any = True
+    remat_towers: Any = False
+    tower_quant: str = "none"
 
     def san_text_taps(self) -> Tuple[int, ...]:
         """Hidden-state rows the text branch reads: row 0, then each listed
@@ -76,5 +98,34 @@ class IISANConfig:
     def gated(self) -> bool:
         return self.fusion_method == "gated"
 
+    def is_iisan(self) -> bool:
+        """The IISAN adapter method is selected (else the full fine-tuning
+        baseline, for the uncached pipeline)."""
+        return "IISAN" in self.adapter_type and self.adding_adapter_to != "None"
+
+    def towers_frozen(self) -> bool:
+        """IISAN's towers are frozen unless ``fine_tune_to`` is 'all' or
+        ``finetune_layernorm`` re-enables their LayerNorms."""
+        return (self.is_iisan() and "all" not in self.fine_tune_to
+                and "None" in self.finetune_layernorm)
+
+    def active_text_attributes(self) -> Tuple[str, ...]:
+        return tuple(a for a in ("title", "abstract", "body")
+                     if a in self.news_attributes)
+
+    def attr_num_words(self) -> Tuple[int, ...]:
+        words = {"title": self.num_words_title,
+                 "abstract": self.num_words_abstract,
+                 "body": self.num_words_body}
+        return tuple(words[a] for a in self.active_text_attributes())
+
+    def packed_text_width(self) -> int:
+        """Width of a packed text row: ``[ids | mask]`` per attribute."""
+        return sum(2 * w for w in self.attr_num_words())
+
     def replace(self, **kw) -> "IISANConfig":
         return dataclasses.replace(self, **kw)
+
+    def __post_init__(self):
+        if isinstance(self.news_attributes, str):
+            self.news_attributes = tuple(self.news_attributes.split(","))

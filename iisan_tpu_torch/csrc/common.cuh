@@ -35,6 +35,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // Sets the dynamic shared-memory limit when a launch needs more than the
 // default 48 KB; returns the CUDA error of the attribute call.
 template <typename Kernel>

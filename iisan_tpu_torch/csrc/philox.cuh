@@ -61,4 +61,8 @@ struct Dropout {
   }
 };
 
+inline Dropout make_dropout(int seed, float rate, float scale) {
+  return Dropout{rate > 0.f, static_cast<unsigned>(seed), rate, scale};
+}
+
 }  // namespace iisan

@@ -315,8 +315,4 @@ __device__ void encoder_forward(const T* __restrict__ xb, const float* __restric
   }
 }
 
-inline Dropout make_dropout(int seed, float rate, float scale) {
-  return Dropout{rate > 0.f, static_cast<unsigned>(seed), rate, scale};
-}
-
 }  // namespace iisan

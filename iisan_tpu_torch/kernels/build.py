@@ -111,6 +111,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_philox_check.restype = i
     lib.iisan_san_cascade_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.iisan_san_cascade_fwd.restype = i
+    lib.iisan_mha_fwd.argtypes = [p] * 5 + [i] * 6 + [f, f, i, p]
+    lib.iisan_mha_fwd.restype = i
+    lib.iisan_mha_bwd.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]
+    lib.iisan_mha_bwd.restype = i
+    lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [f, f, i, p]
+    lib.iisan_mha_mask_replay.restype = i
     lib.iisan_cuda_error_string.argtypes = [i]
     lib.iisan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -46,13 +46,23 @@ def xavier_normal_init(shape, device=None, generator=None) -> torch.Tensor:
                                  generator=generator)
 
 
+def lecun_normal_init(shape, fan_in: int, device=None,
+                      generator=None) -> torch.Tensor:
+    """JAX ``lecun_normal``: truncated normal of variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    t = torch.empty(shape, device=device)
+    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
 def adapter_normal_init(shape, device=None, generator=None) -> torch.Tensor:
     t = torch.empty(shape, device=device)
     return nn.init.normal_(t, 0.0, 1e-2, generator=generator)
 
 
 class TorchLinear(nn.Module):
-    """Dense layer, ``kernel`` (in, out); torch-default uniform init."""
+    """Dense layer, ``kernel`` (in, out); torch-default uniform init, or
+    ``init="xavier"`` / ``"lecun"`` (flax ``nn.Dense``) with zero bias."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, init: str = "torch",
@@ -66,6 +76,9 @@ class TorchLinear(nn.Module):
             bias = uniform_init((features,), bound, device, generator)
         elif init == "xavier":
             kernel = xavier_normal_init(shape, device, generator)
+            bias = torch.zeros(features, device=device)
+        elif init == "lecun":  # flax nn.Dense
+            kernel = lecun_normal_init(shape, in_features, device, generator)
             bias = torch.zeros(features, device=device)
         else:
             raise ValueError(f"unknown init {init!r}")

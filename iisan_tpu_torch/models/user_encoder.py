@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops import fused_user_encoder as fue
+from ..ops import philox
 from .modules import TransformerEncoder
 
 
@@ -85,8 +86,7 @@ class UserEncoder(nn.Module):
         if not deterministic and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("train-mode dropout needs a torch.Generator")
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=generator))
+            seed = philox.draw_seed(generator)
         out = fue.apply_fused_encoder(
             packed, input_embs, mask, n_layers=self.n_layers,
             n_heads=self.num_attention_heads, d_ff=4 * input_embs.shape[-1],

@@ -81,6 +81,14 @@ def dropout_mask(seed: int, site: int, batch: int, shape, rate: float,
     return (keep.float() * scale).reshape(batch, *shape)
 
 
+def draw_seed(generator: torch.Generator) -> int:
+    """One kernel seed in [0, 2^31 - 1) from ``generator``, drawn on the
+    generator's own device (the JAX modules' ``jax.random.randint(rng,
+    ...)``)."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device))
+
+
 def encoder_sites(n_layers: int, n_heads: int):
     """Dropout site numbers of the fused user encoder, in forward order:
     ``input`` (the input LayerNorm output, (L, D)) and per block ``probs``

@@ -28,6 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .ops.metrics import mask_history
 from .utils.jax_params import export_jax_params, flatten_tree, load_jax_params
 
@@ -86,10 +87,12 @@ class Recommender:
     @classmethod
     def load(cls, path: str, device=None) -> "Recommender":
         """Rebuild a Recommender from a ``save()`` artifact (of either
-        package).  It computes in fp32 over the fp32 table, as the JAX
-        package's ``load`` does."""
+        package) on ``device`` (default the first CUDA card; the CPU only
+        when asked for).  It computes in fp32 over the fp32 table, as the
+        JAX package's ``load`` does."""
         from .models.model import IISANRecModel
 
+        device = resolve_device(device)
         with np.load(path) as z:
             params: dict = {}
             for key in z.files:
@@ -250,11 +253,11 @@ def main(argv=None) -> int:
     ap.add_argument("--http", metavar="HOST:PORT",
                     help="serve online over HTTP instead of batch-file mode")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+                    help="torch device (default: the first CUDA card; "
+                    "'cpu' runs on the CPU)")
     args = ap.parse_args(argv)
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    rec = Recommender.load(args.artifact, device=device)
+    rec = Recommender.load(args.artifact, device=args.device)
     if args.http:
         host, _, port = args.http.rpartition(":")
         if not port.isdigit():

@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..eval.evaluate import compute_item_tables, evaluate
 from ..models.model import rec_model_from_config
 from .loop import TrainLoopMixin
@@ -36,15 +37,16 @@ class CachedTrainer(TrainLoopMixin):
     cfg: an ``IISANConfig`` (either package's); corpus: a ``Corpus``
     (either package's); cv_taps / text_taps: (item_num+1, K, dim) arrays
     or tensors.  The model is initialised on the CPU from ``cfg.seed`` and
-    moved to ``device``; train-mode dropout draws from a CPU generator
-    seeded from ``cfg.seed``.
+    moved to ``device`` (default the first CUDA card; the CPU only when
+    asked for, ``device="cpu"``); train-mode dropout draws from a CPU
+    generator seeded from ``cfg.seed``.
     """
 
-    def __init__(self, cfg, corpus, cv_taps, text_taps, device="cpu"):
+    def __init__(self, cfg, corpus, cv_taps, text_taps, device=None):
         if getattr(cfg, "cache_quant", "none") != "none":
             raise NotImplementedError("int8 tap tables are not ported yet")
         self.cfg, self.corpus = cfg, corpus
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # Every id in [0, item_num] must have a row: a leave-one-out
         # target may be an item no training sequence holds.
         need = corpus.item_num + 1
@@ -74,17 +76,6 @@ class CachedTrainer(TrainLoopMixin):
         self._last_step_losses = None
         n_params = sum(p.numel() for p in self.model.parameters())
         log.info("##### trainable_num %d #####", n_params)
-
-    def epoch_permutation(self, epoch: int) -> np.ndarray:
-        """Shuffled user indices wrapped to whole batches, (steps, batch)
-        int32: the JAX trainer's permutation, number for number."""
-        n = self.corpus.n_users
-        bs = self.cfg.batch_size
-        rng = np.random.default_rng(self.cfg.seed + epoch)
-        perm = rng.permutation(n)
-        n_pad = ((n + bs - 1) // bs) * bs
-        perm = np.resize(perm, n_pad)  # cyclic wrap, handles bs > n_users
-        return perm.reshape(-1, bs).astype(np.int32)
 
     def train_step(self, ids: torch.Tensor, log_mask: torch.Tensor) -> torch.Tensor:
         """One step on a (bs, L+1) id batch; returns the loss (on the

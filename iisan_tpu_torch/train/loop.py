@@ -38,8 +38,19 @@ class TrainResult:
 
 
 class TrainLoopMixin:
-    """Requires: self.cfg, self.device, self.run_epoch(epoch) -> loss,
-    self.evaluate_split(split) -> (hit, ndcg)."""
+    """Requires: self.cfg, self.corpus, self.device, self.run_epoch(epoch)
+    -> loss, self.evaluate_split(split) -> (hit, ndcg)."""
+
+    def epoch_permutation(self, epoch: int) -> np.ndarray:
+        """Shuffled user indices wrapped to whole batches, (steps, batch)
+        int32: the JAX trainers' permutation, number for number."""
+        n = self.corpus.n_users
+        bs = self.cfg.batch_size
+        rng = np.random.default_rng(self.cfg.seed + epoch)
+        perm = rng.permutation(n)
+        n_pad = ((n + bs - 1) // bs) * bs
+        perm = np.resize(perm, n_pad)  # cyclic wrap, handles bs > n_users
+        return perm.reshape(-1, bs).astype(np.int32)
 
     def _sync(self) -> None:
         """Wait for the device, so an epoch's time covers its work."""

@@ -1,17 +1,19 @@
 """Role-based multi-learning-rate Adam.
 
-Port of ``iisan_tpu/train/optim.py`` for the cached model.  Parameters are
-put in five groups by their path, as the reference's name matching does;
-the port's dotted parameter names are the JAX tree's paths (the weight
-bridge keeps them equal), so ``label_for_path`` is the JAX function as it
-is, applied to the name with dots read as slashes.  See the JAX module for
-the label table and the reference's quirks it keeps.
+Port of ``iisan_tpu/train/optim.py``.  Parameters are put in five groups
+by their path, as the reference's name matching does; the port's dotted
+parameter names are the JAX tree's paths (the weight bridge keeps them
+equal), so ``label_for_path`` is the JAX function as it is, applied to the
+name with dots read as slashes.  See the JAX module for the label table
+and the reference's quirks it keeps.  A trainability mask
+(``train/peft_masks.py``) leaves frozen parameters out of every group, as
+the JAX package's masked Adam gives them no state and no update.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -63,12 +65,15 @@ def group_lrs(cfg) -> Dict[str, float]:
             "adapter_text": cfg.adapter_bert_lr}
 
 
-def log_group_sizes(cfg, model: torch.nn.Module) -> Dict[str, int]:
-    """Per-group parameter-tensor counts, logged as the reference's
-    '***** N parameters have learning rate LR *****' lines."""
+def log_group_sizes(cfg, model: torch.nn.Module,
+                    trainable_mask: Optional[Dict[str, bool]] = None
+                    ) -> Dict[str, int]:
+    """Per-group counts of trainable parameter tensors, logged as the
+    reference's '***** N parameters have learning rate LR *****' lines."""
     counts = {g: 0 for g in GROUPS}
-    for label in param_labels(model).values():
-        counts[label] += 1
+    for name, label in param_labels(model).items():
+        if trainable_mask is None or trainable_mask[name]:
+            counts[label] += 1
     lrs = group_lrs(cfg)
     for g, n in counts.items():
         if n:
@@ -76,14 +81,18 @@ def log_group_sizes(cfg, model: torch.nn.Module) -> Dict[str, int]:
     return counts
 
 
-def build_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
+def build_optimizer(cfg, model: torch.nn.Module,
+                    trainable_mask: Optional[Dict[str, bool]] = None
+                    ) -> torch.optim.Adam:
     """One Adam with the five groups (torch defaults b1=.9 b2=.999
     eps=1e-8, as optax's ``adam`` in the JAX package); a group may be
-    empty.  Each group carries its name under ``"name"``."""
+    empty.  Each group carries its name under ``"name"``.  Parameters
+    whose ``trainable_mask`` entry is False are in no group."""
     labels = param_labels(model)
     params = {g: [] for g in GROUPS}
     for name, p in model.named_parameters():
-        params[labels[name]].append(p)
+        if trainable_mask is None or trainable_mask[name]:
+            params[labels[name]].append(p)
     lrs = group_lrs(cfg)
     return torch.optim.Adam(
         [{"params": params[g], "lr": lrs[g], "name": g} for g in GROUPS],

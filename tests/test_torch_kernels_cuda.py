@@ -29,12 +29,19 @@ intermediate value survives into a final value that may be small.  The
 cascade inputs make every term move the carry by O(1) (wd ~ N(0, 1/D),
 wu ~ N(0, 1/R), biases ~ N(0, 0.25)), so a wrong term breaks the bound;
 tests/test_torch_fused_san.py shows that it does for planted faults.
+Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
++ |plain|), tol 1e-4 fp32 and 2e-2 (forward) / 5e-2 (backward) bf16: a
+probability may round to the neighbouring bf16 value on one side only; the
+mask replay kernel is bit-equal to its plain version.  Planted faults (the
+key bias dropped on a padded batch, the backward run with another seed,
+the softmax row term dropped from the backward) must break those bounds.
 """
 
 import pytest
 import torch
 
 from iisan_tpu_torch.models.user_encoder import UserEncoder, causal_additive_mask
+from iisan_tpu_torch.ops import fused_attention as fa
 from iisan_tpu_torch.ops import fused_san as fs
 from iisan_tpu_torch.ops import fused_user_encoder as fue
 from iisan_tpu_torch.ops import philox
@@ -284,3 +291,136 @@ def test_user_encoder_bwd_raises_on_unsupported_shape(cuda_device):
     with pytest.raises(ValueError, match="does not take"):
         fue.user_encoder_bwd(x, mask3, params, torch.zeros_like(x), **kw)
     assert fue.user_encoder_bwd.launches == before
+
+
+MHA_TOL = {(torch.float32, "fwd"): 1e-4, (torch.bfloat16, "fwd"): 2e-2,
+           (torch.float32, "bwd"): 1e-4, (torch.bfloat16, "bwd"): 5e-2}
+
+
+def _mha_inputs(device, B, T, D, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(B, T, D, generator=gen).to(device, dtype)
+                  for _ in range(4))
+    lengths = torch.randint(1, T + 1, (B,), generator=gen)
+    lengths[0] = 0  # the pad item: every key carries the -1e9 bias
+    keep = torch.arange(T)[None] < lengths[:, None]
+    bias = torch.where(keep, 0.0, -1e9).to(device)
+    return q, k, v, g, bias
+
+
+def _mha_ratio(got, want):
+    """max |got - want| / (max|want| + |want|) over tensors; inf if any
+    value is not finite."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            return float("inf")
+        bound = (b.abs().max() + b.abs()).clamp_min(1e-30)
+        worst = max(worst, float(((a - b).abs() / bound).max()))
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,D,H", [(6, 30, 768, 12), (3, 197, 768, 12),
+                                     (5, 77, 128, 2), (2, 1, 64, 1),
+                                     (4, 33, 192, 3)])
+def test_mha_kernels_match_plain(cuda_device, dtype, rate, B, T, D, H):
+    q, k, v, g, bias = _mha_inputs(cuda_device, B, T, D, dtype)
+    kw = dict(n_heads=H, seed=977, rate=rate, layer=3)
+    f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
+    got = fa.mha_fwd(q, k, v, bias, **kw)
+    want = fa.mha_fwd_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert fa.mha_fwd.launches == f0 + 1 and got.dtype == dtype
+    assert _mha_ratio([got], [want]) <= MHA_TOL[dtype, "fwd"]
+    if not fa.bwd_supported(B, T, D, H, q.element_size()):
+        assert dtype == torch.float32 and T > 166
+        return
+    grads = fa.mha_bwd(q, k, v, bias, g, **kw)
+    plain = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
+    torch.cuda.synchronize()
+    assert fa.mha_bwd.launches == b0 + 1
+    assert _mha_ratio(grads, plain) <= MHA_TOL[dtype, "bwd"]
+    # no atomics: the backward repeats bit for bit
+    assert all(torch.equal(a, b) for a, b in
+               zip(grads, fa.mha_bwd(q, k, v, bias, g, **kw)))
+
+
+@pytest.mark.cuda
+def test_mha_train_mode_is_the_replayed_mask_oracle(cuda_device):
+    B, T, D, H, dtype = 8, 30, 768, 12, torch.bfloat16
+    q, k, v, _, bias = _mha_inputs(cuda_device, B, T, D, dtype, seed=1)
+    r0 = fa.mha_mask_replay.launches
+    masks = fa.mha_mask_replay(555, B, T, H, 0.1, 7, cuda_device)
+    assert fa.mha_mask_replay.launches == r0 + 1
+    plain = fa.attention_dropout_masks(555, B, T, H, 0.1, 7, cuda_device)
+    assert torch.equal(masks, plain)
+    assert abs(float((masks > 0).float().mean()) - 0.9) < 0.01
+    got = fa.mha_fwd(q, k, v, bias, n_heads=H, seed=555, rate=0.1, layer=7)
+    want = fa.reference_mha_masked(q, k, v, bias, H, dtype, masks)
+    assert _mha_ratio([got], [want]) <= MHA_TOL[dtype, "fwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(8, 30, 768, 12), (4, 197, 768, 12)])
+def test_mha_planted_faults_break_the_bounds(cuda_device, B, T, D, H):
+    dtype = torch.bfloat16
+    q, k, v, g, bias = _mha_inputs(cuda_device, B, T, D, dtype, seed=2)
+    kw = dict(n_heads=H, seed=31, rate=0.1, layer=0)
+    want = fa.mha_fwd_plain(q, k, v, bias, **kw)
+    assert _mha_ratio([fa.mha_fwd(q, k, v, None, **kw)], [want]) > MHA_TOL[dtype, "fwd"]
+    plain = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
+    assert _mha_ratio(fa.mha_bwd(q, k, v, bias, g, **dict(kw, seed=32)),
+                      plain) > MHA_TOL[dtype, "bwd"]
+    softmax_bwd = fa._softmax_bwd
+    fa._softmax_bwd = lambda p32, gp: p32 * gp
+    try:
+        faulty = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
+    finally:
+        fa._softmax_bwd = softmax_bwd
+    assert _mha_ratio(faulty, fa.mha_bwd(q, k, v, bias, g, **kw)) > MHA_TOL[dtype, "bwd"]
+
+
+@pytest.mark.cuda
+def test_mha_all_pad_rows_stay_finite(cuda_device):
+    q, k, v, g, _ = _mha_inputs(cuda_device, 3, 197, 768, torch.bfloat16)
+    bias = torch.full((3, 197), -1e9, device=cuda_device)
+    out = fa.mha_fwd(q, k, v, bias, n_heads=12)
+    grads = fa.mha_bwd(q, k, v, bias, g, n_heads=12)
+    assert all(torch.isfinite(t.float()).all() for t in (out, *grads))
+    want = fa.mha_fwd_plain(q, k, v, bias, n_heads=12)
+    assert _mha_ratio([out], [want]) <= MHA_TOL[torch.bfloat16, "fwd"]
+
+
+@pytest.mark.cuda
+def test_fused_mha_autograd_runs_both_kernels(cuda_device):
+    q, k, v, g, bias = _mha_inputs(cuda_device, 4, 30, 256, torch.float32)
+    f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
+    grads = []
+    for run in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if run == "kernel":
+            out = fa.fused_mha(*leaves, 4, key_bias=bias, drop_rate=0.1, seed=5,
+                               layer=2)
+        else:
+            masks = fa.attention_dropout_masks(5, 4, 30, 4, 0.1, 2, cuda_device)
+            out = fa.reference_mha_masked(*leaves, bias, 4, torch.float32, masks)
+        out.backward(g)
+        grads.append([t.grad for t in leaves])
+    assert fa.mha_fwd.launches == f0 + 1 and fa.mha_bwd.launches == b0 + 1
+    assert _mha_ratio(grads[0], grads[1]) <= MHA_TOL[torch.float32, "bwd"]
+
+
+@pytest.mark.cuda
+def test_mha_raises_on_unsupported_shape(cuda_device):
+    q, k, v, g, bias = _mha_inputs(cuda_device, 2, 30, 96, torch.float32)
+    before = fa.mha_fwd.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fa.mha_fwd(q, k, v, bias, n_heads=2)  # head width 48
+    q, k, v, g, bias = _mha_inputs(cuda_device, 2, 197, 768, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        fa.mha_bwd(q, k, v, bias, g, n_heads=12)  # fp32 block too large
+    assert fa.mha_fwd.launches == before

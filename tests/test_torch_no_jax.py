@@ -1,9 +1,9 @@
 """The port imports no JAX and builds nothing at import time.
 
-A fresh interpreter imports every module of iisan_tpu_torch (the trainer
-included); afterwards
-no ``jax`` / ``flax`` / ``optax`` module is loaded and the kernel library
-has not been built or loaded.
+A fresh interpreter imports every module of iisan_tpu_torch (the trainers
+included); afterwards no ``jax`` / ``flax`` / ``optax`` module and no
+module of the JAX package (``iisan_tpu`` or ``iisan_tpu.*``) is loaded,
+and the kernel library has not been built or loaded.
 """
 
 import json
@@ -23,7 +23,9 @@ for name in names:
 from iisan_tpu_torch.kernels import build
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
-print(json.dumps({"modules": names, "jax": loaded, "built": build._lib is not None}))
+reference = sorted(m for m in sys.modules if m.split(".")[0] == "iisan_tpu")
+print(json.dumps({"modules": names, "jax": loaded, "reference": reference,
+                  "built": build._lib is not None}))
 """
 
 
@@ -35,5 +37,9 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "iisan_tpu_torch.serve" in out["modules"]
     assert "iisan_tpu_torch.ops.fused_san" in out["modules"]
     assert "iisan_tpu_torch.train.cached" in out["modules"]
+    assert "iisan_tpu_torch.train.uncached" in out["modules"]
+    assert "iisan_tpu_torch.ops.fused_attention" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
+    assert out["reference"] == [], (
+        f"JAX-package modules loaded by the port: {out['reference']}")
     assert not out["built"]

@@ -103,7 +103,7 @@ def test_artifact_loads_in_both_directions(tmp_path):
 
     jax_path = str(tmp_path / "from_jax.npz")
     jrec.save(jax_path)
-    _assert_topk_equal(serve.Recommender.load(jax_path).top_k(SEQS, k=7), want)
+    _assert_topk_equal(serve.Recommender.load(jax_path, device="cpu").top_k(SEQS, k=7), want)
 
     port_path = str(tmp_path / "from_port.npz")
     rec.save(port_path)
@@ -111,7 +111,7 @@ def test_artifact_loads_in_both_directions(tmp_path):
         assert sorted(a.files) == sorted(b.files)
     _assert_topk_equal(jax_serve.Recommender.load(port_path).top_k(SEQS, k=7),
                        rec.top_k(SEQS, k=7))
-    reloaded = serve.Recommender.load(port_path)
+    reloaded = serve.Recommender.load(port_path, device="cpu")
     np.testing.assert_array_equal(reloaded.top_k(SEQS, k=7)[0],
                                   rec.top_k(SEQS, k=7)[0])
 

@@ -57,7 +57,7 @@ def trained_pair(request):
     corpus = jax_corpus(n_users=USERS, item_num=ITEMS, seed=3)
     cv, text = _taps()
     jt = JaxTrainer(cfg, corpus, cv, text)
-    tt = CachedTrainer(cfg, corpus, cv, text)
+    tt = CachedTrainer(cfg, corpus, cv, text, device="cpu")
     load_jax_params(tt.model, jax.device_get(jt.params))
     losses, perms_equal = [], []
     for epoch in (1, 2):
@@ -134,7 +134,7 @@ def _port_trainer(**kw):
     cfg = IISANConfig(compute_dtype="float32", **{**SMALL, **kw})
     corpus = synthetic_corpus(n_users=24, item_num=40)
     cv, text = synthetic_taps(40, K, DIM, 1), synthetic_taps(40, K, DIM, 2)
-    return CachedTrainer(cfg, corpus, cv, text)
+    return CachedTrainer(cfg, corpus, cv, text, device="cpu")
 
 
 def test_port_trainer_trains_with_dropout_reproducibly():
@@ -153,7 +153,7 @@ def test_port_trainer_trains_with_dropout_reproducibly():
         a.train(save_checkpoints=True)
     with pytest.raises(ValueError, match="tap table"):
         CachedTrainer(a.cfg, a.corpus, np.zeros((5, K, DIM), np.float32),
-                      np.zeros((41, K, DIM), np.float32))
+                      np.zeros((41, K, DIM), np.float32), device="cpu")
 
 
 def test_nan_loss_aborts_training(monkeypatch):
