@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cached serving and training paths and its
-uncached training paths (IISAN and full fine-tuning) once on one NVIDIA
-GPU.
+"""Drive the PyTorch port's cached serving and training paths, its
+uncached training paths (IISAN and full fine-tuning) and IISAN-Versa
+(``pipeline="cached_asym"``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -79,7 +79,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
 10. From one set of weights at tower and user-encoder dropout 0, 3 IISAN
    and 3 FFT steps through the kernels and through the module path: the
    losses agree within 2e-2.
-11. Print one JSON line of per-kernel results, then the final status line.
+11. Hold the streamed cascade kernel (#4) against its plain version in
+   bf16 at the Versa text geometry (K=7, D=8192): N=8192 (a table chunk)
+   and 704 (a training step), R=64 and 128, ReLU and GELU, gated and
+   additive, element by element under ``carry_tolerance``.  Planted faults
+   (bd dropped, GELU for ReLU, step 0's weights at every step, g and 1-g
+   swapped) must each break the bound.  CUDA-event medians of kernel and
+   plain version beside the bound.
+12. The dispatch on the card: ``fused_cascade`` launches #4 and not #3 at
+   (K, D, R) = (7, 8192, 64) bf16, #3 and not #4 at (7, 192, 64), neither
+   at (7, 8192, 64) fp32; ``san_cascade_fwd`` refuses D=8192 (its shared
+   memory would exceed the card's limit) before any launch.
+13. IISAN-Versa training at the published Llama-3-70B x ViT-tiny geometry
+   (``scripts/run_IISAN_versa.py``'s "llama" variant and GRID): random
+   bf16 tap tables on the card, text (20,826, 7, 8192) and image (20,826,
+   7, 192), pad row 0; one full epoch (189 steps) and a valid evaluation
+   on the default route (no cascade kernel) and on ``use_pallas`` (#4 and
+   #3 once a step each), the encoder kernels once a step on both; the loss
+   must fall; the learned gates are printed.  Then five kernel-route and
+   five module-route steps from one set of weights at dropout 0 agree
+   within 2e-2, every parameter (``down_project_list_*`` included) with a
+   nonzero gradient.
+14. The same taps as int8 tables (``cache_quant="int8"``, quantised on the
+   card): resident bytes of each table in both forms, 20 steps with a
+   finite loss, the item table within 0.05 x its largest value of the one
+   the bf16 tables give from the same weights, a valid evaluation.
+15. Serving the trained Versa model: ``Recommender.from_trainer``, top-K at
+   batch 1, 32 and 256, HTTP and save -> load checks as in phase 4.
+16. Print one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -142,6 +169,21 @@ TRAIN_CFG = dict(batch_size=64, epoch=1, lr=2e-4, adapter_cv_lr=1e-4,
                  fine_tune_lr_text=5e-5, embedding_dim=EMB,
                  bert_adapter_down_size=BOTTLENECK,
                  cv_adapter_down_size=BOTTLENECK, seed=SEED)
+# IISAN-Versa at its published geometry (scripts/run_IISAN_versa.py:19-40,
+# "llama"): Llama-3-70B text states 81 x 8192 with taps 4,19,...,79 and
+# ViT-tiny image states 13 x 192 with taps 1,3,...,11, under the GRID of
+# :59-65, which is TRAIN_CFG's (lr 2e-4, adapter lrs 1e-4, batch 64, emb 64,
+# bottleneck 64, dropout 0.1, bf16).
+VERSA_TEXT_DIM, VERSA_IMAGE_DIM = 8192, 192
+VERSA_CFG = dict(TRAIN_CFG, pipeline="cached_asym", adapter_type="IISAN",
+                 adding_adapter_to="all", fine_tune_to="None",
+                 text_embedding_dim=VERSA_TEXT_DIM,
+                 image_embedding_dim=VERSA_IMAGE_DIM, text_layers=80,
+                 image_layers=12, side_adapter_bert_list="4,19,34,49,64,79",
+                 side_adapter_vit_list="1,3,5,7,9,11",
+                 cached_text_model="llama70b_GPTQ_embeddings",
+                 cached_image_model="vit_tiny_outputs",
+                 cached_text_prefix="llama", cached_image_prefix="vit")
 
 
 def log(msg: str) -> None:
@@ -483,6 +525,7 @@ def step_breakdown(tr, batch, reps):
     from torch.profiler import ProfilerActivity, profile
 
     from iisan_tpu_torch.ops.losses import sequence_train_loss
+    from iisan_tpu_torch.ops.quant import gather_rows
 
     model, ids, log_mask = tr.model, *batch
     phases = {k: [] for k in ("gather", "SAN + heads", "encoder + loss",
@@ -496,7 +539,7 @@ def step_breakdown(tr, batch, reps):
             marks.append(time.perf_counter())
 
         flat = ids.reshape(-1)
-        cv, text = tr.cv_table[flat], tr.text_table[flat]
+        cv, text = gather_rows(tr.cv_table, flat), gather_rows(tr.text_table, flat)
         mark()
         score = model.fuse(*model.san(cv, text))
         mark()
@@ -524,31 +567,30 @@ def step_breakdown(tr, batch, reps):
     return ({k: sorted(v)[len(v) // 2] for k, v in phases.items()}, families)
 
 
-def train_route(device, corpus, taps, use_pallas, counters):
-    """One full epoch and a valid evaluation of the cached trainer on one
-    SAN route; returns the trainer and the epoch's kernel launches."""
+def train_route(device, corpus, taps, cfg_kw, counters, per_step, name):
+    """One full epoch and a valid evaluation of the cached trainer at
+    ``IISANConfig(**cfg_kw)``.  The epoch's launches must be ``per_step``
+    times its steps.  Returns the trainer and the launches of the epoch and
+    the evaluation's item table."""
     import numpy as np
     import torch
 
     from iisan_tpu_torch.config import IISANConfig
     from iisan_tpu_torch.train.cached import CachedTrainer
 
-    name = "use_pallas" if use_pallas else "default"
-    cfg = IISANConfig(use_pallas=use_pallas, **TRAIN_CFG)
+    cfg = IISANConfig(**cfg_kw)
     tr = CachedTrainer(cfg, corpus, *taps, device=device)
     steps = -(-USERS // cfg.batch_size)
-    for c in counters:
-        c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mean_loss = tr.run_epoch(1)
+    mean_loss, launches = counted(counters, lambda: tr.run_epoch(1))
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
     losses = tr._last_step_losses.float().cpu().numpy()
     t0 = time.perf_counter()
     hit, ndcg = tr.evaluate_split("valid")
     eval_s = time.perf_counter() - t0
+    total = {c.__name__: c.launches for c in counters}
     perm = torch.as_tensor(tr.epoch_permutation(2), device=device).long()
     batch = (tr.train_seqs[perm[0]], tr.train_log_mask[perm[0]])
     busy = device_ms(lambda: tr.train_step(*batch), 10)
@@ -569,14 +611,13 @@ def train_route(device, corpus, taps, use_pallas, counters):
         raise AssertionError(f"train[{name}]: the loss did not fall")
     if not (np.isfinite(hit) and 0 <= ndcg <= hit <= 1):
         raise AssertionError(f"train[{name}]: bad metrics {hit} {ndcg}")
-    want = {"user_encoder_fwd": steps, "user_encoder_bwd": steps,
-            "san_cascade_fwd": 2 * steps if use_pallas else 0}
+    want = {k: v * steps for k, v in per_step.items()}
     if launches != want:
         raise AssertionError(f"train[{name}]: launches {launches}, expected {want}")
-    return tr, launches
+    return tr, total
 
 
-def check_gradients_reach_parameters(device, corpus, taps):
+def check_gradients_reach_parameters(device, corpus, taps, cfg_kw, name):
     """Five steps through the kernels (use_pallas, fused encoder) and five
     through the module path (default route, fused=False) from the same
     weights at dropout 0: the losses agree and every parameter gets a
@@ -587,32 +628,35 @@ def check_gradients_reach_parameters(device, corpus, taps):
     from iisan_tpu_torch.train.cached import CachedTrainer
 
     runs = {}
-    for name, kw in (("kernels", dict(use_pallas=True)),
-                     ("module", dict(fused_user_encoder=False))):
-        cfg = IISANConfig(**dict(TRAIN_CFG, drop_rate=0.0, **kw))
-        runs[name] = CachedTrainer(cfg, corpus, *taps, device=device)
+    for route, kw in (("kernels", dict(use_pallas=True)),
+                      ("module", dict(fused_user_encoder=False))):
+        cfg = IISANConfig(**dict(cfg_kw, drop_rate=0.0, **kw))
+        runs[route] = CachedTrainer(cfg, corpus, *taps, device=device)
     runs["module"].model.load_state_dict(runs["kernels"].model.state_dict())
     perm = torch.as_tensor(runs["kernels"].epoch_permutation(1), device=device)
     losses = {}
-    for name, tr in runs.items():
-        losses[name] = []
+    for route, tr in runs.items():
+        losses[route] = []
         for step in range(5):
             ids = perm[step].long()
-            losses[name].append(float(tr.train_step(tr.train_seqs[ids],
-                                                    tr.train_log_mask[ids])))
+            losses[route].append(float(tr.train_step(tr.train_seqs[ids],
+                                                     tr.train_log_mask[ids])))
             if step == 0:
                 dead = [n for n, p in tr.model.named_parameters()
                         if p.grad is None or not bool(p.grad.abs().sum() > 0)]
                 if dead:
-                    raise AssertionError(f"{name}: no gradient for {dead[:5]}")
+                    raise AssertionError(f"{name} {route}: no gradient for "
+                                         f"{dead[:5]}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["module"]))
-    log("5 steps from one set of weights at dropout 0: kernels "
+    n_params = len(list(runs["kernels"].model.parameters()))
+    log(f"{name}, 5 steps from one set of weights at dropout 0: kernels "
         + ", ".join(f"{v:.5f}" for v in losses["kernels"]) + "; module path "
         + ", ".join(f"{v:.5f}" for v in losses["module"])
-        + f"; max relative difference {rel:.3g} (tol 2e-2); every parameter "
-        "has a nonzero gradient on both")
+        + f"; max relative difference {rel:.3g} (tol 2e-2); all {n_params} "
+        "parameters have a nonzero gradient on both")
     if rel > 2e-2:
-        raise AssertionError("the kernel path's losses leave the module path's")
+        raise AssertionError(f"{name}: the kernel path's losses leave the "
+                             "module path's")
 
 
 def bound(nbytes: float, flops: float):
@@ -660,10 +704,10 @@ def encoder_bounds(B_fwd: int, B_bwd: int):
     return fwd, bwd
 
 
-def cascade_bound(S: int, N: int):
-    """The cascade reads its taps, carry and bf16 weights once and writes
-    the final carry; two products of D x R per tap."""
-    K, D, R = K_TAPS, TAP_DIM, BOTTLENECK
+def cascade_bound(S: int, N: int, D: int = TAP_DIM, R: int = BOTTLENECK):
+    """A cascade kernel reads its taps, carry and bf16 weights once and
+    writes the final carry; two products of D x R per tap."""
+    K = K_TAPS
     nbytes = (S * N * K * D + 2 * S * N * D + S * K * (2 * D * R + R + D)) * 2
     return bound(nbytes, S * N * K * 4 * D * R)
 
@@ -1025,11 +1069,316 @@ def check_uncached_routes(device):
             raise AssertionError(f"{name}: the kernel route's losses leave the module path's")
 
 
+def check_streamed_cascade(device):
+    """The streamed cascade kernel (#4) against its plain version in bf16 at
+    the Versa text geometry (K=7, D=8192): N=8192 (a table chunk) and 704
+    (a training step), R=64 and 128, ReLU and GELU, gated and additive,
+    element by element under ``carry_tolerance``.  Four planted faults
+    must break the bound.  Returns the JSON numbers and the step-shape
+    times."""
+    import torch
+
+    from iisan_tpu_torch.ops import fused_san as fs
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    K, D = K_TAPS, VERSA_TEXT_DIM
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    def ratio(got, want):
+        if not torch_finite(got):
+            return float("inf")
+        return float(((got.float() - want.float()).abs()
+                      / fs.carry_tolerance(want)).max())
+
+    out = {"err": 0.0}
+    for N, R in ((TABLE_CHUNK, 64), (STEP_ROWS, 64), (STEP_ROWS, 128),
+                 (TABLE_CHUNK, 128)):
+        for gated in (True, False):
+            # every term moves the carry by O(1), as in check_cascade
+            a, b = fs.cascade_coefs(
+                torch.randn(K, generator=gen, device=device) * 0.1, gated)
+            args = (a, b, rand(N, K, D), rand(K, D, R, scale=D ** -0.5),
+                    rand(K, R, scale=0.5), rand(K, R, D, scale=R ** -0.5),
+                    rand(K, D, scale=0.5), rand(N, D))
+            for act in ("RELU", "GELU"):
+                got = fs.san_cascade_streamed_fwd(*args, activation=act)
+                want = fs.san_cascade_streamed_fwd_plain(*args, activation=act)
+                torch.cuda.synchronize()
+                r = ratio(got, want)
+                err = float((got.float() - want.float()).abs().max())
+                out["err"] = max(out["err"], err)
+                log(f"san_cascade_streamed_fwd N={N} K={K} D={D} R={R} "
+                    f"{'gated' if gated else 'additive'} {act}: max|kernel-plain| "
+                    f"{err:.6g}; max |diff| / bound {r:.3f} (must be <= 1); "
+                    f"{float((got != want).float().mean()):.2%} of values not "
+                    "bit-equal")
+                if r > 1.0:
+                    raise AssertionError("san_cascade_streamed_fwd disagrees with "
+                                         "its plain version")
+            if R != 64 or not gated:
+                continue
+            if N == TABLE_CHUNK:
+                want = fs.san_cascade_streamed_fwd_plain(*args)
+                a, b, taps, wd, bd, wu, bu, c0 = args
+                step0 = [w[:1].expand_as(w) for w in (wd, bd, wu, bu)]
+                faults = {
+                    "bd dropped": ((a, b, taps, wd, torch.zeros_like(bd), wu, bu,
+                                    c0), "RELU"),
+                    "GELU for ReLU": (args, "GELU"),
+                    "step-0 weights": ((a, b, taps, *step0, c0), "RELU"),
+                    "g and 1-g swapped": ((b, a, taps, wd, bd, wu, bu, c0), "RELU"),
+                }
+                for fault, (fargs, act) in faults.items():
+                    r = ratio(fs.san_cascade_streamed_fwd(*fargs, activation=act),
+                              want)
+                    log(f"  planted fault '{fault}': max |diff| / bound {r:.4g} "
+                        "(must be > 1)")
+                    if r <= 1.0:
+                        raise AssertionError(f"the streamed bound admits '{fault}'")
+            key = "" if N == TABLE_CHUNK else "_step"
+            out["ms" + key] = cuda_timed(
+                lambda: fs.san_cascade_streamed_fwd(*args), 10)
+            out["plain_ms" + key] = cuda_timed(
+                lambda: fs.san_cascade_streamed_fwd_plain(*args), 5)
+            out["bound" + key] = cascade_bound(1, N, D, R)
+            gflop = N * K * 4 * D * R / 1e9
+            log(f"san_cascade_streamed_fwd N={N} K={K} D={D} R={R} ReLU: kernel "
+                f"{out['ms' + key]:.4f} ms ({gflop / out['ms' + key]:.1f} "
+                f"TFLOP/s), plain {out['plain_ms' + key]:.4f} ms (medians, CUDA "
+                f"events); bound {out['bound' + key][0]:.4f} ms "
+                f"({out['bound' + key][1]})")
+            del want
+        del args, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_dispatch(device):
+    """``fused_cascade`` on the card follows the JAX package's dispatch:
+    #4 and not #3 at (7, 8192, 64) bf16, #3 and not #4 at (7, 192, 64), no
+    kernel at (7, 8192, 64) fp32 (``reference_cascade``); and
+    ``san_cascade_fwd`` refuses D=8192 before any launch."""
+    import torch
+
+    from iisan_tpu_torch.ops import fused_san as fs
+
+    counters = (fs.san_cascade_fwd, fs.san_cascade_streamed_fwd)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = (((7, 8192, 64), torch.bfloat16, (0, 1)),
+             ((7, 192, 64), torch.bfloat16, (1, 0)),
+             ((7, 8192, 64), torch.float32, (0, 0)))
+    for (K, D, R), dtype, want in cases:
+        args = [torch.randn(s, generator=gen, device=device).to(dtype) * sc
+                for s, sc in (((64, K, D), 1.0), ((K, D, R), D ** -0.5),
+                              ((K, R), 0.5), ((K, R, D), R ** -0.5),
+                              ((K, D), 0.5), ((64, D), 1.0))]
+        gates = torch.randn(K, generator=gen, device=device) * 0.1
+        out, launches = counted(counters, lambda: fs.fused_cascade(gates, *args))
+        torch.cuda.synchronize()
+        got = tuple(launches[c.__name__] for c in counters)
+        log(f"dispatch (K={K}, D={D}, R={R}) {str(dtype).split('.')[-1]}: route "
+            f"{fs.cascade_route(K, D, R, dtype)}, launches san_cascade_fwd "
+            f"{got[0]}, san_cascade_streamed_fwd {got[1]}")
+        if got != want or out.dtype != dtype or not torch_finite(out):
+            raise AssertionError(f"fused_cascade at {(K, D, R, dtype)}: launches "
+                                 f"{got}, expected {want}")
+    wide = [t.to(torch.bfloat16)[None] for t in args]
+    coefs = torch.ones(1, 7, device=device)
+    for c in counters:
+        c.launches = 0
+    try:
+        fs.san_cascade_fwd(coefs, coefs, *wide)
+    except ValueError as e:
+        log(f"san_cascade_fwd at D=8192 bf16 raises before launching: {e}")
+    else:
+        raise AssertionError("san_cascade_fwd took D=8192")
+    if fs.san_cascade_fwd.launches:
+        raise AssertionError("san_cascade_fwd launched at D=8192")
+
+
+def versa_taps(device):
+    """Random bf16 tap tables at the Versa geometry on the card: image
+    (items + pad, 7, 192) and text (items + pad, 7, 8192), pad row 0."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    taps = []
+    for dim in (VERSA_IMAGE_DIM, VERSA_TEXT_DIM):
+        t = torch.randn((ITEMS + 1, K_TAPS, dim), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        t[0] = 0
+        taps.append(t)
+    return tuple(taps)
+
+
+def train_versa_int8(device, corpus, taps, counters):
+    """Versa with ``cache_quant="int8"`` over the same taps on the kernel
+    route: resident bytes of each table in both forms, 20 steps with a
+    finite loss, the item table against the bf16 tables' from the same
+    weights, a valid evaluation.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.eval.evaluate import compute_item_tables
+    from iisan_tpu_torch.train.cached import CachedTrainer
+
+    cfg = IISANConfig(**dict(VERSA_CFG, use_pallas=True, cache_quant="int8"))
+    t0 = time.perf_counter()
+    tr = CachedTrainer(cfg, corpus, *taps, device=device)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    sizes = ", ".join(
+        f"{name} bf16 {t.numel() * 2 / 1e9:.4f} GB -> int8 {q.nbytes / 1e9:.4f} GB"
+        for name, t, q in (("image", taps[0], tr.cv_table),
+                           ("text", taps[1], tr.text_table)))
+    perm = torch.as_tensor(tr.epoch_permutation(1), device=device).long()
+
+    def steps():
+        return [float(tr.train_step(tr.train_seqs[perm[i]],
+                                    tr.train_log_mask[perm[i]]))
+                for i in range(20)]
+
+    losses, launches = counted(counters, steps)
+    table = tr.fused_item_table()
+    table_launches = {c.__name__: c.launches - launches[c.__name__]
+                      for c in counters}
+    plain = compute_item_tables(tr.model, *taps)
+    diff = float((table.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    hit, ndcg = tr.evaluate_split("valid")
+    log(f"versa int8 tap tables: {sizes} (quantised on the card, trainer built "
+        f"in {quant_s:.2f} s); 20 steps, losses {losses[0]:.5f} ... "
+        f"{losses[-1]:.5f}; launches {launches}; item table vs the bf16 "
+        f"tables from the same weights: max |diff| {diff:.6g} (max |value| "
+        f"{scale:.4g}, tol 0.05 x max); valid HR@10 {hit:.6f} nDCG@10 {ndcg:.6f}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"versa int8: loss {losses}")
+    if not torch_finite(table) or diff > 0.05 * scale:
+        raise AssertionError("versa int8: the item table leaves the bf16 one")
+    if not (np.isfinite(hit) and 0 <= ndcg <= hit <= 1):
+        raise AssertionError(f"versa int8: bad metrics {hit} {ndcg}")
+    want = {"user_encoder_fwd": 20, "user_encoder_bwd": 20,
+            "san_cascade_fwd": 20, "san_cascade_streamed_fwd": 20}
+    if launches != want:
+        raise AssertionError(f"versa int8: launches {launches}, expected {want}")
+    return {k: launches[k] + table_launches[k] for k in launches}
+
+
+def run_versa(device, corpus, requests, counters):
+    """IISAN-Versa (``pipeline="cached_asym"``) at the published Llama-3-70B
+    x ViT-tiny geometry: one epoch on each SAN route, five kernel and five
+    module steps from one set of weights, int8 tap tables, and serving the
+    kernel route's trained model.  Returns the launches of the path."""
+    import tempfile
+
+    import torch
+
+    from iisan_tpu_torch.serve import Recommender
+
+    taps = versa_taps(device)
+    totals = {c.__name__: 0 for c in counters}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    for use_pallas in (False, True):
+        route = "use_pallas" if use_pallas else "default"
+        per_step = {"user_encoder_fwd": 1, "user_encoder_bwd": 1,
+                    "san_cascade_fwd": int(use_pallas),
+                    "san_cascade_streamed_fwd": int(use_pallas)}
+        tr, launches = train_route(device, corpus, taps,
+                                   dict(VERSA_CFG, use_pallas=use_pallas),
+                                   counters, per_step, f"versa {route}")
+        add(launches)
+        log(f"train[versa {route}] learned gates: " + "; ".join(
+            f"{k} {[round(float(x), 4) for x in v]}"
+            for k, v in tr.gate_values().items()))
+        if use_pallas:
+            rec, launches = counted(counters, lambda: Recommender.from_trainer(tr))
+            add(launches)
+            with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+                latency, busy, shared = check_serving(device, rec, requests, tmp,
+                                                      "versa")
+            log("serve[versa]: Recommender.from_trainer (table launches "
+                f"{launches}); top_k median latency of 20 (device-busy) "
+                + ", ".join(f"batch {b} {ms:.3f} ms ({busy[b]:.3f} ms)"
+                            for b, ms in latency.items())
+                + "; HTTP ids identical to direct; save->load ids identical to "
+                f"an fp32 Recommender (which shares {shared:.1%} or more of its "
+                "ids with the bf16 one)")
+            del rec
+        del tr
+        torch.cuda.empty_cache()
+    check_gradients_reach_parameters(device, corpus, taps, VERSA_CFG, "versa")
+    torch.cuda.empty_cache()
+    add(train_versa_int8(device, corpus, taps, counters))
+    return totals
+
+
 def post(url, payload):
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as r:
         return json.load(r)
+
+
+def check_serving(device, rec, requests, tmp, name):
+    """top_k at each request batch (host-clock and device-busy medians);
+    the HTTP server must give the direct call's ids, and a save -> load
+    round trip those of an fp32 Recommender over the same table and
+    user-encoder weights (the artifact is fp32 and loads as fp32, as in the
+    JAX package).  Returns (latency ms, device-busy ms, the smallest share
+    of ids the fp32 Recommender shares with ``rec``), each by batch."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.models.model import IISANRecModel
+    from iisan_tpu_torch.serve import Recommender, serve_http
+    from iisan_tpu_torch.utils.jax_params import (export_jax_params,
+                                                  load_jax_params)
+
+    latency, busy, direct = {}, {}, {}
+    for b, seqs in requests.items():
+        direct[b] = rec.top_k(seqs, k=10)
+        latency[b] = host_timed(lambda s=seqs: rec.top_k(s, k=10), 20)
+        busy[b] = device_ms(lambda s=seqs: rec.top_k(s, k=10), 10)
+        if not np.isfinite(direct[b][1]).all() or (direct[b][0] < 1).any():
+            raise AssertionError(f"{name}: bad top-K at batch {b}")
+
+    server = serve_http(rec, "127.0.0.1", 0, max_batch=256)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/recommend"
+        for b, seqs in requests.items():
+            got = post(url, {"sequences": seqs, "k": 10})["items"]
+            if got != direct[b][0].tolist():
+                raise AssertionError(f"{name}: HTTP top-K differs at batch {b}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    path = str(Path(tmp) / f"rec_{name}.npz")
+    rec.save(path)
+    loaded = Recommender.load(path, device=device)
+    ref_model = IISANRecModel(None, EMB, SEQ_LEN, HEADS, BLOCKS, 0.0,
+                              dtype=torch.float32, device=device)
+    load_jax_params(ref_model.user_encoder,
+                    export_jax_params(rec.model.user_encoder))
+    ref = Recommender(ref_model.eval(), rec.fused_table.float(), SEQ_LEN)
+    same_as_bf16 = []
+    for b, seqs in requests.items():
+        ids = loaded.top_k(seqs, k=10)[0]
+        if not np.array_equal(ids, ref.top_k(seqs, k=10)[0]):
+            raise AssertionError(f"{name}: save -> load top-K differs at batch {b}")
+        same_as_bf16.append(float((ids == direct[b][0]).mean()))
+    return latency, busy, min(same_as_bf16)
 
 
 def run_slice(device, use_pallas, cv_taps, text_taps, split, requests, tmp):
@@ -1039,9 +1388,7 @@ def run_slice(device, use_pallas, cv_taps, text_taps, split, requests, tmp):
     from iisan_tpu_torch.eval.evaluate import compute_item_tables, evaluate
     from iisan_tpu_torch.models.model import IISANRecModel
     from iisan_tpu_torch.models.san import SideAdapterNetwork
-    from iisan_tpu_torch.serve import Recommender, serve_http
-    from iisan_tpu_torch.utils.jax_params import (export_jax_params,
-                                                  load_jax_params)
+    from iisan_tpu_torch.serve import Recommender
 
     gen = torch.Generator().manual_seed(SEED)
     san = SideAdapterNetwork(EMB, TAP_DIM, TAP_DIM, K_TAPS, K_TAPS, BOTTLENECK,
@@ -1069,46 +1416,8 @@ def run_slice(device, use_pallas, cv_taps, text_taps, split, requests, tmp):
     if not (np.isfinite(hit) and np.isfinite(ndcg) and 0 <= ndcg <= hit <= 1):
         raise AssertionError(f"bad metrics HR@10 {hit} nDCG@10 {ndcg}")
 
-    rec = Recommender(model, table, SEQ_LEN)
-    latency, busy, direct = {}, {}, {}
-    for b, seqs in requests.items():
-        direct[b] = rec.top_k(seqs, k=10)
-        latency[b] = host_timed(lambda s=seqs: rec.top_k(s, k=10), 20)
-        busy[b] = device_ms(lambda s=seqs: rec.top_k(s, k=10), 10)
-        if not np.isfinite(direct[b][1]).all() or (direct[b][0] < 1).any():
-            raise AssertionError(f"bad top-K at batch {b}")
-
-    server = serve_http(rec, "127.0.0.1", 0, max_batch=256)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        url = f"http://127.0.0.1:{server.server_address[1]}/recommend"
-        for b, seqs in requests.items():
-            got = post(url, {"sequences": seqs, "k": 10})["items"]
-            if got != direct[b][0].tolist():
-                raise AssertionError(f"HTTP top-K differs at batch {b}")
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-
-    # The artifact is fp32 and loads as an fp32 user encoder over an fp32
-    # table, as in the JAX package: hold it against an fp32 Recommender
-    # built directly from the same table and encoder weights.
-    path = str(Path(tmp) / f"rec_{name}.npz")
-    rec.save(path)
-    loaded = Recommender.load(path, device=device)
-    ref_model = IISANRecModel(None, EMB, SEQ_LEN, HEADS, BLOCKS, 0.0,
-                              dtype=torch.float32, device=device)
-    load_jax_params(ref_model.user_encoder,
-                    export_jax_params(model.user_encoder))
-    ref = Recommender(ref_model.eval(), table.float(), SEQ_LEN)
-    same_as_bf16 = []
-    for b, seqs in requests.items():
-        ids = loaded.top_k(seqs, k=10)[0]
-        if not np.array_equal(ids, ref.top_k(seqs, k=10)[0]):
-            raise AssertionError(f"save -> load top-K differs at batch {b}")
-        same_as_bf16.append(float((ids == direct[b][0]).mean()))
+    latency, busy, same_as_bf16 = check_serving(
+        device, Recommender(model, table, SEQ_LEN), requests, tmp, name)
 
     log(f"slice[{name}]: item table {ITEMS + 1} rows in {table_ms:.3f} ms "
         f"(device-busy {table_busy:.3f} ms); valid HR@10 {hit:.6f} nDCG@10 "
@@ -1117,7 +1426,7 @@ def run_slice(device, use_pallas, cv_taps, text_taps, split, requests, tmp):
         + ", ".join(f"batch {b} {ms:.3f} ms ({busy[b]:.3f} ms)"
                     for b, ms in latency.items())
         + "; HTTP ids identical to direct; save->load ids identical to an "
-        f"fp32 Recommender (which shares {min(same_as_bf16):.1%} or more of "
+        f"fp32 Recommender (which shares {same_as_bf16:.1%} or more of "
         "its ids with the bf16 one)")
     return model, table
 
@@ -1225,14 +1534,19 @@ def main() -> int:
     train = check_user_encoder_train(device)
     del model, table_plain, table_kernel, embs, fused, module
     torch.cuda.empty_cache()
-    counters = (fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd)
+    counters = (fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd,
+                fs.san_cascade_streamed_fwd)
     trained = {}
     for use_pallas in (False, True):
-        tr, trained[use_pallas] = train_route(device, corpus, taps, use_pallas,
-                                              counters)
+        per_step = {"user_encoder_fwd": 1, "user_encoder_bwd": 1,
+                    "san_cascade_fwd": 2 if use_pallas else 0,
+                    "san_cascade_streamed_fwd": 0}
+        tr, trained[use_pallas] = train_route(
+            device, corpus, taps, dict(TRAIN_CFG, use_pallas=use_pallas),
+            counters, per_step, "use_pallas" if use_pallas else "default")
         del tr
         torch.cuda.empty_cache()
-    check_gradients_reach_parameters(device, corpus, taps)
+    check_gradients_reach_parameters(device, corpus, taps, TRAIN_CFG, "cached")
     train_counts = {k: trained[False][k] + trained[True][k]
                     for k in trained[False]}
     del taps
@@ -1252,6 +1566,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_uncached_routes(device)
     uncached = {k: iisan_counts[k] + fft_counts[k] for k in iisan_counts}
+
+    # IISAN-Versa: the streamed cascade kernel and the dispatch on the card,
+    # then training, int8 tap tables and serving at the published geometry.
+    streamed = check_streamed_cascade(device)
+    check_dispatch(device)
+    torch.cuda.empty_cache()
+    versa = run_versa(device, corpus, requests, counters)
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -1264,16 +1585,21 @@ def main() -> int:
     kernels = [
         entry("user_encoder_fwd", "iisan_tpu/ops/fused_user_encoder.py:264",
               counts[0] + train_counts["user_encoder_fwd"]
-              + uncached["user_encoder_fwd"],
+              + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
-              train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"],
+              train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
+              + versa["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
-              counts[1] + train_counts["san_cascade_fwd"], cascade[0],
-              cascade[1], cascade[2], cascade_bound(3, TABLE_CHUNK), None),
+              counts[1] + train_counts["san_cascade_fwd"]
+              + versa["san_cascade_fwd"], cascade[0], cascade[1], cascade[2],
+              cascade_bound(3, TABLE_CHUNK), None),
+        entry("san_cascade_streamed_fwd", "iisan_tpu/ops/fused_san.py:94",
+              versa["san_cascade_streamed_fwd"], streamed["err"],
+              streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
               uncached["mha_fwd"], attn["fwd_err"], attn["fwd_ms"],
               attn["fwd_plain_ms"], attn["fwd_bound"], attn["fwd_sdpa_ms"]),

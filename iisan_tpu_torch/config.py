@@ -49,6 +49,8 @@ class IISANConfig:
     max_seq_len: int = 10
     min_seq_len: int = 5
     word_embedding_dim: int = 768
+    # IISAN-Versa (``pipeline="cached_asym"``): the text tower's width
+    text_embedding_dim: int = 768
     image_embedding_dim: int = 768
     text_layers: int = 12
     image_layers: int = 12
@@ -67,6 +69,12 @@ class IISANConfig:
     fusion_method: str = "gated"
     remove_first: str = "None"
     modality: str = "intra_inter"
+    # cached hidden-state stores: <stored_vector_path>/<model>.memmap
+    stored_vector_path: str = ""
+    cached_text_model: str = "bert_outputs"
+    cached_text_prefix: str = "bert"
+    cached_image_model: str = "vit_outputs"
+    cached_image_prefix: str = "vit"
     # execution
     pipeline: str = "cached"
     compute_dtype: str = "bfloat16"
@@ -89,6 +97,15 @@ class IISANConfig:
 
     def san_image_taps(self) -> Tuple[int, ...]:
         return (0,) + tuple(i + 1 for i in _parse_int_list(self.side_adapter_vit_list))
+
+    @property
+    def text_num_hidden(self) -> int:
+        """Rows of a cached text state: the layers and the embeddings."""
+        return self.text_layers + 1
+
+    @property
+    def image_num_hidden(self) -> int:
+        return self.image_layers + 1
 
     @property
     def remove_first_bool(self) -> bool:

@@ -1,0 +1,197 @@
+"""Dense on-disk hidden-state store of the cached pipelines.
+
+Port of ``iisan_tpu/data/cache_store.py``, reading and writing its format
+byte for byte: one directory per tower with ``meta.json`` (``CacheMeta``),
+``states.bin``, a C-order memmap ``(n_items, n_layers, dim)`` keyed by
+dense item id (row 0 is the all-zero pad item), and for ``int8`` stores
+``scales.bin``, the fp32 ``(n_items, n_layers)`` scale of each row.
+``load_taps`` gathers only the SAN's selected layers: a dense numpy array
+for a float store, ``QuantTaps`` for an int8 one.
+
+Not ported yet (they come with the cache builders): the sharded build
+(``create_or_open``, ``merge_shard_stores``) and the importer of the
+reference's per-item ``.pt`` files.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import json
+import mmap as _mmap
+import os
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+META_NAME = "meta.json"
+DATA_NAME = "states.bin"
+SCALES_NAME = "scales.bin"  # int8 stores: fp32 (n_items, n_layers) sidecar
+
+
+@dataclass
+class CacheMeta:
+    n_items: int     # includes the padding row 0
+    n_layers: int    # layers + 1 (embeddings first)
+    dim: int
+    dtype: str = "float16"  # "float16" / "float32" raw, or "int8" + scales
+
+    def to_json(self):
+        return json.dumps(self.__dict__)
+
+
+class HiddenStateCache:
+    """Dense on-disk per-item hidden-state store."""
+
+    def __init__(self, path: str, meta: CacheMeta, mode: str = "r"):
+        self.path = path
+        self.meta = meta
+        self._arr = np.memmap(os.path.join(path, DATA_NAME),
+                              dtype=np.dtype(meta.dtype), mode=mode,
+                              shape=(meta.n_items, meta.n_layers, meta.dim))
+        self._scales = None
+        if meta.dtype == "int8":
+            self._scales = np.memmap(os.path.join(path, SCALES_NAME),
+                                     dtype=np.float32, mode=mode,
+                                     shape=(meta.n_items, meta.n_layers))
+
+    @classmethod
+    def create(cls, path: str, n_items: int, n_layers: int, dim: int,
+               dtype: str = "float16",
+               resume: bool = False) -> "HiddenStateCache":
+        """A fresh store (truncates).  With ``resume=True`` an existing
+        store of the same geometry is reopened writable instead; a missing
+        or different one raises (a fresh create would zero the rows
+        already built)."""
+        os.makedirs(path, exist_ok=True)
+        meta = CacheMeta(n_items, n_layers, dim, dtype)
+        meta_path = os.path.join(path, META_NAME)
+        if resume:
+            need = [meta_path, os.path.join(path, DATA_NAME)]
+            if dtype == "int8":
+                need.append(os.path.join(path, SCALES_NAME))
+            if not all(os.path.exists(p) for p in need):
+                raise FileNotFoundError(
+                    f"cannot resume: no existing store at {path} "
+                    f"(missing {META_NAME} or {DATA_NAME}); start from "
+                    f"item 1 for a fresh build")
+            with open(meta_path) as f:
+                existing = CacheMeta(**json.loads(f.read()))
+            if existing != meta:
+                raise ValueError(
+                    f"cannot resume into {path}: existing geometry "
+                    f"{existing} != requested {meta}")
+            return cls(path, meta, mode="r+")
+        with open(meta_path, "w") as f:
+            f.write(meta.to_json())
+        store = cls(path, meta, mode="w+")
+        store._arr[0] = 0  # the pad item is all zeros
+        return store
+
+    @classmethod
+    def open(cls, path: str) -> "HiddenStateCache":
+        with open(os.path.join(path, META_NAME)) as f:
+            meta = CacheMeta(**json.loads(f.read()))
+        return cls(path, meta)
+
+    def write_rows(self, start: int, states: np.ndarray):
+        """Write per-item float states at rows ``start...``: a float store
+        casts them, an int8 store quantises each (item, layer) row and
+        records its scale."""
+        end = start + states.shape[0]
+        if self._scales is not None:
+            from ..ops.quant import quantize_taps
+
+            t = quantize_taps(np.asarray(states, np.float32))
+            self._arr[start:end] = t.q.numpy()
+            self._scales[start:end] = t.scale[..., 0].numpy()
+            return
+        self._arr[start:end] = states
+
+    def flush(self):
+        self._arr.flush()
+        if self._scales is not None:
+            self._scales.flush()
+
+    def load_taps(self, layer_ids: Sequence[int], dtype: str = "float32",
+                  num_threads: int = 8):
+        """The selected layers of every item, (n_items, K, dim): a numpy
+        array in ``dtype`` for a float store, ``QuantTaps`` (int8 rows and
+        their scales, ``out_dtype=dtype``) for an int8 store.  The gather
+        is chunked over threads with ``madvise(WILLNEED)`` readahead."""
+        idx = np.asarray(layer_ids)
+        taps = self._gather_items(self._arr, idx, num_threads)
+        if self._scales is not None:
+            from ..ops.quant import QuantTaps
+
+            s = np.ascontiguousarray(self._scales[:, idx])[..., None]
+            return QuantTaps(torch.from_numpy(taps), torch.from_numpy(s),
+                             out_dtype=dtype)
+        return taps.astype(dtype, copy=False)
+
+    def _gather_items(self, arr: np.memmap, idx: np.ndarray,
+                      num_threads: int) -> np.ndarray:
+        """arr[:, idx, :] as a parallel chunked copy with readahead."""
+        n = arr.shape[0]
+        out = np.empty((n, len(idx), arr.shape[2]), arr.dtype)
+        if len(idx) == 0:
+            return out
+        # ~64 MB of source rows per chunk
+        row_bytes = arr.shape[1] * arr.shape[2] * arr.dtype.itemsize
+        layer_bytes = arr.shape[2] * arr.dtype.itemsize
+        chunk = max(1, (64 << 20) // max(row_bytes, 1))
+        mm = getattr(arr, "_mmap", None)
+        page = getattr(_mmap, "PAGESIZE", 4096)
+        # consecutive selected layers coalesce into (first, count) runs, so
+        # a sparse selection prefetches only its own byte ranges; a dense
+        # one streams the whole range
+        sorted_idx = np.unique(idx)
+        runs, run_start = [], int(sorted_idx[0])
+        for a, b in zip(sorted_idx[:-1], sorted_idx[1:]):
+            if b != a + 1:
+                runs.append((run_start, int(a) - run_start + 1))
+                run_start = int(b)
+        runs.append((run_start, int(sorted_idx[-1]) - run_start + 1))
+        dense = len(sorted_idx) / arr.shape[1] >= 0.5
+
+        def willneed(start, length):
+            start_al = start - start % page
+            length = min(length + start - start_al, len(mm) - start_al)
+            if length > 0:
+                mm.madvise(_mmap.MADV_WILLNEED, start_al, length)
+
+        def advise(lo, hi):
+            if mm is None:
+                return
+            try:
+                if dense:
+                    willneed(lo * row_bytes, (hi - lo) * row_bytes)
+                else:
+                    for i in range(lo, hi):
+                        for first, count in runs:
+                            willneed(i * row_bytes + first * layer_bytes,
+                                     count * layer_bytes)
+            except (AttributeError, ValueError, OSError):
+                pass  # madvise is advisory
+
+        def copy(lo):
+            hi = min(lo + chunk, n)
+            advise(lo, hi)
+            out[lo:hi] = arr[lo:hi, idx, :]
+
+        starts = range(0, n, chunk)
+        if num_threads <= 1 or n <= chunk:
+            for lo in starts:
+                copy(lo)
+        else:
+            with cf.ThreadPoolExecutor(num_threads) as ex:
+                list(ex.map(copy, starts))  # re-raises a worker's exception
+        return out
+
+    def load_full(self, dtype: str = "float32") -> np.ndarray:
+        if self._scales is not None:
+            return (np.asarray(self._arr, dtype=np.float32)
+                    * np.asarray(self._scales, dtype=np.float32)[..., None]
+                    ).astype(dtype)
+        return np.asarray(self._arr).astype(dtype)

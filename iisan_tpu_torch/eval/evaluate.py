@@ -9,7 +9,9 @@ Port of ``iisan_tpu/eval/evaluate.py``:
    product, masks each user's history to -inf, drops the pad column and
    takes HR@10 / nDCG@10.
 
-The tap tables are expected on the device in the compute dtype.
+The tap tables are expected on the device, in the compute dtype or as
+int8 ``QuantTaps`` (``ops/quant.py``), which are dequantised one chunk of
+ids at a time.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.metrics import hit_ndcg_at_k, mask_history
+from ..ops.quant import gather_rows, n_rows
 
 
 @torch.no_grad()
@@ -27,14 +30,16 @@ def compute_item_tables(model, cv_taps, text_taps,
                         chunk: int = 8192) -> torch.Tensor:
     """Chunked SAN + ``com_dense`` pass over the catalogue.
 
-    cv_taps/text_taps: (item_num+1, K, dim) tensors.  Returns the fused
-    (item_num+1, emb) table in the compute dtype.
+    cv_taps/text_taps: (item_num+1, K, dim) tensors or ``QuantTaps``; each
+    chunk of ids is gathered (and dequantised) on its own, so the working
+    set is one chunk.  Returns the fused (item_num+1, emb) table in the
+    compute dtype.
     """
-    n = cv_taps.shape[0]
     outs = []
-    for start in range(0, n, chunk):
-        emb = model.item_embeddings(cv_taps[start:start + chunk],
-                                    text_taps[start:start + chunk])
+    for start in range(0, n_rows(cv_taps), chunk):
+        ids = slice(start, start + chunk)
+        emb = model.item_embeddings(gather_rows(cv_taps, ids),
+                                    gather_rows(text_taps, ids))
         outs.append(model.fuse_embeddings(*emb))
     return torch.cat(outs)
 

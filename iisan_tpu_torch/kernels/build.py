@@ -111,6 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_philox_check.restype = i
     lib.iisan_san_cascade_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.iisan_san_cascade_fwd.restype = i
+    lib.iisan_san_cascade_streamed_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.iisan_san_cascade_streamed_fwd.restype = i
     lib.iisan_mha_fwd.argtypes = [p] * 5 + [i] * 6 + [f, f, i, p]
     lib.iisan_mha_fwd.restype = i
     lib.iisan_mha_bwd.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]

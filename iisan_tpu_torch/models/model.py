@@ -100,7 +100,8 @@ class IISANRecModel(nn.Module):
 
 
 def rec_model_from_config(cfg, device=None, generator=None) -> IISANRecModel:
-    """The cached-pipeline model of an ``IISANConfig``, initialised from
+    """The cached-pipeline model of an ``IISANConfig`` (``pipeline`` "cached"
+    or IISAN-Versa's "cached_asym"), initialised from
     ``generator`` (a seeded ``torch.Generator`` on ``device``)."""
     return IISANRecModel(
         san=san_from_config(cfg, device, generator),

@@ -1,11 +1,21 @@
-"""Decoupled intra-/inter-modal Side Adapter Network (SAN), cached heads.
+"""Decoupled intra-/inter-modal Side Adapter Network (SAN).
 
-Port of ``iisan_tpu/models/san.py`` for symmetric towers and
-``head_mode="cached"``.  The SAN reads the selected hidden-state rows
-("taps") of two frozen towers and runs three gated adapter cascades:
-text-intra, image-intra, and the inter (mm) branch over gate-mixed taps.
-The adapters of a branch are stacked ``(K, ...)`` parameters, which the
-cascade (and its kernel) consumes as they are.
+Port of ``iisan_tpu/models/san.py``, symmetric and asymmetric towers.  The
+SAN reads the selected hidden-state rows ("taps") of two frozen towers and
+runs three gated adapter cascades: text-intra, image-intra, and the inter
+(mm) branch over gate-mixed taps.  The adapters of a branch are stacked
+``(K, ...)`` parameters, which the cascade (and its kernels) consumes as
+they are.
+
+IISAN-Versa (asymmetric towers, ``pipeline="cached_asym"``):
+
+- group layer-drop: with Kt != Kc taps the inter branch has
+  ``k_mm = min(Kt, Kc)`` steps over the last ``k_mm`` taps of each side;
+- dimension-transform alignment: the inter branch is ``min(text_dim,
+  image_dim)`` wide, and the wider side's taps go through one
+  ``down_project_list_{i}`` linear per step first;
+- ``head_mode="asym"``: ``fc_bert``/``fc_cv`` map a carry to the
+  embedding width and ``bert_pre_fc``/``cv_pre_fc`` are emb -> emb.
 
 Dispatch, as in the JAX module:
 
@@ -13,13 +23,11 @@ Dispatch, as in the JAX module:
   geometry runs all three as one ``multi_reference_cascade`` (the default
   configuration);
 - ``batch_intra`` otherwise batches the two intra branches;
-- otherwise each intra branch runs on its own: ``fused_cascade`` (the CUDA
-  kernel) when ``use_pallas`` and the taps are on the GPU, else
-  ``reference_cascade``.  The inter branch always runs
-  ``reference_cascade``.
-
-Asymmetric towers (``down_project_list``, ``head_mode="asym"``) are not
-ported yet and raise ``NotImplementedError``.
+- otherwise each intra branch runs on its own: ``fused_cascade`` when
+  ``use_pallas`` and the taps are on the GPU (a CUDA kernel chosen by the
+  JAX package's dispatch rule: the resident kernel at ViT widths, the
+  streamed one at Versa's 8192), else ``reference_cascade``.  The inter
+  branch always runs ``reference_cascade``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from .modules import TorchLinear, XavierLinear, adapter_normal_init
 
 
 class SideAdapterNetwork(nn.Module):
-    """Symmetric IISAN side network.
+    """IISAN side network, symmetric or asymmetric.
 
     Inputs: cv_states (N, Kc + first, image_dim), text_states
     (N, Kt + first, text_dim), where ``first`` is 1 with ``remove_first``
@@ -54,12 +62,8 @@ class SideAdapterNetwork(nn.Module):
                  dtype: Optional[torch.dtype] = None, device=None,
                  generator=None):
         super().__init__()
-        if head_mode != "cached":
-            raise NotImplementedError(
-                f"head_mode={head_mode!r}: only the cached heads are ported")
-        if text_dim != image_dim:
-            raise NotImplementedError(
-                "asymmetric towers (down_project_list) are not ported yet")
+        if head_mode not in ("cached", "asym"):
+            raise ValueError(f"unknown head_mode {head_mode!r}")
         self.text_dim, self.image_dim = text_dim, image_dim
         self.kt, self.kc = num_text_taps, num_image_taps
         self.bert_down_size, self.cv_down_size = bert_down_size, cv_down_size
@@ -71,8 +75,11 @@ class SideAdapterNetwork(nn.Module):
         self.dtype = dtype
         self.intra = "intra" in modality
         self.inter = "inter" in modality
-        self.mm_dim = text_dim
+        self.mm_dim = min(text_dim, image_dim)
         self.k_mm = min(self.kt, self.kc)
+        # the inter branch's bottleneck: the cv one only when the text
+        # tower is strictly wider
+        self.mm_down = cv_down_size if text_dim > image_dim else bert_down_size
 
         def stack(name, k, d, r):
             setattr(self, f"{name}_wd", nn.Parameter(
@@ -97,15 +104,22 @@ class SideAdapterNetwork(nn.Module):
                 self.side_gate_params_cv = nn.Parameter(
                     torch.zeros(self.kc, device=device))
         if self.inter:
-            # the cv bottleneck would serve only a wider text tower
-            stack("mm_adapter_list", self.k_mm, self.mm_dim, bert_down_size)
+            stack("mm_adapter_list", self.k_mm, self.mm_dim, self.mm_down)
             self.side_gate_params_mm = nn.Parameter(
                 torch.zeros(self.k_mm, device=device))
-        if self.intra:
+            for i in range(self.k_mm if text_dim != image_dim else 0):
+                linear(f"down_project_list_{i}", max(text_dim, image_dim),
+                       self.mm_dim)
+        if self.intra and head_mode == "cached":
             linear("fc_bert", text_dim, text_dim)
             linear("fc_cv", image_dim, image_dim)
             linear("bert_pre_fc", text_dim, embedding_dim)
             linear("cv_pre_fc", image_dim, embedding_dim, XavierLinear)
+        elif self.intra:
+            linear("fc_bert", text_dim, embedding_dim)
+            linear("fc_cv", image_dim, embedding_dim)
+            linear("bert_pre_fc", embedding_dim, embedding_dim)
+            linear("cv_pre_fc", embedding_dim, embedding_dim)
         if self.inter:
             linear("fc_mm", self.mm_dim, self.mm_dim)
             linear("fc_mm_down", self.mm_dim, embedding_dim)
@@ -147,17 +161,26 @@ class SideAdapterNetwork(nn.Module):
             # taps; the mm recurrence is then the additive cascade.
             mm_text = text_taps[:, kt - k_mm:, :]
             mm_cv = cv_taps[:, kc - k_mm:, :]
+            def project(taps):  # the wider side's taps to the mm width
+                return torch.stack(
+                    [getattr(self, f"down_project_list_{i}")(taps[:, i, :])
+                     for i in range(k_mm)], dim=1)
+
+            if self.text_dim > self.image_dim:
+                mm_text = project(mm_text)
+            elif self.image_dim > self.text_dim:
+                mm_cv = project(mm_cv)
             g_mm = torch.sigmoid(self.side_gate_params_mm.float()
                                  / GATE_TEMPERATURE)[None, :, None]
             mm_taps = (g_mm * mm_cv.float()
                        + (1.0 - g_mm) * mm_text.float()).to(dtype)
 
         use_fused = intra and self.use_pallas and text_states.is_cuda
-        # The towers are of one width here, so the inter branch shares the
-        # text branch's geometry whenever the two intra branches agree.
-        symmetric = kt == kc and self.bert_down_size == self.cv_down_size
+        symmetric = (kt == kc and self.text_dim == self.image_dim
+                     and self.bert_down_size == self.cv_down_size)
         tri = (self.batch_intra and intra and inter and symmetric
-               and not use_fused)
+               and not use_fused and kt == k_mm
+               and self.mm_down == self.bert_down_size)
 
         def stacked(key, stacks):
             return torch.stack([s[key] for s in stacks])
@@ -215,13 +238,13 @@ class SideAdapterNetwork(nn.Module):
 
 
 def san_from_config(cfg, device=None, generator=None) -> SideAdapterNetwork:
-    """Build the SAN from an ``IISANConfig`` (cached pipeline)."""
-    if cfg.pipeline == "cached_asym":
-        raise NotImplementedError("the cached_asym pipeline is not ported yet")
+    """Build the SAN from an ``IISANConfig``: for ``pipeline="cached_asym"``
+    the text width is ``text_embedding_dim`` and the heads are "asym"."""
     first = 1 if cfg.remove_first_bool else 0
+    asym = cfg.pipeline == "cached_asym"
     return SideAdapterNetwork(
         embedding_dim=cfg.embedding_dim,
-        text_dim=cfg.word_embedding_dim,
+        text_dim=cfg.text_embedding_dim if asym else cfg.word_embedding_dim,
         image_dim=cfg.image_embedding_dim,
         num_text_taps=len(cfg.san_text_taps()) - first,
         num_image_taps=len(cfg.san_image_taps()) - first,
@@ -231,6 +254,7 @@ def san_from_config(cfg, device=None, generator=None) -> SideAdapterNetwork:
         remove_first=cfg.remove_first_bool,
         gated=cfg.gated,
         modality=cfg.modality,
+        head_mode="asym" if asym else "cached",
         use_pallas=cfg.use_pallas,
         batch_intra=getattr(cfg, "batch_intra_branches", False),
         dtype=getattr(torch, cfg.compute_dtype),

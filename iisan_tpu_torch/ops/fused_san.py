@@ -1,4 +1,4 @@
-"""SAN adapter cascade: CUDA kernel wrapper, plain versions, references.
+"""SAN adapter cascade: CUDA kernel wrappers, plain versions, references.
 
 Port of ``iisan_tpu/ops/fused_san.py``.  The cascade is
 
@@ -6,19 +6,30 @@ Port of ``iisan_tpu/ops/fused_san.py``.  The cascade is
                                           additive: a = b = 1)
     c_i+1 = W_up_i @ act(W_dn_i @ f_i + b_dn_i) + b_up_i + f_i
 
-``san_cascade_fwd`` is the kernel wrapper (``csrc/san_cascade_fwd.cu``): S
-branches in one launch, per-step coefficients (S, K).  ``fused_cascade``
-is one branch under autograd: its forward is the kernel with S=1 and
-``cascade_coefs``, its backward ``cascade_bwd``, the JAX custom VJP's
-plain backward (the JAX package has no kernel for it either).  ``san_cascade_fwd_plain``
-is its arithmetic in plain PyTorch, following the cast chain of the JAX
-Pallas kernel ``_cascade_kernel`` (one rounding of the carry per step).
-``reference_cascade`` and ``multi_reference_cascade`` are the module
-path's cascades, with the JAX reference's own cast chain (the up
-projection is rounded before ``+ f``).
+Two kernels compute it, each following the cast chain of the Pallas kernel
+it replaces:
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+- ``san_cascade_fwd`` (``csrc/san_cascade_fwd.cu``, TPU kernel
+  ``_cascade_kernel``): S branches in one launch, per-step coefficients
+  (S, K); f and the carry are rounded to the compute dtype every step.
+  Its plain version is ``san_cascade_fwd_plain``.
+- ``san_cascade_streamed_fwd`` (``csrc/san_cascade_streamed_fwd.cu``, TPU
+  kernel ``_cascade_kernel_streamed``): one branch, bf16 only; the carry
+  stays fp32 across the steps, f is rounded only as the down projection's
+  operand, and the output is rounded once.  Plain version
+  ``san_cascade_streamed_fwd_plain``.
+
+``fused_cascade`` is one branch under autograd.  Its forward follows the
+JAX package's dispatch (``cascade_route``): the geometry and dtype pick the
+resident kernel, the streamed kernel or ``reference_cascade``, so the port
+computes the same function as the JAX package at every geometry.  Its
+backward is ``cascade_bwd``, the JAX custom VJP's plain backward (the JAX
+package has no kernel for it either).  ``reference_cascade`` and
+``multi_reference_cascade`` are the module path's cascades, with the JAX
+reference's own cast chain (the up projection is rounded before ``+ f``).
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,8 +38,12 @@ import torch
 import torch.nn.functional as F
 
 GATE_TEMPERATURE = 0.1
-_THREADS = 256  # the kernel's block size; R must divide it
+_THREADS = 256  # the kernels' block size; R must divide it
+_TILE = 16      # rows per block of san_cascade_fwd
 _DTYPES = (torch.float32, torch.bfloat16)
+# Shared memory a block may opt in to on the H100 (227 KB); the kernels are
+# built for sm_90a only, where every card has this limit.
+SMEM_OPTIN_BYTES = 232_448
 
 
 def _act(z, activation: str):
@@ -121,6 +136,53 @@ def carry_tolerance(want: torch.Tensor, ulps: int = 4,
     return ulps * torch.exp2(torch.floor(torch.log2(m)) - 7) + atol
 
 
+def fits_vmem(k: int, d: int, r: int, tile: int = 128,
+              budget_bytes: int = 12 * 2**20, bpe: int = 2) -> bool:
+    """The JAX package's ``fits_vmem``, as plain integer arithmetic.
+
+    It decides which cast chain the JAX package computes at a geometry:
+    True where its dispatch runs the all-weights-resident
+    ``_cascade_kernel`` (the carry rounded every step).  The numbers are a
+    TPU VMEM estimate; they choose nothing about the H100's tiles.  ``bpe``
+    is the element size of the inputs."""
+    weights = k * (d * r + r + r * d + d) * bpe
+    tiles = 2 * (tile * k * d + 3 * tile * d) * bpe
+    return weights + tiles < budget_bytes
+
+
+def streamed_tile_rows(d: int, r: int, budget_bytes: int = 14 * 2**20) -> int:
+    """The JAX package's ``streamed_tile_rows``, as plain integer
+    arithmetic: 0 where its dispatch falls back to ``reference_cascade``
+    (one step's weights exceed the TPU budget), else the TPU row tile of
+    ``_cascade_kernel_streamed``.  Only its being 0 matters to the port."""
+    weights = 2 * ((d * r + r * d) * 2 + (r + d) * 2)
+    per_row = 16 * d
+    avail = budget_bytes - weights
+    if avail < per_row * 8:
+        return 0
+    return min(avail // per_row // 8 * 8, 512)
+
+
+def cascade_route(k: int, d: int, r: int, dtype: torch.dtype) -> str:
+    """The JAX ``_dispatch_fwd`` rule: "resident" (``san_cascade_fwd``, the
+    ``_cascade_kernel`` chain), "reference" (``reference_cascade``: fp32
+    inputs that do not fit, or no streamed tile) or "streamed"
+    (``san_cascade_streamed_fwd``)."""
+    if fits_vmem(k, d, r, bpe=dtype.itemsize):
+        return "resident"
+    if dtype == torch.float32 or streamed_tile_rows(d, r) == 0:
+        return "reference"
+    return "streamed"
+
+
+def cascade_smem_bytes(d: int, r: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one ``san_cascade_fwd`` block
+    (``cascade_smem_bytes`` in its source): the tile's carry and fused tap
+    as the compute dtype, its activations and the down projection's
+    256 / R partial sums in fp32."""
+    return 2 * dtype.itemsize * _TILE * d + 4 * _TILE * r * (1 + _THREADS // r)
+
+
 def _check(coef_a, coef_b, taps, wd, bd, wu, bu, c0):
     S, N, K, D = taps.shape
     R = wd.shape[-1]
@@ -144,6 +206,12 @@ def _check(coef_a, coef_b, taps, wd, bd, wu, bu, c0):
     if R > _THREADS or _THREADS % R:
         raise ValueError(f"san_cascade_fwd needs a bottleneck R dividing "
                          f"{_THREADS}, got {R}")
+    smem = cascade_smem_bytes(D, R, taps.dtype)
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"san_cascade_fwd: D={D} ({taps.dtype}, R={R}) needs {smem} bytes "
+            f"of shared memory a block, above the card's opt-in limit of "
+            f"{SMEM_OPTIN_BYTES}")
 
 
 def san_cascade_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
@@ -176,6 +244,89 @@ def san_cascade_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
 
 
 san_cascade_fwd.launches = 0
+
+
+def san_cascade_streamed_fwd_plain(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
+                                   activation="RELU"):
+    """The streamed kernel's arithmetic in plain PyTorch (cast chain of the
+    JAX ``_cascade_kernel_streamed``): the carry is fp32 across the steps;
+    f = a * tap + b * c in fp32; z = round(f) @ wd + bd with an fp32 sum;
+    the activation is rounded; c = (a @ wu + bu) + f in fp32; the output
+    is rounded once, after the last step.
+
+    coef_a/coef_b (K,) fp32; taps (N, K, D); wd (K, D, R); bd (K, R);
+    wu (K, R, D); bu (K, D); c0 (N, D).  Returns (N, D) in c0's dtype.
+    """
+    dtype = c0.dtype
+    c = c0.float()
+    for i in range(taps.shape[1]):
+        f = coef_a[i] * taps[:, i].float() + coef_b[i] * c
+        z = f.to(dtype).float() @ wd[i].float() + bd[i].float()
+        a = _act(z, activation).to(dtype)
+        c = (a.float() @ wu[i].float() + bu[i].float()) + f
+    return c.to(dtype)
+
+
+def _check_streamed(coef_a, coef_b, taps, wd, bd, wu, bu, c0):
+    N, K, D = taps.shape
+    R = wd.shape[-1]
+    want = {"coef_a": (K,), "coef_b": (K,), "wd": (K, D, R), "bd": (K, R),
+            "wu": (K, R, D), "bu": (K, D), "c0": (N, D)}
+    got = dict(coef_a=coef_a, coef_b=coef_b, wd=wd, bd=bd, wu=wu, bu=bu, c0=c0)
+    for name, t in got.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"san_cascade_streamed_fwd: {name} has shape "
+                             f"{tuple(t.shape)}, expected {want[name]}")
+        if t.device != taps.device:
+            raise ValueError(f"san_cascade_streamed_fwd: {name} is on "
+                             f"{t.device}, taps on {taps.device}")
+    if taps.dtype != torch.bfloat16:
+        raise TypeError("san_cascade_streamed_fwd takes bfloat16 only (the "
+                        f"JAX package never streams {taps.dtype}), got "
+                        f"{taps.dtype}")
+    for name in ("wd", "bd", "wu", "bu", "c0"):
+        if got[name].dtype != taps.dtype:
+            raise TypeError(f"san_cascade_streamed_fwd: {name} is "
+                            f"{got[name].dtype}, taps {taps.dtype}")
+    if R > _THREADS or _THREADS % R:
+        raise ValueError(f"san_cascade_streamed_fwd needs a bottleneck R "
+                         f"dividing {_THREADS}, got {R}")
+
+
+def san_cascade_streamed_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
+                             activation="RELU"):
+    """One branch's cascade with an fp32 carry; the CUDA kernel for CUDA
+    tensors (bf16 only, any D).
+
+    Same arguments and result as ``san_cascade_streamed_fwd_plain``, which
+    runs for CPU tensors.  The kernel keeps the carry in an (N, D) fp32
+    scratch that the wrapper allocates.  ``san_cascade_streamed_fwd.launches``
+    counts kernel launches.
+    """
+    if not taps.is_cuda:
+        return san_cascade_streamed_fwd_plain(coef_a, coef_b, taps, wd, bd, wu,
+                                              bu, c0, activation)
+    from ..kernels.build import check, library
+
+    _check_streamed(coef_a, coef_b, taps, wd, bd, wu, bu, c0)
+    N, K, D = taps.shape
+    R = wd.shape[-1]
+    args = [t.contiguous() for t in (coef_a.float(), coef_b.float(), taps, wd,
+                                     bd, wu, bu, c0)]
+    out = torch.empty((N, D), dtype=taps.dtype, device=taps.device)
+    if N == 0:
+        return out
+    carry = torch.empty((N, D), dtype=torch.float32, device=taps.device)
+    err = library().iisan_san_cascade_streamed_fwd(
+        *[t.data_ptr() for t in args], carry.data_ptr(), out.data_ptr(), N, K,
+        D, R, int(activation == "GELU"),
+        torch.cuda.current_stream(taps.device).cuda_stream)
+    check(err, "san_cascade_streamed_fwd")
+    san_cascade_streamed_fwd.launches += 1
+    return out
+
+
+san_cascade_streamed_fwd.launches = 0
 
 
 def _act_grad(z, activation: str):
@@ -233,15 +384,25 @@ def cascade_bwd(gates, taps, wd, bd, wu, bu, c0, dc_out, activation="RELU",
 
 
 class FusedCascadeFn(torch.autograd.Function):
-    """One branch's cascade under autograd: forward ``san_cascade_fwd``
-    (the kernel on CUDA) with S=1, backward ``cascade_bwd``.  Only the
-    inputs are saved; the backward recomputes the carries."""
+    """One branch's cascade under autograd.  Forward by ``cascade_route``:
+    ``san_cascade_fwd`` with S=1, ``san_cascade_streamed_fwd`` (each the
+    kernel on CUDA) or ``reference_cascade``; backward ``cascade_bwd``,
+    which recomputes the carries in fp32 from the saved inputs and so
+    serves every forward."""
 
     @staticmethod
     def forward(ctx, gates, taps, wd, bd, wu, bu, c0, activation, gated):
         ctx.activation, ctx.gated = activation, gated
         ctx.save_for_backward(gates, taps, wd, bd, wu, bu, c0)
+        n, k, d = taps.shape
+        route = cascade_route(k, d, wd.shape[-1], taps.dtype)
+        if route == "reference":
+            return reference_cascade(gates, taps, wd, bd, wu, bu, c0,
+                                     activation, gated)
         a, b = cascade_coefs(gates, gated)
+        if route == "streamed":
+            return san_cascade_streamed_fwd(a, b, taps, wd, bd, wu, bu, c0,
+                                            activation)
         return san_cascade_fwd(a[None], b[None], taps[None], wd[None],
                                bd[None], wu[None], bu[None], c0[None],
                                activation)[0]
@@ -258,8 +419,8 @@ def fused_cascade(gates, taps, wd, bd, wu, bu, c0, activation="RELU",
     """One branch's fused K-step cascade, under autograd.
 
     gates (K,), taps (N, K, D), wd (K, D, R), bd (K, R), wu (K, R, D),
-    bu (K, D), c0 (N, D) -> (N, D): the kernel with S=1 forward,
-    ``cascade_bwd`` backward.
+    bu (K, D), c0 (N, D) -> (N, D): forward by the JAX package's dispatch
+    rule (``cascade_route``), backward ``cascade_bwd``.
     """
     return FusedCascadeFn.apply(gates, taps, wd, bd, wu, bu, c0, activation,
                                 gated)

@@ -6,6 +6,7 @@ request with one pass on the device: gather the sequence rows, run the
 user encoder, score the full catalogue, mask the history, take the top-K.
 
     rec = Recommender(model, fused_table, max_seq_len)
+    rec = Recommender.from_trainer(trainer)    # or from a trained model
     items, scores = rec.top_k(seq_ids, k=10)   # (B, k) item ids
 
 The artifact written by ``save`` is the JAX package's ``.npz`` format
@@ -53,6 +54,17 @@ class Recommender:
         self.fused_table = fused_table
         self._table32 = fused_table.float()  # scoring operand, made once
         self.max_seq_len = max_seq_len
+
+    @classmethod
+    def from_trainer(cls, trainer) -> "Recommender":
+        """Serve a trainer's model: the cached trainers' fused item table
+        (``fused_item_table``), the uncached ones' (``item_embedding_tables``),
+        built once from the current weights."""
+        if hasattr(trainer, "fused_item_table"):
+            table = trainer.fused_item_table()
+        else:
+            table = trainer.item_embedding_tables()
+        return cls(trainer.model, table, trainer.cfg.max_seq_len)
 
     def _prep(self, seqs, hist_len: int = None
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

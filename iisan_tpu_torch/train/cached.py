@@ -1,17 +1,19 @@
 """IISAN (Cached) training on one device.
 
-Port of ``iisan_tpu/train/cached.py``.  The two tap tables
-``(item_num+1, K, dim)`` live on the device in the compute dtype, so a
-training batch is a gather.  An epoch is a Python loop over steps (the JAX
-package's ``lax.scan``): gather the batch's taps, run the model's training
-forward, ``backward``, one Adam step.  The per-step losses stay on the
-device and are fetched once per epoch.
+Port of ``iisan_tpu/train/cached.py``, for ``pipeline="cached"`` and
+IISAN-Versa's ``"cached_asym"``.  The two tap tables ``(item_num+1, K,
+dim)`` live on the device, in the compute dtype or, with
+``cache_quant="int8"`` (or ``QuantTaps`` from an int8 store), as int8 rows
+with one fp32 scale per (item, tap) row; a training batch is a gather
+(``ops/quant.gather_rows``, which dequantises).  An epoch is a Python loop
+over steps (the JAX package's ``lax.scan``): gather the batch's taps, run
+the model's training forward, ``backward``, one Adam step.  The per-step
+losses stay on the device and are fetched once per epoch.
 
-Not ported: int8 tap tables (``cache_quant="int8"``), meshes, the
-multi-epoch dispatch (``run_epochs``) and the fused epoch + evaluation
-dispatch; the loop runs the epoch and the evaluation one after the other,
-which the JAX package's ``fused_epoch_eval=False`` shows to give the same
-numbers.
+Not ported: meshes, the multi-epoch dispatch (``run_epochs``) and the
+fused epoch + evaluation dispatch; the loop runs the epoch and the
+evaluation one after the other, which the JAX package's
+``fused_epoch_eval=False`` shows to give the same numbers.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from ..device import resolve_device
 from ..eval.evaluate import compute_item_tables, evaluate
 from ..models.model import rec_model_from_config
+from ..ops.quant import QuantTaps, gather_rows, quantize_taps
 from .loop import TrainLoopMixin
 from .optim import build_optimizer, log_group_sizes
 
@@ -35,16 +38,14 @@ class CachedTrainer(TrainLoopMixin):
     """Cached-mode training of ``IISANRecModel``.
 
     cfg: an ``IISANConfig`` (either package's); corpus: a ``Corpus``
-    (either package's); cv_taps / text_taps: (item_num+1, K, dim) arrays
-    or tensors.  The model is initialised on the CPU from ``cfg.seed`` and
-    moved to ``device`` (default the first CUDA card; the CPU only when
-    asked for, ``device="cpu"``); train-mode dropout draws from a CPU
-    generator seeded from ``cfg.seed``.
+    (either package's); cv_taps / text_taps: (item_num+1, K, dim) arrays,
+    tensors or ``QuantTaps``.  The model is initialised on the CPU from
+    ``cfg.seed`` and moved to ``device`` (default the first CUDA card; the
+    CPU only when asked for, ``device="cpu"``); train-mode dropout draws
+    from a CPU generator seeded from ``cfg.seed``.
     """
 
     def __init__(self, cfg, corpus, cv_taps, text_taps, device=None):
-        if getattr(cfg, "cache_quant", "none") != "none":
-            raise NotImplementedError("int8 tap tables are not ported yet")
         self.cfg, self.corpus = cfg, corpus
         self.device = resolve_device(device)
         # Every id in [0, item_num] must have a row: a leave-one-out
@@ -57,9 +58,8 @@ class CachedTrainer(TrainLoopMixin):
                     f"behaviors file references {corpus.item_num} items "
                     f"(need {need} rows incl. the pad row); cache and "
                     "behaviors files are out of sync")
-        dt = getattr(torch, cfg.compute_dtype)
-        self.cv_table = torch.as_tensor(cv_taps).to(self.device, dt)
-        self.text_table = torch.as_tensor(text_taps).to(self.device, dt)
+        self.cv_table = self._put_table(cv_taps)
+        self.text_table = self._put_table(text_taps)
 
         def put(x):
             return torch.as_tensor(np.asarray(x), device=self.device)
@@ -76,13 +76,33 @@ class CachedTrainer(TrainLoopMixin):
         self._last_step_losses = None
         n_params = sum(p.numel() for p in self.model.parameters())
         log.info("##### trainable_num %d #####", n_params)
+        if cfg.pipeline == "cached_asym":  # the initial learned gates
+            for name, vals in self.gate_values().items():
+                log.info("%s: %s", name, np.round(vals, 4).tolist())
+
+    def _put_table(self, taps):
+        """A tap table on the device per ``cfg.cache_quant``: "none" keeps
+        it in the compute dtype, "int8" quantises it (on the table's own
+        device).  ``QuantTaps`` (an int8 store's ``load_taps``) is used as
+        it is, relabelled to the compute dtype, whatever cache_quant says."""
+        quant = getattr(self.cfg, "cache_quant", "none")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unsupported cache_quant={quant!r} "
+                             "(expected 'none' or 'int8')")
+        name = self.cfg.compute_dtype
+        if isinstance(taps, QuantTaps):
+            return taps.to(self.device, out_dtype=name)
+        if quant == "int8":
+            return quantize_taps(taps, out_dtype=name).to(self.device)
+        return torch.as_tensor(taps).to(self.device, getattr(torch, name))
 
     def train_step(self, ids: torch.Tensor, log_mask: torch.Tensor) -> torch.Tensor:
         """One step on a (bs, L+1) id batch; returns the loss (on the
         device, not synchronised)."""
         flat = ids.reshape(-1)
-        loss = self.model(ids, self.cv_table[flat], self.text_table[flat],
-                          log_mask, self.pop_prob, deterministic=False,
+        loss = self.model(ids, gather_rows(self.cv_table, flat),
+                          gather_rows(self.text_table, flat), log_mask,
+                          self.pop_prob, deterministic=False,
                           generator=self.generator)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()

@@ -29,6 +29,11 @@ intermediate value survives into a final value that may be small.  The
 cascade inputs make every term move the carry by O(1) (wd ~ N(0, 1/D),
 wu ~ N(0, 1/R), biases ~ N(0, 0.25)), so a wrong term breaks the bound;
 tests/test_torch_fused_san.py shows that it does for planted faults.
+The streamed cascade (bf16 only) is held to the same bound at the Versa
+text geometry (K=7, D=8192, R=64 and 128) and at awkward ones (D odd, R
+from 2 to 256), repeats bit for bit, and four planted faults (bd dropped,
+the other activation, step 0's weights, g and 1-g swapped) break it;
+``fused_cascade`` launches the kernel the JAX package's dispatch names.
 Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
 + |plain|), tol 1e-4 fp32 and 2e-2 (forward) / 5e-2 (backward) bf16: a
 probability may round to the neighbouring bf16 value on one side only; the
@@ -181,6 +186,97 @@ def test_fused_cascade_is_the_kernel_at_s1(cuda_device):
     want = fs.san_cascade_fwd(a[None], b[None], *args[2:])[0]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _streamed_inputs(device, N, K, D, R, gated=True, seed=0):
+    """One branch's bf16 inputs in which every term moves the carry by O(1)."""
+    args = _cascade_inputs(device, 1, N, K, D, R, torch.bfloat16, seed)
+    gates = (0.1 * torch.randn(K, generator=torch.Generator().manual_seed(seed))
+             ).to(device)
+    a, b = fs.cascade_coefs(gates, gated)
+    return (a, b) + tuple(t[0] for t in args[2:])
+
+
+def _carry_ratio(got, want):
+    """Largest |got - want| / carry_tolerance(want); inf if not finite."""
+    if not torch.isfinite(got.float()).all():
+        return float("inf")
+    return float(((got.float() - want.float()).abs()
+                  / fs.carry_tolerance(want)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("activation", ["RELU", "GELU"])
+@pytest.mark.parametrize("N,K,D,R", [(704, 7, 8192, 64), (96, 7, 8192, 128),
+                                     (37, 3, 96, 8), (1, 2, 1001, 4),
+                                     (50, 4, 600, 256), (17, 1, 64, 2)])
+def test_streamed_cascade_kernel_matches_plain(cuda_device, gated, activation,
+                                               N, K, D, R):
+    args = _streamed_inputs(cuda_device, N, K, D, R, gated)
+    before = fs.san_cascade_streamed_fwd.launches
+    got = fs.san_cascade_streamed_fwd(*args, activation=activation)
+    want = fs.san_cascade_streamed_fwd_plain(*args, activation=activation)
+    torch.cuda.synchronize()
+    assert fs.san_cascade_streamed_fwd.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (N, D)
+    assert _carry_ratio(got, want) <= 1.0
+    # no atomics and a fixed summation order: the kernel repeats bit for bit
+    assert torch.equal(got, fs.san_cascade_streamed_fwd(*args,
+                                                        activation=activation))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["bd dropped", "other activation",
+                                   "step-0 weights", "gates swapped"])
+def test_streamed_cascade_planted_faults_break_the_bound(cuda_device, fault):
+    a, b, taps, wd, bd, wu, bu, c0 = _streamed_inputs(cuda_device, 704, 7,
+                                                      8192, 64)
+    # gates far from 0.5, so swapping g and 1 - g changes every step
+    a = torch.sigmoid(torch.linspace(-2, 2, 7, device=cuda_device))
+    b = 1.0 - a
+    want = fs.san_cascade_streamed_fwd_plain(a, b, taps, wd, bd, wu, bu, c0)
+    activation = "GELU" if fault == "other activation" else "RELU"
+    if fault == "bd dropped":
+        bd = torch.zeros_like(bd)
+    elif fault == "step-0 weights":
+        wd, bd, wu, bu = (w[:1].expand_as(w) for w in (wd, bd, wu, bu))
+    elif fault == "gates swapped":
+        a, b = b, a
+    got = fs.san_cascade_streamed_fwd(a, b, taps, wd, bd, wu, bu, c0,
+                                      activation=activation)
+    assert _carry_ratio(got, want) > 1.0
+
+
+@pytest.mark.cuda
+def test_fused_cascade_follows_the_jax_dispatch(cuda_device):
+    counters = (fs.san_cascade_fwd, fs.san_cascade_streamed_fwd)
+    cases = [((7, 8192, 64), torch.bfloat16, (0, 1)),
+             ((7, 192, 64), torch.bfloat16, (1, 0)),
+             ((7, 8192, 64), torch.float32, (0, 0)),
+             ((7, 768, 64), torch.float32, (1, 0))]
+    for (K, D, R), dtype, want in cases:
+        args = _cascade_inputs(cuda_device, 1, 40, K, D, R, dtype)
+        gates = torch.zeros(K, device=cuda_device)
+        before = [c.launches for c in counters]
+        out = fs.fused_cascade(gates, *[t[0] for t in args[2:]])
+        torch.cuda.synchronize()
+        assert tuple(c.launches - n for c, n in zip(counters, before)) == want
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_streamed_wrapper_rejects_fp32_and_cascade_rejects_wide_d(cuda_device):
+    args = _streamed_inputs(cuda_device, 8, 2, 256, 16)
+    before = fs.san_cascade_streamed_fwd.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        fs.san_cascade_streamed_fwd(*args[:2], *[t.float() for t in args[2:]])
+    assert fs.san_cascade_streamed_fwd.launches == before
+    wide = _cascade_inputs(cuda_device, 1, 16, 7, 8192, 64, torch.bfloat16)
+    before = fs.san_cascade_fwd.launches
+    with pytest.raises(ValueError, match="D=8192"):
+        fs.san_cascade_fwd(*wide)
+    assert fs.san_cascade_fwd.launches == before
 
 
 @pytest.mark.cuda

@@ -20,7 +20,6 @@ from iisan_tpu.config import IISANConfig
 from iisan_tpu.data.synthetic import synthetic_taps
 from iisan_tpu.models.model import rec_model_from_config as jax_model
 from iisan_tpu_torch.models.model import rec_model_from_config
-from iisan_tpu_torch.models.san import SideAdapterNetwork
 from iisan_tpu_torch.utils.jax_params import (export_jax_params, flatten_tree,
                                               load_jax_params)
 
@@ -118,11 +117,3 @@ def test_item_embeddings_match_jax(name, dtype):
                                np.asarray(want, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
 
-
-def test_asymmetric_towers_are_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        SideAdapterNetwork(16, text_dim=32, image_dim=48)
-    with pytest.raises(NotImplementedError):
-        SideAdapterNetwork(16, head_mode="asym")
-    with pytest.raises(NotImplementedError):
-        rec_model_from_config(make_config(pipeline="cached_asym"))
