@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's cached serving and training paths, its
-uncached training paths (IISAN and full fine-tuning) and IISAN-Versa
+uncached training paths (IISAN and full fine-tuning, and IISAN's W8A8 and
+attention-subblock tower options) and IISAN-Versa
 (``pipeline="cached_asym"``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -106,7 +107,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the bf16 tables give from the same weights, a valid evaluation.
 15. Serving the trained Versa model: ``Recommender.from_trainer``, top-K at
    batch 1, 32 and 256, HTTP and save -> load checks as in phase 4.
-16. Print one JSON line of per-kernel results, then the final status line.
+16. Hold the W8A8 kernel (#10) against ``int8_matmul`` on the card, bit
+   for bit, at every tower dense layer's (K, N) = (768, 768), (768, 3072),
+   (3072, 768) at the step's ViT rows (138,688) and BERT rows (21,120),
+   bf16 with bias, plus an fp32 case and one without bias, zero rows in
+   each; planted faults (bias dropped, rounding toward zero, one
+   activation scale for the tensor) must each break equality.  CUDA-event
+   medians beside the int8 bound; bf16 ``F.linear`` and ``torch._int_mm``
+   timed for context (other functions).
+17. IISAN (Uncached) with ``tower_quant="int8"`` at phase 8's
+   configuration: a float trainer's tower trees, exported with the bridge,
+   grafted into an int8 trainer (quantised at graft time) with the same
+   other weights.  The item table through #10 is bit-equal to the one
+   through ``int8_matmul`` on the card and within 0.15 (relative Frobenius)
+   of the float towers' table; one epoch (8 steps: 145 ``fused_w8a8_matmul``
+   and 24 ``mha_fwd`` a step, 580 and 96 for the table), a finite loss,
+   int8 weights, scales and tower biases bit-unchanged, a SAN weight moved,
+   a valid evaluation, the step's breakdown.
+18. Hold the attention subblocks (#8, #9) against their plain versions in
+   bf16 at the BERT step geometry (704 x 30, padded keys, an all-pad row;
+   eval and train with the same Philox masks) and the ViT one (704 x 197,
+   compared on 64 images, timed at 704), within ``MHA_TOL["fwd"]``; planted
+   faults (key bias dropped, one head's rows of Wo skipped, masks of
+   another seed) must break the bound.  ``F.multi_head_attention_forward``
+   is the library call.
+19. IISAN (Uncached) with ``fused_tower_attention="subblock"`` and
+   ``"subblock_v2"``: 3 steps and the item table each (24 calls of the
+   route's kernel a step, none of the other and no ``mha_fwd``), the
+   step's breakdown; then 3 steps of each and of ``fused_mha`` from one
+   set of weights at dropout 0, losses within 2e-2.
+20. Print one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -156,7 +186,11 @@ MHA_TOL = {"fwd": 2e-2, "bwd": 5e-2}
 TOWER_D, TOWER_H, TITLE_T, IMAGE_T = 768, 12, 30, 197
 STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# The W8A8 kernel's shapes on the step: every tower dense layer's (K, N) at
+# the ViT rows (704 images x 197 tokens) and the BERT rows (704 x 30).
+W8A8_SHAPES = ((768, 768), (768, 3072), (3072, 768))
+VIT_ROWS, BERT_ROWS = STEP_ROWS * IMAGE_T, STEP_ROWS * TITLE_T
 # scripts/bench_uncached.py's configuration at the published batch of 64.
 UNCACHED_CFG = dict(batch_size=64, epoch=1, embedding_dim=EMB,
                     adapter_type="IISAN", adding_adapter_to="all",
@@ -491,6 +525,8 @@ def check_user_encoder_train(device):
 # pattern that matches wins).
 KERNEL_FAMILIES = (("encoder kernels", ("user_encoder", "grad_reduce")),
                    ("cascade kernel", ("san_cascade",)),
+                   ("w8a8", ("w8a8",)),
+                   ("subblock kernels", ("subblock",)),
                    ("attention kernels", ("mha_",)),
                    ("Adam", ("adam", "multi_tensor")),
                    ("matmul", ("gemm", "xmma", "cutlass", "splitk", "nvjet")),
@@ -659,11 +695,30 @@ def check_gradients_reach_parameters(device, corpus, taps, cfg_kw, name):
                              "module path's")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     """(ms, "bytes" or "operations"): the least time the H100 could take
-    to move ``nbytes`` and do ``flops`` bf16 operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    to move ``nbytes`` and do ``flops`` operations at ``peak`` (bf16 unless
+    given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def w8a8_bound(M: int, K: int, N: int, xsz: int = 2, osz: int = 2):
+    """#10 reads x, the int8 weight, kscale and bias once and writes y;
+    2 M K N int8 operations."""
+    return bound(M * K * xsz + K * N + 8 * N + M * N * osz, 2 * M * K * N,
+                 PEAK_INT8_OPS)
+
+
+def subblock_bound(B: int, T: int, bias: bool, out_bytes: int = 2):
+    """#8 / #9 read x, the bf16 weights and fp32 biases (and the key bias)
+    once and write the output (#9: fp32); the qkv projection, attention's
+    two products and the output projection."""
+    D, H = TOWER_D, TOWER_H
+    nbytes = (B * T * D * (2 + out_bytes) + 4 * D * D * 2 + 4 * D * 4
+              + (B * T * 4 if bias else 0))
+    flops = 2 * B * T * D * 4 * D + 4 * B * H * T * T * (D // H)
+    return bound(nbytes, flops)
 
 
 def mha_bound(B, T, D, H, bias: bool, bwd: bool):
@@ -877,7 +932,7 @@ def check_attention(device):
     return out
 
 
-def uncached_trainer(device, corpus, **kw):
+def uncached_trainer(device, corpus, tower_params=None, **kw):
     import torch
 
     from iisan_tpu_torch.config import IISANConfig
@@ -888,7 +943,7 @@ def uncached_trainer(device, corpus, **kw):
     cfg = IISANConfig(**{**UNCACHED_CFG, **kw})
     tokens = synthetic_token_table(corpus.item_num, cfg.num_words_title, seed=0)
     tr = UncachedTrainer(cfg, corpus, tokens, SyntheticImageStore(cfg.CV_resize),
-                         device=device)
+                         tower_params=tower_params, device=device)
     torch.cuda.synchronize()
     return tr
 
@@ -1067,6 +1122,348 @@ def check_uncached_routes(device):
             + f"; max relative difference {rel:.3g} (tol 2e-2)")
         if rel > 2e-2:
             raise AssertionError(f"{name}: the kernel route's losses leave the module path's")
+
+
+def check_w8a8(device):
+    """Phase 16: #10 against ``int8_matmul`` on the card, bit for bit, at
+    the six tower shapes (bf16 with bias), one fp32 case and one without
+    bias, zero rows in each; planted faults; CUDA-event medians beside the
+    bound, and bf16 ``F.linear`` and ``torch._int_mm`` for context (neither
+    computes this function).  Returns the JSON entry's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from iisan_tpu_torch.ops import fused_w8a8 as fw
+    from iisan_tpu_torch.ops.int8_linear import (int8_matmul, quantize_kernel,
+                                                 quantize_rows)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    cases = [(M, K, N, torch.bfloat16, True) for M in (VIT_ROWS, BERT_ROWS)
+             for K, N in W8A8_SHAPES]
+    cases += [(BERT_ROWS, 768, 3072, torch.float32, True),
+              (BERT_ROWS, 3072, 768, torch.bfloat16, False)]
+    out = {"err": 0.0}
+    for M, K, N, dt, with_bias in cases:
+        x = torch.randn(M, K, generator=gen, device=device).to(dt)
+        x[::97] = 0.0  # zero rows: their output is the bias exactly
+        w = torch.randn(K, N, generator=gen, device=device) * 0.05
+        q, s = (torch.as_tensor(a, device=device) for a in quantize_kernel(w.cpu().numpy()))
+        b = torch.randn(N, generator=gen, device=device) if with_bias else None
+        qt = q.t().contiguous()
+        got = fw.fused_w8a8_matmul(x, q, s, b, dt, kernel_qt=qt)
+        want = int8_matmul(x, q, s, b, dt)
+        torch.cuda.synchronize()
+        ndiff = int((got != want).sum())
+        out["err"] = max(out["err"], float((got.float() - want.float()).abs().max()))
+        ms = cuda_timed(lambda: fw.fused_w8a8_matmul(x, q, s, b, dt, kernel_qt=qt), 10)
+        plain_ms = cuda_timed(lambda: int8_matmul(x, q, s, b, dt), 3)
+        bnd = w8a8_bound(M, K, N, x.element_size(), got.element_size())
+        log(f"w8a8_linear M={M} K={K} N={N} {str(dt)[6:]}{'' if with_bias else ' no bias'}: "
+            f"{ndiff} of {got.numel()} values differ from int8_matmul; kernel "
+            f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if ndiff:
+            raise AssertionError("w8a8_linear is not bit-equal to int8_matmul")
+        if (M, K, N, dt) == (VIT_ROWS, 768, 3072, torch.bfloat16):
+            out.update(ms=ms, plain_ms=plain_ms, bound=bnd)
+            xq = quantize_rows(x)[0].to(torch.int8)
+            wb = torch.randn(N, K, generator=gen, device=device).to(dt)
+            lin_ms = cuda_timed(lambda: F.linear(x, wb), 10)
+            int_mm_ms = cuda_timed(lambda: torch._int_mm(xq, q), 10)
+            log(f"  for context at this shape (other functions): bf16 F.linear "
+                f"{lin_ms:.4f} ms, torch._int_mm on the quantised operands "
+                f"{int_mm_ms:.4f} ms")
+            del xq, wb
+            # planted faults, on the first 4096 rows
+            xs, flat = x[:4096], got[:4096]
+            _, sx = quantize_rows(xs)
+            trunc = torch.clamp(torch.trunc(xs.float() / sx.clamp_min(1e-30)), -127, 127)
+            one = sx.max()
+            faults = {
+                "bias dropped": int8_matmul(xs, q, s, None, dt),
+                "rint -> toward zero": ((trunc.double() @ q.double()).float()
+                                        * (sx * s) + b).to(dt),
+                "one activation scale": ((torch.round(xs.float() / one).double()
+                                          @ q.double()).float() * (one * s) + b).to(dt),
+            }
+            for name, faulty in faults.items():
+                nf = int((faulty != flat).sum())
+                log(f"  planted fault '{name}': {nf} of {flat.numel()} values differ")
+                if nf == 0:
+                    raise AssertionError(f"w8a8: equality admits '{name}'")
+        del x, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_modules(model, fused: bool):
+    from iisan_tpu_torch.ops.int8_linear import Int8Dense
+
+    for m in model.modules():
+        if isinstance(m, Int8Dense):
+            m.fused = fused
+
+
+def train_int8_uncached(device, counters):
+    """Phase 17: IISAN (Uncached) with ``tower_quant="int8"``: the float
+    trainer's tower trees grafted (quantised at graft time) into an int8
+    trainer with the same other weights; the item table through #10 and
+    through ``int8_matmul`` on the card, and against the float towers';
+    one epoch, a valid evaluation.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+    from iisan_tpu_torch.utils.jax_params import export_jax_params
+
+    corpus = synthetic_corpus(n_users=512, item_num=800, max_seq_len=SEQ_LEN, seed=0)
+    ftr = uncached_trainer(device, corpus)
+    float_table = ftr.item_embedding_tables()
+    trees = {"text_tower/bert": export_jax_params(ftr.model.text_tower.bert),
+             "image_tower/vit": export_jax_params(ftr.model.image_tower.vit)}
+    rest = {k: v.clone() for k, v in ftr.model.state_dict().items()
+            if not k.startswith(("text_tower.bert.", "image_tower.vit."))}
+    del ftr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = uncached_trainer(device, corpus, tower_params=trees, tower_quant="int8")
+    graft_s = time.perf_counter() - t0
+    res = tr.model.load_state_dict(rest, strict=False)
+    if res.unexpected_keys:
+        raise AssertionError(f"int8 trainer: unexpected {res.unexpected_keys[:4]}")
+    del trees, rest
+    t0 = time.perf_counter()
+    table, table_launches = counted(counters, tr.item_embedding_tables)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    int8_modules(tr.model, False)
+    plain_table = tr.item_embedding_tables()
+    int8_modules(tr.model, True)
+    equal = torch.equal(table, plain_table)
+    t, f = table.float()[1:], float_table.float()[1:]
+    rel = float((t - f).norm() / f.norm().clamp_min(1e-9))
+    cos = float(torch.nn.functional.cosine_similarity(t, f, dim=1).min())
+    log(f"uncached int8: float towers grafted and quantised in {graft_s:.2f} s "
+        f"(trainer build included); item table {table.shape[0]} rows in "
+        f"{table_s:.3f} s, launches {table_launches}; through #10 bit-equal to "
+        f"int8_matmul on the card: {equal}; vs the float towers' table from the "
+        f"same weights: relative Frobenius {rel:.4f} (tol 0.15), minimum "
+        f"cosine {cos:.4f}")
+    del plain_table, float_table
+    frozen = {n: b.clone() for n, b in tr.model.named_buffers() if b.dtype == torch.int8}
+    frozen.update((n, p.detach().clone()) for n, p in tr.model.named_parameters()
+                  if n.startswith(("text_tower.bert.", "image_tower.vit.")))
+    san_before = tr.model.san.fc_cv.kernel.detach().clone()
+    steps = tr.epoch_permutation(1).shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_loss, launches = counted(counters, lambda: tr.run_epoch(1))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    losses = tr._last_step_losses.float().cpu().numpy()
+    hit, ndcg = tr.evaluate_split("valid")
+    now = dict(tr.model.named_buffers(), **dict(tr.model.named_parameters()))
+    unchanged = all(torch.equal(now[n], v) for n, v in frozen.items())
+    moved = not torch.equal(tr.model.san.fc_cv.kernel, san_before)
+    host, busy, families = uncached_breakdown(tr, staged_batch(tr, 1), 3)
+    log(f"uncached int8: {steps} steps in {epoch_s:.3f} s ({epoch_s / steps * 1e3:.1f} "
+        "ms/step with image decoding, host clock); losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" (mean {mean_loss:.5f}); "
+        f"launches {launches}; kernel_q, kscale and tower biases unchanged "
+        f"{unchanged} ({len(frozen)} tensors), SAN moved {moved}; valid HR@10 "
+        f"{hit:.6f} nDCG@10 {ndcg:.6f}")
+    log(f"uncached int8 step on a staged batch: host {host:.2f} ms (median of 3, "
+        f"synchronised), device-busy {busy:.2f} ms (profiler): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+    want = {"fused_w8a8_matmul": 145 * steps, "mha_fwd": 24 * steps,
+            "user_encoder_fwd": steps, "user_encoder_bwd": steps}
+    want_table = {"fused_w8a8_matmul": 145 * 4, "mha_fwd": 24 * 4}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            table_launches[k] != v for k, v in want_table.items()):
+        raise AssertionError(f"uncached int8: launches {launches} / {table_launches}, "
+                             f"expected {want} / {want_table}")
+    if not equal:
+        raise AssertionError("uncached int8: the kernel's table is not int8_matmul's")
+    if not rel < 0.15:
+        raise AssertionError(f"uncached int8: table {rel} from the float towers'")
+    if not np.isfinite(losses).all() or len(losses) != steps:
+        raise AssertionError("uncached int8: the loss is not finite")
+    if not (unchanged and moved):
+        raise AssertionError("uncached int8: a frozen tower moved or the SAN did not")
+    if not (np.isfinite(hit) and 0 <= ndcg <= hit <= 1):
+        raise AssertionError(f"uncached int8: bad metrics {hit} {ndcg}")
+    return {k: launches[k] + table_launches[k] for k in launches}
+
+
+def check_subblock(device):
+    """Phase 18: #8 and #9 against their plain versions in bf16 at the
+    BERT step geometry (padded keys with an all-pad row; eval and train
+    with the same Philox masks) and the ViT one (eval, compared on 64
+    images, timed at 704); planted faults; ``F.multi_head_attention_forward``
+    (in-projection, attention and out-projection in one call) timed as the
+    library call.  Returns the JSON entries' numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from iisan_tpu_torch.ops import fused_attn_subblock as fsb
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    D, H, dt = TOWER_D, TOWER_H, torch.bfloat16
+
+    def weights():
+        return ((torch.randn(D, 3 * D, generator=gen, device=device) / D ** 0.5).to(dt),
+                torch.randn(3 * D, generator=gen, device=device) * 0.3,
+                (torch.randn(D, D, generator=gen, device=device) / D ** 0.5).to(dt),
+                torch.randn(D, generator=gen, device=device) * 0.3)
+
+    def require(ratio, what):
+        if not ratio <= MHA_TOL["fwd"]:
+            raise AssertionError(f"{what}: |diff| / bound {ratio:.4g} > {MHA_TOL['fwd']}")
+
+    out = {}
+    for v2, name in ((False, "attn_subblock_fwd"), (True, "attn_subblock_v2_fwd")):
+        op = fsb.fused_attn_subblock_v2 if v2 else fsb.fused_attn_subblock
+        res = {"err": 0.0}
+        wqkv, bqkv, wo, bo = weights()
+        # BERT titles: 30 tokens, padded keys, the pad item's all-pad row
+        B, T = STEP_ROWS, TITLE_T
+        x = torch.randn(B, T, D, generator=gen, device=device).to(dt)
+        lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
+        lengths[0] = 0
+        bias = torch.where(torch.arange(T, device=device)[None] < lengths[:, None],
+                           0.0, -1e9)
+        seed, rate = 20251017, DROP
+        for mode, kw in (("eval", {}), ("train", dict(drop_rate=rate, seed=seed, layer=5))):
+            got = op(x, wqkv, bqkv, wo, bo, H, key_bias=bias, **kw)
+            want = fsb.subblock_fwd_plain(
+                x, wqkv, bqkv, wo, bo, bias, n_heads=H, seed=seed,
+                rate=rate if kw else 0.0, layer=5, v2=v2)
+            torch.cuda.synchronize()
+            ratio = mha_ratio([got], [want])
+            res["err"] = max(res["err"], float((got.float() - want.float()).abs().max()))
+            log(f"{name} BERT {mode} B={B} T={T} D={D} H={H} bf16, padded keys: "
+                f"max |diff| / (max|plain| + |plain|) {ratio:.4g} (tol "
+                f"{MHA_TOL['fwd']}); all-pad row finite {torch_finite(got[0])}")
+            require(ratio, f"{name} BERT {mode}")
+            if not torch_finite(got[0]):
+                raise AssertionError(f"{name}: the all-pad row is not finite")
+            if mode == "train":
+                skipped = wo.clone()
+                skipped[64:128] = 0  # head 1's rows of Wo
+                faults = {"key bias dropped": op(x, wqkv, bqkv, wo, bo, H, **kw),
+                          "one head's Wo rows skipped": op(
+                              x, wqkv, bqkv, skipped, bo, H, key_bias=bias, **kw),
+                          "masks of another seed": op(
+                              x, wqkv, bqkv, wo, bo, H, key_bias=bias,
+                              **dict(kw, seed=seed + 1))}
+                for fault, fgot in faults.items():
+                    fr = mha_ratio([fgot], [want])
+                    log(f"  planted fault '{fault}': {fr:.4g} (must be > {MHA_TOL['fwd']})")
+                    if fr <= MHA_TOL["fwd"]:
+                        raise AssertionError(f"{name}: the bound admits '{fault}'")
+        in_w, out_w = wqkv.t().contiguous(), wo.t().contiguous()
+        in_b, out_b = bqkv.to(dt), bo.to(dt)
+        pad = bias < 0
+
+        def library(xx, mask):
+            xt = xx.transpose(0, 1)
+            return F.multi_head_attention_forward(
+                xt, xt, xt, D, H, in_w, in_b, None, None, False, 0.0, out_w, out_b,
+                training=False, key_padding_mask=mask, need_weights=False)[0]
+
+        bert_ms = cuda_timed(lambda: op(x, wqkv, bqkv, wo, bo, H, key_bias=bias), 10)
+        bert_plain = cuda_timed(lambda: fsb.subblock_fwd_plain(
+            x, wqkv, bqkv, wo, bo, bias, n_heads=H, v2=v2), 3)
+        bert_lib = cuda_timed(lambda: library(x, pad), 10)
+        bert_bnd = subblock_bound(B, T, True, 4 if v2 else 2)
+        log(f"{name} BERT eval B={B}: kernel {bert_ms:.4f} ms, plain {bert_plain:.4f} ms, "
+            f"F.multi_head_attention_forward {bert_lib:.4f} ms; bound "
+            f"{bert_bnd[0]:.4f} ms ({bert_bnd[1]})")
+        # ViT images: 197 tokens, eval mode, no bias
+        T = IMAGE_T
+        x = torch.randn(B, T, D, generator=gen, device=device).to(dt)
+        got = op(x, wqkv, bqkv, wo, bo, H)[:64]
+        want = fsb.subblock_fwd_plain(x[:64], wqkv, bqkv, wo, bo, None, n_heads=H, v2=v2)
+        torch.cuda.synchronize()
+        ratio = mha_ratio([got], [want])
+        res["err"] = max(res["err"], float((got.float() - want.float()).abs().max()))
+        log(f"{name} ViT eval B={B} T={T} (first 64 rows vs plain): {ratio:.4g} "
+            f"(tol {MHA_TOL['fwd']})")
+        require(ratio, f"{name} ViT")
+        res["ms"] = cuda_timed(lambda: op(x, wqkv, bqkv, wo, bo, H), 5)
+        res["plain_ms"] = cuda_timed(lambda: fsb.subblock_fwd_plain(
+            x, wqkv, bqkv, wo, bo, None, n_heads=H, v2=v2), 3)
+        res["library_ms"] = cuda_timed(lambda: library(x, None), 5)
+        res["bound"] = subblock_bound(B, T, False, 4 if v2 else 2)
+        log(f"{name} ViT eval B={B}: kernel {res['ms']:.4f} ms "
+            f"({2 * B * T * D * 4 * D / res['ms'] / 1e9:.1f} TFLOP/s of projections), "
+            f"plain {res['plain_ms']:.4f} ms, F.multi_head_attention_forward "
+            f"{res['library_ms']:.4f} ms; bound {res['bound'][0]:.4f} ms "
+            f"({res['bound'][1]})")
+        out[v2] = res
+        del x, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_subblock_routes(device, counters):
+    """Phase 19: IISAN (Uncached) with ``fused_tower_attention="subblock"``
+    and ``"subblock_v2"`` at full width, 3 steps and the item table each;
+    then 3 steps of each subblock route and of ``fused_mha`` from one set of
+    weights at dropout 0.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=3 * 64, item_num=800, max_seq_len=SEQ_LEN, seed=0)
+    totals = {c.__name__: 0 for c in counters}
+    kernel = {"subblock": "fused_attn_subblock", "subblock_v2": "fused_attn_subblock_v2"}
+    for route, counter in kernel.items():
+        tr = uncached_trainer(device, corpus, fused_tower_attention=route)
+        mean_loss, launches = counted(counters, lambda: tr.run_epoch(1))
+        losses = tr._last_step_losses.float().cpu().numpy()
+        table, table_launches = counted(counters, tr.item_embedding_tables)
+        host, busy, families = uncached_breakdown(tr, staged_batch(tr, 1), 3)
+        log(f"uncached {route}: 3 steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; launches {launches}; item table {tuple(table.shape)}, launches "
+            f"{table_launches}")
+        log(f"uncached {route} step on a staged batch: host {host:.2f} ms (median of 3, "
+            f"synchronised), device-busy {busy:.2f} ms (profiler): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+        other = kernel["subblock_v2" if route == "subblock" else "subblock"]
+        want = {counter: 24 * 3, other: 0, "mha_fwd": 0, "fused_w8a8_matmul": 0}
+        if any(launches[k] != v for k, v in want.items()) or \
+                table_launches[counter] != 24 * 4:
+            raise AssertionError(f"uncached {route}: launches {launches} / "
+                                 f"{table_launches}, expected {want}")
+        if not np.isfinite(losses).all() or not torch_finite(table):
+            raise AssertionError(f"uncached {route}: loss {losses}")
+        for k in totals:
+            totals[k] += launches[k] + table_launches[k]
+        del tr, table
+        torch.cuda.empty_cache()
+    losses, state = {}, None
+    for route in ("subblock", "subblock_v2", True):
+        tr = uncached_trainer(device, corpus, tower_dropout=0.0, drop_rate=0.0,
+                              fused_tower_attention=route)
+        if state is None:
+            state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        tr.run_epoch(1)
+        losses[route] = tr._last_step_losses.float().cpu().tolist()
+        del tr
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for r in ("subblock", "subblock_v2")
+              for a, b in zip(losses[r], losses[True]))
+    log("IISAN, 3 steps from one set of weights at dropout 0: "
+        + "; ".join(f"{'fused_mha' if r is True else r} "
+                    + ", ".join(f"{v:.5f}" for v in ls) for r, ls in losses.items())
+        + f"; max relative difference to fused_mha {rel:.3g} (tol 2e-2)")
+    if rel > 2e-2:
+        raise AssertionError("the subblock routes' losses leave fused_mha's")
+    return totals
 
 
 def check_streamed_cascade(device):
@@ -1573,6 +1970,23 @@ def main() -> int:
     check_dispatch(device)
     torch.cuda.empty_cache()
     versa = run_versa(device, corpus, requests, counters)
+    torch.cuda.empty_cache()
+
+    # The frozen-tower options of IISAN (Uncached): the W8A8 kernel and the
+    # int8 towers, then the attention-subblock kernels and their routes.
+    from iisan_tpu_torch.ops import fused_attn_subblock as fsb
+    from iisan_tpu_torch.ops import fused_w8a8 as fw
+
+    w8a8 = check_w8a8(device)
+    tcounters = (fw.fused_w8a8_matmul, fsb.fused_attn_subblock,
+                 fsb.fused_attn_subblock_v2, fa.mha_fwd, fa.mha_bwd,
+                 fue.user_encoder_fwd, fue.user_encoder_bwd)
+    int8 = train_int8_uncached(device, tcounters)
+    torch.cuda.empty_cache()
+    subblock = check_subblock(device)
+    torch.cuda.empty_cache()
+    routes = train_subblock_routes(device, tcounters)
+    towers = {k: int8[k] + routes[k] for k in int8}
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -1585,12 +1999,13 @@ def main() -> int:
     kernels = [
         entry("user_encoder_fwd", "iisan_tpu/ops/fused_user_encoder.py:264",
               counts[0] + train_counts["user_encoder_fwd"]
-              + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"],
+              + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
+              + towers["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
-              + versa["user_encoder_bwd"],
+              + versa["user_encoder_bwd"] + towers["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
@@ -1601,7 +2016,7 @@ def main() -> int:
               versa["san_cascade_streamed_fwd"], streamed["err"],
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
-              uncached["mha_fwd"], attn["fwd_err"], attn["fwd_ms"],
+              uncached["mha_fwd"] + towers["mha_fwd"], attn["fwd_err"], attn["fwd_ms"],
               attn["fwd_plain_ms"], attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",
               uncached["mha_bwd"], attn["bwd_err"], attn["bwd_ms"],
@@ -1609,6 +2024,17 @@ def main() -> int:
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
               uncached["mha_mask_replay"], 0.0, attn["replay_ms"],
               attn["replay_plain_ms"], attn["replay_bound"], None),
+        entry("attn_subblock_fwd", "iisan_tpu/ops/fused_attn_subblock.py:107",
+              towers["fused_attn_subblock"], subblock[False]["err"],
+              subblock[False]["ms"], subblock[False]["plain_ms"],
+              subblock[False]["bound"], subblock[False]["library_ms"]),
+        entry("attn_subblock_v2_fwd", "iisan_tpu/ops/fused_attn_subblock.py:293",
+              towers["fused_attn_subblock_v2"], subblock[True]["err"],
+              subblock[True]["ms"], subblock[True]["plain_ms"],
+              subblock[True]["bound"], subblock[True]["library_ms"]),
+        entry("w8a8_linear", "iisan_tpu/ops/int8_pallas.py:96",
+              towers["fused_w8a8_matmul"], w8a8["err"], w8a8["ms"],
+              w8a8["plain_ms"], w8a8["bound"], None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,6 @@ template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
     mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const float* __restrict__ bias, T* __restrict__ out, Dims d, Dropout drop) {
-  constexpr int ST = tile_stride(sizeof(T));
   constexpr int R = kFwdRowsPerWarp;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Tn = d.T, h = blockIdx.y, b = blockIdx.z;
@@ -52,42 +51,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   row_dot_tile<T, R, NC>(Qs, Ks, bias_s, S, rows, Tn, d.inv_sqrt_dk, warp, lane);
   __syncwarp();
-  const unsigned site = d.site0 + h;
-  for (int r = 0; r < R; ++r) {
-    const int i = warp + kWarps * r;
-    if (i >= rows) break;
-    float* row = S + i * Tn;
-    softmax_row(row, Tn, lane);
-    for (int j = lane; j < Tn; j += 32)
-      row[j] = dropped<T>(row[j], drop, site, b, static_cast<unsigned>((i0 + i) * Tn + j));
-  }
-  __syncwarp();
-
-  float acc[R][kDk / 32];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < kDk / 32; ++c) acc[r][c] = 0.f;
-  for (int j = 0; j < Tn; ++j) {
-    float vv[kDk / 32];
-#pragma unroll
-    for (int c = 0; c < kDk / 32; ++c) vv[c] = to_f32(Vs[j * ST + lane + 32 * c]);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = warp + kWarps * r;
-      const float p = i < rows ? S[i * Tn + j] : 0.f;
-#pragma unroll
-      for (int c = 0; c < kDk / 32; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = warp + kWarps * r;
-    if (i >= rows) break;
-    T* o = out + (row0 + i0 + i) * d.D + h * kDk;
-#pragma unroll
-    for (int c = 0; c < kDk / 32; ++c) o[lane + 32 * c] = from_f32<T>(acc[r][c]);
-  }
+  softmax_pv_tile<T, R>(S, Vs, out + (row0 + i0) * d.D + h * kDk, rows, Tn, d.D, i0, drop,
+                        d.site0 + h, b, warp, lane);
 }
 
 template <typename T, int NC>

@@ -1,0 +1,65 @@
+// Tensor-core and asynchronous-copy helpers of the matrix-product kernels
+// (w8a8_linear.cu, attn_subblock.cuh): `mma.sync` on int8 and bf16 tiles,
+// `cp.async` 16-byte copies into shared memory, and paired stores.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32), with g = lane / 4 and
+// t = lane % 4, for A a row-major (16, k) tile and B an (8, k) tile stored
+// row by row (B's columns are rows of the weight's transpose):
+//   bf16 k16: A regs (row g, k 2t..2t+1), (g+8, 2t), (g, 2t+8), (g+8, 2t+8);
+//             B regs (n g, k 2t..2t+1), (g, 2t+8);
+//   s8   k32: A regs (row g, k 4t..4t+3), (g+8, 4t), (g, 4t+16), (g+8, 4t+16);
+//             B regs (n g, k 4t..4t+3), (g, 4t+16);
+//   C (fp32 or s32): (row g, n 2t..2t+1), (g+8, 2t..2t+1).
+// So every register is one aligned 32-bit load from shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace iisan {
+
+__device__ __forceinline__ unsigned lds32(const void* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c += a . b on a 16 x 8 x 32 int8 tile, int32 sums (exact).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b on a 16 x 8 x 16 bf16 tile: exact products, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two neighbouring outputs, rounded to T (8-byte or 4-byte aligned store).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+}  // namespace iisan

@@ -119,6 +119,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_mha_bwd.restype = i
     lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [f, f, i, p]
     lib.iisan_mha_mask_replay.restype = i
+    lib.iisan_w8a8_linear.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.iisan_w8a8_linear.restype = i
+    lib.iisan_attn_subblock_fwd.argtypes = [p] * 8 + [i] * 5 + [f, f, i, p]
+    lib.iisan_attn_subblock_fwd.restype = i
+    lib.iisan_attn_subblock_v2_fwd.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]
+    lib.iisan_attn_subblock_v2_fwd.restype = i
     lib.iisan_cuda_error_string.argtypes = [i]
     lib.iisan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -11,11 +11,17 @@ Attention: with ``fused_attention`` true, a CUDA input goes through
 ``ops.fused_attention.fused_mha`` (the attention kernels, forward and
 backward), which raises on a shape it does not take; a CPU input, or
 ``fused_attention=False``, runs the module path, as the JAX module does off
-the TPU.  Train mode (``deterministic=False``) draws from an explicit
-``torch.Generator``: the hidden dropout at the three sites and the module
-path's attention dropout draw their masks from it; the kernel path takes
-one seed from it per encoder call and expands it with Philox per (layer,
-head).
+the TPU.  ``fused_attention="subblock"`` / ``"subblock_v2"`` (with
+``quant="none"``) runs the projections and the attention as one op,
+``ops.fused_attn_subblock`` (kernels #8 / #9 on a CUDA input, their plain
+versions on a CPU one), from the same parameters.  Train mode
+(``deterministic=False``) draws from an explicit ``torch.Generator``: the
+hidden dropout at the three sites and the module path's attention dropout
+draw their masks from it; the kernel and subblock paths take one seed from
+it per encoder call and expand it with Philox per (layer, head).
+
+``quant="int8"`` makes every dense layer an ``ops.int8_linear.Int8Dense``
+(W8A8, kernel #10 on a CUDA input): frozen towers only.
 
 Parameter names and layouts are the JAX tree's (``layer_3.attention.query
 .kernel`` of shape (in, out), ``word_embeddings.embedding``), so
@@ -33,15 +39,18 @@ from torch import nn
 
 from ..ops import philox
 from ..ops.fused_attention import fused_mha
-from .modules import LayerNorm, TorchLinear, _dropout, lecun_normal_init
+from ..ops.fused_attn_subblock import fused_attn_subblock, fused_attn_subblock_v2
+from ..ops.int8_linear import dense_or_int8
+from .modules import LayerNorm, _dropout, lecun_normal_init
 
 LN_EPS = 1e-12
+SUBBLOCK_OPS = {"subblock": fused_attn_subblock,
+                "subblock_v2": fused_attn_subblock_v2}
 
 
-def dense(in_features: int, features: int, dtype, device=None, generator=None):
-    """flax ``nn.Dense``: lecun-normal kernel (in, out), zero bias."""
-    return TorchLinear(in_features, features, dtype=dtype, init="lecun",
-                       device=device, generator=generator)
+def subblock_route(fused, quant: str) -> bool:
+    """The JAX layers' test for the subblock branch (no LoRA in the port)."""
+    return fused in SUBBLOCK_OPS and quant == "none"
 
 
 def module_attention(q, k, v, n_heads: int, key_bias, dt, dropout: float,
@@ -68,13 +77,13 @@ class SelfAttention(nn.Module):
     """Q/K/V projections and the attention (BERT's and ViT's alike)."""
 
     def __init__(self, dim: int, num_heads: int, dtype, dropout: float,
-                 fused: bool, device=None, generator=None):
+                 fused, quant: str = "none", device=None, generator=None):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
         self.dropout, self.fused = dropout, fused
-        self.query = dense(dim, dim, dtype, device, generator)
-        self.key = dense(dim, dim, dtype, device, generator)
-        self.value = dense(dim, dim, dtype, device, generator)
+        self.query, self.key, self.value = (
+            dense_or_int8(dim, dim, dtype, quant, device, generator)
+            for _ in range(3))
 
     def forward(self, x, key_bias=None, deterministic: bool = True,
                 generator=None, seed: Optional[int] = None, layer: int = 0):
@@ -89,11 +98,32 @@ class SelfAttention(nn.Module):
                                 deterministic, generator)
 
 
+def subblock_attention(route: str, attention: SelfAttention, attention_output,
+                       x, key_bias, deterministic: bool, seed: Optional[int],
+                       layer: int) -> torch.Tensor:
+    """The subblock branch of a BERT or ViT layer: the layer's own q, k, v
+    and output-projection parameters (the module path's names, as the JAX
+    ``_SubblockProj`` / ``_ProjParams`` keep them) through one
+    ``SUBBLOCK_OPS[route]`` call, wqkv concatenated here."""
+    a = attention
+    wqkv = torch.cat([a.query.kernel, a.key.kernel, a.value.kernel], 1)
+    bqkv = torch.cat([a.query.bias, a.key.bias, a.value.bias])
+    train = not deterministic and a.dropout > 0.0
+    return SUBBLOCK_OPS[route](
+        x, wqkv, bqkv, attention_output.kernel, attention_output.bias,
+        a.num_heads, key_bias=key_bias, drop_rate=a.dropout,
+        seed=seed if train else None, layer=layer)
+
+
 def attention_seed(module: nn.Module, x: torch.Tensor, deterministic: bool,
                    generator) -> Optional[int]:
     """The encoder call's one kernel seed: drawn from ``generator`` only
-    when the fused kernels run in train mode."""
-    if deterministic or module.dropout <= 0.0 or not (module.fused and x.is_cuda):
+    when the fused kernels (on the card) or the subblock op (anywhere)
+    run in train mode."""
+    if deterministic or module.dropout <= 0.0:
+        return None
+    if not (subblock_route(module.fused, module.quant)
+            or (module.fused and x.is_cuda)):
         return None
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
@@ -102,23 +132,33 @@ def attention_seed(module: nn.Module, x: torch.Tensor, deterministic: bool,
 
 class BertLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, intermediate_dim: int, dtype,
-                 dropout: float, fused: bool, device=None, generator=None):
+                 dropout: float, fused, quant: str = "none", device=None,
+                 generator=None):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
+        self.fused, self.quant = fused, quant
         self.attention = SelfAttention(dim, num_heads, dtype, dropout, fused,
-                                       device, generator)
-        self.attention_output = dense(dim, dim, dtype, device, generator)
+                                       quant, device, generator)
+        self.attention_output = dense_or_int8(dim, dim, dtype, quant, device,
+                                              generator)
         self.attention_layernorm = LayerNorm(dim, LN_EPS, device)
-        self.intermediate = dense(dim, intermediate_dim, dtype, device, generator)
-        self.output = dense(intermediate_dim, dim, dtype, device, generator)
+        self.intermediate = dense_or_int8(dim, intermediate_dim, dtype, quant,
+                                          device, generator)
+        self.output = dense_or_int8(intermediate_dim, dim, dtype, quant, device,
+                                    generator)
         self.output_layernorm = LayerNorm(dim, LN_EPS, device)
 
     def forward(self, x, key_bias, deterministic: bool = True, generator=None,
                 seed: Optional[int] = None, layer: int = 0):
         dt = self.dtype or x.dtype
-        attn = self.attention(x, key_bias, deterministic, generator, seed, layer)
-        attn = _dropout(self.attention_output(attn), self.dropout,
-                        deterministic, generator)
+        if subblock_route(self.fused, self.quant):
+            attn = subblock_attention(self.fused, self.attention,
+                                      self.attention_output, x, key_bias,
+                                      deterministic, seed, layer)
+        else:
+            attn = self.attention_output(self.attention(
+                x, key_bias, deterministic, generator, seed, layer))
+        attn = _dropout(attn, self.dropout, deterministic, generator)
         x = self.attention_layernorm((x + attn).float()).to(dt)
         h = F.gelu(self.intermediate(x))
         h = _dropout(self.output(h), self.dropout, deterministic, generator)
@@ -144,13 +184,13 @@ class BertEncoder(nn.Module):
                  num_layers: int = 12, num_heads: int = 12,
                  intermediate_dim: int = 3072, max_position: int = 512,
                  type_vocab_size: int = 2, dtype=None, dropout: float = 0.1,
-                 fused_attention: bool = False, collect: str = "full",
-                 device=None, generator=None):
+                 fused_attention=False, collect: str = "full",
+                 quant: str = "none", device=None, generator=None):
         super().__init__()
         if collect not in ("full", "cls"):
             raise ValueError(f"collect must be 'full' or 'cls', got {collect!r}")
         self.num_layers, self.dtype, self.dropout = num_layers, dtype, dropout
-        self.fused, self.collect = fused_attention, collect
+        self.fused, self.collect, self.quant = fused_attention, collect, quant
         self.word_embeddings = Embed(vocab_size, hidden_dim, device, generator)
 
         def normal(shape):
@@ -163,7 +203,7 @@ class BertEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BertLayer(
                 hidden_dim, num_heads, intermediate_dim, dtype, dropout,
-                fused_attention, device, generator))
+                fused_attention, quant, device, generator))
 
     def forward(self, input_ids, attention_mask, deterministic: bool = True,
                 generator=None):

@@ -13,12 +13,15 @@ Port of ``iisan_tpu/models/towers.py``:
   ``stop_gradient``), so no tower activation is kept for a backward;
 - ``FFTRecModel``: the full fine-tuning baseline, the towers' output heads
   fused by ``com_dense`` (the "fft" modality) and trained end to end;
-- ``towers_from_config``: both towers at the configuration's geometry.
+- ``towers_from_config``: both towers at the configuration's geometry,
+  with the JAX package's checks of ``tower_quant`` and
+  ``fused_tower_attention``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -171,19 +174,37 @@ class FFTRecModel(nn.Module):
 def towers_from_config(cfg, dtype=None, device=None, generator=None):
     """(TextTower, ImageTower) at the configuration's geometry: heads of
     width 64, MLP 4x, BERT dropout 0.1 and ViT 0.0 unless
-    ``tower_dropout`` >= 0 sets both; CLS-only hidden stacks.  Raises
-    ``NotImplementedError`` for what the port does not have yet."""
+    ``tower_dropout`` >= 0 sets both; CLS-only hidden stacks;
+    ``tower_quant="int8"`` gives W8A8 encoders (their heads stay float).
+    Raises ``ValueError`` where the JAX package does (an unknown or
+    removed quant value, int8 towers that train, an unknown attention
+    route) and ``NotImplementedError`` for what the port does not have."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
+    quant = getattr(cfg, "tower_quant", "none")
+    if quant == "int8_pallas":
+        raise ValueError(
+            "tower_quant='int8_pallas' was removed: the fused kernel "
+            "measured slower than the XLA int8 path at every tower "
+            "geometry (INT8_IMPL_BENCH.json sweep). Use tower_quant="
+            "'int8'.")
+    if quant not in ("none", "int8"):
+        raise ValueError(f"unsupported tower_quant={quant!r} "
+                         "(expected 'none' or 'int8')")
+    if quant != "none" and not cfg.towers_frozen():
+        raise ValueError("tower_quant='int8' requires frozen towers "
+                         "(IISAN with fine_tune_to != 'all' and "
+                         "finetune_layernorm 'None')")
     fta = getattr(cfg, "fused_tower_attention", True)
     if fta not in (True, False, "subblock", "subblock_v2"):
         raise ValueError(f"unknown fused_tower_attention {fta!r}: expected "
                          "True, False, 'subblock' or 'subblock_v2'")
-    if fta in ("subblock", "subblock_v2"):
-        raise NotImplementedError(
-            f"fused_tower_attention={fta!r} (the attention-subblock kernels) "
-            "is not ported yet")
-    if getattr(cfg, "tower_quant", "none") != "none":
-        raise NotImplementedError("tower_quant (W8A8 towers) is not ported yet")
+    if fta in ("subblock", "subblock_v2") and not cfg.towers_frozen():
+        # The subblock ops have no backward with dropout on; the JAX
+        # package falls back to fused_mha here without a word.
+        warnings.warn(f"fused_tower_attention={fta!r} has no training "
+                      "backward: the towers train, so they run fused_mha "
+                      "(fused_tower_attention=True) instead", stacklevel=2)
+        fta = True
     if getattr(cfg, "remat_towers", False):
         raise NotImplementedError("remat_towers is not ported yet")
     if cfg.adding_adapter_to != "None" and cfg.adapter_type in (
@@ -198,13 +219,14 @@ def towers_from_config(cfg, dtype=None, device=None, generator=None):
     bert = BertEncoder(hidden_dim=D_t, num_layers=cfg.text_layers,
                        num_heads=max(1, D_t // 64), intermediate_dim=4 * D_t,
                        dtype=dtype, dropout=td if td >= 0 else 0.1,
-                       fused_attention=fta, collect="cls", device=device,
-                       generator=generator)
+                       fused_attention=fta, collect="cls", quant=quant,
+                       device=device, generator=generator)
     vit = ViTEncoder(image_size=cfg.CV_resize, hidden_dim=D_v,
                      num_layers=cfg.image_layers, num_heads=max(1, D_v // 64),
                      intermediate_dim=4 * D_v, dtype=dtype,
                      dropout=td if td >= 0 else 0.0, fused_attention=fta,
-                     collect="cls", device=device, generator=generator)
+                     collect="cls", quant=quant, device=device,
+                     generator=generator)
     text = TextTower(bert, D_t, cfg.embedding_dim, cfg.num_words_title, device,
                      generator)
     image = ImageTower(vit, D_v, cfg.embedding_dim, device, generator)

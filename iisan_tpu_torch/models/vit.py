@@ -8,7 +8,10 @@ pre-LN blocks (LN -> attention -> dense -> dropout -> residual, LN ->
 intermediate -> exact GELU -> dense -> dropout -> residual); a final fp32
 LayerNorm on the last hidden state only.  The hidden stack holds the raw
 (pre-final-LN) block outputs, embeddings first, as HF's
-``hidden_states``.  Attention dispatches as in ``models/bert.py``.
+``hidden_states``.  Attention dispatches as in ``models/bert.py``
+(``fused_attention`` True, False, "subblock" or "subblock_v2"), and
+``quant="int8"`` makes every dense layer, the patch projection included,
+an ``Int8Dense``.
 """
 
 from __future__ import annotations
@@ -19,30 +22,42 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .bert import LN_EPS, SelfAttention, attention_seed, dense
+from ..ops.int8_linear import dense_or_int8
+from .bert import (LN_EPS, SelfAttention, attention_seed, subblock_attention,
+                   subblock_route)
 from .modules import LayerNorm, _dropout
 
 
 class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, intermediate_dim: int, dtype,
-                 dropout: float, fused: bool, device=None, generator=None):
+                 dropout: float, fused, quant: str = "none", device=None,
+                 generator=None):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
+        self.fused, self.quant = fused, quant
         self.layernorm_before = LayerNorm(dim, LN_EPS, device)
         self.attention = SelfAttention(dim, num_heads, dtype, dropout, fused,
-                                       device, generator)
-        self.attention_output = dense(dim, dim, dtype, device, generator)
+                                       quant, device, generator)
+        self.attention_output = dense_or_int8(dim, dim, dtype, quant, device,
+                                              generator)
         self.layernorm_after = LayerNorm(dim, LN_EPS, device)
-        self.intermediate = dense(dim, intermediate_dim, dtype, device, generator)
-        self.output = dense(intermediate_dim, dim, dtype, device, generator)
+        self.intermediate = dense_or_int8(dim, intermediate_dim, dtype, quant,
+                                          device, generator)
+        self.output = dense_or_int8(intermediate_dim, dim, dtype, quant, device,
+                                    generator)
 
     def forward(self, x, deterministic: bool = True, generator=None,
                 seed: Optional[int] = None, layer: int = 0):
         dt = self.dtype or x.dtype
         h = self.layernorm_before(x.float()).to(dt)
-        h = self.attention(h, None, deterministic, generator, seed, layer)
-        h = _dropout(self.attention_output(h), self.dropout, deterministic,
-                     generator)
+        if subblock_route(self.fused, self.quant):
+            h = subblock_attention(self.fused, self.attention,
+                                   self.attention_output, h, None,
+                                   deterministic, seed, layer)
+        else:
+            h = self.attention_output(self.attention(
+                h, None, deterministic, generator, seed, layer))
+        h = _dropout(h, self.dropout, deterministic, generator)
         x = x + h
         h = self.layernorm_after(x.float()).to(dt)
         h = F.gelu(self.intermediate(h))
@@ -60,17 +75,18 @@ class ViTEncoder(nn.Module):
                  hidden_dim: int = 768, num_layers: int = 12,
                  num_heads: int = 12, intermediate_dim: int = 3072,
                  dtype=None, dropout: float = 0.0,
-                 fused_attention: bool = False, collect: str = "full",
-                 device=None, generator=None):
+                 fused_attention=False, collect: str = "full",
+                 quant: str = "none", device=None, generator=None):
         super().__init__()
         if collect not in ("full", "cls"):
             raise ValueError(f"collect must be 'full' or 'cls', got {collect!r}")
         self.image_size, self.patch_size = image_size, patch_size
         self.num_layers, self.dtype, self.dropout = num_layers, dtype, dropout
-        self.fused, self.collect = fused_attention, collect
+        self.fused, self.collect, self.quant = fused_attention, collect, quant
         n = image_size // patch_size
-        self.patch_projection = dense(patch_size * patch_size * 3, hidden_dim,
-                                      dtype, device, generator)
+        self.patch_projection = dense_or_int8(patch_size * patch_size * 3,
+                                              hidden_dim, dtype, quant, device,
+                                              generator)
         self.cls_token = nn.Parameter(torch.zeros((1, 1, hidden_dim),
                                                   device=device))
         pos = torch.empty((1, n * n + 1, hidden_dim), device=device)
@@ -79,7 +95,7 @@ class ViTEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", ViTBlock(
                 hidden_dim, num_heads, intermediate_dim, dtype, dropout,
-                fused_attention, device, generator))
+                fused_attention, quant, device, generator))
         self.final_layernorm = LayerNorm(hidden_dim, LN_EPS, device)
 
     def forward(self, images, deterministic: bool = True, generator=None):

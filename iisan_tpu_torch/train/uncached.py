@@ -9,9 +9,13 @@ device, the model's training forward, ``backward``, one Adam step.  Images
 are decoded on a thread pool one batch ahead (``ParallelImageLoader``);
 titles are rows of the packed token table.
 
-Not ported: ``device_bench`` (a scan over staged data for the TPU),
-meshes, W8A8 towers and the attention-subblock kernels
-(``towers_from_config`` raises for the last two).
+The frozen IISAN towers run under any of the JAX package's options:
+``tower_quant="int8"`` (W8A8 encoders; float ``tower_params`` trees are
+quantised at graft time, as ``_quantize_grafted`` does there) and
+``fused_tower_attention`` True, False, "subblock" or "subblock_v2".
+
+Not ported: ``device_bench`` (a scan over staged data for the TPU) and
+meshes.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..device import resolve_device
 from ..eval.evaluate import evaluate
 from ..models.san import san_from_config
 from ..models.towers import FFTRecModel, UncachedIISANModel, towers_from_config
+from ..ops.int8_linear import quantize_dense_tree
 from ..utils.jax_params import load_jax_params
 from .loop import TrainLoopMixin
 from .optim import build_optimizer, log_group_sizes
@@ -58,13 +63,27 @@ def build_uncached_model(cfg, device=None, generator=None):
     return FFTRecModel(text, image, **common), method
 
 
+def quantize_grafted(path: str, sub):
+    """``tower_quant="int8"``'s graft conversion: the float dense dicts
+    inside the encoder subtrees (a ``bert`` or ``vit`` path component)
+    become Int8Dense's {kernel_q, kscale, bias}; the heads (``fc``,
+    ``classifier``) and everything else stay float."""
+    parts = [p for p in path.split("/") if p]
+    if "bert" in parts or "vit" in parts:
+        return quantize_dense_tree(sub)
+    if isinstance(sub, dict):
+        return {k: quantize_grafted(f"{path}/{k}", v) for k, v in sub.items()}
+    return sub
+
+
 class UncachedTrainer(TrainLoopMixin):
     """Uncached training with both towers in the step.
 
     cfg: an ``IISANConfig`` (either package's); corpus: a ``Corpus``;
     token_table: (item_num+1, 2 * num_words) packed title rows;
     image_store: ``.get(name)`` -> (H, W, 3) uint8; tower_params: optional
-    {"text_tower/bert": JAX tree, ...} grafted over the initial weights.
+    {"text_tower/bert": JAX tree, ...} grafted over the initial weights
+    (float trees are quantised first under ``tower_quant="int8"``).
     The model is initialised on the CPU from ``cfg.seed`` and moved to
     ``device`` (default the first CUDA card; the CPU only when asked
     for).  Dropout draws from a generator on ``device`` seeded from
@@ -80,6 +99,9 @@ class UncachedTrainer(TrainLoopMixin):
                                           num_threads=max(cfg.num_workers, 1))
         self.model, self.method = build_uncached_model(
             cfg, generator=torch.Generator().manual_seed(cfg.seed))
+        if tower_params and getattr(cfg, "tower_quant", "none") != "none":
+            tower_params = {k: quantize_grafted(k, v)
+                            for k, v in tower_params.items()}
         for key, tree in (tower_params or {}).items():
             load_jax_params(self.model.get_submodule(key.replace("/", ".")), tree)
         self.model.to(self.device)

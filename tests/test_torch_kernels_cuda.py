@@ -40,6 +40,14 @@ probability may round to the neighbouring bf16 value on one side only; the
 mask replay kernel is bit-equal to its plain version.  Planted faults (the
 key bias dropped on a padded batch, the backward run with another seed,
 the softmax row term dropped from the backward) must break those bounds.
+W8A8 linear (#10): bit-equal to ``int8_matmul`` (the int32 sums are exact
+and every other step rounds as the plain version does), fp32 and bf16 in
+and out, zero rows and 3-D input; a dropped bias, rounding toward zero and
+one per-tensor activation scale each break equality.  Attention subblocks
+(#8, #9, bf16): the forward tolerance of the attention kernels, in eval and
+train mode, against the explicit-mask oracle, bit for bit on a repeat; the
+key bias dropped, one head's rows of Wo skipped and another seed's masks
+must break the bound.
 """
 
 import pytest
@@ -47,9 +55,13 @@ import torch
 
 from iisan_tpu_torch.models.user_encoder import UserEncoder, causal_additive_mask
 from iisan_tpu_torch.ops import fused_attention as fa
+from iisan_tpu_torch.ops import fused_attn_subblock as fsb
 from iisan_tpu_torch.ops import fused_san as fs
 from iisan_tpu_torch.ops import fused_user_encoder as fue
+from iisan_tpu_torch.ops import fused_w8a8 as fw
 from iisan_tpu_torch.ops import philox
+from iisan_tpu_torch.ops.int8_linear import (Int8Dense, int8_matmul,
+                                             quantize_kernel, quantize_rows)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -520,3 +532,216 @@ def test_mha_raises_on_unsupported_shape(cuda_device):
     with pytest.raises(ValueError, match="does not take"):
         fa.mha_bwd(q, k, v, bias, g, n_heads=12)  # fp32 block too large
     assert fa.mha_fwd.launches == before
+
+
+# ----------------------------------------------------------------------
+# W8A8 linear (#10): bit-equal to int8_matmul on the card.
+# ----------------------------------------------------------------------
+
+
+def _w8a8_inputs(device, M, K, N, xdtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=gen) * 0.5
+    x[min(1, M - 1)] = 0.0  # a zero row: its scale guard gives bias exactly
+    q, s = quantize_kernel((torch.randn(K, N, generator=gen) * 0.05).numpy())
+    b = torch.randn(N, generator=gen)
+    return (x.to(device, xdtype), torch.from_numpy(q).to(device),
+            torch.from_numpy(s).to(device), b.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype,odtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("M,K,N,with_bias", [(300, 256, 384, True),
+                                             (512, 128, 128, False),
+                                             (7, 256, 256, True),
+                                             (1000, 768, 3072, True),
+                                             (513, 3072, 768, True),
+                                             (21120, 768, 768, True)])
+def test_w8a8_kernel_is_bit_equal_to_plain(cuda_device, xdtype, odtype, M, K, N,
+                                           with_bias):
+    x, q, s, b = _w8a8_inputs(cuda_device, M, K, N, xdtype)
+    b = b if with_bias else None
+    before = fw.fused_w8a8_matmul.launches
+    got = fw.fused_w8a8_matmul(x, q, s, b, odtype)
+    want = int8_matmul(x, q, s, b, odtype)
+    torch.cuda.synchronize()
+    assert fw.fused_w8a8_matmul.launches == before + 1
+    assert got.dtype == odtype and got.shape == (M, N)
+    assert torch.equal(got, want), f"{int((got != want).sum())} values differ"
+    zero = want[min(1, M - 1)]
+    assert torch.equal(zero, (b if with_bias else torch.zeros_like(s)).to(odtype))
+
+
+@pytest.mark.cuda
+def test_w8a8_3d_input_and_planted_faults(cuda_device):
+    x, q, s, b = _w8a8_inputs(cuda_device, 4 * 75, 256, 128, torch.bfloat16, seed=3)
+    x3 = x.reshape(4, 75, 256)
+    got = fw.fused_w8a8_matmul(x3, q, s, b, torch.bfloat16)
+    assert got.shape == (4, 75, 128)
+    assert torch.equal(got, int8_matmul(x3, q, s, b, torch.bfloat16))
+    xq, sx = quantize_rows(x)
+    trunc = torch.clamp(torch.trunc(x.float() * (1 / sx.clamp_min(1e-30))), -127, 127)
+    per_tensor = sx.max()
+    faults = {
+        "bias dropped": int8_matmul(x, q, s, None, torch.bfloat16),
+        "rint -> toward zero": ((trunc.double() @ q.double()).float() * (sx * s)
+                                + b).to(torch.bfloat16),
+        "one activation scale": ((torch.round(x.float() / per_tensor).double()
+                                  @ q.double()).float() * (per_tensor * s)
+                                 + b).to(torch.bfloat16),
+    }
+    flat = fw.fused_w8a8_matmul(x, q, s, b, torch.bfloat16)
+    for name, faulty in faults.items():
+        assert not torch.equal(flat, faulty), name
+
+
+@pytest.mark.cuda
+def test_w8a8_raises_on_unsupported_geometry(cuda_device):
+    x, q, s, b = _w8a8_inputs(cuda_device, 8, 256, 128, torch.float32)
+    before = fw.fused_w8a8_matmul.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fw.fused_w8a8_matmul(x[:, :200], q[:200], s, b, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        fw.fused_w8a8_matmul(x, q[:, :100], s[:100], b[:100], torch.float32)
+    assert fw.fused_w8a8_matmul.launches == before
+
+
+@pytest.mark.cuda
+def test_int8_dense_runs_the_kernel_and_its_gradient(cuda_device):
+    dense = Int8Dense(256, 384, torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    x = torch.randn(33, 256, device=cuda_device).to(torch.bfloat16)
+    before = fw.fused_w8a8_matmul.launches
+    y = dense(x)
+    assert fw.fused_w8a8_matmul.launches == before + 1
+    dense.fused = False
+    assert torch.equal(y, dense(x))
+    dense.fused = True
+    leaf = x.float().requires_grad_(True)
+    dense(leaf).float().sum().backward()
+    plain = x.float().requires_grad_(True)
+    int8_matmul(plain, dense.kernel_q, dense.kscale, dense.bias,
+                torch.bfloat16).float().sum().backward()
+    assert torch.allclose(leaf.grad, plain.grad, rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Attention subblocks (#8, #9)
+# ----------------------------------------------------------------------
+
+
+def _subblock_inputs(device, B, T, D, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, D, generator=gen).to(device, torch.bfloat16)
+    wqkv = (torch.randn(D, 3 * D, generator=gen) / D ** 0.5).to(device, torch.bfloat16)
+    bqkv = (torch.randn(3 * D, generator=gen) * 0.3).to(device)
+    wo = (torch.randn(D, D, generator=gen) / D ** 0.5).to(device, torch.bfloat16)
+    bo = (torch.randn(D, generator=gen) * 0.3).to(device)
+    lengths = torch.randint(1, T + 1, (B,), generator=gen)
+    lengths[0] = 0
+    bias = torch.where(torch.arange(T)[None] < lengths[:, None], 0.0, -1e9).to(device)
+    return x, wqkv, bqkv, wo, bo, bias
+
+
+SUBBLOCK = {False: fsb.fused_attn_subblock, True: fsb.fused_attn_subblock_v2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v2", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,D,H", [(6, 30, 768, 12), (3, 197, 768, 12),
+                                     (5, 77, 256, 4), (2, 1, 256, 4),
+                                     (4, 33, 512, 8), (2, 256, 256, 4)])
+def test_subblock_kernels_match_plain(cuda_device, v2, rate, B, T, D, H):
+    x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D)
+    op, counter = SUBBLOCK[v2], SUBBLOCK[v2]
+    before = counter.launches
+    kw = dict(n_heads=H, seed=977, rate=rate, layer=3)
+    got = op(x, wqkv, bqkv, wo, bo, H, key_bias=bias, drop_rate=rate,
+             seed=977 if rate else None, layer=3)
+    want = fsb.subblock_fwd_plain(x, wqkv, bqkv, wo, bo, bias, v2=v2, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and got.dtype == torch.bfloat16
+    assert _mha_ratio([got], [want]) <= MHA_TOL[torch.bfloat16, "fwd"]
+    # no atomics: the kernels repeat bit for bit
+    assert torch.equal(got, op(x, wqkv, bqkv, wo, bo, H, key_bias=bias,
+                               drop_rate=rate, seed=977 if rate else None, layer=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v2", [False, True])
+def test_subblock_train_mode_is_the_replayed_mask_oracle(cuda_device, v2):
+    B, T, D, H = 8, 30, 768, 12
+    x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D, seed=1)
+    masks = fa.mha_mask_replay(555, B, T, H, 0.1, 7, cuda_device)
+    dt = torch.bfloat16
+    if v2:
+        wg, bg, wog = fsb.group_weights(wqkv, bqkv.to(dt).float(), wo, H)
+        want = fsb.reference_subblock_v2(x, wg, bg, wog, bo.to(dt).float(), bias,
+                                         H, fsb.GROUP, dt, masks).to(dt)
+    else:
+        want = fsb.reference_subblock(x, wqkv, bqkv, wo, bo, bias, H, dt, masks)
+    got = SUBBLOCK[v2](x, wqkv, bqkv, wo, bo, H, key_bias=bias, drop_rate=0.1,
+                       seed=555, layer=7)
+    assert _mha_ratio([got], [want]) <= MHA_TOL[dt, "fwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v2", [False, True])
+def test_subblock_planted_faults_break_the_bound(cuda_device, v2):
+    B, T, D, H = 8, 30, 768, 12
+    x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D, seed=2)
+    op = SUBBLOCK[v2]
+    kw = dict(n_heads=H, seed=31, rate=0.1, layer=0, v2=v2)
+    want = fsb.subblock_fwd_plain(x, wqkv, bqkv, wo, bo, bias, **kw)
+    skipped = wo.clone()
+    skipped[64:128] = 0  # head 1's rows of Wo
+    faults = {
+        "key bias dropped": op(x, wqkv, bqkv, wo, bo, H, key_bias=None,
+                               drop_rate=0.1, seed=31),
+        "one head's Wo rows skipped": op(x, wqkv, bqkv, skipped, bo, H,
+                                         key_bias=bias, drop_rate=0.1, seed=31),
+        "masks of another seed": op(x, wqkv, bqkv, wo, bo, H, key_bias=bias,
+                                    drop_rate=0.1, seed=32),
+    }
+    for name, got in faults.items():
+        assert _mha_ratio([got], [want]) > MHA_TOL[torch.bfloat16, "fwd"], name
+
+
+@pytest.mark.cuda
+def test_subblock_all_pad_rows_stay_finite_and_shapes_raise(cuda_device):
+    x, wqkv, bqkv, wo, bo, _ = _subblock_inputs(cuda_device, 3, 197, 768)
+    bias = torch.full((3, 197), -1e9, device=cuda_device)
+    for op in SUBBLOCK.values():
+        assert torch.isfinite(op(x, wqkv, bqkv, wo, bo, 12, key_bias=bias).float()).all()
+    before = fsb.fused_attn_subblock.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        fsb.fused_attn_subblock(x.float(), wqkv, bqkv, wo, bo, 12)
+    with pytest.raises(ValueError, match="does not take"):
+        fsb.fused_attn_subblock(x[:, :, :96], wqkv[:96, :288], bqkv[:288],
+                                wo[:96, :96], bo[:96], 2)  # head width 48
+    with pytest.raises(ValueError, match="does not take"):
+        fsb.fused_attn_subblock_v2(x, wqkv, bqkv, wo, bo, 6)  # 6 heads of 128
+    assert fsb.fused_attn_subblock.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v2", [False, True])
+def test_subblock_eval_backward_is_the_plain_gradient(cuda_device, v2):
+    x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, 4, 30, 256, seed=3)
+    g = torch.randn_like(x)
+    grads = []
+    for run in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, wqkv, bqkv, wo, bo)]
+        if run == "kernel":
+            out = SUBBLOCK[v2](*leaves, 4, key_bias=bias)
+        else:
+            out = fsb.subblock_fwd_plain(*leaves, bias, n_heads=4, v2=v2)
+        out.backward(g)
+        grads.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    leaves = [t.clone().requires_grad_(True) for t in (x, wqkv, bqkv, wo, bo)]
+    with pytest.raises(NotImplementedError, match="dropout"):
+        SUBBLOCK[v2](*leaves, 4, key_bias=bias, drop_rate=0.1, seed=5).backward(g)

@@ -42,6 +42,9 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "iisan_tpu_torch.ops.quant" in out["modules"]
     assert "iisan_tpu_torch.data.cache_store" in out["modules"]
     assert "iisan_tpu_torch.train.pipelines" in out["modules"]
+    assert "iisan_tpu_torch.ops.int8_linear" in out["modules"]
+    assert "iisan_tpu_torch.ops.fused_w8a8" in out["modules"]
+    assert "iisan_tpu_torch.ops.fused_attn_subblock" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (
         f"JAX-package modules loaded by the port: {out['reference']}")

@@ -10,11 +10,23 @@ E[x]^2, torch's in two passes, and the ViT's residual stream grows to
 O(10)); bf16: max |diff| / max |want| < 0.05 (the two frameworks round
 the cast chain at different places).
 
+The same holds under the options that change the encoders' layers: the
+attention subblocks (``fused_attention="subblock"`` / ``"subblock_v2"``,
+4 heads so that #9's head groups form; the JAX modules run ``_reference_
+subblock`` off the TPU, so fp32 differs by summation order only) and the
+W8A8 encoders (``quant="int8"``: int8 leaves through the bridge; a one-ulp
+difference in a row scale flips ``rint`` on a tie, so fp32 is held to
+max |diff| / max |want| < 1e-3 and bf16 to the bf16 bound).
+
 Also: ``normalize_images`` bit for bit against JAX in bf16 and fp32, the
 stable synthetic images and token rows, ``take_cls_taps``, ``com_dense``
-on the "fft" modality, ``towers_from_config``'s refusals, and
-``trainable_mask`` against the JAX package's path predicates.
+on the "fft" modality, ``towers_from_config``'s checks (the JAX package's
+errors, the subblock-to-``fused_mha`` warning for towers that train, and
+the port's refusals), and ``trainable_mask`` against the JAX package's
+path predicates.
 """
+
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -54,13 +66,64 @@ def _perturbed(params, seed):
             np.float32), jax.device_get(params))
 
 
-def _assert_close(got, want, dtype):
+def _assert_close(got, want, dtype, int8=False):
     got, want = got.detach().float().numpy(), np.asarray(want, np.float32)
     assert got.shape == want.shape and np.isfinite(got).all()
-    if dtype == "float32":
+    if dtype == "float32" and not int8:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     else:
-        assert np.abs(got - want).max() / np.abs(want).max() < 0.05
+        bound = 1e-3 if dtype == "float32" else 0.05
+        assert np.abs(got - want).max() / np.abs(want).max() < bound
+
+
+def _perturbed_floats(params, seed):
+    """``_perturbed`` for a W8A8 tree: int8 weights and their scales
+    stay as they are."""
+    rng = np.random.default_rng(seed)
+
+    def move(path, x):
+        x = np.asarray(x)
+        if x.dtype == np.int8 or "kscale" in jax.tree_util.keystr(path):
+            return x
+        return x + 0.1 * rng.standard_normal(x.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(move, jax.device_get(params))
+
+
+OPTIONS = {"subblock": dict(fused_attention="subblock"),
+           "subblock_v2": dict(fused_attention="subblock_v2"),
+           "int8": dict(quant="int8")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_encoders_match_jax_under_tower_options(option, dtype):
+    """Both encoders under each option, 4 heads of 64, hidden stacks and
+    last outputs compared; BERT with a padded row and an all-pad row."""
+    jdt, tdt = DTYPES[dtype]
+    kw = dict(DIMS, hidden_dim=256, num_heads=4, **OPTIONS[option])
+    int8 = option == "int8"
+    rng = np.random.default_rng(7)
+    ids = rng.integers(1, 1000, (4, 6)).astype(np.int32)
+    mask = np.ones((4, 6), np.int32)
+    mask[1, 3:] = 0
+    mask[3] = 0
+    images = rng.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    for jcls, tcls, args, extra in (
+            (JaxBert, BertEncoder, (ids, mask), dict(vocab_size=1000)),
+            (JaxViT, ViTEncoder, (images,), dict(image_size=32))):
+        jm = jcls(dtype=jdt, collect="cls", **extra, **kw)
+        params = _perturbed_floats(
+            jm.init(jax.random.PRNGKey(0), *args)["params"], 8)
+        jargs = [jnp.asarray(a, jdt) if a.dtype == np.float32 else a for a in args]
+        want_last, want_hid = jm.apply({"params": params}, *jargs)
+        tm = tcls(dtype=tdt, collect="cls", **extra, **kw)
+        load_jax_params(tm, params)
+        targs = [torch.tensor(a).to(tdt) if a.dtype == np.float32 else torch.tensor(a)
+                 for a in args]
+        last, hid = tm(*targs)
+        _assert_close(hid, want_hid, dtype, int8)
+        _assert_close(last, want_last, dtype, int8)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -156,9 +219,6 @@ IISAN = dict(adapter_type="IISAN", adding_adapter_to="all", fine_tune_to="None")
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fused_tower_attention="subblock"),
-    dict(fused_tower_attention="subblock_v2", **IISAN),
-    dict(tower_quant="int8", **IISAN),
     dict(remat_towers=True),
     dict(remat_towers="mlp"),
     dict(adapter_type="lora", adding_adapter_to="all"),
@@ -168,6 +228,54 @@ IISAN = dict(adapter_type="IISAN", adding_adapter_to="all", fine_tune_to="None")
 def test_towers_from_config_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         towers_from_config(IISANConfig(**{**SMALL, **kw}))
+
+
+@pytest.mark.parametrize("kw,route,quant", [
+    (dict(fused_tower_attention="subblock", **IISAN), "subblock", "none"),
+    (dict(fused_tower_attention="subblock_v2", **IISAN), "subblock_v2", "none"),
+    (dict(tower_quant="int8", **IISAN), True, "int8"),
+    (dict(tower_quant="int8", fused_tower_attention="subblock", **IISAN),
+     "subblock", "int8"),
+])
+def test_towers_from_config_builds_the_tower_options(kw, route, quant):
+    from iisan_tpu_torch.models.bert import subblock_route
+    from iisan_tpu_torch.ops.int8_linear import Int8Dense
+
+    text, image = towers_from_config(IISANConfig(**{**SMALL, **kw}))
+    for enc in (text.bert, image.vit):
+        assert enc.fused == route and enc.quant == quant
+        layer = enc.layer_0
+        assert subblock_route(layer.fused, layer.quant) == (
+            route in ("subblock", "subblock_v2") and quant == "none")
+        assert isinstance(layer.intermediate, Int8Dense) == (quant == "int8")
+    assert isinstance(image.vit.patch_projection, Int8Dense) == (quant == "int8")
+    # the heads stay float
+    assert not isinstance(text.fc, Int8Dense) and not isinstance(image.classifier,
+                                                                  Int8Dense)
+
+
+def test_towers_from_config_checks_follow_jax():
+    from iisan_tpu.models.towers import towers_from_config as jax_towers
+
+    fft = dict(adapter_type="fft", adding_adapter_to="None")
+    for kw, match in ((dict(tower_quant="int8_pallas", **IISAN), "int8_pallas.*removed"),
+                      (dict(tower_quant="fp4", **IISAN), "unsupported tower_quant"),
+                      (dict(tower_quant="int8", **fft), "requires frozen towers"),
+                      (dict(tower_quant="int8", **dict(IISAN, fine_tune_to="all")),
+                       "requires frozen towers")):
+        for build in (towers_from_config, jax_towers):
+            with pytest.raises(ValueError, match=match):
+                build(JaxConfig(**{**SMALL, **kw}))
+    # towers that train cannot run a subblock op: fused_mha, with a warning
+    for route in ("subblock", "subblock_v2"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            text, image = towers_from_config(
+                IISANConfig(**SMALL, fused_tower_attention=route, **fft))
+        assert any("fused_mha" in str(w.message) for w in caught)
+        assert text.bert.fused is True and image.vit.fused is True
+        jtext, _ = jax_towers(JaxConfig(**SMALL, fused_tower_attention=route, **fft))
+        assert jtext.bert.fused_attention is True
 
 
 def test_towers_from_config_geometry():
