@@ -49,19 +49,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the loss must be finite and its last 20 steps lower than its first 20.
    Then, from one set of weights at dropout 0, five steps through the
    kernels and five through the module path must give losses within 2e-2
-   and a nonzero gradient for every parameter on both.
+   and a nonzero gradient for every parameter on both; then three steps at
+   ``max_seq_len=20`` (the encoder backward's stash in its global
+   scratch), the encoder kernels once a step.
 7. Hold the tower-attention kernels against their plain versions in bf16
    (``check_attention``): the forward at the BERT step geometry (704
    titles x 30 tokens, D=768, 12 heads, padded key bias with an all-pad
    row) in eval mode and in train mode (dropout 0.1, the same Philox masks
    on both sides), at the ViT step geometry (704 images x 197 tokens,
-   compared on a 64-image slice, timed at 704) in eval mode; the backward
-   at the FFT step's shapes (88 rows), BERT in train mode and ViT in eval
-   mode; the mask replay kernel bit for bit.  Planted faults (the key bias
-   dropped on the padded batch, the backward run with another seed, the
-   softmax row term dropped from the backward) must break the bounds;
-   all-pad rows must stay finite.  The library call
-   ``scaled_dot_product_attention`` is timed on the eval-mode shapes.
+   compared on a 64-image slice, timed at 704) in eval mode and in fp32,
+   and at 257 tokens (a 256-pixel ViT) in eval and train mode; the
+   backward at the FFT step's shapes (88 rows), BERT in train mode and ViT
+   in eval mode (its resident design), ViT in fp32 and 257 tokens in train
+   mode (its tiled design); the mask replay kernel bit for bit.  Planted
+   faults (the key bias dropped on the padded batch, the backward run with
+   another seed, the softmax row term dropped from the backward) must
+   break the bounds; all-pad rows must stay finite.  The library call
+   ``scaled_dot_product_attention`` is timed on the eval-mode shapes, and
+   its backward alone beside #6.
 8. IISAN (Uncached) training at the published configuration
    (``scripts/bench_uncached.py``'s, at the default batch of 64):
    BERT-base and ViT-base geometry (12 layers, 768 wide, 12 heads, 224 x
@@ -110,8 +115,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 16. Hold the W8A8 kernel (#10) against ``int8_matmul`` on the card, bit
    for bit, at every tower dense layer's (K, N) = (768, 768), (768, 3072),
    (3072, 768) at the step's ViT rows (138,688) and BERT rows (21,120),
-   bf16 with bias, plus an fp32 case and one without bias, zero rows in
-   each; planted faults (bias dropped, rounding toward zero, one
+   bf16 with bias, plus an fp32 case, one without bias and BERT-large's
+   (4096, 1024) (32-row blocks), zero rows in each; planted faults (bias dropped, rounding toward zero, one
    activation scale for the tensor) must each break equality.  CUDA-event
    medians beside the int8 bound; bf16 ``F.linear`` and ``torch._int_mm``
    timed for context (other functions).
@@ -136,7 +141,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    route's kernel a step, none of the other and no ``mha_fwd``), the
    step's breakdown; then 3 steps of each and of ``fused_mha`` from one
    set of weights at dropout 0, losses within 2e-2.
-20. Print one JSON line of per-kernel results, then the final status line.
+20. IISAN (Uncached) at ``CV_resize=256`` (257 image tokens): 3 steps
+   through ``fused_mha`` (24 #5 launches a step) and 3 through the
+   ``subblock`` route (24 #8), each with its step breakdown.
+21. Print one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -181,15 +189,22 @@ BWD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # 2e-2 forward and 5e-2 backward: a probability may round to the
 # neighbouring bf16 value on one side only.
 MHA_TOL = {"fwd": 2e-2, "bwd": 5e-2}
+# fp32 attention (the fp32 compute dtype): the same form at 1e-4, summation
+# order only, as tests/test_torch_kernels_cuda.py.
+MHA_TOL_FP32 = 1e-4
 # The uncached step: BERT-base titles and ViT-base images of a batch of 64
 # users x (L+1) items.
 TOWER_D, TOWER_H, TITLE_T, IMAGE_T = 768, 12, 30, 197
+# A ViT at CV_resize=256: 16 x 16 patches and the CLS token.
+IMAGE_T_256 = 257
 STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 # The W8A8 kernel's shapes on the step: every tower dense layer's (K, N) at
-# the ViT rows (704 images x 197 tokens) and the BERT rows (704 x 30).
+# the ViT rows (704 images x 197 tokens) and the BERT rows (704 x 30); and
+# BERT-large's FFN output layer (K = 4096, N = 1024) at the BERT rows.
 W8A8_SHAPES = ((768, 768), (768, 3072), (3072, 768))
+W8A8_LARGE = (4096, 1024)
 VIT_ROWS, BERT_ROWS = STEP_ROWS * IMAGE_T, STEP_ROWS * TITLE_T
 # scripts/bench_uncached.py's configuration at the published batch of 64.
 UNCACHED_CFG = dict(batch_size=64, epoch=1, embedding_dim=EMB,
@@ -862,36 +877,58 @@ def check_attention(device):
         f"{out['bert_sdpa_ms']:.4f} ms (medians, CUDA events); bound "
         f"{mha_bound(B, T, D, H, True, False)[0]:.4f} ms")
 
-    # ViT images: 197 tokens, eval mode, no bias
-    T = IMAGE_T
-    q, k, v, g = qkvg(B, T)
-    got = fa.mha_fwd(q, k, v, None, n_heads=H)[:64]
-    want = fa.mha_fwd_plain(q[:64], k[:64], v[:64], None, n_heads=H)
-    torch.cuda.synchronize()
-    ratio = mha_ratio([got], [want])
-    out["fwd_err"] = max(out["fwd_err"], err([got], [want]))
-    log(f"mha_fwd ViT eval B={B} T={T} (first 64 rows vs plain): {ratio:.4g} "
-        f"(tol {MHA_TOL['fwd']})")
-    require(ratio, MHA_TOL["fwd"], "mha_fwd ViT")
-    heads = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous() for t in (q, k, v)]
-    out["fwd_ms"] = cuda_timed(lambda: fa.mha_fwd(q, k, v, None, n_heads=H), 10)
-    out["fwd_sdpa_ms"] = cuda_timed(
-        lambda: F.scaled_dot_product_attention(*heads), 10)
-    out["fwd_plain_ms"] = cuda_timed(
-        lambda: fa.mha_fwd_plain(q, k, v, None, n_heads=H), 5)
-    out["fwd_bound"] = mha_bound(B, T, D, H, False, False)
-    log(f"mha_fwd ViT eval B={B}: kernel {out['fwd_ms']:.4f} ms, plain "
-        f"{out['fwd_plain_ms']:.4f} ms, scaled_dot_product_attention "
-        f"{out['fwd_sdpa_ms']:.4f} ms; bound {out['fwd_bound'][0]:.4f} ms "
-        f"({out['fwd_bound'][1]})")
-    del heads
-
-    # The backward at the FFT step's shapes (88 rows)
-    B = FFT_BATCH * (SEQ_LEN + 1)
-    cases = (("BERT train", TITLE_T, True, dict(n_heads=H, seed=seed, rate=rate, layer=3)),
-             ("ViT eval", IMAGE_T, False, dict(n_heads=H)))
-    for name, T, padded, kw in cases:
+    # ViT images: 197 tokens (224 pixels) and 257 (256 pixels), no bias;
+    # compared on the first 64 images, timed at 704.  257 in eval and train
+    # mode; 197 also in fp32 (the fp32 compute dtype's CUDA-core path).
+    for T in (IMAGE_T, IMAGE_T_256):
         q, k, v, g = qkvg(B, T)
+        modes = [("eval", dict(n_heads=H))]
+        if T == IMAGE_T_256:
+            modes.append(("train", dict(n_heads=H, seed=seed, rate=rate, layer=2)))
+        for mode, kw in modes:
+            got = fa.mha_fwd(q, k, v, None, **kw)[:64]
+            want = fa.mha_fwd_plain(q[:64], k[:64], v[:64], None, **kw)
+            torch.cuda.synchronize()
+            ratio = mha_ratio([got], [want])
+            out["fwd_err"] = max(out["fwd_err"], err([got], [want]))
+            log(f"mha_fwd ViT {mode} B={B} T={T} (first 64 rows vs plain): "
+                f"{ratio:.4g} (tol {MHA_TOL['fwd']})")
+            require(ratio, MHA_TOL["fwd"], f"mha_fwd ViT T={T} {mode}")
+        heads = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous() for t in (q, k, v)]
+        ms = cuda_timed(lambda: fa.mha_fwd(q, k, v, None, n_heads=H), 10)
+        sdpa_ms = cuda_timed(lambda: F.scaled_dot_product_attention(*heads), 10)
+        plain_ms = cuda_timed(lambda: fa.mha_fwd_plain(q, k, v, None, n_heads=H), 5)
+        bnd = mha_bound(B, T, D, H, False, False)
+        log(f"mha_fwd ViT eval B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention {sdpa_ms:.4f} ms; bound {bnd[0]:.4f} "
+            f"ms ({bnd[1]})")
+        if T == IMAGE_T:
+            out.update(fwd_ms=ms, fwd_sdpa_ms=sdpa_ms, fwd_plain_ms=plain_ms, fwd_bound=bnd)
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            got = fa.mha_fwd(q32, k32, v32, None, n_heads=H)[:64]
+            want = fa.mha_fwd_plain(q32[:64], k32[:64], v32[:64], None, n_heads=H)
+            torch.cuda.synchronize()
+            ratio = mha_ratio([got], [want])
+            ms32 = cuda_timed(lambda: fa.mha_fwd(q32, k32, v32, None, n_heads=H), 3)
+            log(f"mha_fwd ViT eval B={B} T={T} fp32 (first 64 rows vs plain): {ratio:.4g} "
+                f"(tol {MHA_TOL_FP32}); kernel {ms32:.4f} ms (CUDA cores)")
+            require(ratio, MHA_TOL_FP32, "mha_fwd ViT fp32")
+            del q32, k32, v32
+        del heads
+
+    # The backward at the FFT step's shapes (88 rows): BERT train and ViT
+    # eval in bf16 (the resident design), ViT in fp32 and 257 tokens in bf16
+    # (the tiled one)
+    B = FFT_BATCH * (SEQ_LEN + 1)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = (("BERT train", TITLE_T, True, bf16, dict(n_heads=H, seed=seed, rate=rate, layer=3)),
+             ("ViT eval", IMAGE_T, False, bf16, dict(n_heads=H)),
+             ("ViT eval fp32", IMAGE_T, False, fp32, dict(n_heads=H)),
+             ("ViT-256 train", IMAGE_T_256, True, bf16,
+              dict(n_heads=H, seed=seed, rate=rate, layer=4)))
+    for name, T, padded, dtype, kw in cases:
+        q, k, v, g = (t.to(dtype) for t in qkvg(B, T))
+        tol = MHA_TOL["bwd"] if dtype == bf16 else MHA_TOL_FP32
         b = None
         if padded:
             lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
@@ -902,11 +939,13 @@ def check_attention(device):
         want = fa.mha_bwd_plain(q, k, v, b, g, **kw)
         torch.cuda.synchronize()
         ratio = mha_ratio(got, want)
-        out["bwd_err"] = max(out["bwd_err"], err(got, want))
-        log(f"mha_bwd {name} B={B} T={T} bf16: gq, gk, gv max |diff| / (max|plain| "
-            f"+ |plain|) {ratio:.4g} (tol {MHA_TOL['bwd']}); finite "
+        if dtype == bf16:
+            out["bwd_err"] = max(out["bwd_err"], err(got, want))
+        design = "resident" if fa.bwd_resident(T, q.element_size()) else "tiled"
+        log(f"mha_bwd {name} B={B} T={T} {str(dtype)[6:]} ({design}): gq, gk, gv max "
+            f"|diff| / (max|plain| + |plain|) {ratio:.4g} (tol {tol}); finite "
             f"{all(torch_finite(t) for t in got)}")
-        require(ratio, MHA_TOL["bwd"], f"mha_bwd {name}")
+        require(ratio, tol, f"mha_bwd {name}")
         faults = {}
         if padded:
             faults["backward seed != forward seed"] = fa.mha_bwd(
@@ -919,16 +958,27 @@ def check_attention(device):
             fa._softmax_bwd = softmax_bwd
         for fault, fgot in faults.items():
             fr = mha_ratio(fgot, got)
-            log(f"  planted fault '{fault}': {fr:.4g} (must be > {MHA_TOL['bwd']})")
-            if fr <= MHA_TOL["bwd"]:
+            log(f"  planted fault '{fault}': {fr:.4g} (must be > {tol})")
+            if fr <= tol:
                 raise AssertionError(f"the backward bound admits '{fault}'")
         ms = cuda_timed(lambda: fa.mha_bwd(q, k, v, b, g, **kw), 10)
         plain_ms = cuda_timed(lambda: fa.mha_bwd_plain(q, k, v, b, g, **kw), 5)
         bnd = mha_bound(B, T, D, H, padded, True)
-        log(f"mha_bwd {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-        if not padded:
+        lib = ""
+        if name == "ViT eval":
+            # the library's backward alone: SDPA's forward stays outside the
+            # timed region (its graph is kept for the repeated backward)
+            hq = [t.reshape(B, T, H, D // H).transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+            ho = F.scaled_dot_product_attention(*hq)
+            hg = g.reshape(B, T, H, D // H).transpose(1, 2)
+            out["bwd_sdpa_ms"] = cuda_timed(
+                lambda: torch.autograd.grad(ho, hq, hg, retain_graph=True), 10)
+            lib = f", scaled_dot_product_attention backward {out['bwd_sdpa_ms']:.4f} ms"
+            del hq, ho, hg
             out["bwd_ms"], out["bwd_plain_ms"], out["bwd_bound"] = ms, plain_ms, bnd
+        log(f"mha_bwd {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return out
 
 
@@ -1141,7 +1191,8 @@ def check_w8a8(device):
     cases = [(M, K, N, torch.bfloat16, True) for M in (VIT_ROWS, BERT_ROWS)
              for K, N in W8A8_SHAPES]
     cases += [(BERT_ROWS, 768, 3072, torch.float32, True),
-              (BERT_ROWS, 3072, 768, torch.bfloat16, False)]
+              (BERT_ROWS, 3072, 768, torch.bfloat16, False),
+              (BERT_ROWS, *W8A8_LARGE, torch.bfloat16, True)]
     out = {"err": 0.0}
     for M, K, N, dt, with_bias in cases:
         x = torch.randn(M, K, generator=gen, device=device).to(dt)
@@ -1158,7 +1209,8 @@ def check_w8a8(device):
         ms = cuda_timed(lambda: fw.fused_w8a8_matmul(x, q, s, b, dt, kernel_qt=qt), 10)
         plain_ms = cuda_timed(lambda: int8_matmul(x, q, s, b, dt), 3)
         bnd = w8a8_bound(M, K, N, x.element_size(), got.element_size())
-        log(f"w8a8_linear M={M} K={K} N={N} {str(dt)[6:]}{'' if with_bias else ' no bias'}: "
+        log(f"w8a8_linear M={M} K={K} N={N} {str(dt)[6:]}{'' if with_bias else ' no bias'} "
+            f"({fw.block_rows(K)}-row blocks): "
             f"{ndiff} of {got.numel()} values differ from int8_matmul; kernel "
             f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms; "
             f"bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -1194,6 +1246,67 @@ def check_w8a8(device):
         del x, got, want
         torch.cuda.empty_cache()
     return out
+
+
+def train_uncached_257(device, counters):
+    """IISAN (Uncached) at CV_resize=256 (257 image tokens, past the first
+    kernels' 256 keys): 3 steps through ``fused_mha`` (#5) and 3 through the
+    ``subblock`` route (#8), each with its step breakdown.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=3 * 64, item_num=800, max_seq_len=SEQ_LEN, seed=0)
+    totals = {c.__name__: 0 for c in counters}
+    for route, counter in ((True, "mha_fwd"), ("subblock", "fused_attn_subblock")):
+        name = "fused_mha" if route is True else route
+        tr = uncached_trainer(device, corpus, CV_resize=256, fused_tower_attention=route)
+        _, launches = counted(counters, lambda: tr.run_epoch(1))
+        losses = tr._last_step_losses.float().cpu().numpy()
+        host, busy, families = uncached_breakdown(tr, staged_batch(tr, 1), 3)
+        log(f"uncached IISAN at 257 image tokens, {name}: 3 steps, losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + f"; launches {launches}")
+        log(f"uncached IISAN at 257 tokens, {name}, step on a staged batch: host "
+            f"{host:.2f} ms (median of 3, synchronised), device-busy {busy:.2f} ms "
+            "(profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+        if launches[counter] != 24 * 3 or not np.isfinite(losses).all():
+            raise AssertionError(f"uncached at 257 tokens, {name}: launches {launches}, "
+                                 f"losses {losses}")
+        for k in totals:
+            totals[k] += launches[k]
+        del tr
+        torch.cuda.empty_cache()
+    return totals
+
+
+def train_cached_long(device, taps, counters):
+    """Three cached training steps at max_seq_len=20 (the encoder kernels
+    at L=20: the backward's stash in its global scratch); returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+    from iisan_tpu_torch.ops import fused_user_encoder as fue
+    from iisan_tpu_torch.train.cached import CachedTrainer
+
+    L = 20
+    corpus = synthetic_corpus(n_users=3 * 64, item_num=ITEMS, max_seq_len=L, seed=SEED)
+    tr = CachedTrainer(IISANConfig(**dict(TRAIN_CFG, max_seq_len=L)), corpus, *taps,
+                       device=device)
+    _, launches = counted(counters, lambda: tr.run_epoch(1))
+    losses = tr._last_step_losses.float().cpu().numpy()
+    plan = fue.bwd_plan(L, EMB, HEADS, 4 * EMB, BLOCKS)
+    log(f"cached, max_seq_len={L}: 3 steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches}; backward placement {plan[0]} (0 shared, 1 slots "
+        f"global), {plan[2]} scratch floats a sequence")
+    if launches["user_encoder_fwd"] != 3 or launches["user_encoder_bwd"] != 3 \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"cached at L={L}: launches {launches}, losses {losses}")
+    return launches
 
 
 def int8_modules(model, fused: bool):
@@ -1944,7 +2057,8 @@ def main() -> int:
         del tr
         torch.cuda.empty_cache()
     check_gradients_reach_parameters(device, corpus, taps, TRAIN_CFG, "cached")
-    train_counts = {k: trained[False][k] + trained[True][k]
+    long_counts = train_cached_long(device, taps, counters)
+    train_counts = {k: trained[False][k] + trained[True][k] + long_counts[k]
                     for k in trained[False]}
     del taps
     torch.cuda.empty_cache()
@@ -1986,7 +2100,8 @@ def main() -> int:
     subblock = check_subblock(device)
     torch.cuda.empty_cache()
     routes = train_subblock_routes(device, tcounters)
-    towers = {k: int8[k] + routes[k] for k in int8}
+    long_tokens = train_uncached_257(device, tcounters)
+    towers = {k: int8[k] + routes[k] + long_tokens[k] for k in int8}
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -2020,7 +2135,7 @@ def main() -> int:
               attn["fwd_plain_ms"], attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",
               uncached["mha_bwd"], attn["bwd_err"], attn["bwd_ms"],
-              attn["bwd_plain_ms"], attn["bwd_bound"], None),
+              attn["bwd_plain_ms"], attn["bwd_bound"], attn["bwd_sdpa_ms"]),
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
               uncached["mha_mask_replay"], 0.0, attn["replay_ms"],
               attn["replay_plain_ms"], attn["replay_bound"], None),

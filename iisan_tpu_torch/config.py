@@ -83,8 +83,9 @@ class IISANConfig:
     fused_user_encoder: bool = True
     cache_quant: str = "none"
     # uncached towers: dropout override (< 0 keeps BERT 0.1 / ViT 0.0),
-    # attention route (True: the fused kernels on the card), rematerialised
-    # layers and W8A8 projections (the last two are not ported)
+    # attention route (True: the fused kernels on the card; "subblock" /
+    # "subblock_v2": kernels #8 / #9), rematerialised layers (not ported:
+    # models/towers.py raises) and W8A8 projections ("int8": kernel #10)
     tower_dropout: float = -1.0
     fused_tower_attention: Any = True
     remat_towers: Any = False

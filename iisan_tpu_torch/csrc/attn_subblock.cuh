@@ -8,11 +8,14 @@
 //    cores (mma.sync m16n8k16, fp32 sums), streaming x and the head's 64
 //    weight rows in 32-deep slices through a 2-stage cp.async ring:
 //        q_h = bf16(x . Wq_h + bq_h)   (fp32 sum, fp32 bias, one rounding)
-//    then runs mha.cuh's attention core on them (fp32 scores, softmax,
-//    Philox dropout at site layer * H + h, fp32 sums with V) and writes its
-//    head's context columns to a (B, T, D) bf16 scratch.  A ViT image's x is
-//    302 KB in bf16, more than a block's 227 KB, which is why a block holds
-//    one head's q, k, v (3 x 26 KB at T = 197) and not the sequence.
+//    then runs mha.cuh's tensor-core attention core on them
+//    (`attend_resident`: mma.sync scores and P.V with fp32 sums, the fp32
+//    softmax normalised before rounding, Philox dropout at site layer * H +
+//    h), its warps walking the 16-row m-tiles, and writes its head's
+//    context columns to a (B, T, D) bf16 scratch.  A ViT image's x is 302
+//    KB in bf16, more than a block's 227 KB, which is why a block holds one
+//    head's q, k, v (3 x 28-37 KB at T = 197, K and V padded to whole
+//    64-key tiles; 3 x 39-46 KB at T = 257) and not the sequence.
 // 2. `subblock_out_kernel`: out = ctx . Wo + bo on the tensor cores, 128 x
 //    128 tiles, with the sum over D cut into groups of `kg` rows of Wo: each
 //    group's sum is fp32, and the groups are added in order onto bo:
@@ -38,6 +41,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kBK = 32;                       // projection slice depth
 constexpr int kSt = kBK + 8;                  // staging row stride (elements): 80 bytes
+constexpr int kMaxKeys = 320;                 // the projection's register tiles
 constexpr int kMaxMTiles = kMaxKeys / 16;     // 16-row tiles of a sequence
 constexpr int kJ = kMaxMTiles * 4 / kWarps;   // (row tile, 16 columns) tasks a warp
 constexpr int kOBM = 128, kOBN = 128;         // output-projection tile
@@ -45,21 +49,20 @@ constexpr int kOSt = kBK + 8;
 
 __host__ __device__ inline int padded_rows(int Tn) { return (Tn + 15) / 16 * 16; }
 
-// Block of subblock_attn_kernel: K_h, V_h, Q_h (all T rows), the key bias,
-// then a work area that holds the projection's staging ring and, after it,
-// one query tile's fp32 scores.
+// Block of subblock_attn_kernel: K_h and V_h (zero past T up to a whole key
+// tile), Q_h (zero up to a whole m-tile), the key bias, then the
+// projection's staging ring.  Row stride kStr.
 struct AttnLayout {
   size_t k, v, q, bias, work, bytes;
   __host__ __device__ AttnLayout(int Tn) {
-    const size_t kv = align16(static_cast<size_t>(Tn) * tile_stride(2) * 2);
+    const size_t kv = static_cast<size_t>(padded_keys(Tn)) * kStr * 2;
     const size_t staging = 2 * static_cast<size_t>(padded_rows(Tn) + kDk) * kSt * 2;
-    const size_t scores = align16(static_cast<size_t>(fwd_tile(Tn)) * Tn * 4);
     k = 0;
     v = kv;
     q = 2 * kv;
-    bias = 3 * kv;
-    work = bias + align16(static_cast<size_t>(Tn) * 4);
-    bytes = work + (staging > scores ? staging : scores);
+    bias = q + static_cast<size_t>(padded_rows(Tn)) * kStr * 2;
+    work = bias + align16(static_cast<size_t>(padded_keys(Tn)) * 4);
+    bytes = work + staging;
   }
 };
 
@@ -75,7 +78,7 @@ __host__ __device__ inline int proj_row(int h, int p, int D, int group) {
 
 // The geometry the kernels take (the wrappers check it first and raise).
 inline bool supported(int B, int Tn, int D, int H, int group) {
-  return B >= 1 && H >= 1 && Tn >= 1 && Tn <= kMaxKeys && D == H * kDk && D % kOBN == 0 &&
+  return mha::supported(B, Tn, D, H) && Tn <= kMaxKeys && D % kOBN == 0 &&
          (group == 0 || (H % group == 0)) &&
          AttnLayout(Tn).bytes <= 232448;
 }
@@ -97,13 +100,13 @@ __device__ inline void stage_slice(bf16* xs, bf16* ws, const bf16* x, const bf16
 }
 
 // dst[i][c] = bf16(sum_d x[i][d] wt[wrow + c][d] + bproj[wrow + c]) for i < T,
-// c < 64: one head's q, k or v, fp32 sums on the tensor cores.  A warp takes
+// c < 64 (row stride kStr): one head's q, k or v, fp32 sums on the tensor
+// cores.  A warp takes
 // the (16-row tile, 16-column group) tasks warp, warp + 8, ...; the call
 // ends with every thread past its last read of the staging ring.
 __device__ inline void project_head(bf16* dst, bf16* stage, const bf16* x, const bf16* wt,
                                     const float* bproj, int Tn, int D, size_t xrow0, int wrow,
                                     int warp, int lane) {
-  constexpr int ST = tile_stride(2);
   const int mp = padded_rows(Tn), n_mt = mp / 16;
   const int g = lane / 4, t = lane % 4, ng = warp % 4;
   bf16* xs[2] = {stage, stage + (mp + kDk) * kSt};
@@ -162,22 +165,23 @@ __device__ inline void project_head(bf16* dst, bf16* stage, const bf16* x, const
       for (int half = 0; half < 2; ++half) {
         const int r = mt * 16 + g + 8 * half;
         if (r < Tn) {
-          dst[r * ST + c] = __float2bfloat16_rn(__fadd_rn(acc[j][ni][2 * half], b0));
-          dst[r * ST + c + 1] = __float2bfloat16_rn(__fadd_rn(acc[j][ni][2 * half + 1], b1));
+          dst[r * kStr + c] = __float2bfloat16_rn(__fadd_rn(acc[j][ni][2 * half], b0));
+          dst[r * kStr + c + 1] = __float2bfloat16_rn(__fadd_rn(acc[j][ni][2 * half + 1], b1));
         }
       }
     }
   }
 }
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
+// Two blocks an SM where shared memory allows (BERT's 30 tokens: 39 KB):
+// without the bound the attention core's registers (181) left one.
+static __global__ void __launch_bounds__(kThreads, 2)
     subblock_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                          const float* __restrict__ bproj, const float* __restrict__ bias,
                          bf16* __restrict__ ctx, Dims d, int group, Dropout drop) {
-  constexpr int ST = tile_stride(2);
   extern __shared__ __align__(16) unsigned char smem[];
   const int Tn = d.T, h = blockIdx.x, b = blockIdx.y;
+  const int kp = padded_keys(Tn), mp = padded_rows(Tn);
   const AttnLayout lay(Tn);
   bf16* Ks = reinterpret_cast<bf16*>(smem + lay.k);
   bf16* Vs = reinterpret_cast<bf16*>(smem + lay.v);
@@ -185,25 +189,27 @@ __global__ void __launch_bounds__(kThreads)
   float* bias_s = reinterpret_cast<float*>(smem + lay.bias);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = static_cast<size_t>(b) * Tn;
-  for (int j = threadIdx.x; j < Tn; j += blockDim.x) bias_s[j] = bias ? bias[row0 + j] : 0.f;
+  for (int j = threadIdx.x; j < kp; j += blockDim.x)
+    bias_s[j] = bias != nullptr && j < Tn ? bias[row0 + j] : 0.f;
+  // rows past T: zero, so the padded keys' values are finite
+  for (int idx = threadIdx.x; idx < (kp - Tn) * (kDk / 2); idx += blockDim.x) {
+    const int r = Tn + idx / (kDk / 2), c = 2 * (idx % (kDk / 2));
+    *reinterpret_cast<unsigned*>(Ks + r * kStr + c) = 0u;
+    *reinterpret_cast<unsigned*>(Vs + r * kStr + c) = 0u;
+    if (r < mp) *reinterpret_cast<unsigned*>(Qs + r * kStr + c) = 0u;
+  }
 
   bf16* parts[3] = {Qs, Ks, Vs};
   for (int p = 0; p < 3; ++p)
     project_head(parts[p], reinterpret_cast<bf16*>(smem + lay.work), x, wt, bproj, Tn, d.D,
                  row0, proj_row(h, p, d.D, group), warp, lane);
-  __syncthreads();  // q, k, v and the bias in place; the staging ring is free
+  __syncthreads();  // q, k, v and the bias in place
 
-  // Each warp owns rows warp + 8 r of a query tile from here on.
-  float* S = reinterpret_cast<float*>(smem + lay.work);
-  for (int i0 = 0; i0 < Tn; i0 += d.tile) {
-    const int rows = min(d.tile, Tn - i0);
-    row_dot_tile<bf16, kFwdRowsPerWarp, NC>(Qs + i0 * ST, Ks, bias_s, S, rows, Tn,
-                                            d.inv_sqrt_dk, warp, lane);
-    __syncwarp();
-    softmax_pv_tile<bf16, kFwdRowsPerWarp>(S, Vs, ctx + (row0 + i0) * d.D + h * kDk, rows, Tn,
-                                           d.D, i0, drop, d.site0 + h, b, warp, lane);
-    __syncwarp();
-  }
+  // Each warp takes the m-tiles warp, warp + 8, ... from here on.
+  for (int mt = warp; mt < mp / 16; mt += kWarps)
+    attend_resident(Qs + mt * 16 * kStr, Ks, Vs, bias != nullptr ? bias_s : nullptr,
+                    ctx + (row0 + mt * 16) * d.D + h * kDk, mt * 16, d, drop, d.site0 + h, b,
+                    lane);
 }
 
 // out[m][n] = TO(tot): tot = (bo[n] + c_0) + c_1 + ..., c_i = sum over rows
@@ -312,19 +318,6 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <int NC>
-cudaError_t launch_attn_nc(const void* x, const void* wt, const void* bproj, const void* bias,
-                           void* ctx, int B, const Dims& d, int group, const Dropout& drop,
-                           cudaStream_t stream) {
-  const AttnLayout lay(d.T);
-  cudaError_t err = allow_smem(subblock_attn_kernel<NC>, lay.bytes);
-  if (err != cudaSuccess) return err;
-  subblock_attn_kernel<NC><<<dim3(d.H, B), kThreads, lay.bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), static_cast<const float*>(bproj),
-      static_cast<const float*>(bias), static_cast<bf16*>(ctx), d, group, drop);
-  return cudaGetLastError();
-}
-
 // Both kernels on `stream`: x (B, T, D) bf16 -> ctx scratch (B, T, D) bf16
 // -> out (B, T, D) in TO.  Returns the first CUDA error (0 on success).
 template <typename TO>
@@ -332,22 +325,16 @@ cudaError_t launch(const void* x, const void* wt, const void* bproj, const void*
                    const void* bo, const void* bias, void* ctx, void* out, int B, int Tn, int D,
                    int H, int group, int kg, int seed, float rate, float scale, int layer,
                    cudaStream_t stream) {
-  const Dims d{Tn, D, H, fwd_tile(Tn),
-               static_cast<float>(1.0 / sqrt(static_cast<double>(kDk))),
+  const Dims d{Tn, D, H, static_cast<float>(1.0 / sqrt(static_cast<double>(kDk))),
                static_cast<unsigned>(layer * H)};
   const Dropout drop = make_dropout(seed, rate, scale);
-  cudaError_t err;
-  switch ((Tn + 31) / 32) {
-    case 1: err = launch_attn_nc<1>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 2: err = launch_attn_nc<2>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 3: err = launch_attn_nc<3>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 4: err = launch_attn_nc<4>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 5: err = launch_attn_nc<5>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 6: err = launch_attn_nc<6>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 7: err = launch_attn_nc<7>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    case 8: err = launch_attn_nc<8>(x, wt, bproj, bias, ctx, B, d, group, drop, stream); break;
-    default: return cudaErrorInvalidValue;
-  }
+  const AttnLayout lay(Tn);
+  cudaError_t err = allow_smem(subblock_attn_kernel, lay.bytes);
+  if (err != cudaSuccess) return err;
+  subblock_attn_kernel<<<dim3(H, B), kThreads, lay.bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), static_cast<const float*>(bproj),
+      static_cast<const float*>(bias), static_cast<bf16*>(ctx), d, group, drop);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int M = B * Tn;
   const size_t bytes = out_smem_bytes();

@@ -12,10 +12,10 @@
 //
 // What bounds it on the H100: at the ViT step (B = 704, T = 197, D = 768)
 // its 739 GFLOP (qkv 491, output 164, attention 84) take 0.75 ms on the bf16
-// tensor cores and its 0.43 GB 0.13 ms: operations.  Both projections run on
-// the tensor cores (mma.sync); the attention core runs fp32 FMAs from shared
-// memory as mha_fwd.cu does, and x is read three times per head, once for
-// each of q, k and v (from L2).
+// tensor cores and its 0.43 GB 0.13 ms: operations.  Both projections and
+// the attention core (mha.cuh's `attend_resident`, the core of mha_fwd.cu)
+// run on the tensor cores (mma.sync); x is read three times per head, once
+// for each of q, k and v (from L2).
 
 #include "attn_subblock.cuh"
 

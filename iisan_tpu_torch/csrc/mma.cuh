@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers of the matrix-product kernels
-// (w8a8_linear.cu, attn_subblock.cuh): `mma.sync` on int8 and bf16 tiles,
-// `cp.async` 16-byte copies into shared memory, and paired stores.
+// (w8a8_linear.cu, mha.cuh, attn_subblock.cuh): `mma.sync` on int8 and bf16
+// tiles, `ldmatrix` of transposed bf16 tiles, `cp.async` 16-byte copies into
+// shared memory, and paired stores.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32), with g = lane / 4 and
 // t = lane % 4, for A a row-major (16, k) tile and B an (8, k) tile stored
@@ -10,7 +11,11 @@
 //   s8   k32: A regs (row g, k 4t..4t+3), (g+8, 4t), (g, 4t+16), (g+8, 4t+16);
 //             B regs (n g, k 4t..4t+3), (g, 4t+16);
 //   C (fp32 or s32): (row g, n 2t..2t+1), (g+8, 2t..2t+1).
-// So every register is one aligned 32-bit load from shared memory.
+// So every register is one aligned 32-bit load from shared memory, and the
+// C tiles of n-columns 16c..16c+15 are, packed to bf16 in pairs, the A
+// fragment of a product over k = those columns.  A B operand stored (k, n)
+// row by row (attention's V: keys x head width) comes through
+// `ldsm_x4_trans`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +56,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lanes 8i..8i+7 give the addresses
+// of matrix i's eight 16-byte rows; lane l receives, of each matrix, the
+// elements (row 2(l%4), column l/4) and (row 2(l%4)+1, column l/4).  For a
+// (k, n) operand stored row by row that is the B fragment of mma.m16n8k16.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Two fp32 values that are bf16 numbers already, packed (lo in the low half).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // Two neighbouring outputs, rounded to T (8-byte or 4-byte aligned store).

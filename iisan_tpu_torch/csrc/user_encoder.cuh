@@ -35,17 +35,29 @@ struct EncoderDims {
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
-// Shared-memory layout, in floats.  One layer's "slot" holds what its
-// forward leaves behind: the forward kernel reuses one slot for every
-// layer; the backward kernel gives each layer its own, and the slots are
-// its stash.  Every offset is a multiple of 4 floats (linear() stores
-// float4s).
+// Working layout, in floats, in three areas: the staged-weight buffer
+// (kWBuf floats, always in shared memory), the "head" (the pre-LayerNorm
+// sums, the scores and the input LayerNorm's stats), and the layer slots.
+// One layer's slot holds what its forward leaves behind: the forward kernel
+// reuses one slot for every layer; the backward kernel gives each layer its
+// own, and the slots are its stash.  Every offset is a multiple of 4 floats
+// (linear() stores float4s).
+//
+// Where the areas fit one block's shared memory they all live there
+// (kResident).  Otherwise the slots move to a per-sequence scratch in
+// global memory that the wrapper allocates (kSlotsGlobal), and where the
+// head does not fit beside the weight buffer either, it moves there too
+// (kSpilled).  The code is the same; only the base pointers differ, and a
+// sequence's scratch (tens to hundreds of KB) stays in the 50 MB L2.
+enum Placement { kResident = 0, kSlotsGlobal = 1, kSpilled = 2 };
+constexpr int kSmemFloats = 232448 / 4;  // shared memory a block may use
+
 struct EncoderLayout {
   int LD, LF, HLL;
   // offsets inside a slot
   int q, k, v, ctx, xhat1, x1, xhat2, hid, p, rstd1, rstd2, slot;
-  // offsets from the start of shared memory
-  int res, sc, xhat0, rstd0, slots;
+  // offsets inside the head
+  int res, sc, xhat0, rstd0, head;
   __host__ __device__ explicit EncoderLayout(const EncoderDims& d)
       : LD(d.L * d.D), LF(d.L * d.F), HLL(d.H * d.L * d.L) {
     // slot: x_in at 0, then q k v (consecutive: one linear() call
@@ -63,11 +75,59 @@ struct EncoderLayout {
     rstd1 = p + HLL;
     rstd2 = rstd1 + d.L;
     slot = pad4(rstd2 + d.L);
-    res = kWBuf;
+    res = 0;
     sc = res + LD;
     xhat0 = sc + pad4(HLL);
     rstd0 = xhat0 + LD;
-    slots = rstd0 + pad4(d.L);
+    head = rstd0 + pad4(d.L);
+  }
+};
+
+// Where the areas go, given the slots (n_slots of them) and any further
+// shared area (`extra` floats: the backward's working set) the kernel needs.
+__host__ __device__ inline Placement place(const EncoderLayout& lay, int n_slots, int extra) {
+  if (kWBuf + lay.head + static_cast<long long>(n_slots) * lay.slot + extra <= kSmemFloats)
+    return kResident;
+  if (kWBuf + lay.head + extra <= kSmemFloats) return kSlotsGlobal;
+  return kSpilled;
+}
+
+// Floats of shared memory and of per-sequence global scratch at a placement
+// (the extra area follows the head in shared memory, the slots in scratch).
+__host__ __device__ inline long long smem_floats(const EncoderLayout& lay, Placement pl,
+                                                 int n_slots, int extra) {
+  if (pl == kResident) return kWBuf + lay.head + static_cast<long long>(n_slots) * lay.slot + extra;
+  if (pl == kSlotsGlobal) return kWBuf + lay.head + extra;
+  return kWBuf;
+}
+__host__ __device__ inline long long scratch_floats(const EncoderLayout& lay, Placement pl,
+                                                    int n_slots, int extra) {
+  if (pl == kResident) return 0;
+  if (pl == kSlotsGlobal) return static_cast<long long>(n_slots) * lay.slot;
+  return lay.head + static_cast<long long>(n_slots) * lay.slot + extra;
+}
+
+// The three areas' bases for sequence b: smem is the block's shared memory,
+// scratch the per-sequence global scratch (scratch_floats each).
+struct EncoderAreas {
+  float *wbuf, *head, *slots, *extra;
+  __device__ EncoderAreas(Placement pl, const EncoderLayout& lay, int n_slots, float* smem,
+                          float* scratch, size_t b, long long per_seq) {
+    float* gs = scratch + b * static_cast<size_t>(per_seq);
+    wbuf = smem;
+    if (pl == kResident) {
+      head = smem + kWBuf;
+      slots = head + lay.head;
+      extra = slots + static_cast<size_t>(n_slots) * lay.slot;
+    } else if (pl == kSlotsGlobal) {
+      head = smem + kWBuf;
+      extra = head + lay.head;
+      slots = gs;
+    } else {
+      head = gs;
+      slots = gs + lay.head;
+      extra = slots + static_cast<size_t>(n_slots) * lay.slot;
+    }
   }
 };
 
@@ -194,20 +254,20 @@ __device__ void layer_norm_rows(const float* pre, const float* __restrict__ scal
 }
 
 // The whole encoder forward of sequence b (xb, mb: its input and mask) in
-// shared memory `smem`, laid out as EncoderLayout.  Layer i works in the
-// slot at `slots + i * slot_stride` (stride 0: one slot for all layers);
-// the last layer's output lands in `out`.  Ends with a barrier.
+// the areas `ar`, laid out as EncoderLayout.  Layer i works in the slot at
+// `ar.slots + i * slot_stride` (stride 0: one slot for all layers); the last
+// layer's output lands in `out`.  Ends with a barrier.
 template <typename T>
 __device__ void encoder_forward(const T* __restrict__ xb, const float* __restrict__ mb,
                                 const float* __restrict__ params, const EncoderDims& dims,
                                 const EncoderLayout& lay, float inv_sqrt_dk,
-                                const Dropout& drop, unsigned b, float* smem,
+                                const Dropout& drop, unsigned b, const EncoderAreas& ar,
                                 int slot_stride, float* out) {
   const int L = dims.L, D = dims.D, H = dims.H, F = dims.F;
   const int LD = L * D, dk = D / H;
-  float* wbuf = smem;
-  float* res = smem + lay.res;  // (L, D) pre-LayerNorm sums
-  float* sc = smem + lay.sc;    // (H, L, L) scores, then probabilities used by PV
+  float* wbuf = ar.wbuf;
+  float* res = ar.head + lay.res;  // (L, D) pre-LayerNorm sums
+  float* sc = ar.head + lay.sc;    // (H, L, L) scores, then probabilities used by PV
 
   const float* pos = params;
   const float* ln0_s = pos + static_cast<size_t>(dims.n_position) * D;
@@ -218,8 +278,8 @@ __device__ void encoder_forward(const T* __restrict__ xb, const float* __restric
   for (int i = threadIdx.x; i < LD; i += blockDim.x)
     res[i] = round_to<T>(to_f32(xb[i]) + round_to<T>(__ldg(pos + i)));
   __syncthreads();
-  float* x_in = smem + lay.slots;
-  layer_norm_rows<T>(res, ln0_s, ln0_b, x_in, smem + lay.xhat0, smem + lay.rstd0, L, D);
+  float* x_in = ar.slots;
+  layer_norm_rows<T>(res, ln0_s, ln0_b, x_in, ar.head + lay.xhat0, ar.head + lay.rstd0, L, D);
   __syncthreads();
   if (drop.on) {
     for (int i = threadIdx.x; i < LD; i += blockDim.x)
@@ -230,7 +290,7 @@ __device__ void encoder_forward(const T* __restrict__ xb, const float* __restric
   for (int layer = 0; layer < dims.n_layers; ++layer) {
     const BlockParams w(p, D, F);
     p += BlockParams::size(D, F);
-    float* s = smem + lay.slots + layer * slot_stride;
+    float* s = ar.slots + static_cast<size_t>(layer) * slot_stride;
     float* q = s + lay.q;
     float* k = s + lay.k;
     float* v = s + lay.v;

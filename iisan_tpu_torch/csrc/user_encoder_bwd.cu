@@ -21,29 +21,38 @@
 // training geometry (B=64, P=100,224) the scratch is 25.7 MB.
 //
 // What bounds it on the H100: as the forward, the latency of a chain of
-// small products on one SM per sequence; one block has the shared-memory
-// stash of its sequence (about 69 KB at L=10, D=64, F=256, H=2, 2 blocks),
-// the staged-weight buffer (64 KB) and the gradient working set (about
-// 26 KB), 161 KB in all, so one block per SM.  The weight gradients are each a sum over the L rows of the
-// sequence, written straight to the scratch row; the input gradients read
-// each weight matrix through a column-chunked, bank-padded copy in shared
-// memory (linear_t).  Batch 64 fills 64 of the 132 SMs.
+// small products on one SM per sequence; one block has the stash of its
+// sequence (about 69 KB at L=10, D=64, F=256, H=2, 2 blocks), the
+// staged-weight buffer (64 KB) and the gradient working set (about 26 KB),
+// 161 KB in all, so one block per SM.  The weight gradients are each a sum
+// over the L rows of the sequence, written straight to the scratch row; the
+// input gradients read each weight matrix through a column-chunked,
+// bank-padded copy in shared memory (linear_t).  Batch 64 fills 64 of the
+// 132 SMs.
+//
+// The stash grows with depth and with L^2, so where it does not fit beside
+// the rest, the per-layer slots go to a per-sequence scratch in global
+// memory (69 KB a sequence at L=10, 4.4 MB at B=64: L2-resident) and shared
+// memory keeps one layer's working set, as in the forward; where even that
+// does not fit (L = 50 at D = 64 and 128), everything but the staged
+// weights goes there (user_encoder.cuh's Placement).  The arithmetic and
+// its order do not change, so results stay bit-repeatable.
 
 #include "user_encoder.cuh"
 
 namespace iisan {
 namespace {
 
-// The backward's working set, after the per-layer slots, in floats.
+// The backward's working set (EncoderAreas' extra area), in floats.
 struct BwdLayout {
   int g, ga, gb, gq, ghid, gsc, total;
-  __host__ __device__ BwdLayout(const EncoderDims& d, const EncoderLayout& lay) {
-    g = lay.slots + d.n_layers * lay.slot;  // the running gradient (L, D)
-    ga = g + lay.LD;                         // (L, D) scratch
-    gb = ga + lay.LD;                        // (L, D) scratch
-    gq = gb + lay.LD;                        // (L, D) x 3: gq, gk, gv
-    ghid = gq + 3 * lay.LD;                  // (L, F)
-    gsc = ghid + lay.LF;                     // (H, L, L)
+  __host__ __device__ explicit BwdLayout(const EncoderLayout& lay) {
+    g = 0;                    // the running gradient (L, D)
+    ga = g + lay.LD;          // (L, D) scratch
+    gb = ga + lay.LD;         // (L, D) scratch
+    gq = gb + lay.LD;         // (L, D) x 3: gq, gk, gv
+    ghid = gq + 3 * lay.LD;   // (L, F)
+    gsc = ghid + lay.LF;      // (H, L, L)
     total = gsc + pad4(lay.HLL);
   }
 };
@@ -143,34 +152,37 @@ __device__ void layer_norm_bwd(const float* gy, const float* xhat, const float* 
   }
 }
 
-template <typename T>
+template <typename T, int kPlace>
 __global__ void __launch_bounds__(kThreads)
     user_encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask,
                             const float* __restrict__ params, const T* __restrict__ gout,
-                            T* __restrict__ gx, float* __restrict__ part, EncoderDims dims,
+                            T* __restrict__ gx, float* __restrict__ part,
+                            float* __restrict__ scratch, long long per_seq, EncoderDims dims,
                             float inv_sqrt_dk, Dropout drop, int P) {
   extern __shared__ __align__(16) float smem[];
   const EncoderLayout lay(dims);
-  const BwdLayout bl(dims, lay);
+  const BwdLayout bl(lay);
   const int L = dims.L, D = dims.D, H = dims.H, F = dims.F;
   const int LD = L * D, dk = D / H;
   const size_t b = blockIdx.x;
   const unsigned bu = static_cast<unsigned>(b);
-  float* wbuf = smem;
-  float* sc = smem + lay.sc;
-  float* g = smem + bl.g;
-  float* ga = smem + bl.ga;
-  float* gb = smem + bl.gb;
-  float* gq = smem + bl.gq;
+  const EncoderAreas ar(static_cast<Placement>(kPlace), lay, dims.n_layers, smem, scratch, b,
+                        per_seq);
+  float* wbuf = ar.wbuf;
+  float* sc = ar.head + lay.sc;
+  float* g = ar.extra + bl.g;
+  float* ga = ar.extra + bl.ga;
+  float* gb = ar.extra + bl.gb;
+  float* gq = ar.extra + bl.gq;
   float* gk = gq + LD;
   float* gv = gk + LD;
-  float* ghid = smem + bl.ghid;
-  float* gsc = smem + bl.gsc;
+  float* ghid = ar.extra + bl.ghid;
+  float* gsc = ar.extra + bl.gsc;
 
   // Forward recompute: layer i leaves its values in slot i (the output
   // itself is not needed; it lands in ga).
   encoder_forward<T>(x + b * LD, mask + b * L * L, params, dims, lay, inv_sqrt_dk, drop, bu,
-                     smem, lay.slot, ga);
+                     ar, lay.slot, ga);
   for (int i = threadIdx.x; i < LD; i += blockDim.x) g[i] = to_f32(gout[b * LD + i]);
   __syncthreads();
 
@@ -183,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int layer = dims.n_layers - 1; layer >= 0; --layer) {
     const BlockParams w(ln0_b + D + layer * bsize, D, F);
-    const float* s = smem + lay.slots + layer * lay.slot;
+    const float* s = ar.slots + static_cast<size_t>(layer) * lay.slot;
     const float* q = s + lay.q;
     const float* k = s + lay.k;
     const float* v = s + lay.v;
@@ -283,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < LD; i += blockDim.x) g[i] *= drop.keep(0u, bu, i);
     __syncthreads();
   }
-  layer_norm_bwd(g, smem + lay.xhat0, smem + lay.rstd0, ln0_s, ga, grad_of(ln0_s),
+  layer_norm_bwd(g, ar.head + lay.xhat0, ar.head + lay.rstd0, ln0_s, ga, grad_of(ln0_s),
                  grad_of(ln0_b), L, D);
   __syncthreads();
   T* gxb = gx + b * LD;
@@ -304,21 +316,45 @@ __global__ void grad_reduce(const float* __restrict__ part, float* __restrict__ 
   out[j] = acc;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* mask, const void* params, const void* gout,
-                   void* gx, float* part, float* gparams, int B, const EncoderDims& dims,
-                   const Dropout& drop, int P, cudaStream_t stream) {
+template <typename T, int kPlace>
+cudaError_t launch_at(const void* x, const void* mask, const void* params, const void* gout,
+                      void* gx, float* part, float* scratch, int B, const EncoderDims& dims,
+                      const Dropout& drop, int P, cudaStream_t stream) {
   const EncoderLayout lay(dims);
-  const BwdLayout bl(dims, lay);
-  const size_t smem = sizeof(float) * static_cast<size_t>(bl.total);
-  cudaError_t err = allow_smem(user_encoder_bwd_kernel<T>, smem);
+  const int extra = BwdLayout(lay).total;
+  const Placement pl = static_cast<Placement>(kPlace);
+  const size_t smem = sizeof(float) * smem_floats(lay, pl, dims.n_layers, extra);
+  const long long per_seq = scratch_floats(lay, pl, dims.n_layers, extra);
+  if (per_seq > 0 && scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(user_encoder_bwd_kernel<T, kPlace>, smem);
   if (err != cudaSuccess) return err;
   const float inv_sqrt_dk = static_cast<float>(1.0 / sqrt(static_cast<double>(dims.D / dims.H)));
-  user_encoder_bwd_kernel<T><<<B, kThreads, smem, stream>>>(
+  user_encoder_bwd_kernel<T, kPlace><<<B, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(mask),
       static_cast<const float*>(params), static_cast<const T*>(gout), static_cast<T*>(gx),
-      part, dims, inv_sqrt_dk, drop, P);
-  err = cudaGetLastError();
+      part, scratch, per_seq, dims, inv_sqrt_dk, drop, P);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* mask, const void* params, const void* gout,
+                   void* gx, float* part, float* scratch, float* gparams, int B,
+                   const EncoderDims& dims, const Dropout& drop, int P, cudaStream_t stream) {
+  const EncoderLayout lay(dims);
+  cudaError_t err;
+  switch (place(lay, dims.n_layers, BwdLayout(lay).total)) {
+    case kResident:
+      err = launch_at<T, kResident>(x, mask, params, gout, gx, part, scratch, B, dims, drop, P,
+                                    stream);
+      break;
+    case kSlotsGlobal:
+      err = launch_at<T, kSlotsGlobal>(x, mask, params, gout, gx, part, scratch, B, dims, drop,
+                                       P, stream);
+      break;
+    default:
+      err = launch_at<T, kSpilled>(x, mask, params, gout, gx, part, scratch, B, dims, drop, P,
+                                   stream);
+  }
   if (err != cudaSuccess) return err;
   grad_reduce<<<(P + 255) / 256, 256, 0, stream>>>(part, gparams, B, P);
   return cudaGetLastError();
@@ -329,22 +365,25 @@ cudaError_t launch(const void* x, const void* mask, const void* params, const vo
 
 // x (B, L, D) T; mask (B, L, L) fp32; params: the packed fp32 parameter
 // vector (P floats); gout (B, L, D) T, the gradient of the output.  Writes
-// gx (B, L, D) T and gparams (P) fp32, using part (B, P) fp32 as scratch.
+// gx (B, L, D) T and gparams (P) fp32, using part (B, P) fp32 and scratch
+// (B, scratch_floats) fp32, or null where the stash fits shared memory.
 // Dropout as iisan_user_encoder_fwd.  Returns the CUDA error of the
 // launches (0 on success).
 extern "C" int iisan_user_encoder_bwd(const void* x, const void* mask, const void* params,
-                                      const void* gout, void* gx, void* part, void* gparams,
-                                      int B, int L, int D, int H, int F, int n_layers,
-                                      int n_position, int is_bf16, int seed, float rate,
-                                      float scale, int P, void* stream) {
+                                      const void* gout, void* gx, void* part, void* scratch,
+                                      void* gparams, int B, int L, int D, int H, int F,
+                                      int n_layers, int n_position, int is_bf16, int seed,
+                                      float rate, float scale, int P, void* stream) {
   const iisan::EncoderDims dims{L, D, H, F, n_layers, n_position};
   const iisan::Dropout drop = iisan::make_dropout(seed, rate, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(part);
+  float* sc = static_cast<float*>(scratch);
   float* gp = static_cast<float*>(gparams);
   const cudaError_t err =
-      is_bf16 ? iisan::launch<__nv_bfloat16>(x, mask, params, gout, gx, pt, gp, B, dims, drop,
-                                             P, s)
-              : iisan::launch<float>(x, mask, params, gout, gx, pt, gp, B, dims, drop, P, s);
+      is_bf16 ? iisan::launch<__nv_bfloat16>(x, mask, params, gout, gx, pt, sc, gp, B, dims,
+                                             drop, P, s)
+              : iisan::launch<float>(x, mask, params, gout, gx, pt, sc, gp, B, dims, drop, P,
+                                     s);
   return static_cast<int>(err);
 }

@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel `_w8a8_kernel` (iisan_tpu/ops/int8_pallas.py),
 // which quantises a block of activation rows once into VMEM scratch (per-row
 // absmax, rint, clip) and streams the int8 weight columns past it.  Here a
-// block owns 64 rows: it quantises them once into shared memory (int8, the
-// row scales beside them), then walks over all N columns in 128-wide tiles,
+// block owns 64 rows (32 where 64 rows at full K would not fit shared
+// memory: K above 3,072, up to 6,272, such as BERT-large's 4,096-wide FFN
+// output): it quantises them once into shared memory (int8, the row scales
+// beside them), then walks over all N columns in 128-wide tiles,
 // streaming the weight's (N, K) transpose through a 3-stage cp.async ring in
 // 64-deep slices, and multiplies on the int8 tensor cores (mma.sync
 // m16n8k32, int32 sums).  Each tile is dequantised on the way out.
@@ -31,24 +33,27 @@
 namespace iisan {
 namespace {
 
-constexpr int kBM = 64;                 // rows a block owns
 constexpr int kBN = 128;                // output columns of a tile
 constexpr int kBK = 64;                 // depth of a weight slice
 constexpr int kStages = 3;              // weight slices in flight
-constexpr int kThreads = 256;           // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
+constexpr int kThreads = 256;           // 8 warps: 2 (rows) x 4 (columns), 16 MI x 32 each
 constexpr int kWarps = kThreads / 32;
 constexpr int kWStride = kBK + 16;      // bytes per weight-slice row (bank spread)
+constexpr int kSmemLimit = 232448;
 
-__host__ __device__ inline size_t smem_bytes(int K) {
-  return static_cast<size_t>(kBM) * (K + 16) + static_cast<size_t>(kStages) * kBN * kWStride +
-         kBM * 4;
+// Shared memory of a block that owns bm rows.
+__host__ __device__ inline size_t smem_bytes(int bm, int K) {
+  return static_cast<size_t>(bm) * (K + 16) + static_cast<size_t>(kStages) * kBN * kWStride +
+         bm * 4;
 }
 
-template <typename TX, typename TO>
+// MI m16 tiles a warp: a block owns kBM = 32 MI rows.
+template <typename TX, typename TO, int MI>
 __global__ void __launch_bounds__(kThreads)
     w8a8_linear_kernel(const TX* __restrict__ x, const int8_t* __restrict__ wt,
                        const float* __restrict__ kscale, const float* __restrict__ bias,
                        TO* __restrict__ out, int M, int K, int N) {
+  constexpr int kBM = 32 * MI;
   extern __shared__ __align__(16) unsigned char smem[];
   const int xs = K + 16;  // row stride of the quantised rows (bank spread)
   int8_t* Xq = reinterpret_cast<int8_t*>(smem);
@@ -93,12 +98,12 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) Sx[r] = sx;
   }
 
-  int acc[2][4][4];
+  int acc[MI][4][4];
   for (int it = 0; it < total; ++it) {
     const int nt = it / n_k, kt = it % n_k;
     if (kt == 0) {
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -111,10 +116,10 @@ __global__ void __launch_bounds__(kThreads)
     const int8_t* W = Ws + (it % kStages) * kBN * kWStride;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 32) {
-      unsigned a[2][4], b[4][2];
+      unsigned a[MI][4], b[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* p = Xq + (wm * 32 + mi * 16 + g) * xs + kt * kBK + kk + 4 * t;
+      for (int mi = 0; mi < MI; ++mi) {
+        const int8_t* p = Xq + (wm * 16 * MI + mi * 16 + g) * xs + kt * kBK + kk + 4 * t;
         a[mi][0] = lds32(p);
         a[mi][1] = lds32(p + 8 * xs);
         a[mi][2] = lds32(p + 16);
@@ -127,7 +132,7 @@ __global__ void __launch_bounds__(kThreads)
         b[ni][1] = lds32(p + 16);
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
     }
@@ -138,10 +143,10 @@ __global__ void __launch_bounds__(kThreads)
         const float k0 = kscale[col], k1 = kscale[col + 1];
         const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            const int r = wm * 32 + mi * 16 + g + 8 * half;
+            const int r = wm * 16 * MI + mi * 16 + g + 8 * half;
             if (m0 + r >= M) continue;
             const float sx = Sx[r];
             float y0 = __fmul_rn(__int2float_rn(acc[mi][ni][2 * half]), __fmul_rn(sx, k0));
@@ -158,17 +163,27 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 }
 
-template <typename TX, typename TO>
-cudaError_t launch(const void* x, const void* wt, const void* kscale, const void* bias, void* out,
-                   int M, int K, int N, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(K);
-  cudaError_t err = allow_smem(w8a8_linear_kernel<TX, TO>, bytes);
+template <typename TX, typename TO, int MI>
+cudaError_t launch_mi(const void* x, const void* wt, const void* kscale, const void* bias,
+                      void* out, int M, int K, int N, cudaStream_t stream) {
+  constexpr int kBM = 32 * MI;
+  const size_t bytes = smem_bytes(kBM, K);
+  cudaError_t err = allow_smem(w8a8_linear_kernel<TX, TO, MI>, bytes);
   if (err != cudaSuccess) return err;
-  w8a8_linear_kernel<TX, TO><<<(M + kBM - 1) / kBM, kThreads, bytes, stream>>>(
+  w8a8_linear_kernel<TX, TO, MI><<<(M + kBM - 1) / kBM, kThreads, bytes, stream>>>(
       static_cast<const TX*>(x), static_cast<const int8_t*>(wt),
       static_cast<const float*>(kscale), static_cast<const float*>(bias), static_cast<TO*>(out),
       M, K, N);
   return cudaGetLastError();
+}
+
+// 64 rows a block where they fit, else 32.
+template <typename TX, typename TO>
+cudaError_t launch(const void* x, const void* wt, const void* kscale, const void* bias, void* out,
+                   int M, int K, int N, cudaStream_t stream) {
+  if (smem_bytes(64, K) <= kSmemLimit)
+    return launch_mi<TX, TO, 2>(x, wt, kscale, bias, out, M, K, N, stream);
+  return launch_mi<TX, TO, 1>(x, wt, kscale, bias, out, M, K, N, stream);
 }
 
 }  // namespace
@@ -176,15 +191,15 @@ cudaError_t launch(const void* x, const void* wt, const void* kscale, const void
 
 // x (M, K) fp32 or bf16 (x_bf16); wt (N, K) int8, the weight's transpose;
 // kscale (N) fp32; bias (N) fp32 or null; out (M, N) fp32 or bf16 (out_bf16).
-// K a multiple of 64 with a block's rows in shared memory, N a multiple of
-// 128.  Returns the CUDA error of the launch (0 on success).
+// K a multiple of 64 with 32 rows' worth in shared memory (K <= 6,272), N a
+// multiple of 128.  Returns the CUDA error of the launch (0 on success).
 extern "C" int iisan_w8a8_linear(const void* x, const void* wt, const void* kscale,
                                  const void* bias, void* out, int M, int K, int N, int x_bf16,
                                  int out_bf16, void* stream) {
   using iisan::kBK;
   using iisan::kBN;
   if (M < 1 || K < kBK || N < kBN || K % kBK || N % kBN ||
-      iisan::smem_bytes(K) > 232448)
+      iisan::smem_bytes(32, K) > iisan::kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf16;

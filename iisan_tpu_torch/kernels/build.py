@@ -103,9 +103,9 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.iisan_user_encoder_fwd.argtypes = [p] * 4 + [i] * 9 + [f, f, p]
+    lib.iisan_user_encoder_fwd.argtypes = [p] * 5 + [i] * 9 + [f, f, p]
     lib.iisan_user_encoder_fwd.restype = i
-    lib.iisan_user_encoder_bwd.argtypes = [p] * 7 + [i] * 9 + [f, f, i, p]
+    lib.iisan_user_encoder_bwd.argtypes = [p] * 8 + [i] * 9 + [f, f, i, p]
     lib.iisan_user_encoder_bwd.restype = i
     lib.iisan_philox_check.argtypes = [i] * 4 + [p] * 3
     lib.iisan_philox_check.restype = i
@@ -115,7 +115,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_san_cascade_streamed_fwd.restype = i
     lib.iisan_mha_fwd.argtypes = [p] * 5 + [i] * 6 + [f, f, i, p]
     lib.iisan_mha_fwd.restype = i
-    lib.iisan_mha_bwd.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]
+    lib.iisan_mha_bwd.argtypes = [p] * 9 + [i] * 6 + [f, f, i, p]
     lib.iisan_mha_bwd.restype = i
     lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [f, f, i, p]
     lib.iisan_mha_mask_replay.restype = i

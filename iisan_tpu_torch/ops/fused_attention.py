@@ -4,10 +4,15 @@ Port of ``iisan_tpu/ops/fused_attention.py``, the attention of every BERT
 and ViT layer of the uncached towers.  Three kernels:
 
 - ``mha_fwd`` (``csrc/mha_fwd.cu``): per head, scores, an fp32 softmax with
-  the optional key bias, train-mode dropout, and the product with V, with
-  the (T, T) scores kept in shared memory; heads unsplit in and out;
+  the optional key bias, train-mode dropout, and the product with V; keys
+  go through shared memory in 64-key tiles (held whole up to 320 keys,
+  streamed beyond), so T up to 46,340 fits, and in bf16 both products run
+  on the tensor cores; heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
-  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv;
+  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; one
+  block per (image, head) where K_h, V_h and their gradient sums fit shared
+  memory, else keys in 32-key tiles over two kernels and an fp32 statistics
+  scratch (any T the forward takes);
 - ``mha_mask_replay`` (``csrc/mha_mask_replay.cu``): the scaled keep masks
   the two draw, as a (B, H, T, T) tensor, the oracle of train mode.
 
@@ -39,9 +44,11 @@ import torch
 from . import philox
 
 DK = 64                     # head width the kernels take
-MAX_KEYS = 256              # keys a block holds
+MAX_GRID = 65535            # B and H are grid dimensions
+MAX_T = 46340               # dropout elements i * T + j stay below 2^31
 _SMEM_LIMIT = 227 * 1024    # bytes of shared memory a block may use
-_BWD_TILE = 32              # query rows a backward pass holds
+_BWD_TILE = 32              # query rows a resident backward pass holds
+_RESIDENT_KEYS = 256        # keys the resident backward's score tile takes
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,23 +65,9 @@ def _stride(itemsize: int) -> int:
     return DK + (2 if itemsize == 2 else 1)
 
 
-def fwd_tile(T: int) -> int:
-    """Query rows of a forward block: T cut into ceil(T/64) equal tiles."""
-    n = -(-T // 64)
-    return -(-T // n)
-
-
-def fwd_smem_bytes(T: int, itemsize: int) -> int:
-    """Shared memory of a forward block: K_h, V_h, a query tile, its fp32
-    scores, the key bias (``FwdLayout``)."""
-    st, tile = _stride(itemsize), fwd_tile(T)
-    return (2 * _a16(T * st * itemsize) + _a16(tile * st * itemsize)
-            + _a16(tile * T * 4) + _a16(T * 4))
-
-
 def bwd_smem_bytes(T: int, itemsize: int) -> int:
-    """Shared memory of a backward block: K_h, V_h, fp32 gK and gV sums,
-    a query tile of Q and of g, two fp32 score tiles, the key bias
+    """Shared memory of a resident backward block: K_h, V_h, fp32 gK and gV
+    sums, a query tile of Q and of g, two fp32 score tiles, the key bias
     (``BwdLayout``)."""
     st = _stride(itemsize)
     return (2 * _a16(T * st * itemsize) + 2 * _a16(T * (DK + 1) * 4)
@@ -83,17 +76,25 @@ def bwd_smem_bytes(T: int, itemsize: int) -> int:
 
 
 def supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
-    """Shapes the forward kernel takes: head width 64, at most 256 keys,
-    and a block that fits shared memory."""
-    return (B >= 1 and H >= 1 and 1 <= T <= MAX_KEYS and D == H * DK
-            and fwd_smem_bytes(T, itemsize) <= _SMEM_LIMIT)
+    """Shapes the forward kernel takes (either dtype): head width 64, and
+    any T from 1 to 46,340 keys, which go through shared memory in tiles;
+    B and H at most 65,535 (grid dimensions)."""
+    del itemsize  # the tiles do not depend on it
+    return (1 <= B <= MAX_GRID and 1 <= H <= MAX_GRID and 1 <= T <= MAX_T
+            and D == H * DK)
+
+
+def bwd_resident(T: int, itemsize: int) -> bool:
+    """Whether the backward runs its resident design (one block per image
+    and head, K_h and V_h in shared memory: bf16 up to 214 keys, fp32 up to
+    165) rather than its tiled one (``bwd_resident`` in csrc/mha.cuh)."""
+    return T <= _RESIDENT_KEYS and bwd_smem_bytes(T, itemsize) <= _SMEM_LIMIT
 
 
 def bwd_supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
-    """Shapes the backward kernel takes (in bf16 up to 256 keys; in fp32
-    the block stops fitting past about 166)."""
-    return (supported(B, T, D, H, itemsize)
-            and bwd_smem_bytes(T, itemsize) <= _SMEM_LIMIT)
+    """Shapes the backward kernel takes: the forward's (any T, either
+    dtype; past the resident block's limits its tiled design runs)."""
+    return supported(B, T, D, H, itemsize)
 
 
 # ----------------------------------------------------------------------
@@ -208,8 +209,8 @@ def _check(name, q, k, v, bias, n_heads, seed, rate, ok):
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     if not ok:
         raise ValueError(f"{name} does not take B={B} T={T} D={D} H={n_heads} "
-                         f"{q.dtype} (head width {DK}, at most {MAX_KEYS} "
-                         "keys, one block in shared memory)")
+                         f"{q.dtype} (head width {DK}; T from 1 to {MAX_T}, "
+                         f"B and H to {MAX_GRID})")
     for t in (k, v):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: q, k, v must share shape, dtype and "
@@ -286,9 +287,13 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
     bias = None if bias is None else bias.contiguous()
     gq, gk, gv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    stats = None   # the tiled design's per-row (max, sum, row term)
+    if not bwd_resident(T, q.element_size()):
+        stats = torch.empty((B, n_heads, T, 3), dtype=torch.float32,
+                            device=q.device)
     err = library().iisan_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
-        gq.data_ptr(), gk.data_ptr(), gv.data_ptr(),
+        gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), _ptr(stats),
         B, T, D, n_heads, int(q.dtype == torch.bfloat16),
         *_dropout_args(seed, rate, layer),
         torch.cuda.current_stream(q.device).cuda_stream)

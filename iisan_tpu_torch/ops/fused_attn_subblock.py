@@ -34,12 +34,16 @@ from typing import Optional
 
 import torch
 
-from .fused_attention import (DK, MAX_KEYS, attention_dropout_masks, fwd_tile,
-                              reference_mha, reference_mha_masked)
+from .fused_attention import (DK, attention_dropout_masks, reference_mha,
+                              reference_mha_masked)
+from .fused_attention import supported as _mha_supported
 
 GROUP = 4                  # heads a group of the v2 layout
+MAX_KEYS = 320             # csrc/attn_subblock.cuh's projection register tiles
 _SMEM_LIMIT = 227 * 1024
 _BK = 32                   # csrc/attn_subblock.cuh's projection slice
+_STR = DK + 8              # bf16 row stride of the q, k, v tiles
+_KEY_TILE = 64             # keys a tile of the attention core
 
 
 # ----------------------------------------------------------------------
@@ -48,23 +52,22 @@ _BK = 32                   # csrc/attn_subblock.cuh's projection slice
 
 
 def attn_smem_bytes(T: int) -> int:
-    """Shared memory of a (head, sequence) block: K_h, V_h, Q_h, the key
-    bias, and the larger of the projection's staging ring and one query
-    tile's fp32 scores (``AttnLayout``)."""
-    def a16(n):
-        return (n + 15) // 16 * 16
-
+    """Shared memory of a (head, sequence) block: K_h and V_h padded to
+    whole 64-key tiles, Q_h to whole 16-row m-tiles, the key bias, and the
+    projection's staging ring (``AttnLayout``)."""
+    keys = -(-T // _KEY_TILE) * _KEY_TILE
     rows = (T + 15) // 16 * 16
     staging = 2 * (rows + DK) * (_BK + 8) * 2
-    scores = a16(fwd_tile(T) * T * 4)
-    return 3 * a16(T * (DK + 2) * 2) + a16(T * 4) + max(staging, scores)
+    bias = (keys * 4 + 15) // 16 * 16
+    return (2 * keys + rows) * _STR * 2 + bias + staging
 
 
 def supported(B: int, T: int, D: int, H: int) -> bool:
-    """Shapes #8 takes: head width 64, 1..256 keys, D a multiple of 128,
-    a block in shared memory."""
-    return (B >= 1 and H >= 1 and 1 <= T <= MAX_KEYS and D == H * DK
-            and D % 128 == 0 and attn_smem_bytes(T) <= _SMEM_LIMIT)
+    """Shapes #8 takes: #5's (head width 64), 1..320 keys (the projection's
+    register tiles; 257 tokens of a 256-pixel ViT fit), D a multiple of
+    128, a block in shared memory."""
+    return (_mha_supported(B, T, D, H) and T <= MAX_KEYS and D % 128 == 0
+            and attn_smem_bytes(T) <= _SMEM_LIMIT)
 
 
 def supported_v2(B: int, T: int, D: int, H: int, G: int = GROUP) -> bool:
@@ -142,8 +145,9 @@ def _check(name, x, wqkv, bqkv, wo, bo, bias, n_heads, seed, rate, ok):
         raise TypeError(f"{name} takes bfloat16 on the card, got {x.dtype}")
     if not ok:
         raise ValueError(f"{name} does not take B={B} T={T} D={D} H={n_heads} "
-                         f"(head width {DK}, at most {MAX_KEYS} keys, D a "
-                         "multiple of 128)")
+                         f"(head width {DK}, 1 to {MAX_KEYS} keys, D a "
+                         "multiple of 128; v2: whole groups of "
+                         f"{GROUP} heads)")
     shapes = ((wqkv, (D, 3 * D)), (bqkv, (3 * D,)), (wo, (D, D)), (bo, (D,)))
     for t, shape in shapes:
         if tuple(t.shape) != shape or t.device != x.device:

@@ -105,6 +105,11 @@ def unpack_encoder_params(packed: torch.Tensor, D: int, F: int, n_layers: int,
 
 
 _WBUF = 16384  # floats of the kernels' staged-weight buffer
+_SMEM_FLOATS = _SMEM_LIMIT // 4
+# Where a kernel's areas live (``Placement`` in csrc/user_encoder.cuh): all
+# in shared memory; the layer slots in a per-sequence global scratch; all
+# but the staged weights there.
+RESIDENT, SLOTS_GLOBAL, SPILLED = 0, 1, 2
 
 
 def _pad4(n: int) -> int:
@@ -112,52 +117,61 @@ def _pad4(n: int) -> int:
 
 
 def _layout(L: int, D: int, H: int, F: int):
-    """(floats before the first layer slot, floats of one slot), as
-    ``EncoderLayout`` in csrc/user_encoder.cuh: the staged-weight buffer,
-    the pre-LayerNorm sums, the scores and the input LayerNorm's stats,
-    then per slot the layer's activations, stats and probabilities."""
+    """(floats of the head area, floats of one layer slot), as
+    ``EncoderLayout`` in csrc/user_encoder.cuh: the head holds the
+    pre-LayerNorm sums, the scores and the input LayerNorm's stats; a slot
+    the layer's activations, stats and probabilities."""
     LD, HLL = L * D, H * L * L
     slot = _pad4(8 * LD + L * F + HLL + 2 * L)
-    return _WBUF + LD + _pad4(HLL) + LD + _pad4(L), slot
+    return LD + _pad4(HLL) + LD + _pad4(L), slot
 
 
-def smem_bytes(L: int, D: int, H: int, F: int) -> int:
-    """Shared memory of one forward-kernel block (fp32): one layer slot,
-    reused by every layer."""
+def _plan(L: int, D: int, H: int, F: int, n_slots: int, extra: int):
+    """(placement, shared-memory bytes, scratch floats per sequence) of a
+    block with n_slots layer slots and `extra` more floats of working set
+    (``place``, ``smem_floats``, ``scratch_floats``)."""
     head, slot = _layout(L, D, H, F)
-    return 4 * (head + slot)
+    if _WBUF + head + n_slots * slot + extra <= _SMEM_FLOATS:
+        return RESIDENT, 4 * (_WBUF + head + n_slots * slot + extra), 0
+    if _WBUF + head + extra <= _SMEM_FLOATS:
+        return SLOTS_GLOBAL, 4 * (_WBUF + head + extra), n_slots * slot
+    return SPILLED, 4 * _WBUF, head + n_slots * slot + extra
 
 
-def bwd_smem_bytes(L: int, D: int, H: int, F: int, n_layers: int) -> int:
-    """Shared memory of one backward-kernel block (fp32): a slot per layer
-    (the recompute stash) and the gradient working set."""
-    head, slot = _layout(L, D, H, F)
-    return 4 * (head + n_layers * slot + 6 * L * D + L * F + _pad4(H * L * L))
+def fwd_plan(L: int, D: int, H: int, F: int):
+    """The forward kernel's placement, shared bytes and scratch floats per
+    sequence: one slot, reused by every layer."""
+    return _plan(L, D, H, F, 1, 0)
+
+
+def bwd_plan(L: int, D: int, H: int, F: int, n_layers: int):
+    """The backward kernel's: a slot per layer (the recompute stash) and
+    the gradient working set."""
+    return _plan(L, D, H, F, n_layers, 6 * L * D + L * F + _pad4(H * L * L))
 
 
 def supported(B: int, L: int, D: int, H: int, F: int = None,
               n_position: int = None) -> bool:
     """Shapes the forward kernel accepts: any batch, heads dividing the
     width, widths in multiples of 8 (16-byte weight loads), a sequence no
-    longer than the position table, weights whose staged rows fit the
-    weight buffer, and a working set that fits one block's shared
-    memory."""
+    longer than the position table, and weights whose staged rows fit the
+    weight buffer.  Any L: what does not fit shared memory goes to a
+    global scratch (``fwd_plan``)."""
     F = 4 * D if F is None else F
     return (B >= 1 and L >= 1 and H >= 1 and D % H == 0
             and D % 8 == 0 and F % 8 == 0
             and 3 * D <= _WBUF and F <= _WBUF
-            and (n_position is None or L <= n_position)
-            and smem_bytes(L, D, H, F) <= _SMEM_LIMIT)
+            and (n_position is None or L <= n_position))
 
 
 def bwd_supported(B: int, L: int, D: int, H: int, F: int, n_layers: int,
                   n_position: int = None) -> bool:
-    """Shapes the backward kernel accepts: the forward's, with every
-    layer's stash in shared memory, and transposed weight chunks of at
-    least one padded column (``linear_t``)."""
-    return (supported(B, L, D, H, F, n_position)
-            and 9 * D <= _WBUF and 3 * F <= _WBUF
-            and bwd_smem_bytes(L, D, H, F, n_layers) <= _SMEM_LIMIT)
+    """Shapes the backward kernel accepts: the forward's, with transposed
+    weight chunks of at least one padded column (``linear_t``), at any L
+    and depth (the stash goes to a global scratch where it does not fit
+    shared memory, ``bwd_plan``)."""
+    return (supported(B, L, D, H, F, n_position) and n_layers >= 1
+            and 9 * D <= _WBUF and 3 * F <= _WBUF)
 
 
 # ----------------------------------------------------------------------
@@ -379,6 +393,14 @@ def _check(name, x, mask3, params, n_layers, n_heads, d_ff, n_position, seed,
             raise ValueError(f"all tensors must be on {x.device}")
 
 
+def _scratch(B: int, per_seq: int, device) -> Optional[torch.Tensor]:
+    """The kernels' per-sequence fp32 global scratch (None when the
+    working set fits shared memory)."""
+    if per_seq == 0:
+        return None
+    return torch.empty((B, per_seq), dtype=torch.float32, device=device)
+
+
 def _dropout_args(seed: int, rate: float):
     """(seed, rate, keep scale) for the C entry points; the scale is
     1/(1-rate), rounded to fp32 by ctypes as the plain version rounds
@@ -409,8 +431,10 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
     if params.data_ptr() % 16:
         raise ValueError("packed params must be 16-byte aligned")
     out = torch.empty_like(x)
+    scratch = _scratch(B, fwd_plan(L, D, n_heads, d_ff)[2], x.device)
     err = library().iisan_user_encoder_fwd(
         x.data_ptr(), mask3.data_ptr(), params.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         B, L, D, n_heads, d_ff, n_layers, n_position,
         int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate),
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -430,7 +454,9 @@ def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
     Same arguments and results as ``user_encoder_bwd_plain``, which runs
     for a CPU ``x``.  The kernel writes each sequence's parameter gradient
     to a row of an fp32 (B, P) scratch, which its second pass sums in a
-    fixed order.  ``user_encoder_bwd.launches`` counts kernel launches.
+    fixed order; a stash that does not fit shared memory goes to a second
+    fp32 scratch (``bwd_plan``).  ``user_encoder_bwd.launches`` counts
+    kernel launches.
     """
     if not x.is_cuda:
         return user_encoder_bwd_plain(x, mask3, params, gout,
@@ -450,10 +476,12 @@ def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
     P = params.numel()
     gx = torch.empty_like(x)
     part = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    scratch = _scratch(B, bwd_plan(L, D, n_heads, d_ff, n_layers)[2], x.device)
     gparams = torch.empty(P, dtype=torch.float32, device=x.device)
     err = library().iisan_user_encoder_bwd(
         x.data_ptr(), mask3.data_ptr(), params.data_ptr(), gout.data_ptr(),
-        gx.data_ptr(), part.data_ptr(), gparams.data_ptr(),
+        gx.data_ptr(), part.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), gparams.data_ptr(),
         B, L, D, n_heads, d_ff, n_layers, n_position,
         int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate), P,
         torch.cuda.current_stream(x.device).cuda_stream)

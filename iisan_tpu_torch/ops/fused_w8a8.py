@@ -25,23 +25,31 @@ import torch
 
 from .int8_linear import int8_matmul
 
-BM, BN, BK, STAGES = 64, 128, 64, 3   # csrc/w8a8_linear.cu's tiles
+BN, BK, STAGES = 128, 64, 3   # csrc/w8a8_linear.cu's tiles
 _SMEM_LIMIT = 227 * 1024
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def smem_bytes(K: int) -> int:
-    """Shared memory of a block: its BM quantised rows (row stride K +
-    16 bytes), STAGES weight tiles (BN x (BK + 16)), the BM row scales."""
-    return BM * (K + 16) + STAGES * BN * (BK + 16) + BM * 4
+def smem_bytes(K: int, bm: int) -> int:
+    """Shared memory of a block that owns bm rows: its quantised rows (row
+    stride K + 16 bytes), STAGES weight tiles (BN x (BK + 16)), the row
+    scales."""
+    return bm * (K + 16) + STAGES * BN * (BK + 16) + bm * 4
+
+
+def block_rows(K: int) -> int:
+    """Rows a block owns: 64 where they fit shared memory at full K (K <=
+    3,072), else 32 (``launch`` in the source)."""
+    return 64 if smem_bytes(K, 64) <= _SMEM_LIMIT else 32
 
 
 def supported(K: int, N: int) -> bool:
-    """Geometries the kernel takes: K a multiple of 64, N of 128, and a
-    block's rows in shared memory (K <= 3136).  Every tower dense layer of
-    BERT-base and ViT-base ((768, 768), (768, 3072), (3072, 768)) fits."""
+    """Geometries the kernel takes: K a multiple of 64, N of 128, and 32
+    quantised rows in shared memory (K <= 6,272).  Every tower dense layer
+    of BERT-base and ViT-base ((768, 768), (768, 3072), (3072, 768)) and of
+    BERT-large ((1024, 1024), (1024, 4096), (4096, 1024)) fits."""
     return (K >= BK and N >= BN and K % BK == 0 and N % BN == 0
-            and smem_bytes(K) <= _SMEM_LIMIT)
+            and smem_bytes(K, 32) <= _SMEM_LIMIT)
 
 
 def _check(x, kernel_q, kscale, bias, out_dtype, kernel_qt):
@@ -51,7 +59,7 @@ def _check(x, kernel_q, kscale, bias, out_dtype, kernel_qt):
                         f"x {x.dtype}, out {out_dtype}")
     if not supported(K, N):
         raise ValueError(f"fused_w8a8_matmul does not take K={K} N={N} (K a "
-                         f"multiple of {BK} up to 3136, N a multiple of {BN})")
+                         f"multiple of {BK} up to 6272, N a multiple of {BN})")
     if x.shape[-1] != K:
         raise ValueError(f"x has {x.shape[-1]} features, the weight {K}")
     if kernel_q.dtype != torch.int8 or kernel_qt.dtype != torch.int8 \

@@ -108,6 +108,48 @@ def test_forward_and_backward_match_jax_bf16(interpret_pallas):
         assert _rel(t.grad.float().numpy(), np.asarray(jg, np.float32)) < 0.05
 
 
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_forward_and_backward_match_jax_fp32_at_257_keys(interpret_pallas,
+                                                          with_bias):
+    """257 tokens (a 256-pixel ViT): past the first kernels' 256 keys."""
+    q, k, v, g, bias = _inputs(B=2, T=257, D=128, with_bias=with_bias, seed=5)
+
+    def jloss(q_, k_, v_):
+        out = jfa.fused_mha(q_, k_, v_, n_heads=2, key_bias=_j(bias))
+        return jnp.sum(out * _j(g)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(_j(q), _j(k), _j(v))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = fa.fused_mha(tq, tk, tv, 2, key_bias=_t(bias))
+    out.backward(_t(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    for t, jg in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_forward_and_backward_match_jax_bf16_at_257_keys(interpret_pallas):
+    q, k, v, g, bias = _inputs(B=2, T=257, D=128, seed=6)
+    bf = jnp.bfloat16
+
+    def jloss(q_, k_, v_):
+        out = jfa.fused_mha(q_, k_, v_, n_heads=2, key_bias=_j(bias))
+        return jnp.sum(out.astype(jnp.float32) * _j(g)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(_j(q, bf), _j(k, bf),
+                                                         _j(v, bf))
+    tq, tk, tv = (_t(x, torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    out = fa.fused_mha(tq, tk, tv, 2, key_bias=_t(bias))
+    out.float().backward(_t(g))
+    assert _rel(out.detach().float().numpy(),
+                np.asarray(jout, np.float32)) < 0.05
+    for t, jg in zip((tq, tk, tv), jgrads):
+        assert _rel(t.grad.float().numpy(), np.asarray(jg, np.float32)) < 0.05
+
+
 def test_hand_backward_is_the_autograd_of_the_forward():
     """mha_bwd_plain against autograd of reference_mha, fp32."""
     q, k, v, g, bias = _inputs(B=3, T=11, D=128, seed=4)
@@ -173,9 +215,23 @@ def test_all_pad_rows_are_uniform_and_finite():
 def test_kernel_geometry():
     assert fa.supported(704, 197, 768, 12) and fa.bwd_supported(704, 197, 768, 12)
     assert fa.supported(704, 30, 768, 12) and fa.bwd_supported(704, 30, 768, 12)
-    assert fa.fwd_tile(197) == 50 and fa.fwd_tile(30) == 30
+    assert fa.bwd_resident(197, 2) and fa.bwd_resident(30, 2)
     assert fa.bwd_smem_bytes(197, 2) == 214176      # BwdLayout, bf16
-    assert fa.fwd_smem_bytes(197, 2) == 98848       # two blocks an SM
+    assert fa.bwd_resident(214, 2) and not fa.bwd_resident(215, 2)
     assert not fa.supported(8, 30, 96, 2)            # head width 48
-    assert not fa.supported(8, 257, 768, 12)         # more keys than a block holds
-    assert fa.supported(8, 197, 768, 12, 4) and not fa.bwd_supported(8, 197, 768, 12, 4)
+    assert fa.supported(8, 257, 768, 12)             # keys stream in tiles
+    assert fa.supported(8, 197, 768, 12, 4) and fa.bwd_supported(8, 197, 768, 12, 4)
+    assert fa.bwd_resident(165, 4) and not fa.bwd_resident(197, 4)  # fp32: tiled
+    assert not fa.supported(8, 0, 768, 12) and not fa.supported(70000, 30, 768, 12)
+    assert fa.supported(1, 46340, 64, 1) and not fa.supported(1, 46341, 64, 1)
+
+
+@pytest.mark.parametrize("T", [1, 197, 256, 257, 1024])
+def test_kernels_take_any_number_of_keys(T):
+    """#5 and #6 take every T, in bf16 and fp32; the backward's resident
+    block runs where it fits, its tiled design elsewhere."""
+    for itemsize in (2, 4):
+        assert fa.supported(704, T, 768, 12, itemsize)
+        assert fa.bwd_supported(88, T, 768, 12, itemsize)
+        limit = 214 if itemsize == 2 else 165
+        assert fa.bwd_resident(T, itemsize) == (T <= limit)

@@ -163,8 +163,11 @@ def test_backward_matches_jax_and_refuses_train_mode(interpret_pallas, v2):
 def test_supported_geometry():
     assert fsb.supported(704, 197, 768, 12) and fsb.supported(704, 30, 768, 12)
     assert fsb.supported_v2(704, 197, 768, 12)
-    assert not fsb.supported(4, 257, 768, 12)      # more keys than a block holds
+    assert fsb.supported(4, 257, 768, 12)          # 257 tokens: a 256-pixel ViT
+    assert fsb.supported_v2(4, 257, 768, 12) and fsb.supported(4, 320, 768, 12)
+    assert not fsb.supported(4, 321, 768, 12)      # past the projection's tiles
     assert not fsb.supported(4, 30, 96, 2)         # head width 48
     assert not fsb.supported(4, 30, 192, 3)        # D not a multiple of 128
     assert not fsb.supported_v2(4, 30, 384, 6)     # 6 heads, groups of 4
-    assert fsb.attn_smem_bytes(197) == 122368
+    assert fsb.attn_smem_bytes(197) == 148224      # K, V padded to 256 keys
+    assert fsb.attn_smem_bytes(257) == 186368 <= 227 * 1024

@@ -43,20 +43,20 @@ def interpret_pallas():
         yield
 
 
-def _setup(B=16, seed=0):
+def _setup(B=16, seed=0, seq=L, width=D):
     rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((B, L, D)) * 0.5).astype(np.float32)
-    log_mask = (rng.random((B, L)) > 0.2).astype(np.float32)
+    x = (rng.standard_normal((B, seq, width)) * 0.5).astype(np.float32)
+    log_mask = (rng.random((B, seq)) > 0.2).astype(np.float32)
     log_mask[:, -1] = 1.0
     log_mask[0] = 0.0  # an all-pad row: JAX gives the uniform softmax
-    jue = JaxUserEncoder(max_seq_len=L, num_attention_heads=H, n_layers=NL,
+    jue = JaxUserEncoder(max_seq_len=seq, num_attention_heads=H, n_layers=NL,
                          dropout=0.0, dtype=jnp.float32, fused=False)
     params = jue.init(jax.random.PRNGKey(0), jnp.asarray(x),
                       jnp.asarray(log_mask))["params"]
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + 0.1 * rng.standard_normal(p.shape)
         .astype(np.float32), params)
-    tue = UserEncoder(D, L, H, NL, 0.0)
+    tue = UserEncoder(width, seq, H, NL, 0.0)
     load_jax_params(tue, params)
     return params, tue, x, log_mask
 
@@ -99,6 +99,43 @@ def test_plain_matches_pallas_kernel(interpret_pallas, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("seq,width", [(20, 64), (50, 64), (20, 128)])
+def test_plain_matches_pallas_kernel_long_sequences(interpret_pallas, seq,
+                                                     width):
+    """L = 20 and 50 (SASRec's length on the Amazon datasets), fp32."""
+    params, tue, x, log_mask = _setup(B=8, seed=1, seq=seq, width=width)
+    want = jfue.apply_fused_encoder(
+        params["transformer_encoder"], jnp.asarray(x),
+        jax_mask(jnp.asarray(log_mask)), n_layers=NL, n_heads=H,
+        drop_rate=0.0, compute_dtype="float32")
+    got = fue.apply_fused_encoder(
+        tue.packed_params(torch.float32), torch.from_numpy(x),
+        causal_additive_mask(torch.from_numpy(log_mask)), n_layers=NL,
+        n_heads=H, d_ff=4 * width, n_position=seq, compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_kernels_take_long_sequences_and_deep_encoders(width):
+    """Every L up to 50 at widths 64 and 128, at any depth: where a block's
+    areas do not fit shared memory they go to a global scratch."""
+    F = 4 * width
+    for seq in (10, 20, 50):
+        for layers in (1, 2, 6):
+            assert fue.supported(64, seq, width, H, F, seq)
+            assert fue.bwd_supported(64, seq, width, H, F, layers, seq)
+    assert fue.fwd_plan(50, width, H, F)[0] == fue.SLOTS_GLOBAL
+    assert fue.bwd_plan(50, width, H, F, 2)[0] == fue.SPILLED
+    for plan in (fue.fwd_plan(50, width, H, F), fue.bwd_plan(50, width, H, F, 6)):
+        assert plan[1] <= 227 * 1024 and plan[2] > 0
+    # the serving and training geometry keeps its all-shared blocks
+    assert fue.fwd_plan(10, 64, 2, 256) == (fue.RESIDENT, 103104, 0)
+    assert fue.bwd_plan(10, 64, 2, 256, 2) == (fue.RESIDENT, 161104, 0)
+    assert fue.bwd_plan(10, 64, 2, 256, 6)[0] == fue.SLOTS_GLOBAL
+    assert fue.bwd_plan(20, 64, 2, 256, 2)[0] == fue.SLOTS_GLOBAL
+
+
 def test_supported_takes_serving_batches():
     # Batch 1 serving reaches the kernel: no TPU-style B % 32 / B >= 8 limit.
     for b in (1, 3, 32, 256, 1000):
@@ -106,7 +143,8 @@ def test_supported_takes_serving_batches():
     assert not fue.supported(4, L, D, 3)          # heads must divide D
     assert not fue.supported(4, L, 20, 2)         # width a multiple of 8
     assert not fue.supported(4, L + 1, D, H, 4 * D, L)  # longer than pos table
-    assert not fue.supported(4, 512, 1024, H)     # exceeds shared memory
+    assert fue.supported(4, 512, 1024, H)         # past shared memory: scratch
+    assert not fue.supported(4, L, 8192, H)       # staged rows exceed the buffer
 
 
 def test_packed_params_follow_parameter_updates():

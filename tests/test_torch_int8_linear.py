@@ -88,6 +88,8 @@ def interpret_pallas():
     (512, 128, 128, False, None),
     (7, 256, 256, True, None),
     (300, 256, 128, False, (4, 75)),   # 3-D input
+    (64, 4096, 1024, True, None),      # BERT-large's FFN output layer
+    (64, 1024, 4096, True, None),      # and its FFN input layer
 ])
 def test_int8_matmul_matches_jax(interpret_pallas, M, K, N, with_bias, lead):
     x, q, s, b = _case(M, K, N, with_bias, lead=lead)
@@ -104,6 +106,18 @@ def test_int8_matmul_matches_jax(interpret_pallas, M, K, N, with_bias, lead):
     assert _rel(got, pallas) < 1e-3
     zero = got.reshape(-1, N)[M // 2]
     np.testing.assert_array_equal(zero, b if with_bias else np.zeros(N, np.float32))
+
+
+def test_w8a8_geometry_takes_bert_large():
+    """#10 takes K up to 6,272 (32-row blocks past 3,072), so BERT-large's
+    (1024, 4096) and (4096, 1024) layers, and BERT / ViT-base's as before."""
+    for K, N in ((768, 768), (768, 3072), (3072, 768), (1024, 1024),
+                 (1024, 4096), (4096, 1024), (4096, 4096), (6272, 128)):
+        assert fw.supported(K, N), (K, N)
+    assert fw.block_rows(768) == fw.block_rows(3072) == 64
+    assert fw.block_rows(4096) == 32
+    assert fw.smem_bytes(4096, 32) <= 227 * 1024 < fw.smem_bytes(4096, 64)
+    assert not fw.supported(6336, 128) and not fw.supported(4096, 1000)
 
 
 def test_int8_matmul_bf16_output_matches_jax():

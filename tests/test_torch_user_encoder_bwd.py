@@ -51,23 +51,23 @@ def interpret_pallas():
         yield
 
 
-def _setup(NL, masked, seed=0):
+def _setup(NL, masked, seed=0, seq=L, batch=B):
     rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((B, L, D)) * 0.5).astype(np.float32)
-    log_mask = np.ones((B, L), np.float32)
+    x = (rng.standard_normal((batch, seq, D)) * 0.5).astype(np.float32)
+    log_mask = np.ones((batch, seq), np.float32)
     if masked:
-        log_mask = (rng.random((B, L)) > 0.2).astype(np.float32)
+        log_mask = (rng.random((batch, seq)) > 0.2).astype(np.float32)
         log_mask[:, -1] = 1.0
         log_mask[0] = 0.0  # an all-pad row: the uniform softmax
-    jue = JaxUserEncoder(max_seq_len=L, num_attention_heads=H, n_layers=NL,
+    jue = JaxUserEncoder(max_seq_len=seq, num_attention_heads=H, n_layers=NL,
                          dropout=0.0, dtype=jnp.float32, fused=False)
     params = jue.init(jax.random.PRNGKey(seed), jnp.asarray(x),
                       jnp.asarray(log_mask))["params"]
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + 0.1 * rng.standard_normal(p.shape)
         .astype(np.float32), params)
-    proj = rng.standard_normal((B, L, D)).astype(np.float32)
-    tue = UserEncoder(D, L, H, NL, 0.0)
+    proj = rng.standard_normal((batch, seq, D)).astype(np.float32)
+    tue = UserEncoder(D, seq, H, NL, 0.0)
     load_jax_params(tue, params)
     return params, tue, x, log_mask, proj
 
@@ -90,7 +90,7 @@ def _torch_grads(tue, x, log_mask, proj, NL, dtype):
     packed = fue.pack_encoder_params(flat, dtype, differentiable=True)
     y = fue.apply_fused_encoder(packed, xx, causal_additive_mask(
         torch.from_numpy(log_mask)), n_layers=NL, n_heads=H, d_ff=4 * D,
-        n_position=L, compute_dtype=dtype)
+        n_position=x.shape[1], compute_dtype=dtype)
     (y.float() * torch.from_numpy(proj)).sum().backward()
     grads = {n: p.grad for n, p in tue.transformer_encoder.named_parameters()}
     return grads, xx.grad
@@ -116,6 +116,22 @@ def test_gradients_match_jax_kernel(interpret_pallas, NL, masked, dtype):
         else:
             bound = 5e-2 * (np.abs(want[name]).max() + np.abs(want[name]))
             assert (np.abs(got[name] - want[name]) <= bound).all(), name
+
+
+@pytest.mark.parametrize("seq", [20, 50])
+def test_gradients_match_jax_kernel_long_sequences(interpret_pallas, seq):
+    """L = 20 and 50, fp32, two blocks, padded rows."""
+    params, tue, x, log_mask, proj = _setup(2, True, seed=1, seq=seq, batch=8)
+    gp_j, gx_j = _jax_grads(params, x, log_mask, proj, 2, "float32")
+    gp_t, gx_t = _torch_grads(tue, x, log_mask, proj, 2, torch.float32)
+    want = {k.replace(".", "/"): np.asarray(v, np.float32)
+            for k, v in flatten_tree(gp_j).items()}
+    got = {k.replace(".", "/"): v.numpy() for k, v in gp_t.items()}
+    got["x"], want["x"] = gx_t.numpy(), np.asarray(gx_j, np.float32)
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=5e-4,
+                                   atol=5e-5, err_msg=name)
 
 
 def _plain_setup(NL=2, seed=3):
