@@ -59,14 +59,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    on both sides), at the ViT step geometry (704 images x 197 tokens,
    compared on a 64-image slice, timed at 704) in eval mode and in fp32,
    and at 257 tokens (a 256-pixel ViT) in eval and train mode; the
-   backward at the FFT step's shapes (88 rows), BERT in train mode and ViT
-   in eval mode (its resident design), ViT in fp32 and 257 tokens in train
-   mode (its tiled design); the mask replay kernel bit for bit.  Planted
-   faults (the key bias dropped on the padded batch, the backward run with
-   another seed, the softmax row term dropped from the backward) must
-   break the bounds; all-pad rows must stay finite.  The library call
-   ``scaled_dot_product_attention`` is timed on the eval-mode shapes, and
-   its backward alone beside #6.
+   backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT
+   and 257 tokens in train mode and ViT in eval mode (bf16: the
+   tensor-core design), ViT in fp32 (the CUDA-core one), each case's
+   design printed, and two launches bit-equal at ViT's shape; the mask
+   replay kernel bit for bit.  Planted faults (the key bias dropped on the
+   padded batch, the backward run with another seed, the softmax row term
+   dropped from the backward) must break the bounds; all-pad rows must
+   stay finite.  The library call ``scaled_dot_product_attention`` is
+   timed beside every case: on the eval-mode forward shapes (fp32 too),
+   and its backward alone beside each #6 case (the padding bias as
+   ``attn_mask``, ``dropout_p`` in train mode: timing only).
 8. IISAN (Uncached) training at the published configuration
    (``scripts/bench_uncached.py``'s, at the default batch of 64):
    BERT-base and ViT-base geometry (12 layers, 768 wide, 12 heads, 224 x
@@ -200,6 +203,7 @@ IMAGE_T_256 = 257
 STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 # The W8A8 kernel's shapes on the step: every tower dense layer's (K, N) at
 # the ViT rows (704 images x 197 tokens) and the BERT rows (704 x 30); and
 # BERT-large's FFN output layer (K = 4096, N = 1024) at the BERT rows.
@@ -736,14 +740,15 @@ def subblock_bound(B: int, T: int, bias: bool, out_bytes: int = 2):
     return bound(nbytes, flops)
 
 
-def mha_bound(B, T, D, H, bias: bool, bwd: bool):
+def mha_bound(B, T, D, H, bias: bool, bwd: bool, itemsize: int = 2):
     """The attention kernels' bound at one shape: q, k, v (and g) read,
-    o (or gq, gk, gv) written, bf16, the bias read once; the forward's two
-    products, the backward's five (the scores are recomputed)."""
+    o (or gq, gk, gv) written in bf16 (itemsize 2) or fp32, the bias read
+    once; the forward's two products, the backward's five (the function's,
+    without recomputation), at the bf16 tensor-core or the fp32 peak."""
     tensors = 7 if bwd else 4
-    nbytes = tensors * B * T * D * 2 + (B * T * 4 if bias else 0)
+    nbytes = tensors * B * T * D * itemsize + (B * T * 4 if bias else 0)
     flops = (10 if bwd else 4) * B * H * T * T * (D // H)
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
 def encoder_flops(B: int) -> float:
@@ -795,6 +800,62 @@ def mha_ratio(got, want):
     return worst
 
 
+# The attention phase's dropout seed, and the backward's cases at the FFT
+# step's shapes (88 rows): name, tokens, padded keys (a -1e9 key bias with
+# an all-pad row), dtype, dropout layer (None: eval mode).
+ATTN_SEED = 20251016
+MHA_BWD_CASES = (("BERT train", TITLE_T, True, "bfloat16", 3),
+                 ("ViT eval", IMAGE_T, False, "bfloat16", None),
+                 ("ViT eval fp32", IMAGE_T, False, "float32", None),
+                 ("ViT-256 train", IMAGE_T_256, True, "bfloat16", 4))
+
+
+def padding_bias(device, gen, B: int, T: int):
+    """(B, T) fp32 key bias: random lengths, row 0 all padding (-1e9)."""
+    import torch
+
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
+    lengths[0] = 0
+    return torch.where(torch.arange(T, device=device)[None] < lengths[:, None], 0.0, -1e9)
+
+
+def mha_bwd_case(device, gen, T: int, padded: bool, dtype: str, layer):
+    """(q, k, v, g, bias, kw) of one backward case: bf16-rounded normal
+    values in ``dtype``, the padding bias or None, the kernels' keywords."""
+    import torch
+
+    B, D = FFT_BATCH * (SEQ_LEN + 1), TOWER_D
+    q, k, v, g = (torch.randn(B, T, D, generator=gen, device=device).to(torch.bfloat16)
+                  .to(getattr(torch, dtype)) for _ in range(4))
+    bias = padding_bias(device, gen, B, T) if padded else None
+    kw = dict(n_heads=TOWER_H)
+    if layer is not None:
+        kw.update(seed=ATTN_SEED, rate=DROP, layer=layer)
+    return q, k, v, g, bias, kw
+
+
+def sdpa_bwd(q, k, v, g, bias, rate: float):
+    """A function running the backward alone of ``scaled_dot_product_attention``
+    on heads-unsplit (B, T, D) inputs: the key bias as ``attn_mask``,
+    ``dropout_p`` = rate (its masks are not the port's: timing only).  The
+    forward runs here, outside any timed region; its graph is kept for the
+    repeated backward."""
+    import torch
+    import torch.nn.functional as F
+
+    B, T, D = q.shape
+    heads = [t.reshape(B, T, TOWER_H, D // TOWER_H).transpose(1, 2) for t in (q, k, v, g)]
+    hq = [t.detach().requires_grad_(True) for t in heads[:3]]
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    ho = F.scaled_dot_product_attention(*hq, attn_mask=mask, dropout_p=rate)
+    return lambda: torch.autograd.grad(ho, hq, heads[3], retain_graph=True)
+
+
+def sdpa_bwd_ms(q, k, v, g, bias, rate: float, reps: int = 10):
+    """Median CUDA-event ms of ``sdpa_bwd``'s backward."""
+    return cuda_timed(sdpa_bwd(q, k, v, g, bias, rate), reps)
+
+
 def check_attention(device):
     """The tower-attention kernels against their plain versions at the
     uncached step's shapes; returns their JSON entries' numbers."""
@@ -822,11 +883,8 @@ def check_attention(device):
     # BERT titles: 30 tokens, padded keys, the pad item's all-pad row
     B, T = STEP_ROWS, TITLE_T
     q, k, v, g = qkvg(B, T)
-    lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
-    lengths[0] = 0
-    bias = torch.where(torch.arange(T, device=device)[None] < lengths[:, None],
-                       0.0, -1e9)
-    seed, rate = 20251016, DROP
+    bias = padding_bias(device, gen, B, T)
+    seed, rate = ATTN_SEED, DROP
     for name, kw in (("eval", dict(n_heads=H)),
                      ("train", dict(n_heads=H, seed=seed, rate=rate, layer=5))):
         got = fa.mha_fwd(q, k, v, bias, **kw)
@@ -910,42 +968,40 @@ def check_attention(device):
             torch.cuda.synchronize()
             ratio = mha_ratio([got], [want])
             ms32 = cuda_timed(lambda: fa.mha_fwd(q32, k32, v32, None, n_heads=H), 3)
+            heads32 = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous()
+                       for t in (q32, k32, v32)]
+            sdpa32 = cuda_timed(lambda: F.scaled_dot_product_attention(*heads32), 3)
             log(f"mha_fwd ViT eval B={B} T={T} fp32 (first 64 rows vs plain): {ratio:.4g} "
-                f"(tol {MHA_TOL_FP32}); kernel {ms32:.4f} ms (CUDA cores)")
+                f"(tol {MHA_TOL_FP32}); kernel {ms32:.4f} ms (CUDA cores), "
+                f"scaled_dot_product_attention fp32 {sdpa32:.4f} ms")
             require(ratio, MHA_TOL_FP32, "mha_fwd ViT fp32")
-            del q32, k32, v32
+            del q32, k32, v32, heads32
         del heads
 
-    # The backward at the FFT step's shapes (88 rows): BERT train and ViT
-    # eval in bf16 (the resident design), ViT in fp32 and 257 tokens in bf16
-    # (the tiled one)
-    B = FFT_BATCH * (SEQ_LEN + 1)
-    bf16, fp32 = torch.bfloat16, torch.float32
-    cases = (("BERT train", TITLE_T, True, bf16, dict(n_heads=H, seed=seed, rate=rate, layer=3)),
-             ("ViT eval", IMAGE_T, False, bf16, dict(n_heads=H)),
-             ("ViT eval fp32", IMAGE_T, False, fp32, dict(n_heads=H)),
-             ("ViT-256 train", IMAGE_T_256, True, bf16,
-              dict(n_heads=H, seed=seed, rate=rate, layer=4)))
-    for name, T, padded, dtype, kw in cases:
-        q, k, v, g = (t.to(dtype) for t in qkvg(B, T))
-        tol = MHA_TOL["bwd"] if dtype == bf16 else MHA_TOL_FP32
-        b = None
-        if padded:
-            lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
-            lengths[0] = 0
-            b = torch.where(torch.arange(T, device=device)[None] < lengths[:, None],
-                            0.0, -1e9)
+    # The backward at the FFT step's shapes (88 rows): bf16 runs the
+    # tensor-core design at every T, fp32 the CUDA-core one
+    bf16 = torch.bfloat16
+    for name, T, padded, dtype, layer in MHA_BWD_CASES:
+        q, k, v, g, b, kw = mha_bwd_case(device, gen, T, padded, dtype, layer)
+        B = q.shape[0]
+        tol = MHA_TOL["bwd"] if q.dtype == bf16 else MHA_TOL_FP32
         got = fa.mha_bwd(q, k, v, b, g, **kw)
         want = fa.mha_bwd_plain(q, k, v, b, g, **kw)
         torch.cuda.synchronize()
         ratio = mha_ratio(got, want)
-        if dtype == bf16:
+        if q.dtype == bf16:
             out["bwd_err"] = max(out["bwd_err"], err(got, want))
-        design = "resident" if fa.bwd_resident(T, q.element_size()) else "tiled"
-        log(f"mha_bwd {name} B={B} T={T} {str(dtype)[6:]} ({design}): gq, gk, gv max "
+        design = fa.bwd_design(T, q.element_size())
+        log(f"mha_bwd {name} B={B} T={T} {dtype} ({design}): gq, gk, gv max "
             f"|diff| / (max|plain| + |plain|) {ratio:.4g} (tol {tol}); finite "
             f"{all(torch_finite(t) for t in got)}")
         require(ratio, tol, f"mha_bwd {name}")
+        if name == "ViT eval":
+            again = fa.mha_bwd(q, k, v, b, g, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            log(f"  two launches bit-equal: {same}")
+            if not same:
+                raise AssertionError("mha_bwd: two launches on the same inputs differ")
         faults = {}
         if padded:
             faults["backward seed != forward seed"] = fa.mha_bwd(
@@ -963,21 +1019,13 @@ def check_attention(device):
                 raise AssertionError(f"the backward bound admits '{fault}'")
         ms = cuda_timed(lambda: fa.mha_bwd(q, k, v, b, g, **kw), 10)
         plain_ms = cuda_timed(lambda: fa.mha_bwd_plain(q, k, v, b, g, **kw), 5)
-        bnd = mha_bound(B, T, D, H, padded, True)
-        lib = ""
+        lib_ms = sdpa_bwd_ms(q, k, v, g, b, kw.get("rate", 0.0))
+        bnd = mha_bound(B, T, D, H, padded, True, q.element_size())
         if name == "ViT eval":
-            # the library's backward alone: SDPA's forward stays outside the
-            # timed region (its graph is kept for the repeated backward)
-            hq = [t.reshape(B, T, H, D // H).transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v)]
-            ho = F.scaled_dot_product_attention(*hq)
-            hg = g.reshape(B, T, H, D // H).transpose(1, 2)
-            out["bwd_sdpa_ms"] = cuda_timed(
-                lambda: torch.autograd.grad(ho, hq, hg, retain_graph=True), 10)
-            lib = f", scaled_dot_product_attention backward {out['bwd_sdpa_ms']:.4f} ms"
-            del hq, ho, hg
-            out["bwd_ms"], out["bwd_plain_ms"], out["bwd_bound"] = ms, plain_ms, bnd
-        log(f"mha_bwd {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; "
+            out.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound=bnd, bwd_sdpa_ms=lib_ms)
+        log(f"mha_bwd {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention backward {lib_ms:.4f} ms"
+            f"{' (timing only: other dropout masks)' if 'rate' in kw else ''}; "
             f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return out
 

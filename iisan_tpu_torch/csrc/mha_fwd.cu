@@ -125,16 +125,7 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 // The resident design (see the top): K_h and V_h of one (image, head)
-// beside each warp's 16 Q rows, at two blocks an SM up to 320 keys.
-constexpr int kResWarps = 8;
-constexpr int kResMaxKeys = 320;
-
-// K, V (padded to whole key tiles), each warp's 16 Q rows, the key biases.
-__host__ __device__ inline size_t resident_bytes(int Tn, int n_warps) {
-  const size_t kp = padded_keys(Tn);
-  return (2 * kp + 16 * static_cast<size_t>(n_warps)) * kStr * sizeof(bf16) + kp * sizeof(float);
-}
-
+// beside each warp's 16 Q rows (mha.cuh's resident_bytes).
 __global__ void __launch_bounds__(kResWarps * 32, 2)
     mha_fwd_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -156,13 +147,7 @@ __global__ void __launch_bounds__(kResWarps * 32, 2)
   __syncthreads();
   for (int mt = warp; mt * 16 < Tn; mt += n_warps) {
     const int i0 = mt * 16;
-    for (int idx = lane; idx < 16 * (kDk / 8); idx += 32) {
-      const int r = idx / (kDk / 8), c = (idx % (kDk / 8)) * 8;
-      if (i0 + r < Tn)
-        cp_async16(Qw + r * kStr + c, q + (row0 + i0 + r) * d.D + h * kDk + c);
-      else
-        *reinterpret_cast<uint4*>(Qw + r * kStr + c) = make_uint4(0u, 0u, 0u, 0u);
-    }
+    stage_warp_rows(Qw, q, row0 + i0, Tn - i0, d.D, h, lane);
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
@@ -242,7 +227,7 @@ __global__ void __launch_bounds__(kThreads)
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* bias, void* out,
                       int B, const Dims& d, const Dropout& drop, cudaStream_t stream) {
   if (d.T <= kResMaxKeys) {
-    const int n_warps = min(kResWarps, (d.T + 15) / 16);
+    const int n_warps = resident_warps(d.T);
     const size_t bytes = resident_bytes(d.T, n_warps);
     cudaError_t err = allow_smem(mha_fwd_resident_kernel, resident_bytes(kResMaxKeys, kResWarps));
     if (err != cudaSuccess) return err;

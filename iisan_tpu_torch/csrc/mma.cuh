@@ -1,7 +1,7 @@
 // Tensor-core and asynchronous-copy helpers of the matrix-product kernels
 // (w8a8_linear.cu, mha.cuh, attn_subblock.cuh): `mma.sync` on int8 and bf16
-// tiles, `ldmatrix` of transposed bf16 tiles, `cp.async` 16-byte copies into
-// shared memory, and paired stores.
+// tiles, `ldmatrix` of transposed bf16 tiles, `cp.async` 16-byte (and 4-byte)
+// copies into shared memory, and paired stores.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32), with g = lane / 4 and
 // t = lane % 4, for A a row-major (16, k) tile and B an (8, k) tile stored
@@ -30,6 +30,11 @@ __device__ __forceinline__ unsigned lds32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -9,10 +9,11 @@ and ViT layer of the uncached towers.  Three kernels:
   streamed beyond), so T up to 46,340 fits, and in bf16 both products run
   on the tensor cores; heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
-  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; one
-  block per (image, head) where K_h, V_h and their gradient sums fit shared
-  memory, else keys in 32-key tiles over two kernels and an fp32 statistics
-  scratch (any T the forward takes);
+  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; two
+  kernels, one over query tiles (gQ and each row's softmax statistics and
+  row term, into an fp32 scratch) and one over key tiles (gK, gV), for any
+  T the forward takes; in bf16 all ten of their products run on the tensor
+  cores;
 - ``mha_mask_replay`` (``csrc/mha_mask_replay.cu``): the scaled keep masks
   the two draw, as a (B, H, T, T) tensor, the oracle of train mode.
 
@@ -46,33 +47,12 @@ from . import philox
 DK = 64                     # head width the kernels take
 MAX_GRID = 65535            # B and H are grid dimensions
 MAX_T = 46340               # dropout elements i * T + j stay below 2^31
-_SMEM_LIMIT = 227 * 1024    # bytes of shared memory a block may use
-_BWD_TILE = 32              # query rows a resident backward pass holds
-_RESIDENT_KEYS = 256        # keys the resident backward's score tile takes
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ----------------------------------------------------------------------
 # Geometry (mirrors csrc/mha.cuh)
 # ----------------------------------------------------------------------
-
-
-def _a16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-def _stride(itemsize: int) -> int:
-    return DK + (2 if itemsize == 2 else 1)
-
-
-def bwd_smem_bytes(T: int, itemsize: int) -> int:
-    """Shared memory of a resident backward block: K_h, V_h, fp32 gK and gV
-    sums, a query tile of Q and of g, two fp32 score tiles, the key bias
-    (``BwdLayout``)."""
-    st = _stride(itemsize)
-    return (2 * _a16(T * st * itemsize) + 2 * _a16(T * (DK + 1) * 4)
-            + 2 * _a16(_BWD_TILE * st * itemsize) + 2 * _a16(_BWD_TILE * T * 4)
-            + _a16(T * 4))
 
 
 def supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
@@ -84,16 +64,17 @@ def supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
             and D == H * DK)
 
 
-def bwd_resident(T: int, itemsize: int) -> bool:
-    """Whether the backward runs its resident design (one block per image
-    and head, K_h and V_h in shared memory: bf16 up to 214 keys, fp32 up to
-    165) rather than its tiled one (``bwd_resident`` in csrc/mha.cuh)."""
-    return T <= _RESIDENT_KEYS and bwd_smem_bytes(T, itemsize) <= _SMEM_LIMIT
+def bwd_design(T: int, itemsize: int) -> str:
+    """The backward design a call runs (``iisan_mha_bwd`` in
+    csrc/mha_bwd.cu): ``"tensor_cores"`` in bf16 (mma.sync, at every T),
+    ``"rows"`` in fp32 (the CUDA cores)."""
+    del T  # both designs take every T
+    return "tensor_cores" if itemsize == 2 else "rows"
 
 
 def bwd_supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
-    """Shapes the backward kernel takes: the forward's (any T, either
-    dtype; past the resident block's limits its tiled design runs)."""
+    """Shapes the backward kernels take: the forward's (any T, either
+    dtype)."""
     return supported(B, T, D, H, itemsize)
 
 
@@ -287,13 +268,11 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
     bias = None if bias is None else bias.contiguous()
     gq, gk, gv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    stats = None   # the tiled design's per-row (max, sum, row term)
-    if not bwd_resident(T, q.element_size()):
-        stats = torch.empty((B, n_heads, T, 3), dtype=torch.float32,
-                            device=q.device)
+    # each query row's (max, sum, row term), from the first kernel to the second
+    stats = torch.empty((B, n_heads, T, 3), dtype=torch.float32, device=q.device)
     err = library().iisan_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
-        gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), _ptr(stats),
+        gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), stats.data_ptr(),
         B, T, D, n_heads, int(q.dtype == torch.bfloat16),
         *_dropout_args(seed, rate, layer),
         torch.cuda.current_stream(q.device).cuda_stream)

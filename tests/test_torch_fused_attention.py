@@ -215,23 +215,52 @@ def test_all_pad_rows_are_uniform_and_finite():
 def test_kernel_geometry():
     assert fa.supported(704, 197, 768, 12) and fa.bwd_supported(704, 197, 768, 12)
     assert fa.supported(704, 30, 768, 12) and fa.bwd_supported(704, 30, 768, 12)
-    assert fa.bwd_resident(197, 2) and fa.bwd_resident(30, 2)
-    assert fa.bwd_smem_bytes(197, 2) == 214176      # BwdLayout, bf16
-    assert fa.bwd_resident(214, 2) and not fa.bwd_resident(215, 2)
+    # bf16 runs the tensor-core backward, fp32 the CUDA-core one
+    assert fa.bwd_design(197, 2) == fa.bwd_design(30, 2) == "tensor_cores"
+    assert fa.bwd_design(197, 4) == fa.bwd_design(30, 4) == "rows"
     assert not fa.supported(8, 30, 96, 2)            # head width 48
     assert fa.supported(8, 257, 768, 12)             # keys stream in tiles
     assert fa.supported(8, 197, 768, 12, 4) and fa.bwd_supported(8, 197, 768, 12, 4)
-    assert fa.bwd_resident(165, 4) and not fa.bwd_resident(197, 4)  # fp32: tiled
+    assert not fa.bwd_supported(8, 30, 96, 2, 4)     # fp32 takes the same heads
     assert not fa.supported(8, 0, 768, 12) and not fa.supported(70000, 30, 768, 12)
     assert fa.supported(1, 46340, 64, 1) and not fa.supported(1, 46341, 64, 1)
 
 
-@pytest.mark.parametrize("T", [1, 197, 256, 257, 1024])
+@pytest.mark.parametrize("T", [1, 197, 256, 257, 1024, 46340])
 def test_kernels_take_any_number_of_keys(T):
-    """#5 and #6 take every T, in bf16 and fp32; the backward's resident
-    block runs where it fits, its tiled design elsewhere."""
+    """#5 and #6 take every T, in bf16 and fp32; the backward's design
+    depends on the dtype alone."""
     for itemsize in (2, 4):
         assert fa.supported(704, T, 768, 12, itemsize)
         assert fa.bwd_supported(88, T, 768, 12, itemsize)
-        limit = 214 if itemsize == 2 else 165
-        assert fa.bwd_resident(T, itemsize) == (T <= limit)
+        want = "tensor_cores" if itemsize == 2 else "rows"
+        assert fa.bwd_design(T, itemsize) == want
+
+
+@pytest.mark.parametrize("T,with_bias", [(30, True), (64, False), (65, True),
+                                         (197, False)])
+def test_backward_matches_jax_bf16_at_tile_edges(interpret_pallas, T, with_bias):
+    """bf16 at the tensor-core backward's tile edges (16-row m-tiles, 64-key
+    tiles): BERT's 30 tokens with a padded key bias and an all-pad row, one
+    whole key tile, one key past it, ViT's 197.  The JAX kernels' gradients
+    and the port's (its plain backward on the CPU) agree within the bf16
+    bound; the card's tests hold the kernels to this plain version."""
+    q, k, v, g, bias = _inputs(B=2, T=T, D=128, with_bias=with_bias, seed=7)
+    bf = jnp.bfloat16
+
+    def jloss(q_, k_, v_):
+        out = jfa.fused_mha(q_, k_, v_, n_heads=2, key_bias=_j(bias))
+        return jnp.sum(out.astype(jnp.float32) * _j(g)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(_j(q, bf), _j(k, bf),
+                                                         _j(v, bf))
+    tq, tk, tv = (_t(x, torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    out = fa.fused_mha(tq, tk, tv, 2, key_bias=_t(bias))
+    out.float().backward(_t(g))
+    assert _rel(out.detach().float().numpy(),
+                np.asarray(jout, np.float32)) < 0.05
+    for t, jg in zip((tq, tk, tv), jgrads):
+        got = t.grad.float().numpy()
+        assert np.isfinite(got).all()
+        assert _rel(got, np.asarray(jg, np.float32)) < 0.05

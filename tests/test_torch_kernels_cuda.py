@@ -44,9 +44,13 @@ Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
 probability may round to the neighbouring bf16 value on one side only; the
 mask replay kernel is bit-equal to its plain version.  Planted faults (the
 key bias dropped on a padded batch, the backward run with another seed,
-the softmax row term dropped from the backward) must break those bounds.
+the softmax row term dropped from the backward; and of the bf16
+backward's split, the dkv kernel's dropout element transposed, the row
+term taken as FlashAttention's rowsum(g * o), another head's statistics
+read in dkv) must break those bounds, and the backward repeats bit for
+bit.
 Shapes reach past the first kernels' limits: 257 keys (a 256-pixel ViT),
-1024, the fp32 backward at ViT's 197 (tiled), #10 at BERT-large's K=4096,
+1024, the fp32 backward at ViT's 197 (CUDA cores), #10 at BERT-large's K=4096,
 the user encoder at L=20 and 50 and at 6 layers (global scratch); one
 cached step at max_seq_len=20 and one fp32 FFT step at 197 tokens run
 through the kernels.
@@ -59,6 +63,8 @@ train mode, against the explicit-mask oracle, bit for bit on a repeat; the
 key bias dropped, one head's rows of Wo skipped and another seed's masks
 must break the bound.
 """
+
+import math
 
 import pytest
 import torch
@@ -478,15 +484,21 @@ def _mha_ratio(got, want):
     return worst
 
 
+# Key counts at the tensor-core tiles' edges (16-row m-tiles, 64-key tiles,
+# 320 resident keys), BERT's 30, ViT's 197 and 257, and a long sequence.
+MHA_SHAPES = ([(3, T, 768, 12) for T in (1, 16, 30, 63, 64, 65, 197, 257, 320, 321)]
+              + [(1, 1000, 128, 2), (5, 77, 128, 2), (4, 33, 192, 3), (2, 1, 64, 1),
+                 (1, 1024, 128, 2)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("B,T,D,H", [(6, 30, 768, 12), (3, 197, 768, 12),
-                                     (5, 77, 128, 2), (2, 1, 64, 1),
-                                     (4, 33, 192, 3), (2, 257, 768, 12),
-                                     (1, 1024, 128, 2)])
-def test_mha_kernels_match_plain(cuda_device, dtype, rate, B, T, D, H):
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("B,T,D,H", MHA_SHAPES)
+def test_mha_kernels_match_plain(cuda_device, dtype, rate, with_bias, B, T, D, H):
     q, k, v, g, bias = _mha_inputs(cuda_device, B, T, D, dtype)
+    bias = bias if with_bias else None
     kw = dict(n_heads=H, seed=977, rate=rate, layer=3)
     f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
     got = fa.mha_fwd(q, k, v, bias, **kw)
@@ -543,6 +555,90 @@ def test_mha_planted_faults_break_the_bounds(cuda_device, dtype, B, T, D, H):
     finally:
         fa._softmax_bwd = softmax_bwd
     assert _mha_ratio(faulty, fa.mha_bwd(q, k, v, bias, g, **kw)) > MHA_TOL[dtype, "bwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rate", [(torch.bfloat16, 0.0), (torch.bfloat16, 0.1),
+                                        (torch.float32, 0.1)])
+def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate):
+    """Two launches on the same inputs (the FFT step's ViT shape) give the
+    same bits: no atomics, every sum in a fixed order."""
+    q, k, v, g, bias = _mha_inputs(cuda_device, 88, 197, 768, dtype, seed=4)
+    kw = dict(n_heads=12, seed=5, rate=rate, layer=6)
+    first = fa.mha_bwd(q, k, v, bias, g, **kw)
+    second = fa.mha_bwd(q, k, v, bias, g, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=0):
+    """``mha_bwd_plain``'s function with one planted fault of the bf16
+    backward's split (fault None: the function itself): the dkv kernel's
+    dropout element transposed to key * T + query; the row term taken as
+    FlashAttention's rowsum(g * o); the dkv kernel reading the statistics
+    (max, sum, row term) of the neighbouring head."""
+    dt = q.dtype
+    B, T, D = q.shape
+    H = n_heads
+    inv = 1.0 / math.sqrt(D // H)
+    qh, kh, vh, gh = (fa._split(t, H) for t in (q, k, v, g))
+    s = (qh @ kh.transpose(-1, -2)) * inv
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    mx = s.amax(-1, keepdim=True)
+    e = torch.exp(s - mx)
+    total = e.sum(-1, keepdim=True)
+    p32 = e / total
+    masks = fa._masks(seed, rate, layer, B, T, H, q.device)
+    if masks is None:
+        masks = torch.ones_like(p32)
+    g_pd = gh @ vh.transpose(-1, -2)
+    term = (g_pd * masks * p32).sum(-1, keepdim=True)
+    if fault == "flash row term":
+        o = fa.mha_fwd_plain(q, k, v, bias, n_heads=H, seed=seed, rate=rate, layer=layer)
+        term = (gh * fa._split(o, H)).sum(-1, keepdim=True)
+
+    def grad_s(p, m, t):
+        return (p * (g_pd * m - t) * inv).to(dt).float()
+
+    g_q = grad_s(p32, masks, term) @ kh
+    p_kv, m_kv, t_kv = p32, masks, term
+    if fault == "dkv dropout transposed":
+        m_kv = masks.transpose(-1, -2)
+    elif fault == "dkv statistics of another head":
+        p_kv = torch.exp(s - mx.roll(1, 1)) / total.roll(1, 1)
+        t_kv = term.roll(1, 1)
+    pd = (p_kv.to(dt).float() * m_kv).to(dt).float()
+    g_v = pd.transpose(-1, -2) @ gh
+    g_k = grad_s(p_kv, m_kv, t_kv).transpose(-1, -2) @ qh
+    return fa._merge(g_q, dt), fa._merge(g_k, dt), fa._merge(g_v, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 197, 321])
+@pytest.mark.parametrize("fault", ["dkv dropout transposed", "flash row term",
+                                   "dkv statistics of another head"])
+def test_mha_bwd_planted_faults_break_the_bound(cuda_device, T, fault):
+    """Each fault breaks the bf16 bound that the kernels meet on the same
+    inputs.  The dropout fault needs train mode.  FlashAttention's row term
+    equals sum_j gP p up to the rounding of pd and o, so it shows where gP
+    is nearly constant along a row: values that differ across keys by 1%
+    of their size (eval mode)."""
+    dt = torch.bfloat16
+    q, k, v, g, bias = _mha_inputs(cuda_device, 4, T, 768, dt, seed=3)
+    if fault == "flash row term":
+        gen = torch.Generator().manual_seed(8)
+        u = torch.randn(4, 1, 768, generator=gen).to(cuda_device)
+        v = (u + 0.01 * v.float()).to(dt)
+    rate = 0.1 if fault == "dkv dropout transposed" else 0.0
+    kw = dict(n_heads=12, seed=41, rate=rate, layer=2)
+    got = fa.mha_bwd(q, k, v, bias, g, **kw)
+    plain = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
+    torch.cuda.synchronize()
+    assert _mha_ratio(got, plain) <= MHA_TOL[dt, "bwd"]
+    assert _mha_ratio(mha_bwd_faulty(q, k, v, bias, g, None, **kw), plain) == 0.0
+    faulty = mha_bwd_faulty(q, k, v, bias, g, fault, **kw)
+    assert _mha_ratio(faulty, got) > MHA_TOL[dt, "bwd"]
 
 
 @pytest.mark.cuda
@@ -623,7 +719,7 @@ def test_fft_step_fp32_at_197_tokens_runs_the_kernels(cuda_device):
         b0 = fa.mha_bwd.launches
         tr.run_epoch(1)
         losses[route] = float(tr._last_step_losses[-1])
-        # 2 text + 2 image layers; the image layers' T is 197 (fp32: tiled)
+        # 2 text + 2 image layers; the image layers' T is 197 (fp32: CUDA cores)
         assert fa.mha_bwd.launches - b0 == (4 if route else 0)
     assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
 
