@@ -134,11 +134,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    a valid evaluation, the step's breakdown.
 18. Hold the attention subblocks (#8, #9) against their plain versions in
    bf16 at the BERT step geometry (704 x 30, padded keys, an all-pad row;
-   eval and train with the same Philox masks) and the ViT one (704 x 197,
-   compared on 64 images, timed at 704), within ``MHA_TOL["fwd"]``; planted
-   faults (key bias dropped, one head's rows of Wo skipped, masks of
-   another seed) must break the bound.  ``F.multi_head_attention_forward``
-   is the library call.
+   eval and train with the same Philox masks), the ViT one (704 x 197,
+   compared on 64 images, timed at 704) and at 257 and 325 tokens (64
+   images, padded keys, eval and train; timed at 704), within
+   ``MHA_TOL["fwd"]``; planted faults (key bias dropped, one head's rows
+   of Wo skipped, masks of another seed) must break the bound.  Each op's
+   device split (qkv GEMM, attention, output GEMM) is printed with the
+   GEMMs' TFLOP/s beside ``torch.matmul`` of the same products (a
+   yardstick the port never calls); ``F.multi_head_attention_forward`` is
+   the library call.
 19. IISAN (Uncached) with ``fused_tower_attention="subblock"`` and
    ``"subblock_v2"``: 3 steps and the item table each (24 calls of the
    route's kernel a step, none of the other and no ``mha_fwd``), the
@@ -146,7 +150,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    set of weights at dropout 0, losses within 2e-2.
 20. IISAN (Uncached) at ``CV_resize=256`` (257 image tokens): 3 steps
    through ``fused_mha`` (24 #5 launches a step) and 3 through the
-   ``subblock`` route (24 #8), each with its step breakdown.
+   ``subblock`` route (24 #8); at ``CV_resize=288`` (325 tokens) 3 steps
+   through ``subblock``; each with its step breakdown.
 21. Print one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
@@ -198,8 +203,9 @@ MHA_TOL_FP32 = 1e-4
 # The uncached step: BERT-base titles and ViT-base images of a batch of 64
 # users x (L+1) items.
 TOWER_D, TOWER_H, TITLE_T, IMAGE_T = 768, 12, 30, 197
-# A ViT at CV_resize=256: 16 x 16 patches and the CLS token.
-IMAGE_T_256 = 257
+# A ViT at CV_resize=256 and 288: 16 x 16 and 18 x 18 patches and the CLS
+# token.
+IMAGE_T_256, IMAGE_T_288 = 257, 325
 STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -729,13 +735,12 @@ def w8a8_bound(M: int, K: int, N: int, xsz: int = 2, osz: int = 2):
                  PEAK_INT8_OPS)
 
 
-def subblock_bound(B: int, T: int, bias: bool, out_bytes: int = 2):
+def subblock_bound(B: int, T: int, bias: bool):
     """#8 / #9 read x, the bf16 weights and fp32 biases (and the key bias)
-    once and write the output (#9: fp32); the qkv projection, attention's
-    two products and the output projection."""
+    once and write the bf16 output; the qkv projection, attention's two
+    products and the output projection."""
     D, H = TOWER_D, TOWER_H
-    nbytes = (B * T * D * (2 + out_bytes) + 4 * D * D * 2 + 4 * D * 4
-              + (B * T * 4 if bias else 0))
+    nbytes = B * T * D * 4 + 4 * D * D * 2 + 4 * D * 4 + (B * T * 4 if bias else 0)
     flops = 2 * B * T * D * 4 * D + 4 * B * H * T * T * (D // H)
     return bound(nbytes, flops)
 
@@ -1297,10 +1302,11 @@ def check_w8a8(device):
 
 
 def train_uncached_257(device, counters):
-    """IISAN (Uncached) at CV_resize=256 (257 image tokens, past the first
-    kernels' 256 keys): 3 steps through ``fused_mha`` (#5) and 3 through the
-    ``subblock`` route (#8), each with its step breakdown.  Returns the
-    launches."""
+    """IISAN (Uncached) past the first kernels' limits: at CV_resize=256
+    (257 image tokens) 3 steps through ``fused_mha`` (#5) and 3 through the
+    ``subblock`` route (#8), and at CV_resize=288 (325 tokens, past the
+    subblocks' earlier 320 keys) 3 steps through ``subblock``, each with
+    its step breakdown.  Returns the launches."""
     import numpy as np
     import torch
 
@@ -1308,20 +1314,23 @@ def train_uncached_257(device, counters):
 
     corpus = synthetic_corpus(n_users=3 * 64, item_num=800, max_seq_len=SEQ_LEN, seed=0)
     totals = {c.__name__: 0 for c in counters}
-    for route, counter in ((True, "mha_fwd"), ("subblock", "fused_attn_subblock")):
+    for size, route, counter in ((256, True, "mha_fwd"),
+                                 (256, "subblock", "fused_attn_subblock"),
+                                 (288, "subblock", "fused_attn_subblock")):
         name = "fused_mha" if route is True else route
-        tr = uncached_trainer(device, corpus, CV_resize=256, fused_tower_attention=route)
+        tokens = (size // 16) ** 2 + 1
+        tr = uncached_trainer(device, corpus, CV_resize=size, fused_tower_attention=route)
         _, launches = counted(counters, lambda: tr.run_epoch(1))
         losses = tr._last_step_losses.float().cpu().numpy()
         host, busy, families = uncached_breakdown(tr, staged_batch(tr, 1), 3)
-        log(f"uncached IISAN at 257 image tokens, {name}: 3 steps, losses "
+        log(f"uncached IISAN at {tokens} image tokens, {name}: 3 steps, losses "
             + ", ".join(f"{x:.4f}" for x in losses) + f"; launches {launches}")
-        log(f"uncached IISAN at 257 tokens, {name}, step on a staged batch: host "
+        log(f"uncached IISAN at {tokens} tokens, {name}, step on a staged batch: host "
             f"{host:.2f} ms (median of 3, synchronised), device-busy {busy:.2f} ms "
             "(profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
         if launches[counter] != 24 * 3 or not np.isfinite(losses).all():
-            raise AssertionError(f"uncached at 257 tokens, {name}: launches {launches}, "
-                                 f"losses {losses}")
+            raise AssertionError(f"uncached at {tokens} tokens, {name}: launches "
+                                 f"{launches}, losses {losses}")
         for k in totals:
             totals[k] += launches[k]
         del tr
@@ -1456,13 +1465,47 @@ def train_int8_uncached(device, counters):
     return {k: launches[k] + table_launches[k] for k in launches}
 
 
+def kernel_device_ms(fn, reps: int = 5):
+    """Device ms per call of each CUDA kernel ``fn`` launches, by kernel
+    name (profiler, ``reps`` calls): its mean time a launch times its
+    launches a call, which holds where the trace keeps only some of a
+    kernel's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / e.count / 1e3 * max(1, round(e.count / reps))
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def subblock_split(fn):
+    """Device ms per call of ``fn`` (a subblock op) by step: the qkv GEMM,
+    the attention kernel, the output GEMM and every other kernel."""
+    split = {"qkv GEMM": 0.0, "attention": 0.0, "output GEMM": 0.0, "other": 0.0}
+    for key, ms in kernel_device_ms(fn).items():
+        step = ("qkv GEMM" if "subblock_qkv_gemm" in key else
+                "output GEMM" if "subblock_out_gemm" in key else
+                "attention" if "subblock_attn" in key else "other")
+        split[step] += ms
+    return split
+
+
 def check_subblock(device):
     """Phase 18: #8 and #9 against their plain versions in bf16 at the
     BERT step geometry (padded keys with an all-pad row; eval and train
-    with the same Philox masks) and the ViT one (eval, compared on 64
-    images, timed at 704); planted faults; ``F.multi_head_attention_forward``
-    (in-projection, attention and out-projection in one call) timed as the
-    library call.  Returns the JSON entries' numbers."""
+    with the same Philox masks), the ViT one (eval, compared on 64 images,
+    timed at 704) and past the earlier 320 keys at 257 and 325 tokens (eval
+    and train on 64 images); planted faults; each op's device split (qkv
+    GEMM, attention, output GEMM) with the GEMMs' TFLOP/s beside
+    ``torch.matmul`` of the same two products (a yardstick only);
+    ``F.multi_head_attention_forward`` (in-projection, attention and
+    out-projection in one call) timed as the library call.  Returns the
+    JSON entries' numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -1481,18 +1524,44 @@ def check_subblock(device):
         if not ratio <= MHA_TOL["fwd"]:
             raise AssertionError(f"{what}: |diff| / bound {ratio:.4g} > {MHA_TOL['fwd']}")
 
+    def padding(B, T):
+        lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
+        lengths[0] = 0
+        return torch.where(torch.arange(T, device=device)[None] < lengths[:, None], 0.0, -1e9)
+
     out = {}
     for v2, name in ((False, "attn_subblock_fwd"), (True, "attn_subblock_v2_fwd")):
         op = fsb.fused_attn_subblock_v2 if v2 else fsb.fused_attn_subblock
         res = {"err": 0.0}
         wqkv, bqkv, wo, bo = weights()
+        in_w, out_w = wqkv.t().contiguous(), wo.t().contiguous()
+        in_b, out_b = bqkv.to(dt), bo.to(dt)
+
+        def library(xx, mask):
+            xt = xx.transpose(0, 1)
+            return F.multi_head_attention_forward(
+                xt, xt, xt, D, H, in_w, in_b, None, None, False, 0.0, out_w, out_b,
+                training=False, key_padding_mask=mask, need_weights=False)[0]
+
+        def split_line(what, xx, bias_):
+            M = xx.shape[0] * xx.shape[1]
+            split = subblock_split(lambda: op(xx, wqkv, bqkv, wo, bo, H, key_bias=bias_))
+            x2 = xx.reshape(M, D)
+            mm_qkv = cuda_timed(lambda: torch.matmul(x2, wqkv), 10)
+            mm_out = cuda_timed(lambda: torch.matmul(x2, wo), 10)
+            f_qkv, f_out = 2 * M * D * 3 * D, 2 * M * D * D
+            log(f"  {name} {what} device split (profiler, 5 calls): "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+                + f"; qkv GEMM {f_qkv / max(split['qkv GEMM'], 1e-9) / 1e9:.1f} TFLOP/s, "
+                f"output GEMM {f_out / max(split['output GEMM'], 1e-9) / 1e9:.1f} TFLOP/s; "
+                "torch.matmul of the "
+                f"same products (yardstick only) {mm_qkv:.4f} / {mm_out:.4f} ms "
+                f"({f_qkv / mm_qkv / 1e9:.1f} / {f_out / mm_out / 1e9:.1f} TFLOP/s)")
+
         # BERT titles: 30 tokens, padded keys, the pad item's all-pad row
         B, T = STEP_ROWS, TITLE_T
         x = torch.randn(B, T, D, generator=gen, device=device).to(dt)
-        lengths = torch.randint(1, T + 1, (B,), generator=gen, device=device)
-        lengths[0] = 0
-        bias = torch.where(torch.arange(T, device=device)[None] < lengths[:, None],
-                           0.0, -1e9)
+        bias = padding(B, T)
         seed, rate = 20251017, DROP
         for mode, kw in (("eval", {}), ("train", dict(drop_rate=rate, seed=seed, layer=5))):
             got = op(x, wqkv, bqkv, wo, bo, H, key_bias=bias, **kw)
@@ -1522,24 +1591,16 @@ def check_subblock(device):
                     log(f"  planted fault '{fault}': {fr:.4g} (must be > {MHA_TOL['fwd']})")
                     if fr <= MHA_TOL["fwd"]:
                         raise AssertionError(f"{name}: the bound admits '{fault}'")
-        in_w, out_w = wqkv.t().contiguous(), wo.t().contiguous()
-        in_b, out_b = bqkv.to(dt), bo.to(dt)
         pad = bias < 0
-
-        def library(xx, mask):
-            xt = xx.transpose(0, 1)
-            return F.multi_head_attention_forward(
-                xt, xt, xt, D, H, in_w, in_b, None, None, False, 0.0, out_w, out_b,
-                training=False, key_padding_mask=mask, need_weights=False)[0]
-
         bert_ms = cuda_timed(lambda: op(x, wqkv, bqkv, wo, bo, H, key_bias=bias), 10)
         bert_plain = cuda_timed(lambda: fsb.subblock_fwd_plain(
             x, wqkv, bqkv, wo, bo, bias, n_heads=H, v2=v2), 3)
         bert_lib = cuda_timed(lambda: library(x, pad), 10)
-        bert_bnd = subblock_bound(B, T, True, 4 if v2 else 2)
+        bert_bnd = subblock_bound(B, T, True)
         log(f"{name} BERT eval B={B}: kernel {bert_ms:.4f} ms, plain {bert_plain:.4f} ms, "
             f"F.multi_head_attention_forward {bert_lib:.4f} ms; bound "
             f"{bert_bnd[0]:.4f} ms ({bert_bnd[1]})")
+        split_line("BERT", x, bias)
         # ViT images: 197 tokens, eval mode, no bias
         T = IMAGE_T
         x = torch.randn(B, T, D, generator=gen, device=device).to(dt)
@@ -1555,14 +1616,40 @@ def check_subblock(device):
         res["plain_ms"] = cuda_timed(lambda: fsb.subblock_fwd_plain(
             x, wqkv, bqkv, wo, bo, None, n_heads=H, v2=v2), 3)
         res["library_ms"] = cuda_timed(lambda: library(x, None), 5)
-        res["bound"] = subblock_bound(B, T, False, 4 if v2 else 2)
+        res["bound"] = subblock_bound(B, T, False)
         log(f"{name} ViT eval B={B}: kernel {res['ms']:.4f} ms "
             f"({2 * B * T * D * 4 * D / res['ms'] / 1e9:.1f} TFLOP/s of projections), "
             f"plain {res['plain_ms']:.4f} ms, F.multi_head_attention_forward "
             f"{res['library_ms']:.4f} ms; bound {res['bound'][0]:.4f} ms "
             f"({res['bound'][1]})")
-        out[v2] = res
+        split_line("ViT", x, None)
         del x, got, want
+        # Past the earlier 320 keys: 257 (CV_resize=256) and 325 (288)
+        # tokens, padded keys, eval and train on 64 images, timed at 704.
+        for T in (IMAGE_T_256, IMAGE_T_288):
+            x = torch.randn(64, T, D, generator=gen, device=device).to(dt)
+            bias = padding(64, T)
+            for mode, kw in (("eval", {}), ("train", dict(drop_rate=rate, seed=seed, layer=3))):
+                got = op(x, wqkv, bqkv, wo, bo, H, key_bias=bias, **kw)
+                want = fsb.subblock_fwd_plain(
+                    x, wqkv, bqkv, wo, bo, bias, n_heads=H, seed=seed,
+                    rate=rate if kw else 0.0, layer=3, v2=v2)
+                torch.cuda.synchronize()
+                ratio = mha_ratio([got], [want])
+                res["err"] = max(res["err"], float((got.float() - want.float()).abs().max()))
+                log(f"{name} {T} tokens {mode} B=64, padded keys: {ratio:.4g} (tol "
+                    f"{MHA_TOL['fwd']})")
+                require(ratio, f"{name} {T} tokens {mode}")
+            x = torch.randn(B, T, D, generator=gen, device=device).to(dt)
+            ms = cuda_timed(lambda: op(x, wqkv, bqkv, wo, bo, H), 5)
+            lib_ms = cuda_timed(lambda: library(x, None), 5)
+            bnd = subblock_bound(B, T, False)
+            log(f"{name} {T} tokens eval B={B}: kernel {ms:.4f} ms, "
+                f"F.multi_head_attention_forward {lib_ms:.4f} ms; bound {bnd[0]:.4f} ms "
+                f"({bnd[1]})")
+            split_line(f"{T} tokens", x, None)
+            del x, got, want
+        out[v2] = res
         torch.cuda.empty_cache()
     return out
 

@@ -46,115 +46,23 @@ namespace {
 
 using namespace mha;
 
-struct TcLayout {
-  static constexpr size_t tile = static_cast<size_t>(kKeyTile) * kStr * sizeof(bf16);
-  static constexpr size_t q = 0, k = static_cast<size_t>(kQTile) * kStr * sizeof(bf16);
-  static constexpr size_t v = k + 2 * tile, bias = v + 2 * tile;
-  static constexpr size_t bytes = bias + 2 * kKeyTile * sizeof(float);
-};
-
+// The streamed design (see the top; mha.cuh's fwd_streamed_block).
 __global__ void __launch_bounds__(kTcThreads)
     mha_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const float* __restrict__ bias,
                       bf16* __restrict__ out, Dims d, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + TcLayout::q);
-  bf16* Ks[2] = {reinterpret_cast<bf16*>(smem + TcLayout::k),
-                 reinterpret_cast<bf16*>(smem + TcLayout::k + TcLayout::tile)};
-  bf16* Vs[2] = {reinterpret_cast<bf16*>(smem + TcLayout::v),
-                 reinterpret_cast<bf16*>(smem + TcLayout::v + TcLayout::tile)};
-  float* Bs = reinterpret_cast<float*>(smem + TcLayout::bias);
-  const int Tn = d.T, i0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_kt = (Tn + kKeyTile - 1) / kKeyTile;
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  const int r0 = i0 + 16 * warp;     // the warp's first query row
-  const bool active = r0 < Tn;
-
-  auto stage = [&](int kt, bool with_v) {
-    const int j0 = kt * kKeyTile, n = min(kKeyTile, Tn - j0);
-    stage_rows(Ks[kt & 1], k, row0 + j0, n, kKeyTile, d.D, h);
-    if (with_v) stage_rows(Vs[kt & 1], v, row0 + j0, n, kKeyTile, d.D, h);
-    if (bias != nullptr)
-      for (int j = threadIdx.x; j < kKeyTile; j += blockDim.x)
-        Bs[(kt & 1) * kKeyTile + j] = j < n ? bias[row0 + j0 + j] : 0.f;
-  };
-  const float* no_bias = nullptr;
-  auto bias_of = [&](int kt) { return bias != nullptr ? Bs + (kt & 1) * kKeyTile : no_bias; };
-
-  // Pass 1: the rows' max and sum, K tiles only.
-  stage_rows(Qs, q, row0 + i0, min(kQTile, Tn - i0), kQTile, d.D, h);
-  stage(0, false);
-  cp_async_commit();
-  unsigned qf[kDk / 16][4];
-  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) stage(kt + 1, false);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // tile kt (and Q) landed
-    if (active) {
-      if (kt == 0) load_q_frags(qf, Qs + 16 * warp * kStr, lane);
-      stats_pass_tile(m, l, qf, Ks[kt & 1], bias_of(kt), kt * kKeyTile, d, lane);
-    }
-    __syncthreads();  // tile kt's buffers are free
-  }
-  finish_sums(l);
-
-  // Pass 2: the scores again, pd, and o += pd . V.
-  stage(0, true);
-  cp_async_commit();
-  float o[kDk / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kDk / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) stage(kt + 1, true);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (active) {
-      output_pass_tile(o, m, l, qf, Ks[kt & 1], Vs[kt & 1], bias_of(kt), r0, kt * kKeyTile, d,
-                       drop, d.site0 + h, b, lane);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  if (active) store_o(out + (row0 + r0) * d.D + h * kDk, o, min(16, Tn - r0), d.D, lane);
+  fwd_streamed_block(q, k, v, bias, out, d, drop, smem);
 }
 
-// The resident design (see the top): K_h and V_h of one (image, head)
-// beside each warp's 16 Q rows (mha.cuh's resident_bytes).
+// The resident design (see the top; mha.cuh's fwd_resident_block): K_h and
+// V_h of one (image, head) beside each warp's 16 Q rows.
 __global__ void __launch_bounds__(kResWarps * 32, 2)
     mha_fwd_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ bias,
                             bf16* __restrict__ out, Dims d, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Tn = d.T, h = blockIdx.x, b = blockIdx.y, kp = padded_keys(Tn);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kp * kStr;
-  bf16* Qw = Vs + kp * kStr + warp * 16 * kStr;
-  float* Bs = reinterpret_cast<float*>(Vs + (kp + 16 * n_warps) * kStr);
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  stage_rows(Ks, k, row0, Tn, kp, d.D, h);
-  stage_rows(Vs, v, row0, Tn, kp, d.D, h);
-  if (bias != nullptr)
-    for (int j = threadIdx.x; j < kp; j += blockDim.x) Bs[j] = j < Tn ? bias[row0 + j] : 0.f;
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int mt = warp; mt * 16 < Tn; mt += n_warps) {
-    const int i0 = mt * 16;
-    stage_warp_rows(Qw, q, row0 + i0, Tn - i0, d.D, h, lane);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncwarp();
-    attend_resident(Qw, Ks, Vs, bias != nullptr ? Bs : nullptr,
-                    out + (row0 + i0) * d.D + h * kDk, i0, d, drop, d.site0 + h, b, lane);
-    __syncwarp();  // the warp's Q rows are read before the next m-tile's land
-  }
+  fwd_resident_block(q, k, v, bias, out, d, drop, smem);
 }
 
 // The fp32 forward on the CUDA cores: a block is one (32-row query tile,
@@ -226,23 +134,8 @@ __global__ void __launch_bounds__(kThreads)
 
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* bias, void* out,
                       int B, const Dims& d, const Dropout& drop, cudaStream_t stream) {
-  if (d.T <= kResMaxKeys) {
-    const int n_warps = resident_warps(d.T);
-    const size_t bytes = resident_bytes(d.T, n_warps);
-    cudaError_t err = allow_smem(mha_fwd_resident_kernel, resident_bytes(kResMaxKeys, kResWarps));
-    if (err != cudaSuccess) return err;
-    mha_fwd_resident_kernel<<<dim3(d.H, B), n_warps * 32, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(bias), static_cast<bf16*>(out), d, drop);
-    return cudaGetLastError();
-  }
-  cudaError_t err = allow_smem(mha_fwd_tc_kernel, TcLayout::bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((d.T + kQTile - 1) / kQTile, d.H, B);
-  mha_fwd_tc_kernel<<<grid, kTcThreads, TcLayout::bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), d, drop);
-  return cudaGetLastError();
+  return launch_fwd_tc(mha_fwd_resident_kernel, mha_fwd_tc_kernel, q, k, v, bias, out, B, d, drop,
+                       stream);
 }
 
 template <typename T>

@@ -121,10 +121,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_mha_mask_replay.restype = i
     lib.iisan_w8a8_linear.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.iisan_w8a8_linear.restype = i
-    lib.iisan_attn_subblock_fwd.argtypes = [p] * 8 + [i] * 5 + [f, f, i, p]
+    lib.iisan_attn_subblock_fwd.argtypes = [p] * 9 + [i] * 5 + [f, f, i, p]
     lib.iisan_attn_subblock_fwd.restype = i
-    lib.iisan_attn_subblock_v2_fwd.argtypes = [p] * 8 + [i] * 6 + [f, f, i, p]
+    lib.iisan_attn_subblock_v2_fwd.argtypes = [p] * 9 + [i] * 6 + [f, f, i, p]
     lib.iisan_attn_subblock_v2_fwd.restype = i
+    lib.iisan_subblock_qkv_gemm.argtypes = [p] * 4 + [i] * 2 + [p]
+    lib.iisan_subblock_qkv_gemm.restype = i
     lib.iisan_cuda_error_string.argtypes = [i]
     lib.iisan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -18,9 +18,16 @@ pre-residual attention output, with the two layouts of the JAX package:
   JAX package has it.
 
 On a CPU tensor each op runs its plain version; on a CUDA tensor it
-launches its kernel (bf16 only) or raises.  Train-mode masks are Philox at
-the sites of ``ops/fused_attention`` (``layer * H + head``), so
-``attention_dropout_masks`` and the mask replay kernel regenerate them.
+launches its kernels (bf16 only) or raises.  On the card either op is three
+kernels (``csrc/attn_subblock.cuh``): the qkv projection on ``wgmma``
+(``qkv_projection`` runs it alone), #5's attention core, and the output
+projection on ``wgmma`` with the group-sum epilogue; #9's q, k, v are #8's
+values, so only its rounded biases and its output groups differ.  v2 with
+heads that split into no groups of 4 is #8's function (the JAX op's
+fallback), on the card too: ``kernel_for`` says which kernel a call runs.
+Train-mode masks are Philox at the sites of ``ops/fused_attention``
+(``layer * H + head``), so ``attention_dropout_masks`` and the mask replay
+kernel regenerate them.
 
 ``SubblockFn`` is the autograd function, as the JAX custom VJPs: in eval
 mode its backward differentiates the plain version; with dropout on it
@@ -34,16 +41,13 @@ from typing import Optional
 
 import torch
 
-from .fused_attention import (DK, attention_dropout_masks, reference_mha,
-                              reference_mha_masked)
+from .fused_attention import (DK, MAX_GRID, MAX_T, attention_dropout_masks,
+                              reference_mha, reference_mha_masked)
 from .fused_attention import supported as _mha_supported
 
 GROUP = 4                  # heads a group of the v2 layout
-MAX_KEYS = 320             # csrc/attn_subblock.cuh's projection register tiles
-_SMEM_LIMIT = 227 * 1024
-_BK = 32                   # csrc/attn_subblock.cuh's projection slice
-_STR = DK + 8              # bf16 row stride of the q, k, v tiles
-_KEY_TILE = 64             # keys a tile of the attention core
+MAX_KEYS = MAX_T           # #5's attention core, which the subblocks run
+MAX_ROWS = 2 ** 31 - 1     # B T: a TMA row coordinate is a signed 32-bit int
 
 
 # ----------------------------------------------------------------------
@@ -51,28 +55,31 @@ _KEY_TILE = 64             # keys a tile of the attention core
 # ----------------------------------------------------------------------
 
 
-def attn_smem_bytes(T: int) -> int:
-    """Shared memory of a (head, sequence) block: K_h and V_h padded to
-    whole 64-key tiles, Q_h to whole 16-row m-tiles, the key bias, and the
-    projection's staging ring (``AttnLayout``)."""
-    keys = -(-T // _KEY_TILE) * _KEY_TILE
-    rows = (T + 15) // 16 * 16
-    staging = 2 * (rows + DK) * (_BK + 8) * 2
-    bias = (keys * 4 + 15) // 16 * 16
-    return (2 * keys + rows) * _STR * 2 + bias + staging
-
-
 def supported(B: int, T: int, D: int, H: int) -> bool:
-    """Shapes #8 takes: #5's (head width 64), 1..320 keys (the projection's
-    register tiles; 257 tokens of a 256-pixel ViT fit), D a multiple of
-    128, a block in shared memory."""
-    return (_mha_supported(B, T, D, H) and T <= MAX_KEYS and D % 128 == 0
-            and attn_smem_bytes(T) <= _SMEM_LIMIT)
+    """Shapes #8 takes: #5's (head width 64, 1 to 46,340 keys, B and H at
+    most 65,535) with at most 2^31 - 1 rows B T.  The GEMMs' own conditions
+    follow from D = 64 H: 64-deep K slices and 64-column TMA boxes, rows of
+    a multiple of 16 bytes, 3D a whole number of 192-column tiles, and D a
+    whole number of 128- or 64-column output tiles."""
+    return _mha_supported(B, T, D, H) and B * T <= MAX_ROWS
 
 
 def supported_v2(B: int, T: int, D: int, H: int, G: int = GROUP) -> bool:
-    """Shapes #9 takes: #8's, with the heads in whole groups of G."""
-    return supported(B, T, D, H) and G >= 1 and H % G == 0
+    """Shapes #9 takes: #8's, with the heads in whole groups of G (an
+    output group of 64 G rows of Wo), and D a multiple of 128 where there
+    is more than one group (the grouped output tile)."""
+    return (supported(B, T, D, H) and G >= 1 and H % G == 0
+            and (G == H or D % 128 == 0))
+
+
+def kernel_for(v2: bool, B: int, T: int, D: int, H: int) -> Optional[str]:
+    """The kernel a CUDA call runs: ``"attn_subblock_v2_fwd"`` (#9) for v2
+    with heads in whole groups of ``GROUP``, else ``"attn_subblock_fwd"``
+    (#8; v2 with other head counts is #8's function with the original
+    biases, as the JAX op's fallback); None where the shape is not taken."""
+    if v2 and H % GROUP == 0:
+        return "attn_subblock_v2_fwd" if supported_v2(B, T, D, H) else None
+    return "attn_subblock_fwd" if supported(B, T, D, H) else None
 
 
 # ----------------------------------------------------------------------
@@ -145,9 +152,9 @@ def _check(name, x, wqkv, bqkv, wo, bo, bias, n_heads, seed, rate, ok):
         raise TypeError(f"{name} takes bfloat16 on the card, got {x.dtype}")
     if not ok:
         raise ValueError(f"{name} does not take B={B} T={T} D={D} H={n_heads} "
-                         f"(head width {DK}, 1 to {MAX_KEYS} keys, D a "
-                         "multiple of 128; v2: whole groups of "
-                         f"{GROUP} heads)")
+                         f"(head width {DK}, 1 to {MAX_KEYS} keys, B and H at "
+                         f"most {MAX_GRID}, B T at most {MAX_ROWS}; v2: whole "
+                         f"groups of {GROUP} heads or #8's function)")
     shapes = ((wqkv, (D, 3 * D)), (bqkv, (3 * D,)), (wo, (D, D)), (bo, (D,)))
     for t, shape in shapes:
         if tuple(t.shape) != shape or t.device != x.device:
@@ -160,19 +167,30 @@ def _check(name, x, wqkv, bqkv, wo, bo, bias, n_heads, seed, rate, ok):
         raise ValueError(f"dropout seed {seed} or rate {rate} out of range")
 
 
-def _launch(entry, x, wt, bproj, wo, bo, bias, n_heads, seed, rate, layer,
-            out_dtype, *group):
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as the GEMMs' TMA loads read it: contiguous, 16-byte aligned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(entry, x, wqkv, bqkv, wo, bo, bias, n_heads, seed, rate, layer,
+            *group):
+    """One call of a subblock entry point: the q | k | v and ctx scratch
+    allocated here, the weights as the caller holds them ((in, out)
+    layout, no transposed copy)."""
     from ..kernels.build import check, library
 
     B, T, D = x.shape
-    x, wo_t = x.contiguous(), wo.t().contiguous()
+    x, wqkv, wo = (_tma_operand(t) for t in (x, wqkv, wo))
+    bqkv, bo = bqkv.contiguous(), bo.contiguous()
+    qkv = torch.empty((3, B, T, D), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
-    out = torch.empty((B, T, D), dtype=out_dtype, device=x.device)
+    out = torch.empty_like(x)
     err = getattr(library(), entry)(
-        x.data_ptr(), wt.data_ptr(), bproj.data_ptr(), wo_t.data_ptr(),
-        bo.data_ptr(), None if bias is None else bias.data_ptr(), ctx.data_ptr(),
-        out.data_ptr(), B, T, D, n_heads, *group, seed, rate,
-        1.0 / (1.0 - rate), layer,
+        x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
+        bo.data_ptr(), None if bias is None else bias.data_ptr(),
+        qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(), B, T, D, n_heads,
+        *group, seed, rate, 1.0 / (1.0 - rate), layer,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, entry)
     return out
@@ -181,10 +199,10 @@ def _launch(entry, x, wt, bproj, wo, bo, bias, n_heads, seed, rate, layer,
 def _operands(v2: bool, x, wqkv, bqkv, wo, bo, n_heads: int):
     """(grouped, wqkv, bqkv, wo, bo) as either op takes them: weights in
     x's dtype, biases fp32, rounded to x's dtype first where the v2 head
-    groups run.  Off the card, v2 with heads that split into no groups of
-    4 is #8's function, as the JAX op's fallback."""
+    groups run.  v2 with heads that split into no groups of 4 is #8's
+    function, as the JAX op's fallback."""
     dt = x.dtype
-    grouped = v2 and (x.is_cuda or n_heads % GROUP == 0)
+    grouped = v2 and n_heads % GROUP == 0
     bqkv, bo = bqkv.float(), bo.float()
     if grouped:
         bqkv, bo = bqkv.to(dt).float(), bo.to(dt).float()
@@ -211,28 +229,61 @@ def subblock_fwd_plain(x, wqkv, bqkv, wo, bo, bias, *, n_heads: int,
 
 def _forward(v2: bool, x, wqkv, bqkv, wo, bo, bias, n_heads: int, seed: int,
              rate: float, layer: int) -> torch.Tensor:
-    """Either op's forward: the kernel on a CUDA ``x``, else the plain
-    version."""
+    """Either op's forward: the kernels on a CUDA ``x`` (``kernel_for``
+    names them), else the plain version."""
     if not x.is_cuda:
         return subblock_fwd_plain(x, wqkv, bqkv, wo, bo, bias, n_heads=n_heads,
                                   seed=seed, rate=rate, layer=layer, v2=v2)
     B, T, D = x.shape
-    _, wqkv, bqkv, wo, bo = _operands(v2, x, wqkv, bqkv, wo, bo, n_heads)
+    grouped, wqkv, bqkv, wo, bo = _operands(v2, x, wqkv, bqkv, wo, bo, n_heads)
+    kernel = kernel_for(v2, B, T, D, n_heads)
     name = "fused_attn_subblock_v2" if v2 else "fused_attn_subblock"
-    ok = supported_v2(B, T, D, n_heads) if v2 else supported(B, T, D, n_heads)
-    _check(name, x, wqkv, bqkv, wo, bo, bias, n_heads, seed, rate, ok)
+    _check(name, x, wqkv, bqkv, wo, bo, bias, n_heads, seed, rate, kernel is not None)
     bias = None if bias is None else bias.contiguous()
-    if v2:
-        wg, bg, _ = group_weights(wqkv, bqkv, wo, n_heads)
-        out = _launch("iisan_attn_subblock_v2_fwd", x,
-                      wg.transpose(1, 2).contiguous(), bg.contiguous(), wo, bo,
-                      bias, n_heads, seed, rate, layer, torch.float32, GROUP)
+    if grouped:
+        out = _launch("iisan_attn_subblock_v2_fwd", x, wqkv, bqkv, wo, bo, bias,
+                      n_heads, seed, rate, layer, GROUP)
         fused_attn_subblock_v2.launches += 1
-        return out.to(x.dtype)
-    out = _launch("iisan_attn_subblock_fwd", x, wqkv.t().contiguous(),
-                  bqkv.contiguous(), wo, bo, bias, n_heads, seed, rate, layer,
-                  x.dtype)
+        return out
+    out = _launch("iisan_attn_subblock_fwd", x, wqkv, bqkv, wo, bo, bias,
+                  n_heads, seed, rate, layer)
     fused_attn_subblock.launches += 1
+    return out
+
+
+def qkv_projection_plain(x, wqkv, bqkv) -> torch.Tensor:
+    """The subblocks' projection step in plain PyTorch: x (..., D) in dt,
+    wqkv (D, 3D), bqkv (3D,) -> (3, ..., D) = q, k, v of dt(x . wqkv (fp32
+    sums) + bqkv (fp32))."""
+    D = x.shape[-1]
+    out = (x.float() @ wqkv.float() + bqkv.float()).to(x.dtype)
+    return torch.stack(out.split(D, dim=-1))
+
+
+def qkv_projection(x, wqkv, bqkv) -> torch.Tensor:
+    """The subblocks' projection step alone (``qkv_projection_plain``'s
+    function): on a CUDA ``x`` (bf16, D a multiple of 64) the wgmma GEMM
+    of ``csrc/sm90_gemm.cuh``, else the plain version.
+    ``qkv_projection.launches`` counts kernel calls."""
+    if not x.is_cuda:
+        return qkv_projection_plain(x, wqkv, bqkv)
+    from ..kernels.build import check, library
+
+    D = x.shape[-1]
+    M = x.numel() // D
+    if x.dtype != torch.bfloat16 or D % DK or M < 1 or M > MAX_ROWS:
+        raise ValueError(f"qkv_projection does not take {tuple(x.shape)} "
+                         f"{x.dtype} (bf16, D a multiple of {DK})")
+    if tuple(wqkv.shape) != (D, 3 * D) or tuple(bqkv.shape) != (3 * D,):
+        raise ValueError(f"qkv_projection: wqkv ({D}, {3 * D}) and bqkv "
+                         f"({3 * D},) expected")
+    x, w = _tma_operand(x), _tma_operand(wqkv.to(x.dtype))
+    b = bqkv.float().contiguous()
+    out = torch.empty((3, *x.shape), dtype=x.dtype, device=x.device)
+    check(library().iisan_subblock_qkv_gemm(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, D,
+        torch.cuda.current_stream(x.device).cuda_stream), "iisan_subblock_qkv_gemm")
+    qkv_projection.launches += 1
     return out
 
 
@@ -296,8 +347,9 @@ def fused_attn_subblock_v2(x, wqkv, bqkv, wo, bo, n_heads: int,
     """The head-group layout (#9): ``fused_attn_subblock``'s contract, the
     weights regrouped by ``group_weights`` (groups of 4 heads), biases
     rounded to x's dtype, the output accumulated in fp32 over groups and
-    rounded to x's dtype.  ``fused_attn_subblock_v2.launches`` counts calls
-    that ran the kernel."""
+    rounded to x's dtype; heads that split into no groups of 4 give #8's
+    function (counted on ``fused_attn_subblock.launches``).
+    ``fused_attn_subblock_v2.launches`` counts calls that ran #9."""
     train = seed is not None and drop_rate > 0.0
     bias = None if key_bias is None else key_bias.float()
     return SubblockFn.apply(x, wqkv, bqkv, wo, bo, bias, n_heads,
@@ -307,3 +359,4 @@ def fused_attn_subblock_v2(x, wqkv, bqkv, wo, bo, n_heads: int,
 
 fused_attn_subblock.launches = 0
 fused_attn_subblock_v2.launches = 0
+qkv_projection.launches = 0

@@ -11,7 +11,11 @@ first, #8 does not, and the two JAX functions differ by more than either
 port function differs from its own.  ``group_weights`` matches JAX's and
 round-trips; train mode is the explicit-mask formulation over
 ``attention_dropout_masks``; the eval-mode backward matches ``jax.grad``
-of the JAX ops, and the train-mode backward raises as theirs does.
+of the JAX ops, and the train-mode backward raises as theirs does.  Past
+the earlier 320 keys (325 and 577 tokens) the plain versions still match
+the Pallas kernels at widths those admit; v2 at 6 heads is the JAX op's
+fallback; the shape predicates and ``kernel_for`` (which kernel a CUDA call
+runs) are checked as arithmetic.
 """
 
 from unittest import mock
@@ -165,9 +169,71 @@ def test_supported_geometry():
     assert fsb.supported_v2(704, 197, 768, 12)
     assert fsb.supported(4, 257, 768, 12)          # 257 tokens: a 256-pixel ViT
     assert fsb.supported_v2(4, 257, 768, 12) and fsb.supported(4, 320, 768, 12)
-    assert not fsb.supported(4, 321, 768, 12)      # past the projection's tiles
+    assert fsb.supported(4, 321, 768, 12)          # past the earlier 320 keys
+    assert fsb.supported(4, 325, 768, 12) and fsb.supported(4, 577, 768, 12)
     assert not fsb.supported(4, 30, 96, 2)         # head width 48
-    assert not fsb.supported(4, 30, 192, 3)        # D not a multiple of 128
+    assert fsb.supported(4, 30, 192, 3)            # D = 192: three 64-wide heads
     assert not fsb.supported_v2(4, 30, 384, 6)     # 6 heads, groups of 4
-    assert fsb.attn_smem_bytes(197) == 148224      # K, V padded to 256 keys
-    assert fsb.attn_smem_bytes(257) == 186368 <= 227 * 1024
+    assert fsb.MAX_KEYS == 46340 and fsb.supported(1, 46340, 768, 12)
+    assert not fsb.supported(1, 46341, 768, 12)    # #5's dropout elements
+    assert not fsb.supported(65535, 46340, 64, 1)  # B T past a TMA coordinate
+
+
+# The wrapper's dispatch on the card, as plain arithmetic: #9 for v2 with
+# heads in whole groups of 4, #8 for #8 and for v2 with other head counts
+# (the JAX op's fallback), nothing past #5's limits or at another head
+# width.
+@pytest.mark.parametrize("v2,B,T,D,H,want", [
+    (False, 704, 197, 768, 12, "attn_subblock_fwd"),
+    (True, 704, 197, 768, 12, "attn_subblock_v2_fwd"),
+    (True, 704, 30, 768, 12, "attn_subblock_v2_fwd"),
+    (True, 4, 325, 256, 4, "attn_subblock_v2_fwd"),   # one group: kg = D
+    (True, 4, 30, 384, 6, "attn_subblock_fwd"),       # 6 heads
+    (True, 4, 30, 192, 3, "attn_subblock_fwd"),       # 3 heads
+    (False, 4, 577, 128, 2, "attn_subblock_fwd"),
+    (False, 4, 30, 96, 2, None),                      # head width 48
+    (True, 4, 46341, 768, 12, None),                  # past 46,340 keys
+    (False, 65536, 30, 768, 12, None),                # B past a grid dimension
+])
+def test_kernel_for_is_the_dispatch_arithmetic(v2, B, T, D, H, want):
+    assert fsb.kernel_for(v2, B, T, D, H) == want
+
+
+@pytest.mark.parametrize("v2,D,H", [(False, 128, 2), (True, 256, 4)])
+@pytest.mark.parametrize("T", [325, 577])
+def test_plain_versions_match_jax_past_320_keys(interpret_pallas, v2, D, H, T):
+    """325 tokens (CV_resize=288) and 577 (384 pixels), at widths where the
+    JAX op still runs its Pallas kernel, not its fallback."""
+    x, wqkv, bqkv, wo, bo, bias = _inputs(B=2, T=T, D=D, seed=6 + T)
+    jax_takes = (jfs.supported_v2(2, T, D, H, 4, 4) if v2
+                 else jfs.supported(2, T, D, H, 4))
+    assert jax_takes and fsb.kernel_for(v2, 2, T, D, H) is not None
+    want = JAX_OPS[v2](*map(jnp.asarray, (x, wqkv, bqkv, wo, bo)), n_heads=H,
+                       key_bias=jnp.asarray(bias))
+    got = PORT_OPS[v2](*_t(x, wqkv, bqkv, wo, bo), H, key_bias=torch.tensor(bias))
+    tol = 1e-4 if v2 else 1e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+def test_v2_at_six_heads_is_the_jax_fallback(interpret_pallas):
+    """6 heads split into no groups of 4: the JAX v2 op computes #8's
+    function with the original biases, and so does the port's (on the card
+    it launches #8's kernels).  bf16, with biases off the bf16 grid, so
+    that the rounded-bias function differs."""
+    dt = torch.bfloat16
+    x, wqkv, bqkv, wo, bo, bias = _inputs(B=4, T=13, D=384, seed=3, bias_scale=1.0)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(bo))) - 7)
+    bo = (torch.tensor(bo).to(dt).float().numpy() + 0.45 * ulp).astype(np.float32)
+    want = np.asarray(JAX_OPS[True](
+        *(jnp.asarray(a, jnp.bfloat16) for a in (x, wqkv)), jnp.asarray(bqkv),
+        jnp.asarray(wo, jnp.bfloat16), jnp.asarray(bo), n_heads=6,
+        key_bias=jnp.asarray(bias)), np.float32)
+    tx, tw, two = _t(x, wqkv, wo, dtype=dt)
+    args = (tx, tw, torch.tensor(bqkv), two, torch.tensor(bo), 6)
+    got = PORT_OPS[True](*args, key_bias=torch.tensor(bias))
+    assert torch.equal(got, PORT_OPS[False](*args, key_bias=torch.tensor(bias)))
+    rounded = fsb.reference_subblock(tx, tw, torch.tensor(bqkv).to(dt).float(), two,
+                                     torch.tensor(bo).to(dt).float(),
+                                     torch.tensor(bias), 6, dt).float().numpy()
+    got = got.float().numpy()
+    assert np.mean(got != want) < 0.05 and np.mean(rounded != want) > 0.25

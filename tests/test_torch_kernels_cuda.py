@@ -59,9 +59,15 @@ and every other step rounds as the plain version does), fp32 and bf16 in
 and out, zero rows and 3-D input; a dropped bias, rounding toward zero and
 one per-tensor activation scale each break equality.  Attention subblocks
 (#8, #9, bf16): the forward tolerance of the attention kernels, in eval and
-train mode, against the explicit-mask oracle, bit for bit on a repeat; the
-key bias dropped, one head's rows of Wo skipped and another seed's masks
-must break the bound.
+train mode, against the explicit-mask oracle, bit for bit on a repeat, from
+1 to 1024 keys (past the earlier 320), at D = 192 with three heads and v2 at
+3 and 6 heads on #8's counter; the key bias dropped, one head's rows of Wo
+skipped and another seed's masks must break the bound.  Their projection
+GEMM alone (``qkv_projection``, wgmma) is held to one bf16 rounding of the
+fp32 product, |diff| <= 2^-7 |plain| + 1e-4 max|plain|, with a partial last
+128-row tile and N = 3D at D = 192, 768 and 1024; a head's k taken from its
+neighbour's columns and the partial tile not stored must break that
+bound.
 """
 
 import math
@@ -844,16 +850,82 @@ def _subblock_inputs(device, B, T, D, seed=0):
 SUBBLOCK = {False: fsb.fused_attn_subblock, True: fsb.fused_attn_subblock_v2}
 
 
+def _counter(v2, H):
+    """The launch counter a call counts on: v2 with heads that split into
+    no groups of 4 runs #8's kernels (the JAX op's fallback)."""
+    return SUBBLOCK[v2 and H % fsb.GROUP == 0]
+
+
+def _qkv_ratio(got, want):
+    """max |got - want| / (2^-7 |want| + 1e-4 max|want|): within 1 where
+    the two differ by at most one bf16 rounding of each value (fp32 sums in
+    another order round to a neighbouring bf16 number)."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        return float("inf")
+    bound = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+    return float(((got - want).abs() / bound).max())
+
+
+# The projection GEMM alone: row counts with a partial last 128-row tile
+# (300, 1000) and whole ones (256, and BERT's step rows, 704 x 30 =
+# 165 x 128), N = 3D at D = 192, 768 and 1024; #9's biases rounded to bf16.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounded", [False, True])
+@pytest.mark.parametrize("M,D", [(300, 192), (1000, 768), (256, 768), (21120, 768),
+                                 (300, 1024), (1, 64)])
+def test_qkv_projection_matches_fp32_product(cuda_device, rounded, M, D):
+    gen = torch.Generator().manual_seed(M + D)
+    x = torch.randn(M, D, generator=gen).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(D, 3 * D, generator=gen) / D ** 0.5).to(cuda_device, torch.bfloat16)
+    b = (torch.randn(3 * D, generator=gen) * 0.3).to(cuda_device)
+    if rounded:
+        b = b.to(torch.bfloat16).float()
+    before = fsb.qkv_projection.launches
+    got = fsb.qkv_projection(x, w, b)
+    want = fsb.qkv_projection_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert fsb.qkv_projection.launches == before + 1
+    assert got.shape == (3, M, D) and got.dtype == torch.bfloat16
+    assert _qkv_ratio(got, want) <= 1.0
+    assert torch.equal(got, fsb.qkv_projection(x, w, b))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["k from the neighbour head", "ragged tile not stored"])
+def test_qkv_projection_planted_faults_break_the_bound(cuda_device, fault):
+    M, D = 1000, 768  # 7 whole 128-row tiles and 104 rows
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(M, D, generator=gen).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(D, 3 * D, generator=gen) / D ** 0.5).to(cuda_device, torch.bfloat16)
+    b = torch.randn(3 * D, generator=gen).to(cuda_device)
+    got = fsb.qkv_projection(x, w, b)
+    want = fsb.qkv_projection_plain(x, w, b)
+    assert _qkv_ratio(got, want) <= 1.0
+    bad = got.clone()
+    if fault == "k from the neighbour head":
+        bad[1, :, 64:128] = got[1, :, 128:192]
+    else:
+        bad[:, 896:] = 0
+    assert _qkv_ratio(bad, want) > 1.0, fault
+
+
+# Key counts at the tiles' edges and past the earlier 320-key limit (325:
+# CV_resize=288, 577: 384 pixels, and 1024, through #5's streamed keys),
+# D = 192 with three heads, and v2 at 3 and 6 heads (#8's function on #8's
+# counter).
 @pytest.mark.cuda
 @pytest.mark.parametrize("v2", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,T,D,H", [(6, 30, 768, 12), (3, 197, 768, 12),
                                      (5, 77, 256, 4), (2, 1, 256, 4),
                                      (4, 33, 512, 8), (2, 256, 256, 4),
-                                     (2, 257, 768, 12), (1, 320, 256, 4)])
+                                     (2, 257, 768, 12), (1, 320, 256, 4),
+                                     (2, 325, 768, 12), (1, 577, 768, 12),
+                                     (1, 1024, 128, 2), (4, 33, 192, 3), (3, 50, 384, 6)])
 def test_subblock_kernels_match_plain(cuda_device, v2, rate, B, T, D, H):
     x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D)
-    op, counter = SUBBLOCK[v2], SUBBLOCK[v2]
+    op, counter = SUBBLOCK[v2], _counter(v2, H)
     before = counter.launches
     kw = dict(n_heads=H, seed=977, rate=rate, layer=3)
     got = op(x, wqkv, bqkv, wo, bo, H, key_bias=bias, drop_rate=rate,
@@ -869,7 +941,7 @@ def test_subblock_kernels_match_plain(cuda_device, v2, rate, B, T, D, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v2", [False, True])
-@pytest.mark.parametrize("B,T", [(8, 30), (2, 257)])
+@pytest.mark.parametrize("B,T", [(8, 30), (2, 197), (2, 257), (2, 325), (1, 577)])
 def test_subblock_train_mode_is_the_replayed_mask_oracle(cuda_device, v2, B, T):
     D, H = 768, 12
     x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D, seed=1)
@@ -888,8 +960,9 @@ def test_subblock_train_mode_is_the_replayed_mask_oracle(cuda_device, v2, B, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v2", [False, True])
-def test_subblock_planted_faults_break_the_bound(cuda_device, v2):
-    B, T, D, H = 8, 30, 768, 12
+@pytest.mark.parametrize("T", [30, 325])
+def test_subblock_planted_faults_break_the_bound(cuda_device, v2, T):
+    B, D, H = 8 if T == 30 else 2, 768, 12
     x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D, seed=2)
     op = SUBBLOCK[v2]
     kw = dict(n_heads=H, seed=31, rate=0.1, layer=0, v2=v2)
@@ -922,10 +995,25 @@ def test_subblock_all_pad_rows_stay_finite_and_shapes_raise(cuda_device):
                                 wo[:96, :96], bo[:96], 2)  # head width 48
     with pytest.raises(ValueError, match="does not take"):
         fsb.fused_attn_subblock_v2(x, wqkv, bqkv, wo, bo, 6)  # 6 heads of 128
-    x = torch.zeros(1, 321, 768, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="does not take"):  # past 320 keys
+    x = torch.zeros(1, fsb.MAX_KEYS + 1, 768, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):  # past 46,340 keys
         fsb.fused_attn_subblock(x, wqkv, bqkv, wo, bo, 12)
     assert fsb.fused_attn_subblock.launches == before
+
+
+@pytest.mark.cuda
+def test_subblock_v2_without_whole_groups_runs_8_on_its_counter(cuda_device):
+    """v2 at 6 heads (D = 384) and 3 heads (D = 192) is #8's function with
+    the original biases, launched through #8's kernels and counted there."""
+    for B, T, D, H in ((3, 50, 384, 6), (4, 33, 192, 3)):
+        x, wqkv, bqkv, wo, bo, bias = _subblock_inputs(cuda_device, B, T, D, seed=4)
+        n8, n9 = fsb.fused_attn_subblock.launches, fsb.fused_attn_subblock_v2.launches
+        got = fsb.fused_attn_subblock_v2(x, wqkv, bqkv, wo, bo, H, key_bias=bias)
+        assert fsb.kernel_for(True, B, T, D, H) == "attn_subblock_fwd"
+        assert (fsb.fused_attn_subblock.launches, fsb.fused_attn_subblock_v2.launches) \
+            == (n8 + 1, n9)
+        assert torch.equal(got, fsb.fused_attn_subblock(x, wqkv, bqkv, wo, bo, H,
+                                                        key_bias=bias))
 
 
 @pytest.mark.cuda
