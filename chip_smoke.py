@@ -115,23 +115,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the bf16 tables give from the same weights, a valid evaluation.
 15. Serving the trained Versa model: ``Recommender.from_trainer``, top-K at
    batch 1, 32 and 256, HTTP and save -> load checks as in phase 4.
-16. Hold the W8A8 kernel (#10) against ``int8_matmul`` on the card, bit
-   for bit, at every tower dense layer's (K, N) = (768, 768), (768, 3072),
-   (3072, 768) at the step's ViT rows (138,688) and BERT rows (21,120),
-   bf16 with bias, plus an fp32 case, one without bias and BERT-large's
-   (4096, 1024) (32-row blocks), zero rows in each; planted faults (bias dropped, rounding toward zero, one
-   activation scale for the tensor) must each break equality.  CUDA-event
-   medians beside the int8 bound; bf16 ``F.linear`` and ``torch._int_mm``
-   timed for context (other functions).
+16. Hold the W8A8 linear (#10: the quantise kernel and the int8 wgmma
+   GEMM) against ``int8_matmul`` on the card, bit for bit, at every tower
+   dense layer's (K, N) = (768, 768), (768, 3072), (3072, 768) at the
+   step's ViT rows (138,688) and BERT rows (21,120), bf16 with bias, plus
+   an fp32 case, one without bias, BERT-large's (4096, 1024), K = 8192,
+   ViT-tiny's D = 192 layers and ragged M, K and N in bf16 and fp32, zero
+   rows in each; the quantise kernel alone bit-equal to ``quantize_rows``;
+   planted faults (bias dropped, rounding toward zero, one activation scale
+   for the tensor, the last K slice dropped, the weight read MN-major) must
+   each break equality.  CUDA-event medians beside the bounds, each call's
+   device split (quantise / GEMM, profiler); bf16 ``F.linear`` and
+   ``torch._int_mm`` timed for context at the tower shapes (other
+   functions).
 17. IISAN (Uncached) with ``tower_quant="int8"`` at phase 8's
    configuration: a float trainer's tower trees, exported with the bridge,
    grafted into an int8 trainer (quantised at graft time) with the same
    other weights.  The item table through #10 is bit-equal to the one
    through ``int8_matmul`` on the card and within 0.15 (relative Frobenius)
    of the float towers' table; one epoch (8 steps: 145 ``fused_w8a8_matmul``
-   and 24 ``mha_fwd`` a step, 580 and 96 for the table), a finite loss,
-   int8 weights, scales and tower biases bit-unchanged, a SAN weight moved,
-   a valid evaluation, the step's breakdown.
+   calls, each one quantise and one GEMM launch, and 24 ``mha_fwd`` a step,
+   580 and 96 for the table), a finite loss, int8 weights, scales and tower
+   biases bit-unchanged, a SAN weight moved, a valid evaluation, the step's
+   breakdown and its device-busy time beside ``fused_mha``'s (phase 8).
 18. Hold the attention subblocks (#8, #9) against their plain versions in
    bf16 at the BERT step geometry (704 x 30, padded keys, an all-pad row;
    eval and train with the same Philox masks), the ViT one (704 x 197,
@@ -152,7 +158,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``fused_mha`` (24 #5 launches a step) and 3 through the
    ``subblock`` route (24 #8); at ``CV_resize=288`` (325 tokens) 3 steps
    through ``subblock``; each with its step breakdown.
-21. Print one JSON line of per-kernel results, then the final status line.
+21. Print the uncached step's device-busy time on each tower route of this
+   run, one JSON line of per-kernel results, then the final status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -210,11 +217,17 @@ STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
-# The W8A8 kernel's shapes on the step: every tower dense layer's (K, N) at
+# The W8A8 kernels' shapes on the step: every tower dense layer's (K, N) at
 # the ViT rows (704 images x 197 tokens) and the BERT rows (704 x 30); and
 # BERT-large's FFN output layer (K = 4096, N = 1024) at the BERT rows.
 W8A8_SHAPES = ((768, 768), (768, 3072), (3072, 768))
 W8A8_LARGE = (4096, 1024)
+# Shapes past the earlier kernel's limits: K = 8192 (past 6,272), ViT-tiny's
+# D = 192 layers at the ViT rows, and ragged M, K and N: (M, K, N).
+W8A8_WIDE = ((STEP_ROWS * TITLE_T, 8192, 1024), (STEP_ROWS * IMAGE_T, 192, 192),
+             (STEP_ROWS * IMAGE_T, 192, 768), (STEP_ROWS * IMAGE_T, 768, 192))
+W8A8_RAGGED = ((1, 256, 384), (127, 768, 768), (129, 768, 768), (300, 320, 384),
+               (300, 100, 256), (300, 77, 200), (129, 256, 100))
 VIT_ROWS, BERT_ROWS = STEP_ROWS * IMAGE_T, STEP_ROWS * TITLE_T
 # scripts/bench_uncached.py's configuration at the published batch of 64.
 UNCACHED_CFG = dict(batch_size=64, epoch=1, embedding_dim=EMB,
@@ -735,6 +748,19 @@ def w8a8_bound(M: int, K: int, N: int, xsz: int = 2, osz: int = 2):
                  PEAK_INT8_OPS)
 
 
+def w8a8_quant_bound(M: int, K: int, xsz: int = 2):
+    """#10's quantise kernel reads x once and writes xq (M, K_p) and sx."""
+    return bound(M * K * xsz + M * (-(-K // 16) * 16) + 4 * M, 0)
+
+
+def w8a8_gemm_bound(M: int, K: int, N: int, osz: int = 2):
+    """#10's GEMM reads xq, sx, the (N, K_p) weight, kscale and bias once
+    and writes y; 2 M K N int8 operations."""
+    Kp = -(-K // 16) * 16
+    return bound(M * Kp + 4 * M + N * Kp + 8 * N + M * N * osz, 2 * M * K * N,
+                 PEAK_INT8_OPS)
+
+
 def subblock_bound(B: int, T: int, bias: bool):
     """#8 / #9 read x, the bf16 weights and fp32 biases (and the key bias)
     once and write the bf16 output; the qkv projection, attention's two
@@ -1089,9 +1115,10 @@ def counted(counters, fn):
     return result, {c.__name__: c.launches for c in counters}
 
 
-def train_iisan_uncached(device, counters):
+def train_iisan_uncached(device, counters, busy_by_route):
     """Phase 8: one IISAN (Uncached) epoch, the item table and a valid
-    evaluation at the published configuration; returns the launches."""
+    evaluation at the published configuration; returns the launches and
+    records the step's device-busy ms in ``busy_by_route``."""
     import numpy as np
     import torch
 
@@ -1122,6 +1149,7 @@ def train_iisan_uncached(device, counters):
     moved = not torch.equal(model.san.fc_cv.kernel, san_before)
     batch = staged_batch(tr, 1)
     host, busy, families = uncached_breakdown(tr, batch, 5)
+    busy_by_route["fused_mha"] = busy
     log(f"uncached IISAN: {steps} steps of {tr.cfg.batch_size} users "
         f"({STEP_ROWS} images + titles) in {epoch_s:.3f} s ({epoch_s / steps * 1e3:.1f} "
         f"ms/step with image decoding, host clock); losses "
@@ -1227,12 +1255,30 @@ def check_uncached_routes(device):
             raise AssertionError(f"{name}: the kernel route's losses leave the module path's")
 
 
+def w8a8_split(fn):
+    """Device ms per call of ``fn`` (#10) by kernel: quantise, GEMM, other;
+    None where three profiles in a row held no kernel (the profiler's trace
+    sometimes comes back empty)."""
+    for _ in range(3):
+        split = {"quantise": 0.0, "GEMM": 0.0, "other": 0.0}
+        for key, ms in kernel_device_ms(fn).items():
+            split["quantise" if "w8a8_quant_rows" in key else
+                  "GEMM" if "w8a8_gemm" in key else "other"] += ms
+        if split["quantise"] and split["GEMM"]:
+            return split
+    return None
+
+
 def check_w8a8(device):
-    """Phase 16: #10 against ``int8_matmul`` on the card, bit for bit, at
-    the six tower shapes (bf16 with bias), one fp32 case and one without
-    bias, zero rows in each; planted faults; CUDA-event medians beside the
-    bound, and bf16 ``F.linear`` and ``torch._int_mm`` for context (neither
-    computes this function).  Returns the JSON entry's numbers."""
+    """Phase 16: #10 (quantise kernel + int8 wgmma GEMM) against
+    ``int8_matmul`` on the card, bit for bit, at the six tower shapes (bf16
+    with bias), one fp32 case and one without bias, BERT-large's, K = 8192,
+    ViT-tiny's D = 192 and ragged M, K and N, zero rows in each; the
+    quantise kernel alone against ``quantize_rows``; planted faults;
+    CUDA-event medians beside the bounds, each call's device split
+    (quantise / GEMM), and bf16 ``F.linear`` and ``torch._int_mm`` for
+    context at the tower shapes (neither computes this function).  Returns
+    the JSON entries' numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -1241,36 +1287,45 @@ def check_w8a8(device):
                                                  quantize_rows)
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    cases = [(M, K, N, torch.bfloat16, True) for M in (VIT_ROWS, BERT_ROWS)
-             for K, N in W8A8_SHAPES]
-    cases += [(BERT_ROWS, 768, 3072, torch.float32, True),
-              (BERT_ROWS, 3072, 768, torch.bfloat16, False),
-              (BERT_ROWS, *W8A8_LARGE, torch.bfloat16, True)]
+    towers = [(M, K, N) for M in (VIT_ROWS, BERT_ROWS) for K, N in W8A8_SHAPES]
+    cases = [(M, K, N, torch.bfloat16, torch.bfloat16, True) for M, K, N in towers]
+    cases += [(BERT_ROWS, 768, 3072, torch.float32, torch.float32, True),
+              (BERT_ROWS, 3072, 768, torch.bfloat16, torch.bfloat16, False),
+              (BERT_ROWS, *W8A8_LARGE, torch.bfloat16, torch.bfloat16, True)]
+    cases += [(M, K, N, torch.bfloat16, torch.bfloat16, True) for M, K, N in W8A8_WIDE]
+    cases += [(M, K, N, dt, dt, True) for M, K, N in W8A8_RAGGED
+              for dt in (torch.bfloat16, torch.float32)]
     out = {"err": 0.0}
-    for M, K, N, dt, with_bias in cases:
+    for M, K, N, dt, odt, with_bias in cases:
         x = torch.randn(M, K, generator=gen, device=device).to(dt)
         x[::97] = 0.0  # zero rows: their output is the bias exactly
         w = torch.randn(K, N, generator=gen, device=device) * 0.05
         q, s = (torch.as_tensor(a, device=device) for a in quantize_kernel(w.cpu().numpy()))
         b = torch.randn(N, generator=gen, device=device) if with_bias else None
-        qt = q.t().contiguous()
-        got = fw.fused_w8a8_matmul(x, q, s, b, dt, kernel_qt=qt)
-        want = int8_matmul(x, q, s, b, dt)
+        qt = fw.transposed_weight(q)
+
+        def call():
+            return fw.fused_w8a8_matmul(x, q, s, b, odt, kernel_qt=qt)
+
+        got = call()
+        want = int8_matmul(x, q, s, b, odt)
         torch.cuda.synchronize()
         ndiff = int((got != want).sum())
         out["err"] = max(out["err"], float((got.float() - want.float()).abs().max()))
-        ms = cuda_timed(lambda: fw.fused_w8a8_matmul(x, q, s, b, dt, kernel_qt=qt), 10)
-        plain_ms = cuda_timed(lambda: int8_matmul(x, q, s, b, dt), 3)
+        ms = cuda_timed(call, 10)
+        plain_ms = cuda_timed(lambda: int8_matmul(x, q, s, b, odt), 3)
+        split = w8a8_split(call)
         bnd = w8a8_bound(M, K, N, x.element_size(), got.element_size())
-        log(f"w8a8_linear M={M} K={K} N={N} {str(dt)[6:]}{'' if with_bias else ' no bias'} "
-            f"({fw.block_rows(K)}-row blocks): "
-            f"{ndiff} of {got.numel()} values differ from int8_matmul; kernel "
-            f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        split_text = ("not measured (empty traces)" if split is None else
+                      f"quantise {split['quantise']:.4f} + GEMM {split['GEMM']:.4f} + "
+                      f"other {split['other']:.4f} ms")
+        log(f"w8a8 M={M} K={K} N={N} {str(dt)[6:]} -> {str(odt)[6:]}"
+            f"{'' if with_bias else ' no bias'}: {ndiff} of {got.numel()} values differ "
+            f"from int8_matmul; call {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOPS), "
+            f"device {split_text}; plain {plain_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
         if ndiff:
-            raise AssertionError("w8a8_linear is not bit-equal to int8_matmul")
-        if (M, K, N, dt) == (VIT_ROWS, 768, 3072, torch.bfloat16):
-            out.update(ms=ms, plain_ms=plain_ms, bound=bnd)
+            raise AssertionError("w8a8 is not bit-equal to int8_matmul")
+        if (M, K, N) in towers and dt == torch.bfloat16:
             xq = quantize_rows(x)[0].to(torch.int8)
             wb = torch.randn(N, K, generator=gen, device=device).to(dt)
             lin_ms = cuda_timed(lambda: F.linear(x, wb), 10)
@@ -1279,23 +1334,48 @@ def check_w8a8(device):
                 f"{lin_ms:.4f} ms, torch._int_mm on the quantised operands "
                 f"{int_mm_ms:.4f} ms")
             del xq, wb
+        if (M, K, N, dt) == (VIT_ROWS, 768, 3072, torch.bfloat16):
+            # each kernel alone, and the quantise kernel bit for bit
+            xq, sx = fw.w8a8_quant_rows(x)
+            want_q, want_s = fw.w8a8_quant_rows_plain(x)
+            if not (torch.equal(xq, want_q) and torch.equal(sx, want_s)):
+                raise AssertionError("w8a8_quant_rows is not quantize_rows")
+            out["quant"] = {
+                "err": 0.0, "ms": cuda_timed(lambda: fw.w8a8_quant_rows(x), 10),
+                "plain_ms": cuda_timed(lambda: fw.w8a8_quant_rows_plain(x), 3),
+                "bound": w8a8_quant_bound(M, K, x.element_size())}
+            out["gemm"] = {
+                "err": 0.0, "ms": cuda_timed(lambda: fw.w8a8_gemm(xq, sx, qt, s, b, dt), 10),
+                "plain_ms": cuda_timed(lambda: fw.w8a8_gemm_plain(xq, sx, qt, s, b, dt), 3),
+                "bound": w8a8_gemm_bound(M, K, N, got.element_size())}
+            log(f"  quantise alone {out['quant']['ms']:.4f} ms (plain "
+                f"{out['quant']['plain_ms']:.4f}, bound {out['quant']['bound'][0]:.4f}); "
+                f"GEMM alone {out['gemm']['ms']:.4f} ms (plain {out['gemm']['plain_ms']:.4f}, "
+                f"bound {out['gemm']['bound'][0]:.4f}); xq and sx bit-equal to quantize_rows")
             # planted faults, on the first 4096 rows
             xs, flat = x[:4096], got[:4096]
-            _, sx = quantize_rows(xs)
-            trunc = torch.clamp(torch.trunc(xs.float() / sx.clamp_min(1e-30)), -127, 127)
-            one = sx.max()
+            _, sx4 = quantize_rows(xs)
+            trunc = torch.clamp(torch.trunc(xs.float() / sx4.clamp_min(1e-30)), -127, 127)
+            one = sx4.max()
+            xq4, sxq4 = xq[:4096], sx[:4096]
+            dropped = xq4.clone()
+            dropped[:, -128:] = 0
+            mn_major = qt.reshape(N // 128, 128, K // 128, 128).transpose(1, 3).reshape(N, K)
             faults = {
                 "bias dropped": int8_matmul(xs, q, s, None, dt),
                 "rint -> toward zero": ((trunc.double() @ q.double()).float()
-                                        * (sx * s) + b).to(dt),
+                                        * (sx4 * s) + b).to(dt),
                 "one activation scale": ((torch.round(xs.float() / one).double()
                                           @ q.double()).float() * (one * s) + b).to(dt),
+                "last K slice dropped": fw.w8a8_gemm_plain(dropped, sxq4, qt, s, b, dt),
+                "B read MN-major": fw.w8a8_gemm_plain(xq4, sxq4, mn_major, s, b, dt),
             }
             for name, faulty in faults.items():
                 nf = int((faulty != flat).sum())
                 log(f"  planted fault '{name}': {nf} of {flat.numel()} values differ")
                 if nf == 0:
                     raise AssertionError(f"w8a8: equality admits '{name}'")
+            del xq, sx, dropped, faults
         del x, got, want
         torch.cuda.empty_cache()
     return out
@@ -1374,12 +1454,13 @@ def int8_modules(model, fused: bool):
             m.fused = fused
 
 
-def train_int8_uncached(device, counters):
+def train_int8_uncached(device, counters, busy_by_route):
     """Phase 17: IISAN (Uncached) with ``tower_quant="int8"``: the float
     trainer's tower trees grafted (quantised at graft time) into an int8
     trainer with the same other weights; the item table through #10 and
     through ``int8_matmul`` on the card, and against the float towers';
-    one epoch, a valid evaluation.  Returns the launches."""
+    one epoch, a valid evaluation.  Returns the launches; records the
+    step's device-busy ms in ``busy_by_route`` beside phase 8's."""
     import numpy as np
     import torch
 
@@ -1436,6 +1517,7 @@ def train_int8_uncached(device, counters):
     unchanged = all(torch.equal(now[n], v) for n, v in frozen.items())
     moved = not torch.equal(tr.model.san.fc_cv.kernel, san_before)
     host, busy, families = uncached_breakdown(tr, staged_batch(tr, 1), 3)
+    busy_by_route["int8"] = busy
     log(f"uncached int8: {steps} steps in {epoch_s:.3f} s ({epoch_s / steps * 1e3:.1f} "
         "ms/step with image decoding, host clock); losses "
         + ", ".join(f"{x:.4f}" for x in losses) + f" (mean {mean_loss:.5f}); "
@@ -1444,10 +1526,14 @@ def train_int8_uncached(device, counters):
         f"{hit:.6f} nDCG@10 {ndcg:.6f}")
     log(f"uncached int8 step on a staged batch: host {host:.2f} ms (median of 3, "
         f"synchronised), device-busy {busy:.2f} ms (profiler): "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
-    want = {"fused_w8a8_matmul": 145 * steps, "mha_fwd": 24 * steps,
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items())
+        + f"; fused_mha's bf16 step in this run (phase 8): device-busy "
+        f"{busy_by_route['fused_mha']:.2f} ms")
+    want = {"fused_w8a8_matmul": 145 * steps, "w8a8_quant_rows": 145 * steps,
+            "w8a8_gemm": 145 * steps, "mha_fwd": 24 * steps,
             "user_encoder_fwd": steps, "user_encoder_bwd": steps}
-    want_table = {"fused_w8a8_matmul": 145 * 4, "mha_fwd": 24 * 4}
+    want_table = {"fused_w8a8_matmul": 145 * 4, "w8a8_quant_rows": 145 * 4,
+                  "w8a8_gemm": 145 * 4, "mha_fwd": 24 * 4}
     if any(launches[k] != v for k, v in want.items()) or any(
             table_launches[k] != v for k, v in want_table.items()):
         raise AssertionError(f"uncached int8: launches {launches} / {table_launches}, "
@@ -1654,11 +1740,12 @@ def check_subblock(device):
     return out
 
 
-def train_subblock_routes(device, counters):
+def train_subblock_routes(device, counters, busy_by_route):
     """Phase 19: IISAN (Uncached) with ``fused_tower_attention="subblock"``
     and ``"subblock_v2"`` at full width, 3 steps and the item table each;
     then 3 steps of each subblock route and of ``fused_mha`` from one set of
-    weights at dropout 0.  Returns the launches."""
+    weights at dropout 0.  Returns the launches; records each route's
+    step device-busy ms in ``busy_by_route``."""
     import numpy as np
     import torch
 
@@ -1673,6 +1760,7 @@ def train_subblock_routes(device, counters):
         losses = tr._last_step_losses.float().cpu().numpy()
         table, table_launches = counted(counters, tr.item_embedding_tables)
         host, busy, families = uncached_breakdown(tr, staged_batch(tr, 1), 3)
+        busy_by_route[route] = busy
         log(f"uncached {route}: 3 steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
             + f"; launches {launches}; item table {tuple(table.shape)}, launches "
             f"{table_launches}")
@@ -1680,7 +1768,8 @@ def train_subblock_routes(device, counters):
             f"synchronised), device-busy {busy:.2f} ms (profiler): "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
         other = kernel["subblock_v2" if route == "subblock" else "subblock"]
-        want = {counter: 24 * 3, other: 0, "mha_fwd": 0, "fused_w8a8_matmul": 0}
+        want = {counter: 24 * 3, other: 0, "mha_fwd": 0, "fused_w8a8_matmul": 0,
+                "w8a8_gemm": 0}
         if any(launches[k] != v for k, v in want.items()) or \
                 table_launches[counter] != 24 * 4:
             raise AssertionError(f"uncached {route}: launches {launches} / "
@@ -2206,7 +2295,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ucounters = (fa.mha_fwd, fa.mha_bwd, fa.mha_mask_replay,
                  fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd)
-    iisan_counts = train_iisan_uncached(device, ucounters)
+    busy_by_route = {}  # the uncached step's device-busy ms on each tower route
+    iisan_counts = train_iisan_uncached(device, ucounters, busy_by_route)
     torch.cuda.empty_cache()
     fft_counts = train_fft(device, ucounters)
     torch.cuda.empty_cache()
@@ -2227,21 +2317,24 @@ def main() -> int:
     from iisan_tpu_torch.ops import fused_w8a8 as fw
 
     w8a8 = check_w8a8(device)
-    tcounters = (fw.fused_w8a8_matmul, fsb.fused_attn_subblock,
+    tcounters = (fw.fused_w8a8_matmul, fw.w8a8_quant_rows, fw.w8a8_gemm,
+                 fsb.fused_attn_subblock,
                  fsb.fused_attn_subblock_v2, fa.mha_fwd, fa.mha_bwd,
                  fue.user_encoder_fwd, fue.user_encoder_bwd)
-    int8 = train_int8_uncached(device, tcounters)
+    int8 = train_int8_uncached(device, tcounters, busy_by_route)
     torch.cuda.empty_cache()
     subblock = check_subblock(device)
     torch.cuda.empty_cache()
-    routes = train_subblock_routes(device, tcounters)
+    routes = train_subblock_routes(device, tcounters, busy_by_route)
     long_tokens = train_uncached_257(device, tcounters)
     towers = {k: int8[k] + routes[k] + long_tokens[k] for k in int8}
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
+    log("uncached IISAN step device-busy by tower route, this run (staged batch, "
+        "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
 
-    def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+    def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"iisan_tpu_torch/csrc/{name}.cu",
+                "source": f"iisan_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
@@ -2282,9 +2375,12 @@ def main() -> int:
               towers["fused_attn_subblock_v2"], subblock[True]["err"],
               subblock[True]["ms"], subblock[True]["plain_ms"],
               subblock[True]["bound"], subblock[True]["library_ms"]),
-        entry("w8a8_linear", "iisan_tpu/ops/int8_pallas.py:96",
-              towers["fused_w8a8_matmul"], w8a8["err"], w8a8["ms"],
-              w8a8["plain_ms"], w8a8["bound"], None),
+        entry("w8a8_quant_rows", "iisan_tpu/ops/int8_pallas.py:96",
+              towers["w8a8_quant_rows"], w8a8["quant"]["err"], w8a8["quant"]["ms"],
+              w8a8["quant"]["plain_ms"], w8a8["quant"]["bound"], None, "w8a8_linear"),
+        entry("w8a8_gemm", "iisan_tpu/ops/int8_pallas.py:96",
+              towers["w8a8_gemm"], w8a8["err"], w8a8["gemm"]["ms"],
+              w8a8["gemm"]["plain_ms"], w8a8["gemm"]["bound"], None, "w8a8_linear"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

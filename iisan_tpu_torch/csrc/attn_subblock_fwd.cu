@@ -32,7 +32,8 @@ static __global__ void __launch_bounds__(sm90::kThreads, 1)
                              const __grid_constant__ CUtensorMap wmap,
                              const __grid_constant__ CUtensorMap omap,
                              const float* __restrict__ bias, int M, int N, int K, int kg, int ldo) {
-  sm90::gemm_block<192, false>(&amap, &wmap, &omap, bias, M, N, K, kg, ldo);
+  sm90::gemm_block<sm90::Bf16, 192, sm90::kStages, false>(&amap, &wmap, &omap, sm90::Bf16{bias},
+                                                          M, N, K, kg, ldo);
 }
 
 template <int BN, bool kGrouped>
@@ -41,7 +42,8 @@ static __global__ void __launch_bounds__(sm90::kThreads, 1)
                              const __grid_constant__ CUtensorMap wmap,
                              const __grid_constant__ CUtensorMap omap,
                              const float* __restrict__ bias, int M, int N, int K, int kg, int ldo) {
-  sm90::gemm_block<BN, kGrouped>(&amap, &wmap, &omap, bias, M, N, K, kg, ldo);
+  sm90::gemm_block<sm90::Bf16, BN, sm90::kStages, kGrouped>(&amap, &wmap, &omap, sm90::Bf16{bias},
+                                                            M, N, K, kg, ldo);
 }
 
 // #5's two block designs under the subblock's own names (its launch

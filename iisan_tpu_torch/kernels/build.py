@@ -119,8 +119,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_mha_bwd.restype = i
     lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [f, f, i, p]
     lib.iisan_mha_mask_replay.restype = i
-    lib.iisan_w8a8_linear.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.iisan_w8a8_linear.restype = i
+    lib.iisan_w8a8_quant_rows.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.iisan_w8a8_quant_rows.restype = i
+    lib.iisan_w8a8_gemm.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.iisan_w8a8_gemm.restype = i
     lib.iisan_attn_subblock_fwd.argtypes = [p] * 9 + [i] * 5 + [f, f, i, p]
     lib.iisan_attn_subblock_fwd.restype = i
     lib.iisan_attn_subblock_v2_fwd.argtypes = [p] * 9 + [i] * 6 + [f, f, i, p]

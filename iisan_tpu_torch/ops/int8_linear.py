@@ -19,9 +19,10 @@ card, which can differ by one ulp.
 ``Int8Dense`` holds ``kernel_q`` (in, out) int8 as a buffer (an int8
 tensor cannot be an autograd parameter) and ``kscale``, ``bias`` as fp32
 parameters: the JAX module's tree, which ``utils/jax_params`` carries bit
-for bit.  On a CUDA input it launches #10, on a CPU input it runs
-``int8_matmul``.  Rounding has a zero derivative, so the towers that use
-it must be frozen (``models/towers.towers_from_config`` enforces that).
+for bit.  On a CUDA input it launches #10 (its quantise and GEMM
+kernels), on a CPU input it runs ``int8_matmul``.  Rounding has a zero
+derivative, so the towers that use it must be frozen
+(``models/towers.towers_from_config`` enforces that).
 """
 
 from __future__ import annotations
@@ -111,12 +112,16 @@ class Int8Dense(nn.Module):
         self._wt_key, self._wt = None, None
 
     def transposed_kernel(self) -> torch.Tensor:
-        """(out, in) contiguous copy of ``kernel_q`` (the kernel's weight
-        layout), made again only when ``kernel_q`` changes."""
+        """(out, in rounded up to 16) int8 transpose of ``kernel_q`` with
+        zero columns past ``in`` (the GEMM kernel's weight layout,
+        ``fused_w8a8.transposed_weight``), made again only when
+        ``kernel_q`` changes."""
+        from .fused_w8a8 import transposed_weight
+
         w = self.kernel_q
         key = (w.data_ptr(), w._version, w.device)
         if key != self._wt_key:
-            self._wt, self._wt_key = w.t().contiguous(), key
+            self._wt, self._wt_key = transposed_weight(w), key
         return self._wt
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

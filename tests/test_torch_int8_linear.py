@@ -109,15 +109,64 @@ def test_int8_matmul_matches_jax(interpret_pallas, M, K, N, with_bias, lead):
 
 
 def test_w8a8_geometry_takes_bert_large():
-    """#10 takes K up to 6,272 (32-row blocks past 3,072), so BERT-large's
-    (1024, 4096) and (4096, 1024) layers, and BERT / ViT-base's as before."""
-    for K, N in ((768, 768), (768, 3072), (3072, 768), (1024, 1024),
-                 (1024, 4096), (4096, 1024), (4096, 4096), (6272, 128)):
+    """#10 takes every K from 1 to K_MAX and every N: each pair JAX's Pallas
+    kernel takes, BERT-large's widths, K past the earlier 6,272 limit, and
+    ViT-tiny's D = 192 layers; the GEMM's ring fits shared memory."""
+    from iisan_tpu.ops import int8_pallas
+
+    jax_pairs = [(K, N) for K in range(128, 8193, 128) for N in range(128, 8193, 128)
+                 if int8_pallas.supported(K, N)]
+    assert (768, 3072) in jax_pairs and (4096, 1024) in jax_pairs
+    for K, N in jax_pairs + [(6336, 128), (8192, 1024), (8192, 8192), (192, 192),
+                             (192, 768), (768, 192), (1, 1), (77, 37), (fw.K_MAX, 1)]:
         assert fw.supported(K, N), (K, N)
-    assert fw.block_rows(768) == fw.block_rows(3072) == 64
-    assert fw.block_rows(4096) == 32
-    assert fw.smem_bytes(4096, 32) <= 227 * 1024 < fw.smem_bytes(4096, 64)
-    assert not fw.supported(6336, 128) and not fw.supported(4096, 1000)
+    assert not fw.supported(fw.K_MAX + 1, 128) and not fw.supported(0, 128)
+    assert not fw.supported(768, 0)
+    # int32 sums stay exact: K_MAX 127^2 < 2^31 <= (K_MAX + 16) 127^2
+    assert fw.K_MAX * 127 ** 2 < 2 ** 31 <= (fw.K_MAX + fw.K_ALIGN) * 127 ** 2
+    assert [fw.padded_k(k) for k in (1, 16, 17, 100, 192, 200, 768)] == \
+        [16, 16, 32, 112, 192, 208, 768]
+    assert fw.smem_bytes() == 3 * 48 * 1024 + 64 * 1024 + 48 + 1024 <= 227 * 1024
+    assert fw.out_stride(100, torch.bfloat16) == 104
+    assert fw.out_stride(100, torch.float32) == 100
+
+
+@pytest.mark.parametrize("K", [100, 192, 200])
+def test_w8a8_padding_is_exact(K):
+    """Zero columns past K in xq and in the transposed weight (K_p = K
+    rounded up to 16) leave the product bit-equal to ``int8_matmul``; the
+    wrappers run these plain versions on CPU tensors."""
+    x, q, s, b = _case(150, K, 96, True, seed=7)
+    xt, qt = _t(x), _t(q)
+    xq, sx = fw.w8a8_quant_rows(xt)
+    assert xq.dtype == torch.int8 and xq.shape == (150, fw.padded_k(K))
+    assert not xq[:, K:].any() and sx.shape == (150,)
+    wt = fw.transposed_weight(qt)
+    assert wt.shape == (96, fw.padded_k(K)) and not wt[:, K:].any()
+    assert torch.equal(wt[:, :K], qt.t())
+    for dt in (torch.float32, torch.bfloat16):
+        want = til.int8_matmul(xt, qt, _t(s), _t(b), dt)
+        got = fw.w8a8_gemm(xq, sx, wt, _t(s), _t(b), dt)
+        assert torch.equal(got, want)
+        assert torch.equal(got, fw.fused_w8a8_matmul(xt, qt, _t(s), _t(b), dt))
+    assert torch.equal(fw.w8a8_gemm(xq, sx, wt, _t(s), None, torch.float32),
+                       til.int8_matmul(xt, qt, _t(s), None, torch.float32))
+    dense = til.Int8Dense(K, 96)
+    load_jax_params(dense, {"kernel_q": q, "kscale": s, "bias": b})
+    assert torch.equal(dense.transposed_kernel(), wt)
+
+
+@pytest.mark.parametrize("K,N", [(192, 192), (192, 768), (768, 192)])
+def test_int8_matmul_matches_jax_at_d192(K, N):
+    """ViT-tiny's tower layers (D = 192: q, k, v, output (192, 192), FFN
+    (192, 768) and (768, 192)), which JAX's XLA int8 path answers."""
+    x, q, s, b = _case(197 * 2, K, N, True, seed=8)
+    got = til.int8_matmul(_t(x), _t(q), _t(s), _t(b), torch.float32).numpy()
+    want = np.asarray(jil.int8_matmul(jnp.asarray(x), q, s, b, jnp.float32))
+    assert got.shape == want.shape == (197 * 2, N)
+    assert _rel(got, want) < 1e-3
+    assert torch.equal(fw.fused_w8a8_matmul(_t(x), _t(q), _t(s), _t(b), torch.float32),
+                       torch.from_numpy(got))
 
 
 def test_int8_matmul_bf16_output_matches_jax():

@@ -50,14 +50,18 @@ term taken as FlashAttention's rowsum(g * o), another head's statistics
 read in dkv) must break those bounds, and the backward repeats bit for
 bit.
 Shapes reach past the first kernels' limits: 257 keys (a 256-pixel ViT),
-1024, the fp32 backward at ViT's 197 (CUDA cores), #10 at BERT-large's K=4096,
+1024, the fp32 backward at ViT's 197 (CUDA cores), #10 at any K and N,
 the user encoder at L=20 and 50 and at 6 layers (global scratch); one
 cached step at max_seq_len=20 and one fp32 FFT step at 197 tokens run
 through the kernels.
-W8A8 linear (#10): bit-equal to ``int8_matmul`` (the int32 sums are exact
-and every other step rounds as the plain version does), fp32 and bf16 in
-and out, zero rows and 3-D input; a dropped bias, rounding toward zero and
-one per-tensor activation scale each break equality.  Attention subblocks
+W8A8 linear (#10, a quantise kernel and an int8 wgmma GEMM): bit-equal to
+``int8_matmul`` (the int32 sums are exact and every other step rounds as
+the plain version does) at the six tower shapes at the step's ViT and
+BERT rows, BERT-large's, K = 6,336 and 8,192, ViT-tiny's D = 192, ragged M,
+K and N, fp32 and bf16 in and out, zero rows and 3-D input; the quantise
+kernel alone bit-equal to ``quantize_rows``; a dropped bias, rounding
+toward zero, one per-tensor activation scale, the last K slice dropped and
+the weight read MN-major each break equality.  Attention subblocks
 (#8, #9, bf16): the forward tolerance of the attention kernels, in eval and
 train mode, against the explicit-mask oracle, bit for bit on a repeat, from
 1 to 1024 keys (past the earlier 320), at D = 192 with three heads and v2 at
@@ -736,41 +740,74 @@ def test_fft_step_fp32_at_197_tokens_runs_the_kernels(cuda_device):
 
 
 def _w8a8_inputs(device, M, K, N, xdtype, seed=0):
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(M, K, generator=gen) * 0.5
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=gen, device=device) * 0.5
     x[min(1, M - 1)] = 0.0  # a zero row: its scale guard gives bias exactly
-    q, s = quantize_kernel((torch.randn(K, N, generator=gen) * 0.05).numpy())
-    b = torch.randn(N, generator=gen)
-    return (x.to(device, xdtype), torch.from_numpy(q).to(device),
-            torch.from_numpy(s).to(device), b.to(device))
+    w = torch.randn(K, N, generator=gen, device=device) * 0.05
+    q, s = quantize_kernel(w.cpu().numpy())
+    b = torch.randn(N, generator=gen, device=device)
+    return (x.to(xdtype), torch.from_numpy(q).to(device),
+            torch.from_numpy(s).to(device), b)
+
+
+# (M, K, N, with_bias).  In bf16 only: the six tower shapes at the uncached
+# step's ViT rows (704 x 197) and BERT rows (704 x 30), BERT-large's FFN,
+# K past the earlier 6,272 limit, and ViT-tiny's D = 192 layers.
+_W8A8_STEP = [(M, K, N, True) for M in (138688, 21120)
+              for K, N in ((768, 768), (768, 3072), (3072, 768))] + [
+    (21120, 4096, 1024, True), (21120, 1024, 4096, True), (3000, 8192, 1024, True),
+    (513, 6336, 128, True), (138688, 192, 192, True), (138688, 192, 768, True),
+    (138688, 768, 192, True)]
+# In every dtype pair: ragged M (1, 127, 129, 300), K not a multiple of the
+# 128-deep slice (320, 100, 77: K_p = 80 and a 1-element load path), N
+# past a tile edge and not a multiple of 8 (200, 100, 37, 1), no bias.
+_W8A8_EDGES = [(1, 256, 384, True), (127, 768, 768, True), (129, 768, 768, True),
+               (300, 256, 384, True), (300, 320, 384, True), (300, 100, 256, True),
+               (300, 77, 200, True), (129, 256, 100, True), (70, 192, 37, False),
+               (33, 64, 1, True), (512, 128, 128, False), (7, 256, 256, False),
+               (1000, 768, 3072, True), (513, 3072, 768, True)]
+_W8A8_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("xdtype,odtype", [(torch.bfloat16, torch.bfloat16),
-                                           (torch.float32, torch.float32),
-                                           (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("M,K,N,with_bias", [(300, 256, 384, True),
-                                             (512, 128, 128, False),
-                                             (7, 256, 256, True),
-                                             (1000, 768, 3072, True),
-                                             (513, 3072, 768, True),
-                                             (21120, 768, 768, True),
-                                             (333, 4096, 1024, True),
-                                             (333, 1024, 4096, True),
-                                             (70, 6272, 128, False)])
+@pytest.mark.parametrize("xdtype,odtype,M,K,N,with_bias", [
+    (torch.bfloat16, torch.bfloat16, *shape) for shape in _W8A8_STEP] + [
+    (*dt, *shape) for dt in _W8A8_DTYPES for shape in _W8A8_EDGES])
 def test_w8a8_kernel_is_bit_equal_to_plain(cuda_device, xdtype, odtype, M, K, N,
                                            with_bias):
     x, q, s, b = _w8a8_inputs(cuda_device, M, K, N, xdtype)
     b = b if with_bias else None
-    before = fw.fused_w8a8_matmul.launches
+    before = (fw.fused_w8a8_matmul.launches, fw.w8a8_quant_rows.launches,
+              fw.w8a8_gemm.launches)
     got = fw.fused_w8a8_matmul(x, q, s, b, odtype)
     want = int8_matmul(x, q, s, b, odtype)
     torch.cuda.synchronize()
-    assert fw.fused_w8a8_matmul.launches == before + 1
+    assert (fw.fused_w8a8_matmul.launches, fw.w8a8_quant_rows.launches,
+            fw.w8a8_gemm.launches) == tuple(n + 1 for n in before)
     assert got.dtype == odtype and got.shape == (M, N)
     assert torch.equal(got, want), f"{int((got != want).sum())} values differ"
     zero = want[min(1, M - 1)]
     assert torch.equal(zero, (b if with_bias else torch.zeros_like(s)).to(odtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", [(300, 1), (300, 77), (300, 100), (1000, 768),
+                                 (129, 3072), (33, 8192)])
+def test_w8a8_quant_rows_is_bit_equal_to_quantize_rows(cuda_device, xdtype, M, K):
+    x = _w8a8_inputs(cuda_device, M, K, 8, xdtype)[0]
+    xq, sx = fw.w8a8_quant_rows(x)
+    want_q, want_s = fw.w8a8_quant_rows_plain(x)
+    torch.cuda.synchronize()
+    assert xq.shape == (M, fw.padded_k(K)) and xq.dtype == torch.int8
+    assert torch.equal(xq, want_q) and torch.equal(sx, want_s)
+    assert not xq[:, K:].any()
+    # rows that do not start on 16 bytes take the 1-element loads
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(M, K)
+    assert flat.data_ptr() % 16
+    xq1, sx1 = fw.w8a8_quant_rows(flat)
+    assert torch.equal(xq1, want_q) and torch.equal(sx1, want_s)
 
 
 @pytest.mark.cuda
@@ -796,18 +833,50 @@ def test_w8a8_3d_input_and_planted_faults(cuda_device):
         assert not torch.equal(flat, faulty), name
 
 
+def _w8a8_layout_faults(xq, sx, wt, s, b, dtype):
+    """What the GEMM would give with the last 128-deep K slice dropped, and
+    with each 128 x 128 block of the (N, K_p) weight read MN-major (as
+    sm90_gemm.cuh's bf16 ``desc_w`` would read it): transposed."""
+    N, Kp = wt.shape
+    assert N % 128 == 0 and Kp % 128 == 0
+    dropped = xq.clone()
+    dropped[:, Kp - 128:] = 0
+    mn_major = wt.reshape(N // 128, 128, Kp // 128, 128).transpose(1, 3).reshape(N, Kp)
+    return {"last K slice dropped": fw.w8a8_gemm_plain(dropped, sx, wt, s, b, dtype),
+            "B read MN-major": fw.w8a8_gemm_plain(xq, sx, mn_major, s, b, dtype)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1000, 768, 768), (300, 3072, 768)])
+def test_w8a8_planted_layout_faults_break_equality(cuda_device, M, K, N):
+    x, q, s, b = _w8a8_inputs(cuda_device, M, K, N, torch.bfloat16, seed=4)
+    got = fw.fused_w8a8_matmul(x, q, s, b, torch.bfloat16)
+    xq, sx = fw.w8a8_quant_rows_plain(x)
+    wt = fw.transposed_weight(q)
+    assert torch.equal(got, fw.w8a8_gemm_plain(xq, sx, wt, s, b, torch.bfloat16))
+    for name, faulty in _w8a8_layout_faults(xq, sx, wt, s, b, torch.bfloat16).items():
+        assert not torch.equal(got, faulty), name
+
+
 @pytest.mark.cuda
 def test_w8a8_raises_on_unsupported_geometry(cuda_device):
-    x, q, s, b = _w8a8_inputs(cuda_device, 8, 256, 128, torch.float32)
-    before = fw.fused_w8a8_matmul.launches
-    with pytest.raises(ValueError, match="does not take"):
-        fw.fused_w8a8_matmul(x[:, :200], q[:200], s, b, torch.float32)
-    with pytest.raises(ValueError, match="does not take"):
-        fw.fused_w8a8_matmul(x, q[:, :100], s[:100], b[:100], torch.float32)
-    x, q, s, b = _w8a8_inputs(cuda_device, 8, 6336, 128, torch.float32)
-    with pytest.raises(ValueError, match="does not take"):  # K past 6,272
-        fw.fused_w8a8_matmul(x, q, s, b, torch.float32)
-    assert fw.fused_w8a8_matmul.launches == before
+    """What is still refused: another dtype, inputs on two devices, a
+    weight that does not match x or is not the padded transpose."""
+    x, q, s, b = _w8a8_inputs(cuda_device, 8, 200, 128, torch.float32)
+    before = (fw.fused_w8a8_matmul.launches, fw.w8a8_gemm.launches)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fw.fused_w8a8_matmul(x.half(), q, s, b, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fw.fused_w8a8_matmul(x, q, s, b, torch.float16)
+    with pytest.raises(ValueError, match="one device"):
+        fw.fused_w8a8_matmul(x, q.cpu(), s, b, torch.float32)
+    with pytest.raises(ValueError, match="features"):
+        fw.fused_w8a8_matmul(x[:, :100], q, s, b, torch.float32)
+    with pytest.raises(ValueError, match="transpose"):  # (N, K), not (N, K_p)
+        fw.fused_w8a8_matmul(x, q, s, b, torch.float32, kernel_qt=q.t().contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        fw.fused_w8a8_matmul(x, q, s.double(), b, torch.float32)
+    assert (fw.fused_w8a8_matmul.launches, fw.w8a8_gemm.launches) == before
 
 
 @pytest.mark.cuda
