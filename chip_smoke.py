@@ -13,12 +13,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    build time and ptxas's per-kernel report.
 3. Hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the serving path gives it: the user-encoder forward
-   at batch 1 and 256 (L=10, D=64, H=2, F=256, 2 blocks), the SAN cascade
-   at S=3 branches x N=8192 rows (one item-table chunk), K=7, D=768, R=64,
-   with ReLU and GELU, element by element.  Planted faults (a dropped bias,
-   the other activation, step 0's weights at every step) must each break
-   the cascade's bound in every branch.  Times are medians of CUDA-event
-   timings.
+   at batch 1 and 256 (L=10, D=64, H=2, F=256, 2 blocks); the SAN cascade
+   (#3) at S=3 branches x N=8192 rows (one item-table chunk), at the
+   cached step's launch (S=1, N=704) and at the Versa image side (D=192),
+   K=7, D=768, R=64, with ReLU and GELU, element by element, each repeated
+   bit for bit and timed beside its bound.  Planted faults (a dropped bias,
+   the other activation, step 0's weights at every step; at the step, one
+   cluster rank's partial of z dropped) must each break the cascade's bound
+   in every branch.  Then #3 at the geometries it once refused:
+   (K, D, R) = (1, 4096, 64) and (2, 3584, 64) bf16, (1, 2048, 64) fp32,
+   (7, 768, 48) bf16.  Times are medians of CUDA-event timings.
 4. Run the slice at the published cached configuration (the defaults of
    ``IISANConfig``) over a synthetic Scientific-size catalogue (20,825
    items + pad, 12,076 users), seeded random weights: once with the
@@ -47,6 +51,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    launch counters must show the encoder kernels once per step on both
    routes and the cascade kernel twice per step on the kernel route only;
    the loss must be finite and its last 20 steps lower than its first 20.
+   The step's device-busy time and the cascade kernels' share of it are
+   printed for both routes.
    Then, from one set of weights at dropout 0, five steps through the
    kernels and five through the module path must give losses within 2e-2
    and a nonzero gradient for every parameter on both; then three steps at
@@ -94,11 +100,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    additive, element by element under ``carry_tolerance``.  Planted faults
    (bd dropped, GELU for ReLU, step 0's weights at every step, g and 1-g
    swapped) must each break the bound.  CUDA-event medians of kernel and
-   plain version beside the bound.
+   plain version beside the bound.  Then the "eva" width (K=6, D=5120) and
+   R = 96 and 320 at D=2048 at the step's rows, each repeated bit for bit.
 12. The dispatch on the card: ``fused_cascade`` launches #4 and not #3 at
    (K, D, R) = (7, 8192, 64) bf16, #3 and not #4 at (7, 192, 64), neither
-   at (7, 8192, 64) fp32; ``san_cascade_fwd`` refuses D=8192 (its shared
-   memory would exceed the card's limit) before any launch.
+   at (7, 8192, 64) fp32; #3 at phase 3's once-refused geometries and #4 at (7,
+   2048, 320), each within ``carry_tolerance`` of the route's plain
+   version.
 13. IISAN-Versa training at the published Llama-3-70B x ViT-tiny geometry
    (``scripts/run_IISAN_versa.py``'s "llama" variant and GRID): random
    bf16 tap tables on the card, text (20,826, 7, 8192) and image (20,826,
@@ -108,7 +116,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    must fall; the learned gates are printed.  Then five kernel-route and
    five module-route steps from one set of weights at dropout 0 agree
    within 2e-2, every parameter (``down_project_list_*`` included) with a
-   nonzero gradient.
+   nonzero gradient.  The step's device-busy time and each cascade
+   kernel's share are printed for both routes.
 14. The same taps as int8 tables (``cache_quant="int8"``, quantised on the
    card): resident bytes of each table in both forms, 20 steps with a
    finite loss, the item table within 0.05 x its largest value of the one
@@ -363,80 +372,145 @@ def check_user_encoder(device):
     return rows
 
 
+def cascade_inputs(device, gen, S, N, K, D, R, dtype=None):
+    """#3's arguments at (S, N, K, D, R), bf16 unless given: every term
+    moves the carry by O(1) (wd ~ N(0, 1/D) and wu ~ N(0, 1/R) keep z and
+    the up projection near unit scale, the biases are N(0, 0.25)); the
+    gates spread around 0.5, the last branch additive (a = b = 1) when
+    S > 1."""
+    import torch
+
+    from iisan_tpu_torch.ops import fused_san as fs
+
+    dtype = dtype or torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    coef_a = torch.sigmoid(torch.randn(S, K, generator=gen, device=device) * 0.1
+                           / fs.GATE_TEMPERATURE)
+    coef_b = 1.0 - coef_a
+    if S > 1:
+        coef_a[-1], coef_b[-1] = 1.0, 1.0
+    return (coef_a, coef_b, rand(S, N, K, D), rand(S, K, D, R, scale=D ** -0.5),
+            rand(S, K, R, scale=0.5), rand(S, K, R, D, scale=R ** -0.5),
+            rand(S, K, D, scale=0.5), rand(S, N, D))
+
+
+def carry_ratios(got, want):
+    """Per branch, the largest |got - want| / carry_tolerance(want); inf
+    where a value is not finite."""
+    from iisan_tpu_torch.ops import fused_san as fs
+
+    if not torch_finite(got):
+        return [float("inf")] * got.shape[0]
+    ratio = (got.float() - want.float()).abs() / fs.carry_tolerance(want)
+    return [float(r.max()) for r in ratio]
+
+
+# #3's shapes on the main path: (S, N, D) at K=7, R=64 -- the cached step's
+# launch (twice a step), the Versa image side (once a Versa step), an item
+# table chunk.  The geometries the kernels once refused (D past shared memory,
+# R not dividing 256):
+# (K, D, R, dtype) at the step's rows.
+CASCADE_STEP, CASCADE_VERSA_IMAGE, CASCADE_TABLE = (1, STEP_ROWS, TAP_DIM), \
+    (1, STEP_ROWS, VERSA_IMAGE_DIM), (3, TABLE_CHUNK, TAP_DIM)
+ONCE_REFUSED = ((1, 4096, 64, "bfloat16"), (2, 3584, 64, "bfloat16"),
+                (1, 2048, 64, "float32"), (7, TAP_DIM, 48, "bfloat16"))
+# #4 beyond phase 11's grid: (K, D, R), the eva width and R = 96, 320.
+STREAMED_EXTRA = ((6, 5120, 64), (7, 2048, 96), (7, 2048, 320))
+
+
 def check_cascade(device):
+    """#3 against its plain version at the main path's shapes (ReLU and
+    GELU, element by element under ``carry_tolerance``), with planted
+    faults, timed beside the bound at each shape; then the geometries it
+    once refused.
+    Returns the JSON numbers (the table chunk's times) and every shape's."""
     import torch
 
     from iisan_tpu_torch.ops import fused_san as fs
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    S, N, K, D, R = 3, TABLE_CHUNK, K_TAPS, TAP_DIM, BOTTLENECK
+    K, R = K_TAPS, BOTTLENECK
+    errs, times = {}, {}
+    for S, N, D in (CASCADE_TABLE, CASCADE_STEP, CASCADE_VERSA_IMAGE):
+        args = cascade_inputs(device, gen, S, N, K, D, R)
+        plan = fs.cascade_plan(S, N, K, D, R, torch.bfloat16)
+        for act in ("RELU", "GELU"):
+            got = fs.san_cascade_fwd(*args, activation=act)
+            want = fs.san_cascade_fwd_plain(*args, activation=act)
+            torch.cuda.synchronize()
+            ratios = carry_ratios(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            errs[(S, N, D, act)] = err
+            log(f"san_cascade_fwd S={S} N={N} D={D} {act} ({plan.cluster}-block "
+                f"clusters of {plan.d_slice} columns): max|kernel-plain| {err:.6g}; "
+                f"per branch max |diff| / bound {', '.join(f'{r:.3f}' for r in ratios)}"
+                f" (must be <= 1); {float((got != want).float().mean()):.2%} of values "
+                "not bit-equal")
+            if max(ratios) > 1.0:
+                raise AssertionError(f"san_cascade_fwd {act} disagrees with its "
+                                     "plain version")
+            if not torch.equal(got, fs.san_cascade_fwd(*args, activation=act)):
+                raise AssertionError("san_cascade_fwd does not repeat bit for bit")
 
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=device)
-                * scale).to(torch.bfloat16)
+        # Planted faults: what a kernel with a wrong body would return, made
+        # by the kernel itself from altered arguments, against the true plain
+        # result.  Each must break the bound in every branch.
+        want = fs.san_cascade_fwd_plain(*args)
+        a, b, taps, wd, bd, wu, bu, c0 = args
+        faults = {}
+        if (S, N, D) == CASCADE_TABLE:
+            step0 = [w[:, :1].expand_as(w) for w in (wd, bd, wu, bu)]
+            faults = {
+                "bd dropped": ((a, b, taps, wd, torch.zeros_like(bd), wu, bu, c0), "RELU"),
+                "bu dropped": ((a, b, taps, wd, bd, wu, torch.zeros_like(bu), c0), "RELU"),
+                "GELU for ReLU": (args, "GELU"),
+                "step-0 weights": ((a, b, taps, *step0, c0), "RELU"),
+            }
+        elif plan.cluster > 1:  # z's partial of one cluster rank's D slice dropped
+            rank = plan.cluster // 2
+            cut = wd.clone()
+            cut[..., rank * plan.d_slice:(rank + 1) * plan.d_slice, :] = 0
+            faults = {f"rank {rank} of {plan.cluster}'s partial dropped":
+                      ((a, b, taps, cut, bd, wu, bu, c0), "RELU")}
+        for name, (fargs, act) in faults.items():
+            ratios = carry_ratios(fs.san_cascade_fwd(*fargs, activation=act), want)
+            log(f"  planted fault '{name}': per branch max |diff| / bound "
+                f"{', '.join(f'{r:.3g}' for r in ratios)} (must be > 1)")
+            if min(ratios) <= 1.0:
+                raise AssertionError(f"the cascade bound admits the fault {name}")
 
-    # Every term moves the carry by O(1): wd ~ N(0, 1/D) and wu ~ N(0, 1/R)
-    # keep z and the up projection near unit scale, the biases are N(0,
-    # 0.25), and the gates are spread around 0.5.
-    gates = torch.randn(S, K, generator=gen, device=device) * 0.1
-    coef_a = torch.sigmoid(gates / fs.GATE_TEMPERATURE)
-    coef_a[2] = 1.0  # branch 2 is the additive (inter) form
-    coef_b = 1.0 - coef_a
-    coef_b[2] = 1.0
-    args = (coef_a, coef_b, rand(S, N, K, D), rand(S, K, D, R, scale=D ** -0.5),
-            rand(S, K, R, scale=0.5), rand(S, K, R, D, scale=R ** -0.5),
-            rand(S, K, D, scale=0.5), rand(S, N, D))
-
-    def beyond(got, want):
-        """Per branch, the largest |got - want| / carry_tolerance(want)."""
-        ratio = (got.float() - want.float()).abs() / fs.carry_tolerance(want)
-        return [float(r.max()) for r in ratio]
-
-    errs = {}
-    for act in ("RELU", "GELU"):
-        got = fs.san_cascade_fwd(*args, activation=act)
-        want = fs.san_cascade_fwd_plain(*args, activation=act)
+        ms = cuda_timed(lambda: fs.san_cascade_fwd(*args), 20)
+        plain_ms = cuda_timed(lambda: fs.san_cascade_fwd_plain(*args), 10)
+        dev = device_ms(lambda: fs.san_cascade_fwd(*args), 10)
+        bnd = cascade_bound(S, N, D, R)
+        times[(S, N, D)] = (ms, plain_ms, bnd)
+        gflop = S * N * K * 2 * 2 * D * R / 1e9
+        log(f"san_cascade_fwd S={S} N={N} K={K} D={D} R={R} ReLU: kernel "
+            f"{ms:.4f} ms ({gflop / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+            f"(medians, CUDA events); device-busy kernel {dev:.4f} ms "
+            f"(profiler); bound {bnd[0]:.4f} ms ({bnd[1]})")
+        del args, want, got
+    for K, D, R, dt in ONCE_REFUSED:
+        dtype = getattr(torch, dt)
+        args = cascade_inputs(device, gen, 1, STEP_ROWS, K, D, R, dtype)
+        before = fs.san_cascade_fwd.launches
+        got = fs.san_cascade_fwd(*args)
+        want = fs.san_cascade_fwd_plain(*args)
         torch.cuda.synchronize()
-        ratios = beyond(got, want)
-        errs[act] = float((got.float() - want.float()).abs().max())
-        differ = float((got != want).float().mean())
-        log(f"san_cascade_fwd {act}: max|kernel-plain| {errs[act]:.6g}; per "
-            f"branch max |diff| / bound {', '.join(f'{r:.3f}' for r in ratios)}"
-            f" (must be <= 1); {differ:.2%} of values not bit-equal")
-        if not torch_finite(got) or max(ratios) > 1.0:
-            raise AssertionError(f"san_cascade_fwd {act} disagrees with its "
-                                 "plain version")
-
-    # Planted faults: what a kernel with a wrong body would return, made by
-    # the kernel itself from altered arguments, against the true plain
-    # result.  Each must break the bound in every branch.
-    want = fs.san_cascade_fwd_plain(*args)
-    a, b, taps, wd, bd, wu, bu, c0 = args
-    step0 = [w[:, :1].expand_as(w) for w in (wd, bd, wu, bu)]
-    faults = {
-        "bd dropped": ((a, b, taps, wd, torch.zeros_like(bd), wu, bu, c0), "RELU"),
-        "bu dropped": ((a, b, taps, wd, bd, wu, torch.zeros_like(bu), c0), "RELU"),
-        "GELU for ReLU": (args, "GELU"),
-        "step-0 weights": ((a, b, taps, step0[0], step0[1], step0[2], step0[3],
-                            c0), "RELU"),
-    }
-    for name, (fargs, act) in faults.items():
-        ratios = beyond(fs.san_cascade_fwd(*fargs, activation=act), want)
-        log(f"  planted fault '{name}': per branch max |diff| / bound "
-            f"{', '.join(f'{r:.3g}' for r in ratios)} (must be > 1)")
-        if min(ratios) <= 1.0:
-            raise AssertionError(f"the cascade bound admits the fault {name}")
-
-    ms = cuda_timed(lambda: fs.san_cascade_fwd(*args), 10)
-    plain_ms = cuda_timed(lambda: fs.san_cascade_fwd_plain(*args), 10)
-    dev = device_ms(lambda: fs.san_cascade_fwd(*args), 5)
-    plain_dev = device_ms(lambda: fs.san_cascade_fwd_plain(*args), 5)
-    gflop = S * N * K * 2 * 2 * D * R / 1e9
-    log(f"san_cascade_fwd S={S} N={N} K={K} D={D} R={R} ReLU: kernel "
-        f"{ms:.4f} ms ({gflop / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
-        f"(median of 10, CUDA events); device-busy kernel {dev:.4f} ms, plain "
-        f"{plain_dev:.4f} ms (profiler)")
-    return max(errs.values()), ms, plain_ms
+        ratio = carry_ratios(got, want)[0]
+        plan = fs.cascade_plan(1, STEP_ROWS, K, D, R, dtype)
+        log(f"san_cascade_fwd at once-refused (K, D, R) = ({K}, {D}, {R}) {dt}, N={STEP_ROWS} "
+            f"({plan.cluster} x {plan.d_slice} columns, R padded to {plan.r_pad}, "
+            f"carry {plan.carry}): max |diff| / bound {ratio:.3f} (must be <= 1)")
+        if ratio > 1.0 or fs.san_cascade_fwd.launches != before + 1:
+            raise AssertionError(f"san_cascade_fwd at {(K, D, R, dt)}")
+    torch.cuda.empty_cache()
+    ms, plain_ms, _ = times[CASCADE_TABLE]
+    return {"err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "times": times}
 
 
 def grad_ratio(got, want, tol, unpack):
@@ -562,7 +636,8 @@ def check_user_encoder_train(device):
 # Device-kernel families of a training step, by kernel name (the first
 # pattern that matches wins).
 KERNEL_FAMILIES = (("encoder kernels", ("user_encoder", "grad_reduce")),
-                   ("cascade kernel", ("san_cascade",)),
+                   ("cascade #3", ("cascade::resident", "san_cascade_f32")),
+                   ("cascade #4", ("cascade::streamed",)),
                    ("w8a8", ("w8a8",)),
                    ("subblock kernels", ("subblock",)),
                    ("attention kernels", ("mha_",)),
@@ -641,6 +716,24 @@ def step_breakdown(tr, batch, reps):
     return ({k: sorted(v)[len(v) // 2] for k, v in phases.items()}, families)
 
 
+# Each cached-trainer route's step: device-busy ms (profiler) and device ms by
+# kernel family, filled by ``train_route``.
+STEP_SPLITS = {}
+
+
+def log_step_split(kind, routes):
+    """One line: the ``kind`` step's device-busy time on each route of this
+    run and the cascade kernels' share of it."""
+    parts = []
+    for name in routes:
+        busy, fam = STEP_SPLITS[name]
+        casc = fam["cascade #3"] + fam["cascade #4"]
+        parts.append(f"{name} {busy:.3f} ms (cascade #3 {fam['cascade #3']:.3f} ms, "
+                     f"#4 {fam['cascade #4']:.3f} ms: {casc / busy:.1%})")
+    log(f"{kind} step device-busy by SAN route, this run (profiler, 10 steps): "
+        + "; ".join(parts))
+
+
 def train_route(device, corpus, taps, cfg_kw, counters, per_step, name):
     """One full epoch and a valid evaluation of the cached trainer at
     ``IISANConfig(**cfg_kw)``.  The epoch's launches must be ``per_step``
@@ -681,6 +774,7 @@ def train_route(device, corpus, taps, cfg_kw, counters, per_step, name):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in phases.items())
         + "; device time per step by kernel family (profiler): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items()))
+    STEP_SPLITS[name] = (busy, families)
     if len(losses) != steps or not np.isfinite(losses).all() or last >= first:
         raise AssertionError(f"train[{name}]: the loss did not fall")
     if not (np.isfinite(hit) and 0 <= ndcg <= hit <= 1):
@@ -810,10 +904,10 @@ def encoder_bounds(B_fwd: int, B_bwd: int):
     return fwd, bwd
 
 
-def cascade_bound(S: int, N: int, D: int = TAP_DIM, R: int = BOTTLENECK):
+def cascade_bound(S: int, N: int, D: int = TAP_DIM, R: int = BOTTLENECK,
+                  K: int = K_TAPS):
     """A cascade kernel reads its taps, carry and bf16 weights once and
     writes the final carry; two products of D x R per tap."""
-    K = K_TAPS
     nbytes = (S * N * K * D + 2 * S * N * D + S * K * (2 * D * R + R + D)) * 2
     return bound(nbytes, S * N * K * 4 * D * R)
 
@@ -1887,23 +1981,46 @@ def check_streamed_cascade(device):
             del want
         del args, got
         torch.cuda.empty_cache()
+    # The "eva" variant's EVA-CLIP width (scripts/run_IISAN_versa.py:41-48:
+    # K=6, D=5120) and bottlenecks that do not divide 256 or pass it, at a
+    # width that streams, at the step's rows; each repeats bit for bit.
+    for K, D, R in STREAMED_EXTRA:
+        a, b = fs.cascade_coefs(torch.randn(K, generator=gen, device=device) * 0.1, True)
+        args = (a, b, rand(STEP_ROWS, K, D), rand(K, D, R, scale=D ** -0.5),
+                rand(K, R, scale=0.5), rand(K, R, D, scale=R ** -0.5),
+                rand(K, D, scale=0.5), rand(STEP_ROWS, D))
+        assert fs.cascade_route(K, D, R, torch.bfloat16) == "streamed"
+        for act in ("RELU", "GELU"):
+            got = fs.san_cascade_streamed_fwd(*args, activation=act)
+            want = fs.san_cascade_streamed_fwd_plain(*args, activation=act)
+            torch.cuda.synchronize()
+            r = ratio(got, want)
+            out["err"] = max(out["err"], float((got.float() - want.float()).abs().max()))
+            same = torch.equal(got, fs.san_cascade_streamed_fwd(*args, activation=act))
+            log(f"san_cascade_streamed_fwd N={STEP_ROWS} K={K} D={D} R={R} {act}: "
+                f"max |diff| / bound {r:.3f} (must be <= 1); repeat bit-equal {same}")
+            if r > 1.0 or not same:
+                raise AssertionError(f"san_cascade_streamed_fwd at {(K, D, R)}")
     return out
 
 
 def check_dispatch(device):
     """``fused_cascade`` on the card follows the JAX package's dispatch:
     #4 and not #3 at (7, 8192, 64) bf16, #3 and not #4 at (7, 192, 64), no
-    kernel at (7, 8192, 64) fp32 (``reference_cascade``); and
-    ``san_cascade_fwd`` refuses D=8192 before any launch."""
+    kernel at (7, 8192, 64) fp32 (``reference_cascade``); and at the
+    geometries the kernels once refused the kernel the route names,
+    within ``carry_tolerance`` of that kernel's plain version."""
     import torch
 
     from iisan_tpu_torch.ops import fused_san as fs
 
     counters = (fs.san_cascade_fwd, fs.san_cascade_streamed_fwd)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    cases = (((7, 8192, 64), torch.bfloat16, (0, 1)),
+    cases = [((7, 8192, 64), torch.bfloat16, (0, 1)),
              ((7, 192, 64), torch.bfloat16, (1, 0)),
-             ((7, 8192, 64), torch.float32, (0, 0)))
+             ((7, 8192, 64), torch.float32, (0, 0))]
+    cases += [((K, D, R), getattr(torch, dt), (1, 0)) for K, D, R, dt in ONCE_REFUSED]
+    cases += [((7, 2048, 320), torch.bfloat16, (0, 1))]
     for (K, D, R), dtype, want in cases:
         args = [torch.randn(s, generator=gen, device=device).to(dtype) * sc
                 for s, sc in (((64, K, D), 1.0), ((K, D, R), D ** -0.5),
@@ -1913,24 +2030,21 @@ def check_dispatch(device):
         out, launches = counted(counters, lambda: fs.fused_cascade(gates, *args))
         torch.cuda.synchronize()
         got = tuple(launches[c.__name__] for c in counters)
+        route = fs.cascade_route(K, D, R, dtype)
+        a, b = fs.cascade_coefs(gates, True)
+        if route == "resident":
+            plain = fs.san_cascade_fwd_plain(a[None], b[None], *(t[None] for t in args))[0]
+        elif route == "streamed":
+            plain = fs.san_cascade_streamed_fwd_plain(a, b, *args)
+        else:
+            plain = fs.reference_cascade(gates, *args)
+        r = carry_ratios(out[None], plain[None])[0]
         log(f"dispatch (K={K}, D={D}, R={R}) {str(dtype).split('.')[-1]}: route "
-            f"{fs.cascade_route(K, D, R, dtype)}, launches san_cascade_fwd "
-            f"{got[0]}, san_cascade_streamed_fwd {got[1]}")
-        if got != want or out.dtype != dtype or not torch_finite(out):
+            f"{route}, launches san_cascade_fwd {got[0]}, san_cascade_streamed_fwd "
+            f"{got[1]}; max |diff| / bound against the route's plain version {r:.3f}")
+        if got != want or out.dtype != dtype or r > 1.0:
             raise AssertionError(f"fused_cascade at {(K, D, R, dtype)}: launches "
-                                 f"{got}, expected {want}")
-    wide = [t.to(torch.bfloat16)[None] for t in args]
-    coefs = torch.ones(1, 7, device=device)
-    for c in counters:
-        c.launches = 0
-    try:
-        fs.san_cascade_fwd(coefs, coefs, *wide)
-    except ValueError as e:
-        log(f"san_cascade_fwd at D=8192 bf16 raises before launching: {e}")
-    else:
-        raise AssertionError("san_cascade_fwd took D=8192")
-    if fs.san_cascade_fwd.launches:
-        raise AssertionError("san_cascade_fwd launched at D=8192")
+                                 f"{got}, expected {want}; ratio {r}")
 
 
 def versa_taps(device):
@@ -2048,6 +2162,7 @@ def run_versa(device, corpus, requests, counters):
             del rec
         del tr
         torch.cuda.empty_cache()
+    log_step_split("Versa", ("versa default", "versa use_pallas"))
     check_gradients_reach_parameters(device, corpus, taps, VERSA_CFG, "versa")
     torch.cuda.empty_cache()
     add(train_versa_int8(device, corpus, taps, counters))
@@ -2280,6 +2395,7 @@ def main() -> int:
             counters, per_step, "use_pallas" if use_pallas else "default")
         del tr
         torch.cuda.empty_cache()
+    log_step_split("cached", ("default", "use_pallas"))
     check_gradients_reach_parameters(device, corpus, taps, TRAIN_CFG, "cached")
     long_counts = train_cached_long(device, taps, counters)
     train_counts = {k: trained[False][k] + trained[True][k] + long_counts[k]
@@ -2353,8 +2469,8 @@ def main() -> int:
               ue_bwd_bound, None),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
-              + versa["san_cascade_fwd"], cascade[0], cascade[1], cascade[2],
-              cascade_bound(3, TABLE_CHUNK), None),
+              + versa["san_cascade_fwd"], cascade["err"], cascade["ms"],
+              cascade["plain_ms"], cascade_bound(*CASCADE_TABLE), None),
         entry("san_cascade_streamed_fwd", "iisan_tpu/ops/fused_san.py:94",
               versa["san_cascade_streamed_fwd"], streamed["err"],
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),

@@ -109,9 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_user_encoder_bwd.restype = i
     lib.iisan_philox_check.argtypes = [i] * 4 + [p] * 3
     lib.iisan_philox_check.restype = i
-    lib.iisan_san_cascade_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.iisan_san_cascade_fwd.argtypes = [p] * 9 + [i] * 12 + [p]
     lib.iisan_san_cascade_fwd.restype = i
-    lib.iisan_san_cascade_streamed_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.iisan_san_cascade_streamed_fwd.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.iisan_san_cascade_streamed_fwd.restype = i
     lib.iisan_mha_fwd.argtypes = [p] * 5 + [i] * 6 + [f, f, i, p]
     lib.iisan_mha_fwd.restype = i

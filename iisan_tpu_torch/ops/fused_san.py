@@ -19,6 +19,11 @@ it replaces:
   operand, and the output is rounded once.  Plain version
   ``san_cascade_streamed_fwd_plain``.
 
+In bf16 both run one Hopper body (``csrc/san_cascade.cuh``: wgmma products,
+D split across a thread-block cluster); ``cascade_plan`` is its layout for
+a geometry, as plain integers, and the only place the wrappers refuse a
+shape the JAX package takes (R above 1,472 in bf16, 3,376 in fp32).
+
 ``fused_cascade`` is one branch under autograd.  Its forward follows the
 JAX package's dispatch (``cascade_route``): the geometry and dtype pick the
 resident kernel, the streamed kernel or ``reference_cascade``, so the port
@@ -34,12 +39,12 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 GATE_TEMPERATURE = 0.1
-_THREADS = 256  # the kernels' block size; R must divide it
-_TILE = 16      # rows per block of san_cascade_fwd
 _DTYPES = (torch.float32, torch.bfloat16)
 # Shared memory a block may opt in to on the H100 (227 KB); the kernels are
 # built for sm_90a only, where every card has this limit.
@@ -175,12 +180,107 @@ def cascade_route(k: int, d: int, r: int, dtype: torch.dtype) -> str:
     return "streamed"
 
 
-def cascade_smem_bytes(d: int, r: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one ``san_cascade_fwd`` block
-    (``cascade_smem_bytes`` in its source): the tile's carry and fused tap
-    as the compute dtype, its activations and the down projection's
-    256 / R partial sums in fp32."""
-    return 2 * dtype.itemsize * _TILE * d + 4 * _TILE * r * (1 + _THREADS // r)
+# The Hopper body (csrc/san_cascade.cuh) of #3 in bf16 and of #4: 64-row
+# tiles, D in 64-column chunks split across a cluster of at most 16 blocks
+# (about two blocks an SM asked of the 132 SMs), R padded to 64-column boxes
+# and taken in passes of at most 256; the carry slice in shared memory where
+# it fits.
+_ROWS, _COLS, _BOX, _MAX_CLUSTER, _SMS = 64, 64, 8192, 16, 132
+_TARGET_BLOCKS = 2 * _SMS
+_SM_SMEM, _BLOCK_RESERVED = 233_472, 1024  # an SM's shared memory; each block's reserve
+# #3 in fp32 (CUDA cores): 16-row tiles of 256 threads.
+_F32_TILE, _F32_THREADS = 16, 256
+
+
+class CascadePlan(NamedTuple):
+    """How a kernel call is laid out on the card."""
+    cluster: int     # blocks of a cluster: the D slices of one row tile
+    d_slice: int     # columns of D a block owns
+    r_pad: int       # R padded to the down product's passes
+    smem_bytes: int  # dynamic shared memory of a block
+    r_chunk: int     # columns of R a down-product pass (wgmma N); fp32: R
+    stages: int      # weight boxes in flight (bf16); fp32: 0
+    carry: str       # where the running carry lives: "smem" or "global"
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cascade_smem_bytes(r_chunk: int, stages: int, r_slices: int,
+                       carry_bytes: int = 0) -> int:
+    """Shared memory of one bf16 block (``Layout`` in csrc/san_cascade.cuh):
+    two f chunks or the fp32 partial of z (64 x (r_chunk + 8)), whichever
+    is larger, to 1 KB; ``stages`` TMA stages of a tap box and ``r_chunk /
+    64`` weight boxes; the activations (``r_slices`` boxes); the carry slice
+    (``carry_bytes``, to 16); the ring's barriers and 1 KB of alignment."""
+    front = _ceil(max(2 * _BOX, _ROWS * (r_chunk + 8) * 4), 1024) * 1024
+    return (front + stages * (1 + r_chunk // _COLS) * _BOX + r_slices * _BOX
+            + _ceil(carry_bytes, 16) * 16 + 8 * stages + 1024)
+
+
+def _per_sm(smem: int) -> int:
+    return _SM_SMEM // (smem + _BLOCK_RESERVED)
+
+
+def cascade_plan(S: int, N: int, K: int, D: int, R: int, dtype: torch.dtype,
+                 streamed: bool = False) -> CascadePlan:
+    """The layout of a ``san_cascade_fwd`` (S branches) or, with
+    ``streamed``, ``san_cascade_streamed_fwd`` (S=1, fp32 carry) call, as
+    plain integers; raises ``ValueError`` where none fits.
+
+    bf16: R is padded to 64, the down product runs in passes of
+    ``r_chunk`` columns (the widest that fits, at most 256) and the
+    activations take ``ceil(R / 64)`` boxes: R up to 1,472.  The cluster
+    is the fewest blocks a row tile that gives about two blocks an SM
+    (``_TARGET_BLOCKS``), at most 16; every block owns a whole number of
+    64-column chunks and at least one.  The carry slice goes to shared
+    memory at the first cluster size from there up whose slice fits with
+    two blocks an SM, else with one; where none fits (D past 8,192 for
+    #4's fp32 carry, 16,384 for #3's, at R = 64), it lives in device
+    memory.  fp32 (#3 only): one block per 16 rows; the carry in shared
+    memory where 16 x D fp32 fits beside the activations and the partial
+    sums, else in the output; R up to 3,376."""
+    if min(S, N, K, D, R) < 1:
+        raise ValueError(f"san_cascade: empty geometry S={S} N={N} K={K} D={D} R={R}")
+    if dtype == torch.float32:
+        base = 4 * (_F32_TILE * R + _F32_THREADS * _F32_TILE)
+        if base > SMEM_OPTIN_BYTES:
+            raise ValueError(f"san_cascade_fwd: R={R} (float32) needs {base} bytes of "
+                             f"shared memory a block, above the card's {SMEM_OPTIN_BYTES}")
+        smem = base + 4 * _F32_TILE * D
+        if smem <= SMEM_OPTIN_BYTES:
+            return CascadePlan(1, D, R, smem, R, 0, "smem")
+        return CascadePlan(1, D, R, base, R, 0, "global")
+    r_slices = _ceil(R, _COLS)
+    for r_chunk in range(_COLS * _ceil(r_slices, _ceil(r_slices, 4)), 0, -_COLS):
+        for stages in ((4, 3, 2) if r_chunk <= 128 else (2,)):
+            smem = cascade_smem_bytes(r_chunk, stages, r_slices)
+            if smem <= SMEM_OPTIN_BYTES:
+                break
+        if smem <= SMEM_OPTIN_BYTES:
+            break
+    else:
+        raise ValueError(f"san_cascade: R={R} needs {smem} bytes of shared memory a "
+                         f"block, above the card's {SMEM_OPTIN_BYTES} (R up to 1,472)")
+    r_pad = r_chunk * _ceil(r_slices * _COLS, r_chunk)
+    chunks, tiles = _ceil(D, _COLS), S * _ceil(N, _ROWS)
+    carry_size = 4 if streamed else 2
+
+    def split(cluster):
+        per_block = _ceil(chunks, cluster)
+        return _ceil(chunks, per_block), per_block * _COLS
+
+    fill = split(min(_MAX_CLUSTER, _ceil(chunks, _ceil(chunks * tiles, _TARGET_BLOCKS))))
+    for want in (2, 1):
+        for cluster in range(fill[0], min(_MAX_CLUSTER, chunks) + 1):
+            cluster, d_slice = split(cluster)
+            with_carry = cascade_smem_bytes(r_chunk, stages, r_slices,
+                                            _ROWS * (d_slice + 8) * carry_size)
+            if with_carry > SMEM_OPTIN_BYTES or _per_sm(with_carry) < want:
+                continue
+            return CascadePlan(cluster, d_slice, r_pad, with_carry, r_chunk, stages, "smem")
+    return CascadePlan(fill[0], fill[1], r_pad, smem, r_chunk, stages, "global")
 
 
 def _check(coef_a, coef_b, taps, wd, bd, wu, bu, c0):
@@ -203,40 +303,49 @@ def _check(coef_a, coef_b, taps, wd, bd, wu, bu, c0):
         if got[name].dtype != taps.dtype:
             raise TypeError(f"san_cascade_fwd: {name} is {got[name].dtype}, "
                             f"taps {taps.dtype}")
-    if R > _THREADS or _THREADS % R:
-        raise ValueError(f"san_cascade_fwd needs a bottleneck R dividing "
-                         f"{_THREADS}, got {R}")
-    smem = cascade_smem_bytes(D, R, taps.dtype)
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(
-            f"san_cascade_fwd: D={D} ({taps.dtype}, R={R}) needs {smem} bytes "
-            f"of shared memory a block, above the card's opt-in limit of "
-            f"{SMEM_OPTIN_BYTES}")
+    return cascade_plan(S, max(N, 1), K, D, R, taps.dtype)
+
+
+def _tma_rows(t):
+    """``t`` as the bf16 kernels' TMA reads it: its last dimension a
+    multiple of 8 elements (16 bytes) and 16-byte aligned (a zero-padded
+    copy where it is not; the padding is never read as data)."""
+    pad = -t.shape[-1] % 8
+    if pad or t.data_ptr() % 16:
+        return F.pad(t, (0, pad)) if pad else t.clone()
+    return t
 
 
 def san_cascade_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
-                    activation="RELU"):
-    """S-branch cascade forward; the CUDA kernel for CUDA tensors.
+                    activation="RELU", plan=None):
+    """S-branch cascade forward; the CUDA kernel for CUDA tensors (any D;
+    R up to 1,472 in bf16, 3,376 in fp32).
 
     Same arguments and result as ``san_cascade_fwd_plain``, which runs for
-    CPU tensors.  ``san_cascade_fwd.launches`` counts kernel launches.
+    CPU tensors.  ``plan`` replaces ``cascade_plan``'s layout (to time
+    another; the kernel refuses one that does not cover D and R).
+    ``san_cascade_fwd.launches`` counts kernel launches.
     """
     if not taps.is_cuda:
         return san_cascade_fwd_plain(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
                                      activation)
     from ..kernels.build import check, library
 
-    _check(coef_a, coef_b, taps, wd, bd, wu, bu, c0)
+    plan = plan or _check(coef_a, coef_b, taps, wd, bd, wu, bu, c0)
     S, N, K, D = taps.shape
     R = wd.shape[-1]
     args = [t.contiguous() for t in (coef_a.float(), coef_b.float(), taps, wd,
                                      bd, wu, bu, c0)]
+    bf16 = taps.dtype == torch.bfloat16
+    if bf16:  # taps (S, N, K, D8), wd (S, K, D, R8), wu (S, K, R, D8)
+        args[2], args[3], args[5] = (_tma_rows(args[j]) for j in (2, 3, 5))
     out = torch.empty((S, N, D), dtype=taps.dtype, device=taps.device)
     if N == 0:
         return out
     err = library().iisan_san_cascade_fwd(
         *[t.data_ptr() for t in args], out.data_ptr(), S, N, K, D, R,
-        int(activation == "GELU"), int(taps.dtype == torch.bfloat16),
+        int(activation == "GELU"), int(bf16), plan.cluster, plan.d_slice,
+        plan.r_chunk, plan.stages, int(plan.carry == "smem"),
         torch.cuda.current_stream(taps.device).cuda_stream)
     check(err, "san_cascade_fwd")
     san_cascade_fwd.launches += 1
@@ -288,38 +397,42 @@ def _check_streamed(coef_a, coef_b, taps, wd, bd, wu, bu, c0):
         if got[name].dtype != taps.dtype:
             raise TypeError(f"san_cascade_streamed_fwd: {name} is "
                             f"{got[name].dtype}, taps {taps.dtype}")
-    if R > _THREADS or _THREADS % R:
-        raise ValueError(f"san_cascade_streamed_fwd needs a bottleneck R "
-                         f"dividing {_THREADS}, got {R}")
+    return cascade_plan(1, max(N, 1), K, D, R, taps.dtype, streamed=True)
 
 
 def san_cascade_streamed_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
-                             activation="RELU"):
+                             activation="RELU", plan=None):
     """One branch's cascade with an fp32 carry; the CUDA kernel for CUDA
-    tensors (bf16 only, any D).
+    tensors (bf16 only, any D, R up to 1,472).
 
     Same arguments and result as ``san_cascade_streamed_fwd_plain``, which
-    runs for CPU tensors.  The kernel keeps the carry in an (N, D) fp32
-    scratch that the wrapper allocates.  ``san_cascade_streamed_fwd.launches``
-    counts kernel launches.
+    runs for CPU tensors.  The kernel keeps the fp32 carry in shared
+    memory where its slice fits, else in an (N, D) fp32 scratch that the
+    wrapper allocates.  ``plan`` as ``san_cascade_fwd``'s.
+    ``san_cascade_streamed_fwd.launches`` counts kernel launches.
     """
     if not taps.is_cuda:
         return san_cascade_streamed_fwd_plain(coef_a, coef_b, taps, wd, bd, wu,
                                               bu, c0, activation)
     from ..kernels.build import check, library
 
-    _check_streamed(coef_a, coef_b, taps, wd, bd, wu, bu, c0)
+    plan = plan or _check_streamed(coef_a, coef_b, taps, wd, bd, wu, bu, c0)
     N, K, D = taps.shape
     R = wd.shape[-1]
     args = [t.contiguous() for t in (coef_a.float(), coef_b.float(), taps, wd,
                                      bd, wu, bu, c0)]
+    # taps (N, K, D8), wd (K, D, R8), wu (K, R, D8)
+    args[2], args[3], args[5] = (_tma_rows(args[j]) for j in (2, 3, 5))
     out = torch.empty((N, D), dtype=taps.dtype, device=taps.device)
     if N == 0:
         return out
-    carry = torch.empty((N, D), dtype=torch.float32, device=taps.device)
+    # the fp32 carry's scratch, where the plan keeps it in device memory
+    carry = (torch.empty((N, D), dtype=torch.float32, device=taps.device)
+             if plan.carry == "global" else out)
     err = library().iisan_san_cascade_streamed_fwd(
         *[t.data_ptr() for t in args], carry.data_ptr(), out.data_ptr(), N, K,
-        D, R, int(activation == "GELU"),
+        D, R, int(activation == "GELU"), plan.cluster, plan.d_slice,
+        plan.r_chunk, plan.stages, int(plan.carry == "smem"),
         torch.cuda.current_stream(taps.device).cuda_stream)
     check(err, "san_cascade_streamed_fwd")
     san_cascade_streamed_fwd.launches += 1

@@ -166,10 +166,18 @@ def test_carry_tolerance_rejects_planted_fault(fault):
 
 
 def test_kernel_wrapper_rejects_bad_bottleneck():
-    # R must divide the kernel's 256-thread block; the check runs before
-    # any build, and only for CUDA tensors, so call it directly.
+    # A bottleneck that does not divide 256 (R=48) is taken; one whose
+    # activations and partial sums exceed a block's shared memory (R above
+    # 1,472 in bf16, 3,376 in fp32) is refused.  The check runs before any
+    # build, and only for CUDA tensors, so call it directly.
     inp = _torch(_inputs(4, r=48, s=1), "float32")
     coefs = torch.ones(1, 3)
-    with pytest.raises(ValueError, match="bottleneck"):
-        fs._check(coefs, coefs, inp["taps"], inp["wd"], inp["bd"], inp["wu"],
-                  inp["bu"], inp["c0"])
+    assert fs._check(coefs, coefs, inp["taps"], inp["wd"], inp["bd"], inp["wu"],
+                     inp["bu"], inp["c0"]).r_pad == 48
+    for r, dtype in ((1473, torch.bfloat16), (3377, torch.float32)):
+        shapes = ((1, 4, 3, 64), (1, 3, 64, r), (1, 3, r), (1, 3, r, 64), (1, 3, 64),
+                  (1, 4, 64))
+        args = [torch.empty(sh, dtype=dtype, device="meta") for sh in shapes]
+        meta = torch.empty((1, 3), device="meta")
+        with pytest.raises(ValueError, match=f"R={r}"):
+            fs._check(meta, meta, *args)

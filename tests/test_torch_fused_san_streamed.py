@@ -13,7 +13,9 @@
 - The resident kernel's cast chain (the carry rounded every step) is a
   different function at a streaming geometry: the port's forward before
   the dispatch was repaired fails the comparison the repaired one passes.
-- ``san_cascade_fwd``'s shared-memory limit as plain arithmetic.
+- ``cascade_plan``, the kernels' layout, over every geometry at which
+  the JAX dispatch runs a Pallas kernel (K, R and both edges of D), and
+  ``fused_cascade`` against JAX at geometries the kernels once refused.
 
 Tolerances: fp32 2e-5 (summation order only, as tests/test_fused_san.py);
 bf16 forward: bit-equal where the cast chains are the same (they are at
@@ -175,25 +177,108 @@ def test_resident_chain_is_not_the_streamed_function():
     assert (old != want).mean() > 1e-2
 
 
-@pytest.mark.parametrize("d,dtype,fits", [(3312, "bfloat16", True),
-                                          (3313, "bfloat16", False),
-                                          (8192, "bfloat16", False),
-                                          (1656, "float32", True),
-                                          (1657, "float32", False),
-                                          (768, "float32", True)])
-def test_resident_kernel_shared_memory_limit(d, dtype, fits):
-    # 2 * sizeof(T) * 16 * D + 4 * 16 * R * (1 + 256 / R) bytes at R=64
-    # against the H100's 227 KB opt-in limit
+def _largest(pred, lo=1, hi=1 << 22):
+    """Largest d in [lo, hi) with pred(d), pred monotone (true then false);
+    0 when pred(lo) is false."""
+    if not pred(lo):
+        return 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if pred(mid) else (lo, mid)
+    return lo
+
+
+def _meta_args(S, N, K, D, R, dtype):
+    """The wrapper's arguments as meta tensors (shapes and dtypes, no memory)."""
     dt = getattr(torch, dtype)
-    assert fs.cascade_smem_bytes(8192, 64, torch.bfloat16) == 544_768
-    assert (fs.cascade_smem_bytes(d, 64, dt) <= fs.SMEM_OPTIN_BYTES) == fits
-    # the wrapper's check runs before any build; call it directly
-    coefs = torch.ones(1, 2)
-    args = [torch.zeros(s, dtype=dt) for s in
-            ((1, 3, 2, d), (1, 2, d, 64), (1, 2, 64), (1, 2, 64, d), (1, 2, d),
-             (1, 3, d))]
-    if fits:
-        fs._check(coefs, coefs, *args)
-    else:
-        with pytest.raises(ValueError, match=f"D={d}.*{fs.SMEM_OPTIN_BYTES}"):
-            fs._check(coefs, coefs, *args)
+    shapes = ((S, N, K, D), (S, K, D, R), (S, K, R), (S, K, R, D), (S, K, D),
+              (S, N, D))
+    coefs = torch.empty((S, K), device="meta")
+    return (coefs, coefs) + tuple(torch.empty(s, dtype=dt, device="meta")
+                                  for s in shapes)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("r", [1, 8, 48, 64, 96, 128, 256, 320])
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 13])
+def test_cascade_plan_covers_every_jax_kernel_geometry(k, r, dtype):
+    # Every D where the JAX dispatch runs a Pallas kernel: the resident one
+    # while fits_vmem holds, then (bf16) the streamed one while
+    # streamed_tile_rows is positive.  A grid of widths and both edges of
+    # each range; at each, the wrapper's check takes the shapes and the
+    # plan fits the card and covers D and R.
+    bpe = 4 if dtype == "float32" else 2
+    d_res = _largest(lambda d: jfs.fits_vmem(k, d, r, bpe=bpe))
+    d_str = _largest(lambda d: jfs.streamed_tile_rows(d, r) > 0)
+    assert d_res > 64
+    top = d_res if dtype == "float32" else max(d_res, d_str)
+    widths = set(range(1, top + 1, max(1, top // 60)))
+    widths |= {d for e in (1, 64, d_res, d_str) for d in (e - 1, e, e + 1)}
+    kernels = 0
+    for d in sorted(w for w in widths if w >= 1):
+        route = fs.cascade_route(k, d, r, getattr(torch, dtype))
+        if route == "reference":
+            assert d > d_res
+            continue
+        kernels += 1
+        if route == "resident":
+            plan = fs._check(*_meta_args(1, 5, k, d, r, dtype))
+        else:
+            a = _meta_args(1, 5, k, d, r, dtype)
+            plan = fs._check_streamed(a[0][0], a[1][0], *(t[0] for t in a[2:]))
+        assert plan == fs.cascade_plan(1, 5, k, d, r, getattr(torch, dtype),
+                                       streamed=route == "streamed")
+        assert plan.smem_bytes <= fs.SMEM_OPTIN_BYTES
+        assert 1 <= plan.cluster <= 16 and plan.r_pad >= r
+        assert plan.cluster * plan.d_slice >= d > (plan.cluster - 1) * plan.d_slice
+        assert plan.carry in ("smem", "global")
+        if dtype == "float32":
+            assert plan.cluster == 1
+        else:
+            assert plan.d_slice % 64 == 0 and plan.r_pad % plan.r_chunk == 0
+            assert plan.r_chunk in (64, 128, 192, 256) and plan.stages >= 2
+    assert kernels > 50
+
+
+def test_check_takes_d3584_bf16():
+    # (K, D, R) = (2, 3584, 64) bf16: the JAX package runs its resident
+    # kernel there; the port's check raised (shared memory above 227 KB).
+    assert fs.cascade_route(2, 3584, 64, torch.bfloat16) == "resident"
+    plan = fs._check(*_meta_args(1, 704, 2, 3584, 64, "bfloat16"))
+    assert plan.smem_bytes <= fs.SMEM_OPTIN_BYTES
+    assert plan.cluster * plan.d_slice >= 3584
+
+
+REPAIRED = [(1, 4096, 64, "bfloat16", "resident"), (2, 3584, 64, "bfloat16", "resident"),
+            (1, 2048, 64, "float32", "resident"), (7, 768, 48, "bfloat16", "resident"),
+            (7, 2048, 320, "bfloat16", "streamed")]
+
+
+@pytest.mark.parametrize("k,d,r,dtype,route", REPAIRED)
+def test_fused_cascade_matches_jax_at_repaired_geometries(k, d, r, dtype, route):
+    # Geometries the port's kernels refused before (D past 3,312 bf16 or
+    # 1,656 fp32, R not dividing 256): the port's forward against the JAX
+    # fused_cascade (Pallas in interpret mode) at a few rows.  The streamed
+    # chain at K=7 keeps an fp32 carry across seven steps: where the two
+    # frameworks' sums round one activation of a row to the other bf16
+    # neighbour, the whole row moves by about a tenth of an output ulp, so
+    # about a tenth of the outputs round the other way (9.2% here), small
+    # values (made by cancellation) by many of their own ulps: there each
+    # value is held to ``carry_tolerance``, four bf16 ulps of its row's
+    # largest value plus 1e-3 (the kernels' bound), instead of the count.
+    assert fs.cascade_route(k, d, r, getattr(torch, dtype)) == route
+    inp = _inputs(3, 5, k, d, r)
+    names = ("gates", "taps", "wd", "bd", "wu", "bu", "c0")
+    j = _jax(inp, dtype)
+    want = _f32(jfs.fused_cascade(*(j[x] for x in names), activation="RELU",
+                                  interpret=True))
+    t = _torch(inp, dtype)
+    got = fs.fused_cascade(*(t[x] for x in names), activation="RELU")
+    assert got.shape == (5, d) and got.dtype == getattr(torch, dtype)
+    got = _f32(got)
+    if route == "streamed" and k == 7:
+        bound = fs.carry_tolerance(torch.from_numpy(want)).numpy()
+        assert (np.abs(got - want) <= bound).all()
+    elif dtype == "bfloat16":
+        assert (got != want).mean() <= 1e-3
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])

@@ -10,8 +10,10 @@ without it the tests run with
 
 Shapes cover the serving and training paths' and awkward ones: batch 1
 and 3, all-pad sequences, one block, row counts that are not a multiple of
-the cascade kernel's 16-row tile, widths that are not a multiple of its
-256 threads, and every bottleneck that divides 256.  Train mode uses the
+the cascade kernels' 64-row tile (1, 37, 63, 65), widths that are not a
+multiple of 64 or 8, bottlenecks from 1 to 320 (48 and 96 do not divide
+256), and the geometries the cascade kernels once refused (D = 3,584 and
+4,096 bf16, 2,048 fp32, R = 320).  Train mode uses the
 same Philox masks in kernel and plain version, so it is held to the same
 bounds as eval mode.
 
@@ -34,11 +36,15 @@ intermediate value survives into a final value that may be small.  The
 cascade inputs make every term move the carry by O(1) (wd ~ N(0, 1/D),
 wu ~ N(0, 1/R), biases ~ N(0, 0.25)), so a wrong term breaks the bound;
 tests/test_torch_fused_san.py shows that it does for planted faults.
+Both cascade kernels repeat bit for bit (z is summed over a cluster in
+rank order), and #3's planted faults (bd dropped, GELU for ReLU, step 0's
+weights, one cluster rank's partial of z dropped) break the bound.
 The streamed cascade (bf16 only) is held to the same bound at the Versa
-text geometry (K=7, D=8192, R=64 and 128) and at awkward ones (D odd, R
-from 2 to 256), repeats bit for bit, and four planted faults (bd dropped,
-the other activation, step 0's weights, g and 1-g swapped) break it;
-``fused_cascade`` launches the kernel the JAX package's dispatch names.
+text geometry (K=7, D=8192, R=64 and 128), the eva width (K=6, D=5120)
+and at awkward ones (D odd, R from 1 to 320), repeats bit for bit, and
+four planted faults (bd dropped, the other activation, step 0's weights,
+g and 1-g swapped) break it; ``fused_cascade`` launches the kernel the
+JAX package's dispatch names, at the once-refused geometries too.
 Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
 + |plain|), tol 1e-4 fp32 and 2e-2 (forward) / 5e-2 (backward) bf16: a
 probability may round to the neighbouring bf16 value on one side only; the
@@ -200,12 +206,22 @@ def _cascade_inputs(device, S, N, K, D, R, dtype, seed=0):
             rand(S, N, D))
 
 
+# #3's shapes: the main path's (the cached step S=1 N=704 D=768 and the
+# Versa image side D=192; a table chunk S=3 N=8192), ragged N, the
+# geometries the kernel once refused (D past 3,312 bf16 / 1,656 fp32, R not
+# dividing 256 or above it) and awkward ones.
+CASCADE_SHAPES = [(3, 8192, 7, 768, 64), (1, 704, 7, 768, 64), (1, 704, 7, 192, 64),
+                  (1, 37, 3, 96, 8), (1, 63, 7, 768, 64), (1, 65, 7, 768, 64),
+                  (2, 100, 5, 300, 128), (3, 16, 1, 64, 256), (1, 1, 2, 32, 1),
+                  (1, 40, 1, 4096, 64), (2, 40, 2, 3584, 64), (1, 40, 1, 2048, 64),
+                  (1, 65, 7, 768, 48), (1, 50, 3, 768, 96), (1, 30, 2, 2048, 320),
+                  (1, 5, 1, 1001, 3), (1, 20, 1, 20480, 64)]  # the last: carry in `out`
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("activation", ["RELU", "GELU"])
-@pytest.mark.parametrize("S,N,K,D,R", [(3, 8192, 7, 768, 64), (1, 37, 3, 96, 8),
-                                       (2, 100, 5, 300, 128), (3, 16, 1, 64, 256),
-                                       (1, 1, 2, 32, 1)])
+@pytest.mark.parametrize("S,N,K,D,R", CASCADE_SHAPES)
 def test_cascade_kernel_matches_plain(cuda_device, dtype, activation, S, N, K,
                                       D, R):
     args = _cascade_inputs(cuda_device, S, N, K, D, R, dtype)
@@ -215,6 +231,42 @@ def test_cascade_kernel_matches_plain(cuda_device, dtype, activation, S, N, K,
     torch.cuda.synchronize()
     assert fs.san_cascade_fwd.launches == before + 1
     _assert_close(got, want, dtype, carry=True)
+    # a fixed summation order (z summed over the cluster in rank order):
+    # the kernel repeats bit for bit
+    assert torch.equal(got, fs.san_cascade_fwd(*args, activation=activation))
+
+
+def _drop_rank(wd, plan, rank):
+    """wd with the rows of cluster rank ``rank``'s D slice zeroed: what the
+    kernel would compute if that rank's partial of z were dropped."""
+    wd = wd.clone()
+    wd[..., rank * plan.d_slice:(rank + 1) * plan.d_slice, :] = 0
+    return wd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["bd dropped", "GELU for ReLU", "step-0 weights",
+                                   "one rank's partial dropped"])
+def test_cascade_planted_faults_break_the_bound(cuda_device, fault):
+    # The cached step's shape (a 12-block cluster); each fault, made by the
+    # kernel itself from altered arguments, must break the bound in every
+    # branch that the true kernel meets.
+    args = list(_cascade_inputs(cuda_device, 2, 704, 7, 768, 64, torch.bfloat16))
+    want = fs.san_cascade_fwd_plain(*args)
+    assert _carry_ratio(fs.san_cascade_fwd(*args), want) <= 1.0
+    activation = "GELU" if fault == "GELU for ReLU" else "RELU"
+    if fault == "bd dropped":
+        args[4] = torch.zeros_like(args[4])
+    elif fault == "step-0 weights":
+        for j in (3, 4, 5, 6):
+            args[j] = args[j][:, :1].expand_as(args[j]).contiguous()
+    elif fault == "one rank's partial dropped":
+        plan = fs.cascade_plan(2, 704, 7, 768, 64, torch.bfloat16)
+        assert plan.cluster > 1
+        args[3] = _drop_rank(args[3], plan, plan.cluster // 2)
+    got = fs.san_cascade_fwd(*args, activation=activation)
+    for branch in range(2):
+        assert _carry_ratio(got[branch], want[branch]) > 1.0
 
 
 @pytest.mark.cuda
@@ -250,7 +302,12 @@ def _carry_ratio(got, want):
 @pytest.mark.parametrize("activation", ["RELU", "GELU"])
 @pytest.mark.parametrize("N,K,D,R", [(704, 7, 8192, 64), (96, 7, 8192, 128),
                                      (37, 3, 96, 8), (1, 2, 1001, 4),
-                                     (50, 4, 600, 256), (17, 1, 64, 2)])
+                                     (50, 4, 600, 256), (17, 1, 64, 2),
+                                     (1, 7, 8192, 64), (63, 7, 8192, 64),
+                                     (65, 7, 8192, 64), (704, 6, 5120, 64),
+                                     (40, 7, 2048, 48), (40, 7, 2048, 96),
+                                     (40, 7, 2048, 320), (37, 7, 4096, 1),
+                                     (40, 2, 12288, 64)])  # carry in the scratch
 def test_streamed_cascade_kernel_matches_plain(cuda_device, gated, activation,
                                                N, K, D, R):
     args = _streamed_inputs(cuda_device, N, K, D, R, gated)
@@ -294,7 +351,12 @@ def test_fused_cascade_follows_the_jax_dispatch(cuda_device):
     cases = [((7, 8192, 64), torch.bfloat16, (0, 1)),
              ((7, 192, 64), torch.bfloat16, (1, 0)),
              ((7, 8192, 64), torch.float32, (0, 0)),
-             ((7, 768, 64), torch.float32, (1, 0))]
+             ((7, 768, 64), torch.float32, (1, 0)),
+             ((2, 3584, 64), torch.bfloat16, (1, 0)),
+             ((1, 4096, 64), torch.bfloat16, (1, 0)),
+             ((1, 2048, 64), torch.float32, (1, 0)),
+             ((7, 768, 48), torch.bfloat16, (1, 0)),
+             ((7, 2048, 320), torch.bfloat16, (0, 1))]
     for (K, D, R), dtype, want in cases:
         args = _cascade_inputs(cuda_device, 1, 40, K, D, R, dtype)
         gates = torch.zeros(K, device=cuda_device)
@@ -306,24 +368,25 @@ def test_fused_cascade_follows_the_jax_dispatch(cuda_device):
 
 
 @pytest.mark.cuda
-def test_streamed_wrapper_rejects_fp32_and_cascade_rejects_wide_d(cuda_device):
+def test_streamed_wrapper_rejects_fp32_and_cascade_takes_wide_d(cuda_device):
     args = _streamed_inputs(cuda_device, 8, 2, 256, 16)
     before = fs.san_cascade_streamed_fwd.launches
     with pytest.raises(TypeError, match="bfloat16"):
         fs.san_cascade_streamed_fwd(*args[:2], *[t.float() for t in args[2:]])
     assert fs.san_cascade_streamed_fwd.launches == before
+    # #3 at D=8192 (once refused for its shared memory): its own chain
     wide = _cascade_inputs(cuda_device, 1, 16, 7, 8192, 64, torch.bfloat16)
-    before = fs.san_cascade_fwd.launches
-    with pytest.raises(ValueError, match="D=8192"):
-        fs.san_cascade_fwd(*wide)
-    assert fs.san_cascade_fwd.launches == before
+    got = fs.san_cascade_fwd(*wide)
+    _assert_close(got, fs.san_cascade_fwd_plain(*wide), torch.bfloat16, carry=True)
 
 
 @pytest.mark.cuda
 def test_cascade_wrapper_rejects_bad_input(cuda_device):
-    args = list(_cascade_inputs(cuda_device, 1, 8, 2, 64, 48, torch.float32))
-    with pytest.raises(ValueError, match="bottleneck"):
+    args = list(_cascade_inputs(cuda_device, 1, 8, 2, 64, 1473, torch.bfloat16))
+    before = fs.san_cascade_fwd.launches
+    with pytest.raises(ValueError, match="R=1473"):
         fs.san_cascade_fwd(*args)
+    assert fs.san_cascade_fwd.launches == before
     args = list(_cascade_inputs(cuda_device, 1, 8, 2, 64, 16, torch.float32))
     args[3] = args[3].half()
     with pytest.raises(TypeError):
