@@ -10,7 +10,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from ``iisan_tpu_torch/csrc`` and print the
-   build time and ptxas's per-kernel report.
+   build time, ptxas's per-kernel report and the count of tensor-core
+   instructions (HMMA, HGMMA, from ``cuobjdump -sass``) in each
+   user-encoder kernel; the bf16 route's three must have some.
 3. Hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the serving path gives it: the user-encoder forward
    at batch 1 and 256 (L=10, D=64, H=2, F=256, 2 blocks); the SAN cascade
@@ -39,10 +41,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
 5. Hold the training kernels against their plain versions: the
    user-encoder forward in train mode (dropout 0.1, bf16, batch 64, the
    same Philox masks on both sides) and the user-encoder backward at
-   batch 64 and 1, train mode, bf16 and fp32, ``gx`` and every parameter
-   gradient.  Two planted faults (the backward run with another seed than
-   the forward, and the ReLU's gradient dropped) must break the backward's
-   bound.
+   batch 64 and 1, train mode, bf16 (tensor cores) and fp32 (CUDA cores),
+   ``gx`` and every parameter gradient.  Planted faults (the backward run
+   with another seed than the forward, the ReLU's gradient dropped, and in
+   bf16 the weight-gradient pass run without the last layer's gq|gk|gv
+   rows) must break the backward's bound; the bf16 backward's device
+   memory at batch 64 must stay under 4 MB.  Both encoder kernels report
+   their device time by kernel name (profiler) beside their CUDA-event
+   times, per call and over 50 back-to-back calls.
 6. Train at the benchmark's cached configuration (``bench.py``: the
    ``IISANConfig`` defaults with lr 2e-4, batch 64, K=7, D=768, R=64, emb
    64, dropout 0.1, bf16) over a synthetic Scientific-size corpus (12,076
@@ -288,6 +294,22 @@ def cuda_timed(fn, reps: int):
     return sorted(times)[len(times) // 2]
 
 
+def cuda_loop_ms(fn, reps: int):
+    """Milliseconds a call over ``reps`` back-to-back calls between two
+    CUDA events: the device's pace where the host keeps ahead of it."""
+    import torch
+
+    fn()  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def host_timed(fn, reps: int):
     """Median wall milliseconds of ``reps`` calls that end synchronised."""
     fn()
@@ -344,7 +366,8 @@ def check_user_encoder(device):
     gen = torch.Generator().manual_seed(SEED)
     enc = UserEncoder(EMB, SEQ_LEN, HEADS, BLOCKS, DROP,
                       dtype=torch.bfloat16, generator=gen).to(device)
-    params = enc.packed_params(torch.bfloat16)
+    # the serving path's packed vector and its cached bf16 weight image
+    params, image = enc._serving_params(torch.bfloat16)
     kw = dict(n_layers=BLOCKS, n_heads=HEADS, d_ff=4 * EMB, n_position=SEQ_LEN)
     rows = {}
     for b in (1, 256):
@@ -357,19 +380,52 @@ def check_user_encoder(device):
         want = fue.user_encoder_fwd_plain(x, mask3, params, **kw)
         torch.cuda.synchronize()
         err = max_err(got, want, UE_TOL)
-        ms = cuda_timed(lambda: fue.user_encoder_fwd(x, mask3, params, **kw), 50)
+
+        def call():
+            return fue.user_encoder_fwd(x, mask3, params, image=image, **kw)
+
+        ms = cuda_timed(call, 50)
         plain_ms = cuda_timed(
             lambda: fue.user_encoder_fwd_plain(x, mask3, params, **kw), 50)
-        dev = device_ms(lambda: fue.user_encoder_fwd(x, mask3, params, **kw), 20)
+        split = kernel_device_ms(call)
         plain_dev = device_ms(
             lambda: fue.user_encoder_fwd_plain(x, mask3, params, **kw), 20)
-        rows[b] = (err, ms, plain_ms)
+        rows[b] = (err, ms, plain_ms, sum(split.values()))
         log(f"user_encoder_fwd B={b}: max|kernel-plain| {err:.6g} "
             f"(tol atol {UE_TOL[0]} rtol {UE_TOL[1]}); per call kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 50, CUDA "
-            f"events); device-busy kernel {dev:.4f} ms, plain {plain_dev:.4f} "
-            f"ms (profiler)")
+            f"events), {cuda_loop_ms(call, 50):.4f} ms a call over 50 back to "
+            f"back; device {split_text(split)}, plain {plain_dev:.4f} ms "
+            "(profiler)")
     return rows
+
+
+def split_text(split) -> str:
+    """'a ms (kernel b ms, ...)' of a kernel_device_ms split."""
+    parts = ", ".join(f"{k.split('(')[0].split(' ')[-1]} {v:.4f}"
+                      for k, v in sorted(split.items()))
+    return f"{sum(split.values()):.4f} ms ({parts})"
+
+
+def sass_mma_counts(lib_path, pattern: str):
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel of
+    the built library whose name holds ``pattern`` (cuobjdump -sass)."""
+    from iisan_tpu_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            if pattern in name:
+                counts[name] = 0
+        elif name in counts and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def cascade_inputs(device, gen, S, N, K, D, R, dtype=None):
@@ -535,15 +591,64 @@ def relu_grad_dropped(x, mask3, params, gout, kw):
 
     from iisan_tpu_torch.ops import fused_user_encoder as fue
 
-    relu = torch.relu
-    torch.relu = lambda t: t + (relu(t) - t).detach()
+    B, L, D = x.shape
+    xx = x.detach().clone().requires_grad_(True)
+    pp = params.detach().clone().requires_grad_(True)
+    flat = fue.unpack_encoder_params(pp, D, kw["d_ff"], kw["n_layers"],
+                                     kw["n_position"])
+    masks = fue.dropout_masks(kw["seed"], kw["rate"], B, L, D, kw["n_heads"],
+                              kw["n_layers"], x.device)
+    y = fue._encoder_fwd(xx, mask3, flat, kw["n_layers"], kw["n_heads"], masks,
+                         relu=lambda t: t + (torch.relu(t) - t).detach())
+    return torch.autograd.grad(y, (xx, pp), gout)
+
+
+def check_relu_band_fault(x, mask3, params, gout, kw):
+    """A planted fault for the bf16 backward's reference: the kernel's
+    ReLU decisions with one more flipped just outside the rounding band
+    must be refused."""
+    import torch
+
+    from iisan_tpu_torch import testing as et
+
+    positive, x1 = et.tc_relu_inputs(x, mask3, params, gout, **kw)
+    bad, ratio = et.flip_outside_band(x, mask3, params, positive, **kw)
     try:
-        xx = x.detach().clone().requires_grad_(True)
-        pp = params.detach().clone().requires_grad_(True)
-        y = fue.user_encoder_fwd_plain(xx, mask3, pp, **kw)
-        return torch.autograd.grad(y, (xx, pp), gout)
-    finally:
-        torch.relu = relu
+        et.plain_bwd_at_decisions(x, mask3, params, gout, bad, x1, **kw)
+    except ValueError as e:
+        log(f"  planted fault 'a ReLU decision flipped at {ratio:.4g} x the "
+            f"rounding band': refused ({e})")
+        return
+    torch.cuda.synchronize()
+    raise AssertionError("the backward's reference takes a ReLU decision "
+                         "outside the rounding band")
+
+
+def check_encoder_layout(device):
+    """The Python plan of the bf16 encoder kernels (which the wrappers
+    allocate by) against the layout the library computes, at the serving
+    and training geometries and the max_seq_len=20 one."""
+    import torch
+
+    from iisan_tpu_torch.ops import fused_user_encoder as fue
+
+    keys = ("xin", "ctx", "x1", "hf", "gqkv", "go2", "ghpre", "gh2", "layer",
+            "part", "gx32", "scratch", "total")
+    for B, L in ((1, SEQ_LEN), (64, SEQ_LEN), (256, SEQ_LEN), (16, 20)):
+        lib = fue.library_tc_layout(B, L, EMB, HEADS, 4 * EMB, BLOCKS)
+        fwd = fue.encoder_plan(B, L, EMB, HEADS, 4 * EMB, BLOCKS, torch.bfloat16)
+        bwd = fue.encoder_plan(B, L, EMB, HEADS, 4 * EMB, BLOCKS, torch.bfloat16,
+                               backward=True)
+        py = fue.tc_work_layout(B, L, EMB, 4 * EMB, BLOCKS, bwd.scratch_bytes)
+        same = ((lib["fwd_place"], lib["fwd_smem"], lib["fwd_scratch"]) == fwd[1:4]
+                and (lib["bwd_place"], lib["bwd_smem"], lib["bwd_scratch"]) == bwd[1:4]
+                and lib["image"] == fue.tc_image_elems(EMB, 4 * EMB, BLOCKS)
+                and all(lib[k] == py[k] for k in keys))
+        if not same:
+            raise AssertionError(f"encoder_plan differs from the library's layout "
+                                 f"at B={B} L={L}: {lib}")
+    log("encoder_plan equals the library's bf16 layout at B=1, 64, 256 (L=10) "
+        "and B=16 L=20")
 
 
 def check_user_encoder_train(device):
@@ -551,10 +656,12 @@ def check_user_encoder_train(device):
     versions at the training shapes; returns the kernel JSON numbers."""
     import torch
 
+    from iisan_tpu_torch import testing as et
     from iisan_tpu_torch.models.user_encoder import (UserEncoder,
                                                      causal_additive_mask)
     from iisan_tpu_torch.ops import fused_user_encoder as fue
 
+    check_encoder_layout(device)
     seed, rate = 20251016, DROP
     kw = dict(n_layers=BLOCKS, n_heads=HEADS, d_ff=4 * EMB, n_position=SEQ_LEN)
 
@@ -585,24 +692,40 @@ def check_user_encoder_train(device):
                 want = fue.user_encoder_fwd_plain(x, mask3, params, **tkw)
                 torch.cuda.synchronize()
                 out["fwd_err"] = max_err(got, want, UE_TOL)
-                out["fwd_ms"] = cuda_timed(
-                    lambda: fue.user_encoder_fwd(x, mask3, params, **tkw), 50)
+                def fwd():
+                    return fue.user_encoder_fwd(x, mask3, params, **tkw)
+
+                out["fwd_ms"] = cuda_timed(fwd, 50)
                 out["fwd_plain_ms"] = cuda_timed(
                     lambda: fue.user_encoder_fwd_plain(x, mask3, params, **tkw), 10)
+                split = kernel_device_ms(fwd)
+                out["fwd_device_ms"] = sum(split.values())
                 log(f"user_encoder_fwd train B=64 rate {rate} bf16: max|kernel-"
                     f"plain| {out['fwd_err']:.6g} (tol atol {UE_TOL[0]} rtol "
                     f"{UE_TOL[1]}); kernel {out['fwd_ms']:.4f} ms, plain "
-                    f"{out['fwd_plain_ms']:.4f} ms (medians, CUDA events)")
-            want = fue.user_encoder_bwd_plain(x, mask3, params, gout, **tkw)
+                    f"{out['fwd_plain_ms']:.4f} ms (medians, CUDA events), "
+                    f"{cuda_loop_ms(fwd, 50):.4f} ms a call over 50 back to back; "
+                    f"device {split_text(split)}")
+            # bf16: the plain backward at the tensor-core kernel's own ReLU
+            # decisions, which it takes only where the kernel's FFN input
+            # explains them, within four bf16 ulps of the operands' scale
+            # (iisan_tpu_torch/testing.py says why)
+            *want, flips = et.plain_bwd_at_kernel_decisions(x, mask3, params,
+                                                            gout, **tkw)
             got = fue.user_encoder_bwd(x, mask3, params, gout, **tkw)
             torch.cuda.synchronize()
             tol = BWD_TOL[name]
             ratio = grad_ratio(got, want, tol, unpack)
             err = max(float((g.float() - w.float()).abs().max())
                       for g, w in zip(got, want))
+            taken = ("" if flips is None else
+                     f"; plain taken at the kernel's ReLU decisions: {flips.count} "
+                     f"differ (at most {flips.limit}), the farthest at "
+                     f"{flips.band:.3g} x the rounding band and "
+                     f"{flips.explained:.3g} x what the x1 difference explains")
             log(f"user_encoder_bwd B={b} {name} train: max |diff| / bound "
                 f"{ratio:.4f} (must be <= 1; tol {tol} * (max|plain| + "
-                f"|plain|) per tensor), max|kernel-plain| {err:.6g}")
+                f"|plain|) per tensor), max|kernel-plain| {err:.6g}{taken}")
             if ratio > 1.0:
                 raise AssertionError(f"user_encoder_bwd B={b} {name} disagrees "
                                      "with its plain version")
@@ -615,6 +738,10 @@ def check_user_encoder_train(device):
                 "ReLU gradient dropped": relu_grad_dropped(
                     x, mask3, params, gout, tkw),
             }
+            if dtype == torch.bfloat16:
+                faults["weight gradients without the last layer's gq|gk|gv rows"] = \
+                    et.wgrad_rows_dropped(x, mask3, params, gout, tkw)
+                check_relu_band_fault(x, mask3, params, gout, tkw)
             for fault, fgot in faults.items():
                 fr = grad_ratio(fgot, want, tol, unpack)
                 log(f"  planted fault '{fault}': max |diff| / bound {fr:.4g} "
@@ -622,14 +749,33 @@ def check_user_encoder_train(device):
                 if fr <= 1.0:
                     raise AssertionError(f"the backward bound admits '{fault}'")
             if dtype == torch.bfloat16:
-                out["bwd_ms"] = cuda_timed(
-                    lambda: fue.user_encoder_bwd(x, mask3, params, gout, **tkw), 50)
+                # as in a training step: the forward's weight image
+                image = fue.weight_image(params, EMB, 4 * EMB, BLOCKS, SEQ_LEN)
+
+                def bwd():
+                    return fue.user_encoder_bwd(x, mask3, params, gout,
+                                                image=image, **tkw)
+
+                out["bwd_ms"] = cuda_timed(bwd, 50)
                 out["bwd_plain_ms"] = cuda_timed(
                     lambda: fue.user_encoder_bwd_plain(x, mask3, params, gout,
                                                        **tkw), 10)
+                split = kernel_device_ms(bwd)
+                out["bwd_device_ms"] = sum(split.values())
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                bwd()
+                torch.cuda.synchronize()
+                extra = torch.cuda.max_memory_allocated(device) - before
                 log(f"user_encoder_bwd B=64 bf16 train: kernel "
                     f"{out['bwd_ms']:.4f} ms, plain {out['bwd_plain_ms']:.4f} ms "
-                    "(medians, CUDA events)")
+                    f"(medians, CUDA events), {cuda_loop_ms(bwd, 50):.4f} ms a "
+                    f"call over 50 back to back; device {split_text(split)}; "
+                    f"peak device memory beyond its inputs {extra} bytes")
+                if extra > 4 * 2 ** 20:
+                    raise AssertionError("the bf16 encoder backward takes more "
+                                         "than 4 MB of device memory")
     return out
 
 
@@ -2314,6 +2460,13 @@ def main() -> int:
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    mma = sass_mma_counts(lib_path, "user_encoder")
+    for name, n in sorted(mma.items()):
+        log(f"  SASS: {n} HMMA/HGMMA in {name}")
+    for kernel in ("user_encoder_fwd_tc_kernel", "user_encoder_bwd_tc_kernel",
+                   "user_encoder_wgrad_kernel"):
+        if not any(kernel in name and n > 0 for name, n in mma.items()):
+            raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
 
     ue = check_user_encoder(device)
     cascade = check_cascade(device)
@@ -2448,12 +2601,16 @@ def main() -> int:
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
 
-    def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms, source=None):
-        return {"name": name, "route": "cuda",
-                "source": f"iisan_tpu_torch/csrc/{source or name}.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+    def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms, source=None,
+              device=None):
+        row = {"name": name, "route": "cuda",
+               "source": f"iisan_tpu_torch/csrc/{source or name}.cu",
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+        if device is not None:
+            row["device_ms"] = device
+        return row
 
     kernels = [
         entry("user_encoder_fwd", "iisan_tpu/ops/fused_user_encoder.py:264",
@@ -2461,12 +2618,12 @@ def main() -> int:
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
               + towers["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
-              ue[256][1], ue[256][2], ue_bound, None),
+              ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
               + versa["user_encoder_bwd"] + towers["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
-              ue_bwd_bound, None),
+              ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
               + versa["san_cascade_fwd"], cascade["err"], cascade["ms"],

@@ -1,7 +1,8 @@
-// Tensor-core and asynchronous-copy helpers of the attention kernels
-// (mha.cuh, mha_bwd.cu): `mma.sync` on bf16 tiles, `ldmatrix` of
-// transposed bf16 tiles, `cp.async` 16-byte (and 4-byte) copies into shared
-// memory, and paired stores.
+// Tensor-core and asynchronous-copy helpers of the attention and
+// user-encoder kernels (mha.cuh, mha_bwd.cu, user_encoder_tc.cuh):
+// `mma.sync` on bf16 tiles, `ldmatrix` of bf16 tiles (plain and
+// transposed), `cp.async` 16-byte (and 4-byte) copies into shared memory,
+// and paired stores.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16), with g = lane / 4 and t = lane
 // % 4, for A a row-major (16, k) tile and B an (8, k) tile stored row by
@@ -35,6 +36,14 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
+// A 16-byte copy that reads src_bytes (0 or 16) of gmem and fills the rest
+// of the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -60,6 +69,27 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* row)
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Two 8 x 8 bf16 matrices: lanes 8i..8i+7 give the addresses of matrix
+// i's eight 16-byte rows (lanes 16-31 repeat 0-15); lane l receives, of
+// each matrix, the elements (row l/4, columns 2(l%4), 2(l%4)+1).  For an
+// (n, k) operand stored row by row, matrices at k and k+8 are the B
+// fragment of mma.m16n8k16.
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+// The same, transposed (as ldsm_x4_trans): for a (k, n) operand stored row
+// by row, matrices at rows k and k+8 are the B fragment of mma.m16n8k16.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(s));
 }
 

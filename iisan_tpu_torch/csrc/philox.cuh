@@ -45,10 +45,14 @@ __device__ __forceinline__ unsigned philox_bits(unsigned seed, unsigned site, un
 // The scaled keep factor of one element: `scale` (= 1/(1-rate), rounded to
 // fp32 by the caller) where (bits >> 8) / 2^24 >= rate, else 0.  Both
 // sides of the comparison are exact in fp32.
+__device__ __forceinline__ float keep_of_bits(unsigned bits, float rate, float scale) {
+  const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+  return u >= rate ? scale : 0.0f;
+}
+
 __device__ __forceinline__ float dropout_keep(unsigned seed, unsigned site, unsigned b,
                                               unsigned e, float rate, float scale) {
-  const float u = static_cast<float>(philox_bits(seed, site, b, e) >> 8) * (1.0f / 16777216.0f);
-  return u >= rate ? scale : 0.0f;
+  return keep_of_bits(philox_bits(seed, site, b, e), rate, scale);
 }
 
 // Dropout of one encoder call: off when `on` is false.
@@ -58,6 +62,13 @@ struct Dropout {
   float rate, scale;
   __device__ __forceinline__ float keep(unsigned site, unsigned b, unsigned e) const {
     return dropout_keep(seed, site, b, e, rate, scale);
+  }
+  // The four words of counter c: the bits of elements 4c .. 4c+3.
+  __device__ __forceinline__ uint4 bits4(unsigned site, unsigned b, unsigned c) const {
+    return philox4x32_10(make_uint4(c, site, b, 0u), make_uint2(seed, 0u));
+  }
+  __device__ __forceinline__ float keep_bits(unsigned bits) const {
+    return keep_of_bits(bits, rate, scale);
   }
 };
 

@@ -1,7 +1,10 @@
-// The fused SASRec user encoder's forward body, shared by the forward
-// kernel (user_encoder_fwd.cu) and the backward kernel's recompute
-// (user_encoder_bwd.cu), so the two compute the same values by the same
-// code: positional add, input LayerNorm (+ dropout), then per block
+// The fused SASRec user encoder's forward body on the CUDA cores, the fp32
+// route: shared by the forward kernel (user_encoder_fwd.cu) and the
+// backward kernel's recompute (user_encoder_bwd.cu), so the two compute the
+// same values by the same code.  (The bf16 route runs on the tensor cores,
+// user_encoder_tc.cuh; the definitions below that both routes use are the
+// dimensions, the dropout sites and the packed parameter order.)
+// The function: positional add, input LayerNorm (+ dropout), then per block
 // bias-free Q/K/V/O attention with an fp32 softmax over the additive mask
 // (+ dropout of the probabilities and of the projected output), post-LN,
 // ReLU FFN (+ dropout of its output), post-LN.
@@ -40,8 +43,8 @@ __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 // sums, the scores and the input LayerNorm's stats), and the layer slots.
 // One layer's slot holds what its forward leaves behind: the forward kernel
 // reuses one slot for every layer; the backward kernel gives each layer its
-// own, and the slots are its stash.  Every offset is a multiple of 4 floats
-// (linear() stores float4s).
+// own, and the slots are its stash.  Where D and F are multiples of 4, so
+// is every offset, and linear() stores float4s (else linear_scalar()).
 //
 // Where the areas fit one block's shared memory they all live there
 // (kResident).  Otherwise the slots move to a per-sequence scratch in
@@ -155,8 +158,8 @@ struct BlockParams {
 // For each of n_mat matrices W_m = W + m*K*N (outputs at out + m*L*N):
 // out_m[l, j] = round_T(sum_d in[l, d] * W_m[d, j]), then, with a bias,
 // round_T(out + bias[j]) and optionally ReLU.  W and bias hold values
-// already rounded to T (pack_encoder_params rounds them); N % 4 == 0 and W,
-// out 16-byte aligned.
+// already rounded to T (this is the fp32 route, where rounding is the
+// identity).
 //
 // Every row of the output reads every weight, so the weights are staged in
 // shared memory (`wbuf`, kWBuf floats) first, as many rows of all n_mat
@@ -166,10 +169,60 @@ struct BlockParams {
 // broadcast load of x and one 16-byte load of W feed four independent FMA
 // chains.  With K in several chunks, the fp32 partial sums wait in `out`;
 // a thread owns the same outputs in every chunk, so they need no barrier.
+//
+// Where N is not a multiple of 4, or W or out is not 16-byte aligned (D or
+// F not a multiple of 4 puts the packed matrices and the layout's areas off
+// that grid), or n_mat rows of W do not fit the buffer, linear_scalar()
+// does the same work a column a thread, in panels of columns that fit.
+template <typename T>
+__device__ void linear_scalar(const float* in, const float* __restrict__ W,
+                              const float* __restrict__ bias, float* out, float* wbuf,
+                              int n_mat, int L, int K, int N, bool relu) {
+  const int np_max = max(1, min(N, kWBuf / n_mat));
+  for (int n0 = 0; n0 < N; n0 += np_max) {
+    const int np = min(np_max, N - n0);
+    const int kc_max = max(1, min(K, kWBuf / (n_mat * np)));
+    for (int k0 = 0; k0 < K; k0 += kc_max) {
+      const int kc = min(kc_max, K - k0);
+      const int chunk = kc * np;
+      __syncthreads();  // the previous contents of wbuf are used
+      for (int idx = threadIdx.x; idx < n_mat * chunk; idx += blockDim.x) {
+        const int m = idx / chunk, e = idx - m * chunk;
+        const int d = e / np, j = e - d * np;
+        wbuf[idx] = __ldg(W + static_cast<size_t>(m) * K * N +
+                          static_cast<size_t>(k0 + d) * N + n0 + j);
+      }
+      __syncthreads();
+      const bool last = k0 + kc == K;
+      for (int idx = threadIdx.x; idx < n_mat * L * np; idx += blockDim.x) {
+        const int m = idx / (L * np), rem = idx - m * L * np;
+        const int r = rem / np, j = rem - r * np;
+        const float* x = in + r * K + k0;
+        const float* w = wbuf + m * chunk + j;
+        float* o = out + m * L * N + r * N + n0 + j;
+        float acc = k0 == 0 ? 0.f : *o;
+        for (int d = 0; d < kc; ++d) acc = fmaf(x[d], w[d * np], acc);
+        if (last) {
+          acc = round_to<T>(acc);
+          if (bias != nullptr) acc = round_to<T>(acc + __ldg(bias + n0 + j));
+          if (relu) acc = fmaxf(acc, 0.f);
+        }
+        *o = acc;
+      }
+    }
+  }
+}
+
 template <typename T>
 __device__ void linear(const float* in, const float* __restrict__ W,
                        const float* __restrict__ bias, float* out, float* wbuf,
                        int n_mat, int L, int K, int N, bool relu) {
+  if (N % 4 != 0 || n_mat * N > kWBuf || reinterpret_cast<size_t>(W) % 16 != 0 ||
+      reinterpret_cast<size_t>(out) % 16 != 0 ||
+      (bias != nullptr && reinterpret_cast<size_t>(bias) % 16 != 0)) {
+    linear_scalar<T>(in, W, bias, out, wbuf, n_mat, L, K, N, relu);
+    return;
+  }
   const int ng = N / 4, per_mat = L * ng;
   const int kc_max = max(1, min(K, kWBuf / (n_mat * N)));
   float4* wbuf4 = reinterpret_cast<float4*>(wbuf);
@@ -249,6 +302,48 @@ __device__ void layer_norm_rows(const float* pre, const float* __restrict__ scal
       const float xh = (x[d] - mu) * rstd;
       xhat[l * D + d] = xh;
       out[l * D + d] = round_to<T>(xh * __ldg(scale + d) + __ldg(bias + d));
+    }
+  }
+}
+
+// out[j] = sum_l G[l, j] (a bias gradient), G (L, N) in shared or device memory.
+__device__ inline void col_sum(const float* G, float* __restrict__ out, int L, int N) {
+  for (int j = threadIdx.x; j < N; j += blockDim.x) {
+    float acc = 0.f;
+    for (int l = 0; l < L; ++l) acc += G[l * N + j];
+    out[j] = acc;
+  }
+}
+
+// LayerNorm backward (`_layernorm_bwd`): gx = rstd * (gy*s - mean(gy*s) -
+// xhat * mean(gy*s*xhat)) per row; the scale and bias gradients, column
+// sums of gy*xhat and gy, go to gscale / gbias (global).
+__device__ inline void layer_norm_bwd(const float* gy, const float* xhat, const float* rstd,
+                                      const float* scale, float* gx, float* __restrict__ gscale,
+                                      float* __restrict__ gbias, int L, int D) {
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float s = 0.f, t = 0.f;
+    for (int l = 0; l < L; ++l) {
+      const float v = gy[l * D + d];
+      s = fmaf(v, xhat[l * D + d], s);
+      t += v;
+    }
+    gscale[d] = s;
+    gbias[d] = t;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  for (int l = warp; l < L; l += n_warps) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float gh = gy[l * D + d] * scale[d];
+      s1 += gh;
+      s2 = fmaf(gh, xhat[l * D + d], s2);
+    }
+    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+    for (int d = lane; d < D; d += 32) {
+      const float gh = gy[l * D + d] * scale[d];
+      gx[l * D + d] = rstd[l] * (gh - m1 - xhat[l * D + d] * m2);
     }
   }
 }

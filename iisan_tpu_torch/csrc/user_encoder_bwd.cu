@@ -1,5 +1,7 @@
-// Fused SASRec user-encoder backward: recompute the forward, then
-// back-propagate through the whole encoder in one launch.
+// Fused SASRec user-encoder backward, fp32 route, on the CUDA cores:
+// recompute the forward, then back-propagate through the whole encoder in
+// one launch.  (The bf16 route, the main path, is user_encoder_bwd_tc.cu;
+// the wrapper chooses by the compute type.)
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` (with `_attn_bwd` and
 // `_layernorm_bwd`) in iisan_tpu/ops/fused_user_encoder.py.  Like it, the
@@ -17,26 +19,23 @@
 // relying on the grid's sequential order.  CUDA blocks run concurrently,
 // so each block (one sequence) writes its whole gradient vector to row b
 // of an fp32 (B, P) scratch, and a second kernel, grad_reduce, sums the
-// rows in a fixed order: the result is deterministic, run to run.  At the
-// training geometry (B=64, P=100,224) the scratch is 25.7 MB.
+// rows in a fixed order: the result is deterministic, run to run.
 //
-// What bounds it on the H100: as the forward, the latency of a chain of
-// small products on one SM per sequence; one block has the stash of its
-// sequence (about 69 KB at L=10, D=64, F=256, H=2, 2 blocks), the
-// staged-weight buffer (64 KB) and the gradient working set (about 26 KB),
-// 161 KB in all, so one block per SM.  The weight gradients are each a sum
-// over the L rows of the sequence, written straight to the scratch row; the
-// input gradients read each weight matrix through a column-chunked,
-// bank-padded copy in shared memory (linear_t).  Batch 64 fills 64 of the
-// 132 SMs.
+// What bounds it on the H100: the latency of a chain of small products on
+// one SM per sequence (one block has the stash of its sequence, the
+// staged-weight buffer and the gradient working set, 161 KB at L=10, D=64,
+// F=256, H=2, 2 blocks, so one block per SM).  The weight gradients are
+// each a sum over the L rows of the sequence, written straight to the
+// scratch row; the input gradients read each weight matrix through a
+// column-chunked, bank-padded copy in shared memory (linear_t).
 //
 // The stash grows with depth and with L^2, so where it does not fit beside
 // the rest, the per-layer slots go to a per-sequence scratch in global
-// memory (69 KB a sequence at L=10, 4.4 MB at B=64: L2-resident) and shared
-// memory keeps one layer's working set, as in the forward; where even that
-// does not fit (L = 50 at D = 64 and 128), everything but the staged
-// weights goes there (user_encoder.cuh's Placement).  The arithmetic and
-// its order do not change, so results stay bit-repeatable.
+// memory and shared memory keeps one layer's working set, as in the
+// forward; where even that does not fit (L = 50 at D = 64 and 128),
+// everything but the staged weights goes there (user_encoder.cuh's
+// Placement).  The arithmetic and its order do not change, so results stay
+// bit-repeatable.
 
 #include "user_encoder.cuh"
 
@@ -72,15 +71,6 @@ __device__ void grad_weight(const float* A, const float* G, float* __restrict__ 
   }
 }
 
-// out[j] = sum_l G[l, j] (a bias gradient), G (L, N) in shared memory.
-__device__ void col_sum(const float* G, float* __restrict__ out, int L, int N) {
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) acc += G[l * N + j];
-    out[j] = acc;
-  }
-}
-
 template <typename T>
 __device__ void round_all(float* a, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = round_to<T>(a[i]);
@@ -91,63 +81,38 @@ __device__ void round_all(float* a, int n) {
 // (K, N) matrices in global memory, already T-valued; G_m = G + m*L*N in
 // shared memory.  The weights are staged in shared memory in chunks of nc
 // columns with an odd row stride, so that neighbouring threads, which
-// take neighbouring k, read distinct banks.  Results are fp32.
+// take neighbouring k, read distinct banks; where n_mat*K rows of at least
+// two columns do not fit the buffer, the outputs k go in panels that do.
+// Results are fp32.
 __device__ void linear_t(const float* G, const float* __restrict__ W, const float* addend,
                          float* out, float* wbuf, int n_mat, int L, int K, int N) {
-  const int nc_max = max(1, min(N, kWBuf / (n_mat * K) - 2));
-  for (int n0 = 0; n0 < N; n0 += nc_max) {
-    const int nc = min(nc_max, N - n0), ld = nc + 1 + (nc & 1);
-    __syncthreads();  // the previous contents of wbuf are used
-    for (int idx = threadIdx.x; idx < n_mat * K * nc; idx += blockDim.x) {
-      const int row = idx / nc, n = idx - row * nc;  // row = m*K + k
-      wbuf[row * ld + n] = __ldg(W + static_cast<size_t>(row) * N + n0 + n);
-    }
-    __syncthreads();
-    const bool last = n0 + nc == N;
-    for (int idx = threadIdx.x; idx < L * K; idx += blockDim.x) {
-      const int l = idx / K, k = idx - l * K;
-      float acc = n0 == 0 ? 0.f : out[idx];
-      for (int m = 0; m < n_mat; ++m) {
-        const float* g = G + m * L * N + l * N + n0;
-        const float* w = wbuf + (m * K + k) * ld;
-        for (int n = 0; n < nc; ++n) acc = fmaf(g[n], w[n], acc);
+  const int kp_max = max(1, min(K, kWBuf / (n_mat * 4)));
+  for (int kb = 0; kb < K; kb += kp_max) {
+    const int kp = min(kp_max, K - kb);
+    const int nc_max = max(1, min(N, kWBuf / (n_mat * kp) - 2));
+    for (int n0 = 0; n0 < N; n0 += nc_max) {
+      const int nc = min(nc_max, N - n0), ld = nc + 1 + (nc & 1);
+      __syncthreads();  // the previous contents of wbuf are used
+      for (int idx = threadIdx.x; idx < n_mat * kp * nc; idx += blockDim.x) {
+        const int row = idx / nc, n = idx - row * nc;  // row = m*kp + k
+        const int m = row / kp, k = row - m * kp;
+        wbuf[row * ld + n] =
+            __ldg(W + (static_cast<size_t>(m) * K + kb + k) * N + n0 + n);
       }
-      if (last && addend != nullptr) acc += addend[idx];
-      out[idx] = acc;
-    }
-  }
-}
-
-// LayerNorm backward (`_layernorm_bwd`): gx = rstd * (gy*s - mean(gy*s) -
-// xhat * mean(gy*s*xhat)) per row; the scale and bias gradients, column
-// sums of gy*xhat and gy, go to gscale / gbias (global).
-__device__ void layer_norm_bwd(const float* gy, const float* xhat, const float* rstd,
-                               const float* __restrict__ scale, float* gx,
-                               float* __restrict__ gscale, float* __restrict__ gbias, int L,
-                               int D) {
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float s = 0.f, t = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const float v = gy[l * D + d];
-      s = fmaf(v, xhat[l * D + d], s);
-      t += v;
-    }
-    gscale[d] = s;
-    gbias[d] = t;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int l = warp; l < L; l += n_warps) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float gh = gy[l * D + d] * __ldg(scale + d);
-      s1 += gh;
-      s2 = fmaf(gh, xhat[l * D + d], s2);
-    }
-    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
-    for (int d = lane; d < D; d += 32) {
-      const float gh = gy[l * D + d] * __ldg(scale + d);
-      gx[l * D + d] = rstd[l] * (gh - m1 - xhat[l * D + d] * m2);
+      __syncthreads();
+      const bool last = n0 + nc == N;
+      for (int idx = threadIdx.x; idx < L * kp; idx += blockDim.x) {
+        const int l = idx / kp, k = idx - l * kp;
+        float* o = out + l * K + kb + k;
+        float acc = n0 == 0 ? 0.f : *o;
+        for (int m = 0; m < n_mat; ++m) {
+          const float* g = G + m * L * N + l * N + n0;
+          const float* w = wbuf + (m * kp + k) * ld;
+          for (int n = 0; n < nc; ++n) acc = fmaf(g[n], w[n], acc);
+        }
+        if (last && addend != nullptr) acc += addend[l * K + kb + k];
+        *o = acc;
+      }
     }
   }
 }
@@ -336,24 +301,28 @@ cudaError_t launch_at(const void* x, const void* mask, const void* params, const
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch(const void* x, const void* mask, const void* params, const void* gout,
-                   void* gx, float* part, float* scratch, float* gparams, int B,
-                   const EncoderDims& dims, const Dropout& drop, int P, cudaStream_t stream) {
+                   void* gx, float* part, float* scratch, long long scratch_bytes,
+                   float* gparams, int B, const EncoderDims& dims, const Dropout& drop, int P,
+                   cudaStream_t stream) {
   const EncoderLayout lay(dims);
+  const int extra = BwdLayout(lay).total;
+  const Placement pl = place(lay, dims.n_layers, extra);
+  if (scratch_bytes < static_cast<long long>(B) * scratch_floats(lay, pl, dims.n_layers, extra) * 4)
+    return cudaErrorInvalidValue;
   cudaError_t err;
-  switch (place(lay, dims.n_layers, BwdLayout(lay).total)) {
+  switch (pl) {
     case kResident:
-      err = launch_at<T, kResident>(x, mask, params, gout, gx, part, scratch, B, dims, drop, P,
-                                    stream);
+      err = launch_at<float, kResident>(x, mask, params, gout, gx, part, scratch, B, dims, drop,
+                                        P, stream);
       break;
     case kSlotsGlobal:
-      err = launch_at<T, kSlotsGlobal>(x, mask, params, gout, gx, part, scratch, B, dims, drop,
-                                       P, stream);
+      err = launch_at<float, kSlotsGlobal>(x, mask, params, gout, gx, part, scratch, B, dims,
+                                           drop, P, stream);
       break;
     default:
-      err = launch_at<T, kSpilled>(x, mask, params, gout, gx, part, scratch, B, dims, drop, P,
-                                   stream);
+      err = launch_at<float, kSpilled>(x, mask, params, gout, gx, part, scratch, B, dims, drop,
+                                       P, stream);
   }
   if (err != cudaSuccess) return err;
   grad_reduce<<<(P + 255) / 256, 256, 0, stream>>>(part, gparams, B, P);
@@ -363,27 +332,23 @@ cudaError_t launch(const void* x, const void* mask, const void* params, const vo
 }  // namespace
 }  // namespace iisan
 
-// x (B, L, D) T; mask (B, L, L) fp32; params: the packed fp32 parameter
-// vector (P floats); gout (B, L, D) T, the gradient of the output.  Writes
-// gx (B, L, D) T and gparams (P) fp32, using part (B, P) fp32 and scratch
-// (B, scratch_floats) fp32, or null where the stash fits shared memory.
-// Dropout as iisan_user_encoder_fwd.  Returns the CUDA error of the
-// launches (0 on success).
+// x (B, L, D) fp32; mask (B, L, L) fp32; params: the packed fp32 parameter
+// vector (P floats); gout (B, L, D) fp32, the gradient of the output.
+// Writes gx (B, L, D) fp32 and gparams (P) fp32, using part (B, P) fp32
+// and scratch (scratch_bytes, checked: B times the per-sequence scratch,
+// or null where the stash fits shared memory).  Dropout as
+// iisan_user_encoder_fwd.  Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int iisan_user_encoder_bwd(const void* x, const void* mask, const void* params,
                                       const void* gout, void* gx, void* part, void* scratch,
-                                      void* gparams, int B, int L, int D, int H, int F,
-                                      int n_layers, int n_position, int is_bf16, int seed,
+                                      long long scratch_bytes, void* gparams, int B, int L, int D,
+                                      int H, int F, int n_layers, int n_position, int seed,
                                       float rate, float scale, int P, void* stream) {
   const iisan::EncoderDims dims{L, D, H, F, n_layers, n_position};
   const iisan::Dropout drop = iisan::make_dropout(seed, rate, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pt = static_cast<float*>(part);
-  float* sc = static_cast<float*>(scratch);
-  float* gp = static_cast<float*>(gparams);
-  const cudaError_t err =
-      is_bf16 ? iisan::launch<__nv_bfloat16>(x, mask, params, gout, gx, pt, sc, gp, B, dims,
-                                             drop, P, s)
-              : iisan::launch<float>(x, mask, params, gout, gx, pt, sc, gp, B, dims, drop, P,
-                                     s);
+  const cudaError_t err = iisan::launch(
+      x, mask, params, gout, gx, static_cast<float*>(part), static_cast<float*>(scratch),
+      scratch_bytes, static_cast<float*>(gparams), B, dims, drop, P,
+      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

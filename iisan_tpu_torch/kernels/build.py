@@ -102,11 +102,19 @@ def build() -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.iisan_user_encoder_fwd.argtypes = [p] * 5 + [i] * 9 + [f, f, p]
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.iisan_user_encoder_weights.argtypes = [p, p, ll] + [i] * 4 + [p]
+    lib.iisan_user_encoder_weights.restype = i
+    lib.iisan_user_encoder_fwd.argtypes = [p] * 6 + [ll] + [i] * 9 + [f, f, p]
     lib.iisan_user_encoder_fwd.restype = i
-    lib.iisan_user_encoder_bwd.argtypes = [p] * 8 + [i] * 9 + [f, f, i, p]
+    lib.iisan_user_encoder_bwd.argtypes = [p] * 7 + [ll, p] + [i] * 8 + [f, f, i, p]
     lib.iisan_user_encoder_bwd.restype = i
+    lib.iisan_user_encoder_bwd_tc.argtypes = [p] * 7 + [ll] + [i] * 8 + [f, f, p]
+    lib.iisan_user_encoder_bwd_tc.restype = i
+    lib.iisan_user_encoder_wgrad.argtypes = [p, ll, p] + [i] * 7 + [p]
+    lib.iisan_user_encoder_wgrad.restype = i
+    lib.iisan_user_encoder_tc_layout.argtypes = [i] * 7 + [p, i]
+    lib.iisan_user_encoder_tc_layout.restype = i
     lib.iisan_philox_check.argtypes = [i] * 4 + [p] * 3
     lib.iisan_philox_check.restype = i
     lib.iisan_san_cascade_fwd.argtypes = [p] * 9 + [i] * 12 + [p]

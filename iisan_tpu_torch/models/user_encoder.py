@@ -55,18 +55,29 @@ class UserEncoder(nn.Module):
         self.transformer_encoder = TransformerEncoder(
             d_model, max_seq_len, num_attention_heads, n_layers, dropout,
             dtype, device, generator)
-        self._packed = None  # (dtype and parameter versions, packed params)
+        self._packed = None  # (dtype and parameter versions, packed, image)
 
     def packed_params(self, compute_dtype: torch.dtype) -> torch.Tensor:
         """The kernel's packed parameter vector for ``compute_dtype``,
         detached, for serving under ``torch.no_grad()``; rebuilt when a
         parameter changes."""
+        return self._serving_params(compute_dtype)[0]
+
+    def _serving_params(self, compute_dtype: torch.dtype):
+        """(``packed_params``, the bf16 kernels' weight image of it or
+        None), both made once a parameter version."""
         flat = fue.flatten_encoder_params(self.transformer_encoder,
                                           self.n_layers)
         key = (compute_dtype,) + tuple((p.data_ptr(), p._version) for p in flat)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, fue.pack_encoder_params(flat, compute_dtype))
-        return self._packed[1]
+            packed = fue.pack_encoder_params(flat, compute_dtype)
+            image = None
+            if packed.is_cuda and compute_dtype == torch.bfloat16:
+                D = flat[0].shape[-1]
+                image = fue.weight_image(packed, D, 4 * D, self.n_layers,
+                                         self.max_seq_len)
+            self._packed = (key, packed, image)
+        return self._packed[1:]
 
     def forward(self, input_embs, log_mask, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -75,13 +86,14 @@ class UserEncoder(nn.Module):
             return self.transformer_encoder(input_embs, mask, deterministic,
                                             generator)
         dt = self.dtype or input_embs.dtype
+        image = None
         if torch.is_grad_enabled():
             packed = fue.pack_encoder_params(
                 fue.flatten_encoder_params(self.transformer_encoder,
                                            self.n_layers),
                 dt, differentiable=True)
         else:
-            packed = self.packed_params(dt)
+            packed, image = self._serving_params(dt)
         seed = None
         if not deterministic and self.dropout > 0.0:
             if generator is None:
@@ -91,7 +103,7 @@ class UserEncoder(nn.Module):
             packed, input_embs, mask, n_layers=self.n_layers,
             n_heads=self.num_attention_heads, d_ff=4 * input_embs.shape[-1],
             n_position=self.max_seq_len, compute_dtype=dt,
-            drop_rate=self.dropout, seed=seed)
+            drop_rate=self.dropout, seed=seed, image=image)
         return out.to(dt)
 
     def _use_fused(self, x) -> bool:

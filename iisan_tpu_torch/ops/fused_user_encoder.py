@@ -4,9 +4,16 @@ Port of ``iisan_tpu/ops/fused_user_encoder.py``.  Two kernels:
 
 - ``user_encoder_fwd`` (``csrc/user_encoder_fwd.cu``) runs the whole
   encoder forward in one launch, eval or train mode;
-- ``user_encoder_bwd`` (``csrc/user_encoder_bwd.cu``) recomputes the
-  forward from ``(x, mask, seed)`` and back-propagates through it in one
-  launch, writing ``gx`` and the packed parameter gradient.
+- ``user_encoder_bwd`` recomputes the forward from ``(x, mask, seed)`` and
+  back-propagates through it, writing ``gx`` and the packed parameter
+  gradient.
+
+Each has two routes, chosen by the compute dtype: bf16 (the main path) on
+the tensor cores (``csrc/user_encoder_tc.cuh``; the backward is a
+per-sequence sweep and a weight-gradient pass, ``csrc/user_encoder_bwd_tc.cu``)
+and fp32 on the CUDA cores (``csrc/user_encoder.cuh``,
+``csrc/user_encoder_bwd.cu``).  ``encoder_plan`` repeats their placement
+and memory arithmetic.
 
 ``FusedEncoderFn`` ties them into autograd, as the JAX package's custom VJP
 does; it is the one entry point on every device.  On a CPU tensor each
@@ -24,13 +31,15 @@ of ``flatten_encoder_params`` (the JAX kernel's own order):
 ``wq wk wv wo ln1s ln1b w1 b1 w2 b2 ln2s ln2b``.  ``pack_encoder_params``
 builds it and ``unpack_encoder_params`` splits it back into views, so the
 kernel and its plain version read the same tensor; the parameter gradient
-comes back in the same layout.
+comes back in the same layout.  Both round the entries that the cast chain
+rounds where they use them, so they take the vector rounded or not.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -67,31 +76,33 @@ _ROUNDED_BLOCK = (True, True, True, True, False, False,
 def pack_encoder_params(flat: Sequence[torch.Tensor],
                         compute_dtype: torch.dtype = torch.float32,
                         differentiable: bool = False) -> torch.Tensor:
-    """One contiguous fp32 vector of the flattened parameters, for the
-    kernel at ``compute_dtype``: the entries the cast chain rounds are
-    stored rounded to it already, so the kernel's inner loops convert
-    nothing.  Rounding twice changes nothing, so the plain version reads
-    the same vector.
+    """One contiguous fp32 vector of the flattened parameters.
 
-    ``differentiable=True`` keeps the vector in the autograd graph: the
-    packed gradient flows back to each parameter through ``cat``, and the
-    rounding passes it on unchanged (the JAX kernel's VJP hands its fp32
-    gradient straight to the fp32 parameter)."""
+    ``differentiable=True`` (the training path) is one ``cat`` of the fp32
+    parameters, in the autograd graph: the packed gradient flows back to
+    each parameter through it, as the JAX kernel's VJP hands its fp32
+    gradient straight to the fp32 parameter.  Otherwise (serving, cached by
+    ``UserEncoder.packed_params``) the entries the cast chain rounds are
+    stored rounded to ``compute_dtype`` already.  The kernels and the plain
+    versions round those entries where they use them, and rounding twice
+    changes nothing, so the two packs give the same results."""
+    if differentiable:
+        return torch.cat([p.float().reshape(-1) for p in flat])
     n_layers = (len(flat) - 3) // PER_BLOCK
     rounded = _ROUNDED_HEAD + _ROUNDED_BLOCK * n_layers
-    parts = []
-    for p, r in zip(flat, rounded):
-        p = p.float() if differentiable else p.detach().float()
-        if r and compute_dtype != torch.float32:
-            value = p.detach().to(compute_dtype).float()
-            p = p + (value - p.detach()) if differentiable else value
-        parts.append(p.reshape(-1))
-    return torch.cat(parts)
+    return torch.cat([
+        (p.detach().to(compute_dtype) if r else p.detach()).float().reshape(-1)
+        for p, r in zip(flat, rounded)])
 
 
 def param_shapes(D: int, F: int, n_layers: int, n_position: int):
     block = [(D, D)] * 4 + [(D,), (D,), (D, F), (F,), (F, D), (D,), (D,), (D,)]
     return [(n_position, D), (D,), (D,)] + block * n_layers
+
+
+@functools.lru_cache(maxsize=64)
+def _param_count(D: int, F: int, n_layers: int, n_position: int) -> int:
+    return sum(math.prod(s) for s in param_shapes(D, F, n_layers, n_position))
 
 
 def unpack_encoder_params(packed: torch.Tensor, D: int, F: int, n_layers: int,
@@ -104,7 +115,7 @@ def unpack_encoder_params(packed: torch.Tensor, D: int, F: int, n_layers: int,
     return [t.view(s) for t, s in zip(torch.split(packed, sizes), shapes)]
 
 
-_WBUF = 16384  # floats of the kernels' staged-weight buffer
+_WBUF = 16384  # floats of the fp32 kernels' staged-weight buffer (csrc kWBuf)
 _SMEM_FLOATS = _SMEM_LIMIT // 4
 # Where a kernel's areas live (``Placement`` in csrc/user_encoder.cuh): all
 # in shared memory; the layer slots in a per-sequence global scratch; all
@@ -139,39 +150,178 @@ def _plan(L: int, D: int, H: int, F: int, n_slots: int, extra: int):
 
 
 def fwd_plan(L: int, D: int, H: int, F: int):
-    """The forward kernel's placement, shared bytes and scratch floats per
-    sequence: one slot, reused by every layer."""
+    """The fp32 forward kernel's placement, shared bytes and scratch floats
+    per sequence: one slot, reused by every layer."""
     return _plan(L, D, H, F, 1, 0)
 
 
 def bwd_plan(L: int, D: int, H: int, F: int, n_layers: int):
-    """The backward kernel's: a slot per layer (the recompute stash) and
-    the gradient working set."""
+    """The fp32 backward kernel's: a slot per layer (the recompute stash)
+    and the gradient working set."""
     return _plan(L, D, H, F, n_layers, 6 * L * D + L * F + _pad4(H * L * L))
+
+
+# The bf16 kernels' ring of staged weights (csrc/user_encoder_tc.cuh): two
+# stages of 36,864 bytes.
+_TC_RING = 2 * 36864
+
+
+def _r8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _r16(n: int) -> int:
+    """n rounded up to a multiple of 16 (rows, or bytes of an area)."""
+    return (n + 15) // 16 * 16
+
+
+def _tc_layout(L: int, D: int, H: int, F: int, n_layers: int, stash: bool):
+    """(slot, head, work) bytes of one sequence's areas on the bf16 route,
+    as ``TcLayout`` in csrc/user_encoder_tc.cuh: a layer's bf16 operands
+    (rows padded to 16, row strides of 16 + a multiple of 16 bytes) and,
+    with ``stash`` (the backward), its fp32 stash; the scores,
+    pre-LayerNorm sums, mask and the parameters that are not matrices;
+    the backward's working set."""
+    dk = D // H
+    Lp, dkp = _r16(L), _r16(dk)
+    sD, sF, sdk, sL, s3D = (_r16(n) + 8 for n in (D, F, dk, L, 3 * D))
+    LD4, HLL4 = 4 * L * D, 4 * H * L * L
+    slot = [2 * Lp * sD, 2 * H * Lp * sdk, 2 * H * Lp * sdk, 2 * H * dkp * sL,
+            2 * H * Lp * sL, 2 * Lp * sD, 2 * Lp * sD, 2 * Lp * sF]
+    head = [HLL4, LD4, 4 * L * L, 4 * (2 * D + n_layers * (5 * D + F))]
+    work = []
+    if stash:
+        slot += [HLL4, LD4, LD4, 4 * L, 4 * L]
+        head += [LD4, 4 * L]
+        work = [LD4] * 4 + [2 * Lp * sD, 4 * L * F, 2 * Lp * sF, HLL4, 2 * Lp * s3D]
+    return tuple(sum(_r16(n) for n in area) for area in (slot, head, work))
+
+
+def tc_image_elems(D: int, F: int, n_layers: int) -> int:
+    """bf16 entries of the weight image the bf16 kernels stream (``WImage``
+    in csrc/user_encoder_tc.cuh): per layer q|k|v side by side, wo, w1 and
+    w2, rows padded to whole 16-byte units."""
+    return n_layers * (D * _r8(3 * D) + D * _r8(D) + D * _r8(F) + F * _r8(D))
+
+
+def tc_work_layout(B: int, L: int, D: int, F: int, n_layers: int,
+                   per_seq: int) -> dict:
+    """The bf16 backward's device buffer, as ``TcWork`` in
+    csrc/user_encoder_bwd_tc.cu: per layer the bf16 rows (B*L, r8(width))
+    of the weight-gradient operands ("xin", "ctx", "x1", "hf"; "gqkv",
+    "go2", "ghpre", "gh2"; element offsets inside a layer's block of
+    ``layer`` elements), then the byte offsets of the fp32 partial rows
+    (B, Q), the fp32 input gradient (B, L, D), the areas' scratch
+    (B x per_seq) and the total."""
+    widths = dict(xin=_r8(D), ctx=_r8(D), x1=_r8(D), hf=_r8(F), gqkv=_r8(3 * D),
+                  go2=_r8(D), ghpre=_r8(F), gh2=_r8(D))
+    out, at = {}, 0
+    for name, w in widths.items():
+        out[name] = at
+        at += B * L * w
+    out["layer"] = at
+    out["Q"] = 2 * D + n_layers * (5 * D + F)
+    out["part"] = _r16(2 * at * n_layers)
+    out["gx32"] = out["part"] + _r16(4 * B * out["Q"])
+    out["scratch"] = out["gx32"] + _r16(4 * B * L * D)
+    out["total"] = out["scratch"] + _r16(B * per_seq)
+    return out
+
+
+_LIBRARY_LAYOUT = ("fwd_place", "fwd_smem", "fwd_scratch", "bwd_place",
+                   "bwd_smem", "bwd_scratch", "image", "xin", "ctx", "x1", "hf",
+                   "gqkv", "go2", "ghpre", "gh2", "layer", "part", "gx32",
+                   "scratch", "total")
+
+
+def library_tc_layout(B: int, L: int, D: int, H: int, F: int,
+                      n_layers: int) -> dict:
+    """The bf16 route's layout as the kernels compute it
+    (``iisan_user_encoder_tc_layout``; needs the built library): each
+    pass's placement, shared-memory and per-sequence scratch bytes, the
+    weight image's entries, and the backward buffer's offsets under
+    ``tc_work_layout``'s names.  Code that reads the device buffers takes
+    its offsets from here; ``encoder_plan``, ``tc_image_elems`` and
+    ``tc_work_layout`` are the CPU's copy of this arithmetic, held to it on
+    the card."""
+    import ctypes
+
+    from ..kernels.build import library
+
+    out = (ctypes.c_longlong * len(_LIBRARY_LAYOUT))()
+    n = library().iisan_user_encoder_tc_layout(B, L, D, H, F, n_layers, L, out,
+                                               len(out))
+    if n != len(out):
+        raise RuntimeError(f"iisan_user_encoder_tc_layout returned {n}")
+    return dict(zip(_LIBRARY_LAYOUT, out))
+
+
+class EncoderPlan(NamedTuple):
+    """How a kernel lays out a call: ``route`` "tensor cores" (bf16) or
+    "cuda cores" (fp32); where the areas live (``RESIDENT``,
+    ``SLOTS_GLOBAL``, ``SPILLED``); the block's shared-memory bytes; the
+    per-sequence scratch bytes in device memory; the bf16 backward's whole
+    device buffer (``tc_work_layout``; 0 elsewhere)."""
+    route: str
+    place: int
+    smem_bytes: int
+    scratch_bytes: int
+    work_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def encoder_plan(B: int, L: int, D: int, H: int, F: int, n_layers: int,
+                 dtype: torch.dtype, backward: bool = False) -> EncoderPlan:
+    """The placement and memory of the kernel a CUDA call at these shapes
+    launches; the only arithmetic the kernels check it against is their
+    own (a smaller buffer is refused)."""
+    if dtype != torch.bfloat16:
+        place, smem, floats = (bwd_plan(L, D, H, F, n_layers) if backward
+                               else fwd_plan(L, D, H, F))
+        return EncoderPlan("cuda cores", place, smem, 4 * floats, 0)
+    slot, head, work = _tc_layout(L, D, H, F, n_layers, backward)
+    n = n_layers if backward else 1
+    if _TC_RING + head + n * slot + work <= _SMEM_LIMIT:
+        place, smem, scratch = RESIDENT, _TC_RING + head + n * slot + work, 0
+    elif _TC_RING + head + work <= _SMEM_LIMIT:
+        place, smem, scratch = SLOTS_GLOBAL, _TC_RING + head + work, n * slot
+    else:
+        place, smem, scratch = SPILLED, _TC_RING, head + n * slot + work
+    total = tc_work_layout(B, L, D, F, n_layers, scratch)["total"] if backward else 0
+    return EncoderPlan("tensor cores", place, smem, scratch, total)
+
+
+# The kernels index the packed parameters with 32-bit ints.
+MAX_PARAMS = 2 ** 31 - 1
+
+
+def _block_params(D: int, F: int) -> int:
+    return 4 * D * D + 2 * D * F + F + 5 * D
 
 
 def supported(B: int, L: int, D: int, H: int, F: int = None,
               n_position: int = None) -> bool:
-    """Shapes the forward kernel accepts: any batch, heads dividing the
-    width, widths in multiples of 8 (16-byte weight loads), a sequence no
-    longer than the position table, and weights whose staged rows fit the
-    weight buffer.  Any L: what does not fit shared memory goes to a
-    global scratch (``fwd_plan``)."""
+    """Shapes the forward kernels take: every width the JAX kernel takes
+    (heads dividing D, D >= 8), any F >= 1 (4D by default), any batch, and
+    any L up to the position table (what does not fit shared memory goes to
+    a global scratch, ``encoder_plan``; weights that do not fit a staging
+    buffer go in panels).  The one limit is arithmetic: the packed
+    parameters are indexed with 32-bit ints, so a block's, with the
+    position table, stays below 2^31 entries (D up to 13,376 at F = 4D;
+    the whole vector is checked at the call)."""
     F = 4 * D if F is None else F
-    return (B >= 1 and L >= 1 and H >= 1 and D % H == 0
-            and D % 8 == 0 and F % 8 == 0
-            and 3 * D <= _WBUF and F <= _WBUF
-            and (n_position is None or L <= n_position))
+    return (B >= 1 and L >= 1 and H >= 1 and D >= 8 and D % H == 0 and F >= 1
+            and (n_position is None or L <= n_position)
+            and _block_params(D, F) + (n_position or L) * D + 2 * D <= MAX_PARAMS)
 
 
 def bwd_supported(B: int, L: int, D: int, H: int, F: int, n_layers: int,
                   n_position: int = None) -> bool:
-    """Shapes the backward kernel accepts: the forward's, with transposed
-    weight chunks of at least one padded column (``linear_t``), at any L
-    and depth (the stash goes to a global scratch where it does not fit
-    shared memory, ``bwd_plan``)."""
+    """Shapes the backward kernels take: the forward's, at any depth whose
+    packed parameters stay below 2^31 entries."""
     return (supported(B, L, D, H, F, n_position) and n_layers >= 1
-            and 9 * D <= _WBUF and 3 * F <= _WBUF)
+            and n_layers * _block_params(D, F) + (n_position or L) * D + 2 * D
+            <= MAX_PARAMS)
 
 
 # ----------------------------------------------------------------------
@@ -221,10 +371,12 @@ def dropout_masks(seed: int, rate: float, B: int, L: int, D: int, H: int,
 
 
 def _encoder_fwd(x, mask3, flat, n_layers: int, n_heads: int, masks,
-                 stash: Optional[list] = None):
+                 stash: Optional[list] = None, relu=None):
     """The forward body (``_encoder_fwd_body`` / ``_attn_fwd`` of the JAX
     kernel) over the whole batch.  With ``stash`` a list, it is filled
-    with what the backward needs."""
+    with what the backward needs.  ``relu`` is the FFN's activation,
+    called once a block in order (``torch.relu``, looked up at the call,
+    when None)."""
     dt = x.dtype
     B, L, D = x.shape
     H, dk = n_heads, D // n_heads
@@ -258,7 +410,8 @@ def _encoder_fwd(x, mask3, flat, n_layers: int, n_heads: int, masks,
             o2 = (o2.float() * m["attn_out"]).to(dt)
         y1, xhat1, rstd1 = _layernorm(x.float() + o2.float(), s1, b1n)
         x1 = y1.to(dt)
-        hf = torch.relu(bdot(x1, w1) + b1.to(dt))
+        pre = bdot(x1, w1) + b1.to(dt)
+        hf = torch.relu(pre) if relu is None else relu(pre)
         h2 = bdot(hf, w2) + b2.to(dt)
         if m is not None:
             h2 = (h2.float() * m["ffn_out"]).to(dt)
@@ -301,13 +454,22 @@ def user_encoder_bwd_plain(x, mask3, params, gout, *, n_layers: int,
     fp32 parameter gradient in the packed layout); the position gradient
     is zero past row L.
     """
+    B, L, D = x.shape
+    flat = unpack_encoder_params(params, D, d_ff, n_layers, n_position)
+    masks = dropout_masks(seed, rate, B, L, D, n_heads, n_layers, x.device)
+    stash: list = []
+    _encoder_fwd(x, mask3, flat, n_layers, n_heads, masks, stash)
+    return _encoder_bwd(x, flat, masks, stash, gout, n_layers, n_heads,
+                        n_position)
+
+
+def _encoder_bwd(x, flat, masks, stash, gout, n_layers: int, n_heads: int,
+                 n_position: int):
+    """The backward body over the whole batch, from ``_encoder_fwd``'s
+    stash of the same forward: (gx, the packed parameter gradient)."""
     dt = x.dtype
     B, L, D = x.shape
     H, dk = n_heads, D // n_heads
-    flat = unpack_encoder_params(params, D, d_ff, n_layers, n_position)
-    masks = dropout_masks(seed, rate, B, L, D, H, n_layers, x.device)
-    stash: list = []
-    _encoder_fwd(x, mask3, flat, n_layers, H, masks, stash)
 
     def r(t):  # round to the compute dtype, carry in fp32
         return t.to(dt).float()
@@ -383,8 +545,11 @@ def _check(name, x, mask3, params, n_layers, n_heads, d_ff, n_position, seed,
     if mask3.shape != (B, L, L) or mask3.dtype != torch.float32:
         raise ValueError(f"mask must be ({B}, {L}, {L}) float32, got "
                          f"{tuple(mask3.shape)} {mask3.dtype}")
-    if params.dtype != torch.float32 or params.numel() != sum(
-            math.prod(s) for s in param_shapes(D, d_ff, n_layers, n_position)):
+    P = _param_count(D, d_ff, n_layers, n_position)
+    if P > MAX_PARAMS:
+        raise ValueError(f"{name} does not take {P} packed parameters (the "
+                         f"kernels index at most {MAX_PARAMS})")
+    if params.dtype != torch.float32 or params.numel() != P:
         raise ValueError("params must be the packed float32 encoder vector")
     if not 0 <= seed < 2 ** 31 or not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout seed {seed} or rate {rate} out of range")
@@ -393,12 +558,14 @@ def _check(name, x, mask3, params, n_layers, n_heads, d_ff, n_position, seed,
             raise ValueError(f"all tensors must be on {x.device}")
 
 
-def _scratch(B: int, per_seq: int, device) -> Optional[torch.Tensor]:
-    """The kernels' per-sequence fp32 global scratch (None when the
-    working set fits shared memory)."""
-    if per_seq == 0:
-        return None
-    return torch.empty((B, per_seq), dtype=torch.float32, device=device)
+def _bytes(n: int, device) -> Optional[torch.Tensor]:
+    """A device buffer of n bytes for a kernel's scratch (None when n is
+    0)."""
+    return torch.empty(n, dtype=torch.uint8, device=device) if n else None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _dropout_args(seed: int, rate: float):
@@ -408,13 +575,44 @@ def _dropout_args(seed: int, rate: float):
     return seed, rate, 1.0 / (1.0 - rate)
 
 
+def weight_image(params, D: int, F: int, n_layers: int, n_position: int):
+    """The bf16 weight image of the packed parameters that the bf16 kernels
+    stream (one launch of the image kernel, ``iisan_user_encoder_weights``;
+    a CUDA ``params``).  Made once, it serves every call on the same
+    parameters: ``FusedEncoderFn`` passes the forward's to the backward,
+    and ``UserEncoder.packed_params`` caches one for serving."""
+    from ..kernels.build import check, library
+
+    n = tc_image_elems(D, F, n_layers)
+    image = torch.empty(n, dtype=torch.bfloat16, device=params.device)
+    err = library().iisan_user_encoder_weights(
+        params.data_ptr(), image.data_ptr(), n, D, F, n_layers, n_position,
+        torch.cuda.current_stream(params.device).cuda_stream)
+    check(err, "user_encoder weight image")
+    return image
+
+
+def _image_for(image, params, D: int, F: int, n_layers: int, n_position: int):
+    """``image`` checked against the parameters' shapes, or made anew."""
+    if image is None:
+        return weight_image(params, D, F, n_layers, n_position)
+    if (image.dtype != torch.bfloat16 or image.device != params.device
+            or image.numel() != tc_image_elems(D, F, n_layers)):
+        raise ValueError("image must be the bf16 weight image of params "
+                         "(weight_image)")
+    return image.contiguous()
+
+
 def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
                      d_ff: int, n_position: int, seed: int = 0,
-                     rate: float = 0.0) -> torch.Tensor:
-    """Encoder forward; the CUDA kernel for a CUDA ``x``.
+                     rate: float = 0.0, image=None) -> torch.Tensor:
+    """Encoder forward; the CUDA kernel for a CUDA ``x`` (bf16: the
+    tensor-core route, fp32: the CUDA-core route).
 
     Same arguments and result as ``user_encoder_fwd_plain``, which runs
-    for a CPU ``x``.  ``user_encoder_fwd.launches`` counts kernel launches.
+    for a CPU ``x``.  ``image``: on the bf16 route, ``weight_image`` of
+    ``params`` where the caller holds one (made here when None).
+    ``user_encoder_fwd.launches`` counts kernel launches.
     """
     if not x.is_cuda:
         return user_encoder_fwd_plain(x, mask3, params, n_layers=n_layers,
@@ -428,13 +626,15 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
            n_position, seed, rate,
            supported(B, L, D, n_heads, d_ff, n_position))
     x, mask3, params = x.contiguous(), mask3.contiguous(), params.contiguous()
-    if params.data_ptr() % 16:
-        raise ValueError("packed params must be 16-byte aligned")
     out = torch.empty_like(x)
-    scratch = _scratch(B, fwd_plan(L, D, n_heads, d_ff)[2], x.device)
+    plan = encoder_plan(B, L, D, n_heads, d_ff, n_layers, x.dtype)
+    scratch = _bytes(B * plan.scratch_bytes, x.device)
+    if x.dtype == torch.bfloat16:
+        image = _image_for(image, params, D, d_ff, n_layers, n_position)
     err = library().iisan_user_encoder_fwd(
-        x.data_ptr(), mask3.data_ptr(), params.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
+        x.data_ptr(), mask3.data_ptr(), params.data_ptr(),
+        _ptr(image if x.dtype == torch.bfloat16 else None),
+        out.data_ptr(), _ptr(scratch), B * plan.scratch_bytes,
         B, L, D, n_heads, d_ff, n_layers, n_position,
         int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate),
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -446,17 +646,51 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
 user_encoder_fwd.launches = 0
 
 
+def _bwd_sweep(x, mask3, params, image, gout, gx, work, n_layers, n_heads,
+               d_ff, n_position, seed, rate):
+    """The bf16 backward's first kernel, the sweep: gx, and the
+    weight-gradient operands, partial rows and fp32 input gradient in
+    ``work`` (``tc_work_layout``)."""
+    from ..kernels.build import check, library
+
+    B, L, D = x.shape
+    err = library().iisan_user_encoder_bwd_tc(
+        x.data_ptr(), mask3.data_ptr(), params.data_ptr(), image.data_ptr(),
+        gout.data_ptr(),
+        gx.data_ptr(), work.data_ptr(), work.numel(), B, L, D, n_heads, d_ff,
+        n_layers, n_position, *_dropout_args(seed, rate),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "user_encoder_bwd (sweep)")
+
+
+def _bwd_wgrad(work, gparams, B, L, D, n_layers, n_heads, d_ff, n_position):
+    """The bf16 backward's second kernel: every entry of ``gparams`` from
+    the sweep's ``work``."""
+    from ..kernels.build import check, library
+
+    err = library().iisan_user_encoder_wgrad(
+        work.data_ptr(), work.numel(), gparams.data_ptr(), B, L, D, n_heads,
+        d_ff, n_layers, n_position,
+        torch.cuda.current_stream(work.device).cuda_stream)
+    check(err, "user_encoder_bwd (weight gradients)")
+
+
 def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
                      d_ff: int, n_position: int, seed: int = 0,
-                     rate: float = 0.0):
-    """Encoder backward; the CUDA kernel for a CUDA ``x``.
+                     rate: float = 0.0, image=None):
+    """Encoder backward; the CUDA kernels for a CUDA ``x``.
 
     Same arguments and results as ``user_encoder_bwd_plain``, which runs
-    for a CPU ``x``.  The kernel writes each sequence's parameter gradient
-    to a row of an fp32 (B, P) scratch, which its second pass sums in a
-    fixed order; a stash that does not fit shared memory goes to a second
-    fp32 scratch (``bwd_plan``).  ``user_encoder_bwd.launches`` counts
-    kernel launches.
+    for a CPU ``x``.  bf16: a per-sequence sweep on the tensor cores that
+    writes gx and the bf16 operands of every weight gradient, then a
+    weight-gradient pass that forms them over all rows in a fixed order,
+    through one device buffer (``encoder_plan(...).work_bytes``: 3.1 MB at
+    B=64, L=10, D=64, 2 blocks).  fp32: the CUDA-core kernel writes each
+    sequence's parameter gradient to a row of an fp32 (B, P) scratch, which
+    its second pass sums in a fixed order.  A stash that does not fit
+    shared memory goes to a per-sequence scratch (``encoder_plan``).
+    ``image`` as in ``user_encoder_fwd``.  ``user_encoder_bwd.launches``
+    counts calls that launch the kernels.
     """
     if not x.is_cuda:
         return user_encoder_bwd_plain(x, mask3, params, gout,
@@ -475,17 +709,24 @@ def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
     gout = gout.contiguous()
     P = params.numel()
     gx = torch.empty_like(x)
-    part = torch.empty((B, P), dtype=torch.float32, device=x.device)
-    scratch = _scratch(B, bwd_plan(L, D, n_heads, d_ff, n_layers)[2], x.device)
     gparams = torch.empty(P, dtype=torch.float32, device=x.device)
-    err = library().iisan_user_encoder_bwd(
-        x.data_ptr(), mask3.data_ptr(), params.data_ptr(), gout.data_ptr(),
-        gx.data_ptr(), part.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), gparams.data_ptr(),
-        B, L, D, n_heads, d_ff, n_layers, n_position,
-        int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate), P,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "user_encoder_bwd")
+    plan = encoder_plan(B, L, D, n_heads, d_ff, n_layers, x.dtype, backward=True)
+    if x.dtype == torch.bfloat16:
+        image = _image_for(image, params, D, d_ff, n_layers, n_position)
+        work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=x.device)
+        _bwd_sweep(x, mask3, params, image, gout, gx, work, n_layers, n_heads,
+                   d_ff, n_position, seed, rate)
+        _bwd_wgrad(work, gparams, B, L, D, n_layers, n_heads, d_ff, n_position)
+    else:
+        part = torch.empty((B, P), dtype=torch.float32, device=x.device)
+        scratch = _bytes(B * plan.scratch_bytes, x.device)
+        err = library().iisan_user_encoder_bwd(
+            x.data_ptr(), mask3.data_ptr(), params.data_ptr(), gout.data_ptr(),
+            gx.data_ptr(), part.data_ptr(), _ptr(scratch), B * plan.scratch_bytes,
+            gparams.data_ptr(), B, L, D, n_heads, d_ff, n_layers, n_position,
+            *_dropout_args(seed, rate), P,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check(err, "user_encoder_bwd")
     user_encoder_bwd.launches += 1
     return gx, gparams
 
@@ -496,37 +737,50 @@ user_encoder_bwd.launches = 0
 class FusedEncoderFn(torch.autograd.Function):
     """The fused encoder under autograd: forward ``user_encoder_fwd``,
     backward ``user_encoder_bwd``, which recomputes the forward (and its
-    dropout masks) from the saved (x, mask, seed).
+    dropout masks) from the saved (x, mask, seed).  On the bf16 route both
+    read one weight image, the caller's or one made in the forward.
 
-    apply(x, mask3, packed, seed, rate, dims) with ``dims`` =
-    (n_layers, n_heads, d_ff, n_position); ``rate`` > 0 is train mode.
-    The gradient reaches ``x`` and ``packed``."""
+    apply(x, mask3, packed, seed, rate, dims, image) with ``dims`` =
+    (n_layers, n_heads, d_ff, n_position) and ``image`` the bf16 weight
+    image of ``packed`` or None; ``rate`` > 0 is train mode.  The gradient
+    reaches ``x`` and ``packed``."""
 
     @staticmethod
-    def forward(ctx, x, mask3, packed, seed: int, rate: float, dims):
+    def forward(ctx, x, mask3, packed, seed: int, rate: float, dims, image=None):
         n_layers, n_heads, d_ff, n_position = dims
         ctx.kw = dict(n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
                       n_position=n_position, seed=seed, rate=rate)
-        ctx.save_for_backward(x, mask3, packed)
-        return user_encoder_fwd(x, mask3, packed, **ctx.kw)
+        if image is None and x.is_cuda and x.dtype == torch.bfloat16:
+            image = weight_image(packed, x.shape[-1], d_ff, n_layers, n_position)
+        ctx.save_for_backward(x, mask3, packed, image)
+        return user_encoder_fwd(x, mask3, packed, **_image_kw(image), **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
-        x, mask3, packed = ctx.saved_tensors
-        gx, gpacked = user_encoder_bwd(x, mask3, packed, g.to(x.dtype), **ctx.kw)
-        return gx, None, gpacked, None, None, None
+        x, mask3, packed, image = ctx.saved_tensors
+        gx, gpacked = user_encoder_bwd(x, mask3, packed, g.to(x.dtype),
+                                       **_image_kw(image), **ctx.kw)
+        return gx, None, gpacked, None, None, None, None
+
+
+def _image_kw(image) -> dict:
+    """The wrappers' ``image`` argument, passed only where there is one."""
+    return {} if image is None else {"image": image}
 
 
 def apply_fused_encoder(params, x, additive_mask, *, n_layers: int,
                         n_heads: int, d_ff: int, n_position: int,
                         compute_dtype: torch.dtype = torch.bfloat16,
-                        drop_rate: float = 0.0, seed: Optional[int] = None):
+                        drop_rate: float = 0.0, seed: Optional[int] = None,
+                        image=None):
     """Fused TransformerEncoder under autograd.
 
     params: the packed vector (``pack_encoder_params`` at
     ``compute_dtype``); x (B, L, D); additive_mask (B, 1, L, L) fp32.
     ``seed`` (in [0, 2^31)) with ``drop_rate`` > 0 is train mode; None is
-    eval mode.  Returns (B, L, D) in x's dtype.
+    eval mode.  ``image``: ``weight_image`` of ``params`` where the caller
+    keeps one (bf16 on the card), else None.  Returns (B, L, D) in x's
+    dtype.
     """
     B, L, _ = x.shape
     mask3 = additive_mask.reshape(B, L, L).float()
@@ -534,5 +788,5 @@ def apply_fused_encoder(params, x, additive_mask, *, n_layers: int,
     out = FusedEncoderFn.apply(x.to(compute_dtype), mask3, params,
                                seed if train else 0,
                                drop_rate if train else 0.0,
-                               (n_layers, n_heads, d_ff, n_position))
+                               (n_layers, n_heads, d_ff, n_position), image)
     return out.to(x.dtype)

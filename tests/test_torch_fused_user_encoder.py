@@ -141,10 +141,12 @@ def test_supported_takes_serving_batches():
     for b in (1, 3, 32, 256, 1000):
         assert fue.supported(b, L, D, H, 4 * D, L)
     assert not fue.supported(4, L, D, 3)          # heads must divide D
-    assert not fue.supported(4, L, 20, 2)         # width a multiple of 8
+    assert fue.supported(4, L, 20, 2)             # any width the heads divide
+    assert not fue.supported(4, L, 6, 2)          # JAX's D >= 8
     assert not fue.supported(4, L + 1, D, H, 4 * D, L)  # longer than pos table
     assert fue.supported(4, 512, 1024, H)         # past shared memory: scratch
-    assert not fue.supported(4, L, 8192, H)       # staged rows exceed the buffer
+    assert fue.supported(4, L, 8192, H)           # weights staged in panels
+    assert not fue.supported(4, L, 13378, H)      # 2^31 packed entries
 
 
 def test_packed_params_follow_parameter_updates():

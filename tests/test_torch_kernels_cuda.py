@@ -26,10 +26,20 @@ tol * (max|plain| + |plain|), tol 1e-4 fp32 and 5e-2 bf16 (the kernel
 sums each sequence's gradient then the sequences; the plain version sums
 all rows at once).  In bf16 a ReLU input that rounds across zero on one
 side only passes or stops a whole element of the FFN's gradient, which can
-put one bias-gradient column past that bound by itself: at 20 x 128 the
-bf16 cases broke it (4 and 16 sequences, dropout on) while fp32 agreed to
-1e-4 on the same shapes and code path, so 20 x 128 is held in fp32 only
-(``test_user_encoder_train_kernels_match_plain_l20_d128``).  bf16 cascade: element by element, four bf16 ulps of the row's largest
+put one weight- or bias-gradient column past that bound by itself: at
+20 x 128 the bf16 cases of the CUDA-core kernel broke it (4 and 16
+sequences, dropout on) while fp32 agreed to 1e-4 on the same shapes and
+code path, so 20 x 128 is held in fp32 only
+(``test_user_encoder_train_kernels_match_plain_l20_d128``).  The
+tensor-core kernel's products round like the plain version's cuBLAS ones
+in all but a few elements, and those differences, one bf16 ulp each, move
+2-4 of the 164K ReLU decisions of a 64-sequence batch (at |pre| <=
+0.0044); so the bf16 backward is held to the plain backward taken at the
+kernel's own ReLU decisions (``_bwd_reference``), which the plain version
+accepts only where the kernel's FFN input (read back) explains them,
+within four bf16 ulps of the operands' scale and for at most 16 elements
+or one in 4,096 (``iisan_tpu_torch.testing``; its CPU tests plant
+decisions past each limit), and to the same bound.  bf16 cascade: element by element, four bf16 ulps of the row's largest
 |carry| plus 1e-3 (``fused_san.carry_tolerance``): the carry is additive
 across the K steps, so a one-ulp rounding difference at a large
 intermediate value survives into a final value that may be small.  The
@@ -57,9 +67,16 @@ read in dkv) must break those bounds, and the backward repeats bit for
 bit.
 Shapes reach past the first kernels' limits: 257 keys (a 256-pixel ViT),
 1024, the fp32 backward at ViT's 197 (CUDA cores), #10 at any K and N,
-the user encoder at L=20 and 50 and at 6 layers (global scratch); one
-cached step at max_seq_len=20 and one fp32 FFT step at 197 tokens run
-through the kernels.
+the user encoder at L=20 and 50, at 6 layers (global scratch) and at
+widths that are not a multiple of 8 (D = 36 and 12, which the JAX kernel
+takes), and at the widths the kernels took before (forward D = 5,461 with
+43 heads, backward D = 1,820); the Python plan equals the layout the
+library computes; one cached step at max_seq_len=20 and one fp32 FFT step at 197
+tokens run through the kernels.  The encoder backward repeats bit for bit
+on both routes; on the bf16 route (tensor cores) its device memory at the
+training geometry stays under 4 MB, and its weight-gradient pass run
+without one layer's gq|gk|gv rows breaks the bound on that layer's wq, wk
+and wv.
 W8A8 linear (#10, a quantise kernel and an int8 wgmma GEMM): bit-equal to
 ``int8_matmul`` (the int32 sums are exact and every other step rounds as
 the plain version does) at the six tower shapes at the step's ViT and
@@ -85,6 +102,7 @@ import math
 import pytest
 import torch
 
+from iisan_tpu_torch import testing as et
 from iisan_tpu_torch.models.user_encoder import UserEncoder, causal_additive_mask
 from iisan_tpu_torch.ops import fused_attention as fa
 from iisan_tpu_torch.ops import fused_attn_subblock as fsb
@@ -137,7 +155,8 @@ def _encoder_inputs(device, B, L, D, H, n_layers, dtype, seed=0):
 @pytest.mark.parametrize("B,L,D,H,NL", [(1, 10, 64, 2, 2), (256, 10, 64, 2, 2),
                                          (37, 7, 48, 3, 1), (5, 20, 128, 4, 3),
                                          (8, 20, 64, 2, 2), (4, 50, 64, 2, 2),
-                                         (4, 50, 128, 2, 2), (3, 10, 64, 2, 6)])
+                                         (4, 50, 128, 2, 2), (3, 10, 64, 2, 6),
+                                         (8, 10, 36, 2, 2), (6, 10, 12, 3, 1)])
 def test_user_encoder_kernel_matches_plain(cuda_device, dtype, B, L, D, H, NL):
     enc, x, mask3 = _encoder_inputs(cuda_device, B, L, D, H, NL, dtype)
     kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L)
@@ -165,11 +184,13 @@ def test_user_encoder_dispatch_reaches_kernel(cuda_device):
 
 @pytest.mark.cuda
 def test_user_encoder_dispatch_raises_on_unsupported_shape(cuda_device):
-    # D=36 is not a multiple of 8: on the card the module raises instead of
-    # running the module path.
+    # A sequence longer than the position table: on the card the module
+    # raises instead of running the module path.  (D=36, once refused,
+    # runs the kernels: test_user_encoder_kernel_matches_plain.)
     enc, x, mask3 = _encoder_inputs(cuda_device, 2, 10, 36, 2, 1,
                                     torch.float32)
-    log_mask = (mask3[:, -1] == 0).float()
+    x = torch.cat([x, x[:, :1]], 1)
+    log_mask = torch.ones(2, 11, device=cuda_device)
     before = fue.user_encoder_fwd.launches
     with torch.no_grad(), pytest.raises(ValueError, match="does not take"):
         enc(x, log_mask)
@@ -400,12 +421,19 @@ def _assert_grad_close(got, want, dtype):
     assert ((got - want).abs() <= bound).all(), f"max |diff| {(got - want).abs().max()}"
 
 
+def _bwd_reference(x, mask3, params, gout, kw):
+    """The plain backward; in bf16 at the tensor-core kernel's own FFN ReLU
+    decisions (``iisan_tpu_torch.testing.plain_bwd_at_kernel_decisions``)."""
+    return et.plain_bwd_at_kernel_decisions(x, mask3, params, gout, **kw)[:2]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,L,D,H,NL", [(64, 10, 64, 2, 2), (1, 10, 64, 2, 2),
                                          (3, 10, 64, 2, 1), (37, 7, 48, 3, 1),
                                          (8, 20, 64, 2, 2), (4, 50, 64, 2, 2),
-                                         (4, 50, 128, 2, 2), (3, 10, 64, 2, 6)])
+                                         (4, 50, 128, 2, 2), (3, 10, 64, 2, 6),
+                                         (8, 10, 36, 2, 2), (6, 10, 12, 3, 1)])
 def test_user_encoder_train_kernels_match_plain(cuda_device, dtype, B, L, D, H, NL):
     enc, x, mask3 = _encoder_inputs(cuda_device, B, L, D, H, NL, dtype)
     gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(
@@ -417,7 +445,7 @@ def test_user_encoder_train_kernels_match_plain(cuda_device, dtype, B, L, D, H, 
     got = fue.user_encoder_fwd(x, mask3, params, **kw)
     want = fue.user_encoder_fwd_plain(x, mask3, params, **kw)
     gx, gp = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
-    gx_p, gp_p = fue.user_encoder_bwd_plain(x, mask3, params, gout, **kw)
+    gx_p, gp_p = _bwd_reference(x, mask3, params, gout, kw)
     torch.cuda.synchronize()
     assert fue.user_encoder_fwd.launches == f0 + 1
     assert fue.user_encoder_bwd.launches == b0 + 1
@@ -490,18 +518,180 @@ def test_cascade_loss_backward_reaches_every_input(cuda_device):
 
 @pytest.mark.cuda
 def test_user_encoder_bwd_raises_on_unsupported_shape(cuda_device):
-    # Six blocks' stash goes to a global scratch; a width that is not a
-    # multiple of 8 is still refused.
+    # Six blocks' stash goes to a global scratch; a hidden width whose
+    # packed parameters pass the stated limit (2^31 entries) is refused
+    # before anything is read.
     assert fue.bwd_supported(2, 10, 64, 2, 256, 6, 10)
     assert fue.bwd_plan(10, 64, 2, 256, 6)[0] == fue.SLOTS_GLOBAL
-    enc, x, mask3 = _encoder_inputs(cuda_device, 2, 10, 36, 2, 1, torch.float32)
-    kw = dict(n_layers=1, n_heads=2, d_ff=144, n_position=10)
+    enc, x, mask3 = _encoder_inputs(cuda_device, 2, 10, 64, 2, 1, torch.float32)
+    kw = dict(n_layers=1, n_heads=2, d_ff=2 ** 24, n_position=10)
     params = enc.packed_params(torch.float32)
-    assert not fue.bwd_supported(2, 10, 36, 2, 144, 1, 10)
+    assert not fue.bwd_supported(2, 10, 64, 2, 2 ** 24, 1, 10)
     before = fue.user_encoder_bwd.launches
-    with pytest.raises(ValueError, match="does not take"):
-        fue.user_encoder_bwd(x, mask3, params, torch.zeros_like(x), **kw)
+    for dtype in DTYPES:
+        with pytest.raises(ValueError, match="does not take"):
+            fue.user_encoder_bwd(x.to(dtype), mask3, params,
+                                 torch.zeros_like(x, dtype=dtype), **kw)
     assert fue.user_encoder_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H,F", [(64, 2, 16392), (1376, 2, 5504)])
+def test_user_encoder_kernels_take_wide_weights(cuda_device, dtype, D, H, F):
+    # Past the fp32 route's 16,384-float staging buffer: F > 16,384 (w1's
+    # rows go in column panels) and 3F > 16,384 (w2^T's rows in panels),
+    # which the bf16 route streams like any other width.
+    B, L, NL = 3, 10, 1
+    gen = torch.Generator().manual_seed(9)
+    parts = [torch.randn(s, generator=gen) / s[0] ** 0.5 if len(s) == 2
+             else 1.0 + 0.1 * torch.randn(s, generator=gen)
+             for s in fue.param_shapes(D, F, NL, L)]
+    params = torch.cat([t.reshape(-1) for t in parts]).to(cuda_device)
+    x = torch.randn(B, L, D, generator=gen).to(cuda_device, dtype)
+    gout = torch.randn(B, L, D, generator=gen).to(cuda_device, dtype)
+    mask3 = causal_additive_mask(torch.ones(B, L, device=cuda_device)).reshape(B, L, L)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=F, n_position=L, seed=3, rate=0.1)
+    _assert_close(fue.user_encoder_fwd(x, mask3, params, **kw),
+                  fue.user_encoder_fwd_plain(x, mask3, params, **kw), dtype)
+    got = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    want = _bwd_reference(x, mask3, params, gout, kw)
+    _assert_grad_close(got[0], want[0], dtype)
+    for g, w in zip(fue.unpack_encoder_params(got[1], D, F, NL, L),
+                    fue.unpack_encoder_params(want[1], D, F, NL, L)):
+        _assert_grad_close(g, w, dtype)
+
+
+def _wide_params(device, D, F, NL, L, seed):
+    # matrices ~ N(0, 1/fan_in), vectors 1 + N(0, 0.01), made on the card
+    gen = torch.Generator(device).manual_seed(seed)
+    parts = [torch.randn(s, generator=gen, device=device) / s[0] ** 0.5
+             if len(s) == 2 else
+             1.0 + 0.1 * torch.randn(s, generator=gen, device=device)
+             for s in fue.param_shapes(D, F, NL, L)]
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H,backward", [(5461, 43, False), (1820, 4, True)])
+def test_user_encoder_kernels_at_the_width_caps(cuda_device, dtype, D, H, backward):
+    # The widths the kernels took before every width the heads divide was
+    # taken: forward D = 5,461 (21,844 hidden: the fp32 route's weights in
+    # panels, the areas spilled to device memory) and backward D = 1,820,
+    # two sequences in train mode.
+    B, L, NL, F = 2, 4, 1, 4 * D
+    params = _wide_params(cuda_device, D, F, NL, L, 13)
+    gen = torch.Generator(cuda_device).manual_seed(14)
+    x = torch.randn(B, L, D, generator=gen, device=cuda_device).to(dtype)
+    mask3 = causal_additive_mask(torch.ones(B, L, device=cuda_device)).reshape(B, L, L)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=F, n_position=L, seed=5, rate=0.1)
+    assert fue.supported(B, L, D, H, F, L) and fue.bwd_supported(B, L, D, H, F, NL, L)
+    _assert_close(fue.user_encoder_fwd(x, mask3, params, **kw),
+                  fue.user_encoder_fwd_plain(x, mask3, params, **kw), dtype)
+    if not backward:
+        return
+    gout = torch.randn(B, L, D, generator=gen, device=cuda_device).to(dtype)
+    got = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    want = _bwd_reference(x, mask3, params, gout, kw)
+    _assert_grad_close(got[0], want[0], dtype)
+    for g, w in zip(fue.unpack_encoder_params(got[1], D, F, NL, L),
+                    fue.unpack_encoder_params(want[1], D, F, NL, L)):
+        _assert_grad_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H,NL", [(1, 10, 64, 2, 2), (256, 10, 64, 2, 2),
+                                         (64, 10, 64, 2, 2), (37, 7, 48, 3, 1),
+                                         (5, 20, 128, 4, 3), (4, 50, 128, 2, 2),
+                                         (3, 10, 64, 2, 6), (8, 10, 36, 2, 2),
+                                         (6, 10, 12, 3, 1), (3, 10, 1376, 2, 1),
+                                         (2, 4, 5461, 43, 1), (2, 4, 1820, 4, 1)])
+def test_encoder_plan_matches_the_kernels_layout(cuda_device, B, L, D, H, NL):
+    # The Python plan (which the wrappers allocate by and the CPU tests
+    # check) against the layout the library computes, which the code that
+    # reads the kernels' buffers uses.
+    F = 4 * D
+    lib = fue.library_tc_layout(B, L, D, H, F, NL)
+    fwd = fue.encoder_plan(B, L, D, H, F, NL, torch.bfloat16)
+    bwd = fue.encoder_plan(B, L, D, H, F, NL, torch.bfloat16, backward=True)
+    assert (lib["fwd_place"], lib["fwd_smem"], lib["fwd_scratch"]) == fwd[1:4]
+    assert (lib["bwd_place"], lib["bwd_smem"], lib["bwd_scratch"]) == bwd[1:4]
+    assert lib["image"] == fue.tc_image_elems(D, F, NL)
+    py = fue.tc_work_layout(B, L, D, F, NL, bwd.scratch_bytes)
+    for key in ("xin", "ctx", "x1", "hf", "gqkv", "go2", "ghpre", "gh2", "layer",
+                "part", "gx32", "scratch", "total"):
+        assert lib[key] == py[key], key
+    assert lib["total"] == bwd.work_bytes
+
+
+@pytest.mark.cuda
+def test_user_encoder_serving_reuses_its_weight_image(cuda_device):
+    # Under no_grad the module keeps one bf16 weight image per parameter
+    # version beside its packed vector, and the forward reads it.
+    enc, x, mask3 = _encoder_inputs(cuda_device, 4, 10, 64, 2, 2, torch.bfloat16)
+    enc.dtype = torch.bfloat16
+    log_mask = (mask3[:, -1] == 0).float()
+    kw = dict(n_layers=2, n_heads=2, d_ff=256, n_position=10)
+    with torch.no_grad():
+        first = enc(x, log_mask)
+        packed, image = enc._serving_params(torch.bfloat16)
+        assert torch.equal(enc(x, log_mask), first)
+        assert enc._serving_params(torch.bfloat16)[1] is image
+        assert torch.equal(first, fue.user_encoder_fwd(x, mask3, packed, **kw))
+        with pytest.raises(ValueError, match="weight image"):
+            fue.user_encoder_fwd(x, mask3, packed, image=image[1:], **kw)
+        next(enc.parameters()).add_(0.5)
+        assert enc._serving_params(torch.bfloat16)[1] is not image
+
+
+def _train_case(device, dtype, B=64, L=10, D=64, H=2, NL=2):
+    enc, x, mask3 = _encoder_inputs(device, B, L, D, H, NL, dtype)
+    gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(
+        device, dtype)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L, seed=4242,
+              rate=0.1)
+    return x, mask3, enc.packed_params(dtype), gout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_user_encoder_bwd_repeats_bit_for_bit(cuda_device, dtype):
+    x, mask3, params, gout, kw = _train_case(cuda_device, dtype)
+    first = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    second = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_user_encoder_bwd_bf16_memory_and_planted_fault(cuda_device):
+    # The bf16 backward's device memory at the training geometry (no
+    # (B, P) scratch): at most 4 MB beyond its inputs, outputs included.
+    # Then its weight-gradient pass run on a buffer whose last layer lost
+    # its gq|gk|gv rows: dwq, dwk and dwv break the bound.
+    x, mask3, params, gout, kw = _train_case(cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    gx, gp = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda_device) - before <= 4 * 2 ** 20
+    want = _bwd_reference(x, mask3, params, gout, kw)
+    B, L, D = x.shape
+    NL, F = kw["n_layers"], kw["d_ff"]
+    unpack = lambda t: fue.unpack_encoder_params(t, D, F, NL, L)  # noqa: E731
+    for g, w in zip(unpack(gp), unpack(want[1])):
+        _assert_grad_close(g, w, torch.bfloat16)
+    gx2, faulty = et.wgrad_rows_dropped(x, mask3, params, gout, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gx2, gx)
+    k0 = 3 + fue.PER_BLOCK * (NL - 1)
+    for i, (g, w) in enumerate(zip(unpack(faulty), unpack(want[1]))):
+        if k0 <= i < k0 + 3:
+            with pytest.raises(AssertionError):
+                _assert_grad_close(g, w, torch.bfloat16)
+        else:
+            _assert_grad_close(g, w, torch.bfloat16)
 
 
 @pytest.mark.cuda
