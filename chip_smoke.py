@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's cached serving and training paths, its
-uncached training paths (IISAN and full fine-tuning, and IISAN's W8A8 and
-attention-subblock tower options) and IISAN-Versa
-(``pipeline="cached_asym"``) once on one NVIDIA GPU.
+uncached training paths (IISAN and full fine-tuning, IISAN's W8A8 and
+attention-subblock tower options, and the LoRA, Houlsby and BitFit
+baselines with multi-attribute text, tower remat and the transformers
+weight import) and IISAN-Versa (``pipeline="cached_asym"``) once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -173,8 +175,43 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``fused_mha`` (24 #5 launches a step) and 3 through the
    ``subblock`` route (24 #8); at ``CV_resize=288`` (325 tokens) 3 steps
    through ``subblock``; each with its step breakdown.
-21. Print the uncached step's device-busy time on each tower route of this
-   run, one JSON line of per-kernel results, then the final status line.
+21. The tower-training baselines at phase 9's geometry and batch 8 (88
+   images and titles), 3 steps each, with UNCACHED_CFG's settings
+   (adapters on both towers, the towers' own weights frozen): LoRA
+   (``adapter_type="lora"``, rank 64 on q and v), Houlsby adapters
+   (``"houslby"``, 64 / 64) and BitFit (``"bitfit"``).  Per step 24
+   ``mha_fwd`` and 24 ``mha_bwd`` (LoRA's factors get their gradient only
+   through #6's dq and dv; Houlsby 22: each tower's first attention has
+   nothing trainable below it) and the encoder kernels once; finite losses; a
+   nonzero gradient on every trainable parameter after step 3 (LoRA's A
+   has none on step 1, its B starting at zero); every frozen tower
+   parameter bit-unchanged.  Host step time, device-busy time by kernel
+   family and peak memory are printed beside FFT's (phase 9).
+22. From one set of weights at dropout 0, 3 LoRA and 3 Houlsby steps
+   through the kernels and through the module path: losses within 2e-2
+   (phase 10's bound).
+23. Multi-attribute text items (title, abstract, body at 30 / 50 / 50
+   words; the packed table is three synthetic tables side by side): LoRA,
+   3 steps of batch 8, 48 ``mha_fwd`` and ``mha_bwd`` a step (BERT three
+   times, the ViT once); then IISAN at batch 64, 2 steps: 24 ``mha_fwd``
+   a step (only the title block runs), and its item table (bit-equal),
+   first loss (equal) and second loss (within 1e-3) are the title-only
+   model's from the same weights.
+24. Tower remat at the reference's FFT batch of 32 (``FFT_ATTN_AB.json``):
+   FFT with ``remat_towers`` False, True and "mlp".  The first step at
+   dropout 0 from one set of weights: its loss within 1e-3 relative and
+   every tower gradient within the bf16 bound of no remat's.  Then 3 steps
+   each (48 ``mha_fwd`` a step under remat: #5 replayed in the backward),
+   peak memory, host and device-busy step time.
+25. transformers weights: BERT-base and ViT-base towers with random
+   weights written as transformers state dicts (``hf_state_dict``, the
+   inverse of ``params_from_hf_torch``), read back through
+   ``params_from_hf_torch`` into fresh towers on the card: hidden stacks
+   bit-equal to the source towers'.
+26. Print the uncached step's device-busy time on each tower route of this
+   run, one JSON line of per-kernel results (the launches of phases 21,
+   23 and 24 counted in #5, #6 and the encoder rows), then the final
+   status line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -1309,8 +1346,13 @@ def uncached_trainer(device, corpus, tower_params=None, **kw):
                                              synthetic_token_table)
     from iisan_tpu_torch.train.uncached import UncachedTrainer
 
+    import numpy as np
+
     cfg = IISANConfig(**{**UNCACHED_CFG, **kw})
-    tokens = synthetic_token_table(corpus.item_num, cfg.num_words_title, seed=0)
+    # one synthetic table per active text attribute, side by side (the
+    # title's alone by default)
+    tokens = np.concatenate([synthetic_token_table(corpus.item_num, w, seed=i)
+                             for i, w in enumerate(cfg.attr_num_words())], 1)
     tr = UncachedTrainer(cfg, corpus, tokens, SyntheticImageStore(cfg.CV_resize),
                          tower_params=tower_params, device=device)
     torch.cuda.synchronize()
@@ -1418,9 +1460,10 @@ def train_iisan_uncached(device, counters, busy_by_route):
     return {k: launches[k] + table_launches[k] for k in launches}
 
 
-def train_fft(device, counters):
+def train_fft(device, counters, stats):
     """Phase 9: three full fine-tuning steps of batch 8; returns the
-    launches."""
+    launches and records (host ms, device-busy ms, peak GiB) of the step
+    in ``stats["FFT"]``."""
     import numpy as np
     import torch
 
@@ -1454,23 +1497,21 @@ def train_fft(device, counters):
         raise AssertionError(f"FFT: launches {launches}")
     if not np.isfinite(losses).all() or dead:
         raise AssertionError(f"FFT: loss {losses}, no gradient for {dead[:5]}")
+    stats["FFT"] = (host, busy, peak)
     return launches
 
 
-def check_uncached_routes(device):
-    """Phase 10: 3 IISAN and 3 FFT steps from one set of weights at dropout
-    0, through the kernels and through the module path."""
+def check_uncached_routes(device, cases):
+    """Phase 10 (and 22): for each (name, users, trainer options), 3 steps
+    from one set of weights at dropout 0, through the kernels and through
+    the module path; the losses agree within 2e-2."""
     import torch
 
     from iisan_tpu_torch.data.synthetic import synthetic_corpus
 
-    for name, corpus, kw in (
-            ("IISAN", synthetic_corpus(n_users=3 * 64, item_num=800,
-                                       max_seq_len=SEQ_LEN, seed=0), {}),
-            ("FFT", synthetic_corpus(n_users=3 * FFT_BATCH, item_num=800,
-                                     max_seq_len=SEQ_LEN, seed=0),
-             dict(batch_size=FFT_BATCH, adding_adapter_to="None",
-                  adapter_type="houslby"))):
+    for name, users, kw in cases:
+        corpus = synthetic_corpus(n_users=users, item_num=800,
+                                  max_seq_len=SEQ_LEN, seed=0)
         losses = {}
         state = None
         for route, rkw in (("kernels", {}),
@@ -1493,6 +1534,309 @@ def check_uncached_routes(device):
             + f"; max relative difference {rel:.3g} (tol 2e-2)")
         if rel > 2e-2:
             raise AssertionError(f"{name}: the kernel route's losses leave the module path's")
+
+
+# The tower-training baselines (SURVEY section 0's Code_Uncached: LoRA,
+# Houlsby adapters, BitFit) at UNCACHED_CFG's settings (adapters added to
+# both towers, fine_tune_to "None": the towers' own weights frozen); LoRA
+# rank and Houlsby widths are the config's 64 / 64.  Each with its #6
+# launches a step: Houlsby's first layer in each tower has nothing that
+# trains below its attention (frozen q, k, v over frozen embeddings), so
+# autograd runs no attention backward there.
+BASELINES = (("LoRA", 24, dict(adapter_type="lora")),
+             ("Houlsby", 22, dict(adapter_type="houslby")),
+             ("BitFit", 24, dict(adapter_type="bitfit")))
+# Multi-attribute items: title, abstract, body at the config's 30 / 50 / 50
+# words.
+MULTI_ATTRS = dict(news_attributes=("title", "abstract", "body"))
+REMAT_BATCH = 32  # the reference's FFT batch (FFT_ATTN_AB.json)
+
+
+def frozen_towers(tr):
+    """Copies of the tower parameters the trainer's mask freezes."""
+    return {n: p.detach().clone() for n, p in tr.model.named_parameters()
+            if not tr.mask[n] and n.startswith(("text_tower.", "image_tower."))}
+
+
+def train_baseline(device, counters, name, per_step, stats, **kw):
+    """Phase 21 (and 23): three steps of FFT's batch 8 of one baseline;
+    ``per_step`` (#5, #6) launches a step.  Checks the launches, finite
+    losses, a nonzero gradient on every trainable parameter (after step 3:
+    LoRA's A has none on step 1, B starting at zero) and the frozen tower
+    weights bit-unchanged; records (host ms, device-busy ms, peak GiB) in
+    ``stats[name]``; returns the launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=3 * FFT_BATCH, item_num=800,
+                              max_seq_len=SEQ_LEN, seed=0)
+    tr = uncached_trainer(device, corpus, batch_size=FFT_BATCH, **kw)
+    if tr.method != kw["adapter_type"]:
+        raise AssertionError(f"{name}: method {tr.method}")
+    frozen = frozen_towers(tr)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    _, launches = counted(counters, lambda: tr.run_epoch(1))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    losses = tr._last_step_losses.float().cpu().numpy()
+    params = dict(tr.model.named_parameters())
+    trained = [n for n in params if tr.mask[n]]
+    tower_trained = [n for n in trained if n.startswith(("text_tower.", "image_tower."))]
+    dead = [n for n in trained
+            if params[n].grad is None or not bool(params[n].grad.abs().sum() > 0)]
+    moved = [n for n, p in frozen.items() if not torch.equal(params[n], p)]
+    n_train = sum(params[n].numel() for n in trained)
+    host, busy, families = uncached_breakdown(tr, staged_batch(tr, 0), 3)
+    stats[name] = (host, busy, peak)
+    log(f"{name}: 3 steps of {FFT_BATCH} users ({FFT_BATCH * (SEQ_LEN + 1)} images) in "
+        f"{epoch_s:.3f} s; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches}; {len(trained)} trainable tensors ({n_train} values, "
+        f"{len(tower_trained)} in the towers), {len(trained) - len(dead)} with a nonzero "
+        f"gradient; {len(frozen)} frozen tower tensors, {len(moved)} moved; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"{name} step on a staged batch: host {host:.2f} ms (median of 3, synchronised), "
+        f"device-busy {busy:.2f} ms (profiler): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+    want = {"mha_fwd": per_step[0] * 3, "mha_bwd": per_step[1] * 3,
+            "user_encoder_fwd": 3, "user_encoder_bwd": 3}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    if not np.isfinite(losses).all() or len(losses) != 3:
+        raise AssertionError(f"{name}: losses {losses}")
+    if dead or moved or not tower_trained:
+        raise AssertionError(f"{name}: no gradient for {dead[:5]}, frozen weights "
+                             f"moved {moved[:5]}, tower tensors trained {len(tower_trained)}")
+    return launches
+
+
+def log_baselines(stats):
+    log("tower-training step at batch 8, this run (staged batch): " + "; ".join(
+        f"{k} host {h:.2f} ms, device-busy {b:.2f} ms, peak {m:.2f} GiB"
+        for k, (h, b, m) in stats.items()))
+
+
+def train_multi_attribute(device, counters, stats):
+    """Phase 23: LoRA over title, abstract and body (three BERT passes a
+    step: 48 #5 and #6 launches), three steps of batch 8; then IISAN over
+    the same rows, whose item table and losses are the title-only model's
+    from the same weights (it reads only the title block: 24 #5 a step).
+    Returns the launches of both runs."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    launches = train_baseline(device, counters, "LoRA, 3 attributes", (48, 48),
+                              stats, adapter_type="lora", **MULTI_ATTRS)
+    torch.cuda.empty_cache()
+    corpus = synthetic_corpus(n_users=2 * 64, item_num=800, max_seq_len=SEQ_LEN,
+                              seed=0)
+    runs, state = {}, None
+    for name, kw in (("3 attributes", MULTI_ATTRS), ("title", {})):
+        tr = uncached_trainer(device, corpus, **kw)
+        if state is None:
+            state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+            width = tr.token_table.shape[1]
+        else:
+            tr.model.load_state_dict(state)
+        table = tr.item_embedding_tables()
+        _, counts = counted(counters, lambda: tr.run_epoch(1))
+        runs[name] = (table, tr._last_step_losses.float().cpu().numpy(), counts)
+        del tr
+        torch.cuda.empty_cache()
+    (t3, l3, c3), (t1, l1, _) = runs["3 attributes"], runs["title"]
+    same_table = torch.equal(t3, t1)
+    rel = float(np.max(np.abs(l3 - l1) / np.abs(l1)))
+    log(f"IISAN over 3 attributes ({width} token columns), 2 steps of 64 users: losses "
+        + ", ".join(f"{x:.6f}" for x in l3) + "; title only "
+        + ", ".join(f"{x:.6f}" for x in l1) + f" (max relative difference {rel:.3g}); "
+        f"launches {c3}; item table bit-equal to the title-only one: {same_table}")
+    if width != 2 * (30 + 50 + 50) or c3["mha_fwd"] != 24 * 2 or c3["mha_bwd"] != 0:
+        raise AssertionError(f"IISAN over 3 attributes: width {width}, launches {c3}")
+    if not (same_table and l3[0] == l1[0] and rel <= 1e-3):
+        raise AssertionError("IISAN over 3 attributes leaves the title-only model")
+    return {k: launches[k] + c3[k] for k in launches}
+
+
+def train_remat(device, counters):
+    """Phase 24: FFT at batch 32 with remat_towers False, True and "mlp":
+    the first step at dropout 0 (``deterministic=True``) from one set of
+    weights, its loss within 1e-3 relative and its tower gradients within
+    the bf16 bound of no remat's; then one epoch of 3 steps, peak memory,
+    and the step's breakdown.  Returns the epochs' launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.images import normalize_images
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    corpus = synthetic_corpus(n_users=3 * REMAT_BATCH, item_num=800,
+                              max_seq_len=SEQ_LEN, seed=0)
+    total, state, ref = None, None, None
+    for remat in (False, True, "mlp"):
+        tr = uncached_trainer(device, corpus, batch_size=REMAT_BATCH,
+                              adding_adapter_to="None", remat_towers=remat)
+        if state is None:
+            state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(state)
+        batch = staged_batch(tr, 0)
+        model = tr.model
+        model.zero_grad(set_to_none=True)
+        out = model(batch[0].long(), normalize_images(batch[1], tr.dtype), batch[2],
+                    batch[3], tr.pop_prob, deterministic=True)
+        out.backward()
+        loss = float(out.detach())
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if n.startswith(("text_tower.", "image_tower."))}
+        if ref is None:  # kept on the host, out of the peaks measured below
+            ref = (loss, {n: g.cpu() for n, g in grads.items()})
+            worst = 0.0
+        else:
+            worst = max(tensor_ratio(grads[n], g.to(device), BWD_TOL["bfloat16"])
+                        for n, g in ref[1].items())
+        model.zero_grad(set_to_none=True)
+        del out, grads
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        _, launches = counted(counters, lambda: tr.run_epoch(1))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        losses = tr._last_step_losses.float().cpu().numpy()
+        host, busy, families = uncached_breakdown(tr, batch, 2)
+        rel = abs(loss - ref[0]) / abs(ref[0])
+        log(f"FFT at batch {REMAT_BATCH}, remat_towers={remat!r}: first step at dropout 0 "
+            f"loss {loss:.6f} (relative to no remat {rel:.3g}, tol 1e-3; tower gradients "
+            f"at {worst:.3g} of the bf16 bound); 3 steps in {epoch_s:.3f} s, losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + f"; launches {launches}; peak "
+            f"memory {peak:.2f} GiB; staged step host {host:.2f} ms (median of 2), "
+            f"device-busy {busy:.2f} ms: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+        replay = 2 if remat else 1
+        if launches["mha_fwd"] != 24 * 3 * replay or launches["mha_bwd"] != 24 * 3:
+            raise AssertionError(f"remat {remat!r}: launches {launches}")
+        if rel > 1e-3 or worst > 1.0 or not np.isfinite(losses).all():
+            raise AssertionError(f"remat {remat!r} leaves no remat: loss {loss} vs "
+                                 f"{ref[0]}, gradients at {worst} of the bound")
+        total = launches if total is None else {k: total[k] + launches[k]
+                                                for k in launches}
+        del tr, model, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def tensor_ratio(got, want, tol):
+    """Largest |got - want| / (tol * (max|want| + |want|)): <= 1 agrees."""
+    got, want = got.float(), want.float()
+    if not torch_finite(got):
+        return float("inf")
+    bound = tol * (want.abs().max() + want.abs())
+    return float(((got - want).abs() / bound.clamp_min(1e-30)).max())
+
+
+# transformers' names of the port's tower parameters: (port name, HF name);
+# per layer, the module names (a dense layer's weight is its kernel
+# transposed, a LayerNorm's weight its scale).
+BERT_TO_HF = (
+    ("word_embeddings.embedding", "embeddings.word_embeddings.weight"),
+    ("position_embeddings", "embeddings.position_embeddings.weight"),
+    ("token_type_embeddings", "embeddings.token_type_embeddings.weight"),
+    ("embeddings_layernorm.scale", "embeddings.LayerNorm.weight"),
+    ("embeddings_layernorm.bias", "embeddings.LayerNorm.bias"))
+BERT_LAYER_TO_HF = (
+    ("attention.query", "attention.self.query"),
+    ("attention.key", "attention.self.key"),
+    ("attention.value", "attention.self.value"),
+    ("attention_output", "attention.output.dense"),
+    ("attention_layernorm", "attention.output.LayerNorm"),
+    ("intermediate", "intermediate.dense"),
+    ("output", "output.dense"),
+    ("output_layernorm", "output.LayerNorm"))
+VIT_LAYER_TO_HF = (
+    ("layernorm_before", "layernorm_before"),
+    ("attention.query", "attention.attention.query"),
+    ("attention.key", "attention.attention.key"),
+    ("attention.value", "attention.attention.value"),
+    ("attention_output", "attention.output.dense"),
+    ("layernorm_after", "layernorm_after"),
+    ("intermediate", "intermediate.dense"),
+    ("output", "output.dense"))
+
+
+def hf_state_dict(enc, vit: bool):
+    """transformers' state dict of a port encoder's weights (the inverse of
+    ``params_from_hf_torch``), tensors on the encoder's device."""
+    p = dict(enc.named_parameters())
+    sd = {}
+    if vit:
+        k = p["patch_projection.kernel"]
+        ps = enc.patch_size
+        sd["embeddings.patch_embeddings.projection.weight"] = (
+            k.reshape(ps, ps, 3, -1).permute(3, 2, 0, 1).contiguous())
+        sd["embeddings.patch_embeddings.projection.bias"] = p["patch_projection.bias"]
+        sd["embeddings.cls_token"] = p["cls_token"]
+        sd["embeddings.position_embeddings"] = p["position_embeddings"]
+        sd["layernorm.weight"] = p["final_layernorm.scale"]
+        sd["layernorm.bias"] = p["final_layernorm.bias"]
+    else:
+        sd.update((hf, p[ours]) for ours, hf in BERT_TO_HF)
+    for i in range(enc.num_layers):
+        for ours, hf in (VIT_LAYER_TO_HF if vit else BERT_LAYER_TO_HF):
+            a, b = f"layer_{i}.{ours}", f"encoder.layer.{i}.{hf}"
+            if f"{a}.kernel" in p:
+                sd[f"{b}.weight"] = p[f"{a}.kernel"].t().contiguous()
+            else:
+                sd[f"{b}.weight"] = p[f"{a}.scale"]
+            sd[f"{b}.bias"] = p[f"{a}.bias"]
+    return sd
+
+
+def check_hf_import(device):
+    """Phase 25: BERT-base and ViT-base towers with random weights, as
+    transformers state dicts (``hf_state_dict``), through
+    ``params_from_hf_torch`` into fresh towers on the card: the hidden
+    stacks are bit-equal to the source towers'."""
+    import torch
+
+    from iisan_tpu_torch.models import bert, vit
+    from iisan_tpu_torch.utils.jax_params import load_jax_params
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = FFT_BATCH * (SEQ_LEN + 1)
+    for name, module, is_vit in (("BERT-base", bert, False), ("ViT-base", vit, True)):
+        cls = module.ViTEncoder if is_vit else module.BertEncoder
+        made = [cls(dtype=torch.bfloat16, fused_attention=True, collect="cls",
+                    generator=torch.Generator().manual_seed(seed)).to(device)
+                for seed in (1, 2)]
+        source, fresh = made
+        if is_vit:
+            size = source.image_size
+            args = (torch.randn((rows, size, size, 3), generator=gen,
+                                device=device).to(torch.bfloat16),)
+        else:
+            vocab = source.word_embeddings.embedding.shape[0]
+            ids = torch.randint(1, vocab, (rows, TITLE_T), generator=gen, device=device)
+            mask = torch.ones_like(ids)
+            mask[1, 17:] = 0
+            args = (ids, mask)
+        sd = hf_state_dict(source, is_vit)
+        tree = (module.params_from_hf_torch(sd, source.num_layers, prefix="")
+                if is_vit else module.params_from_hf_torch(sd, source.num_layers))
+        load_jax_params(fresh, tree)
+        with torch.no_grad():
+            want, got = source(*args)[1], fresh(*args)[1]
+        log(f"HF import, {name}: {len(sd)} transformers tensors -> params_from_hf_torch "
+            f"-> a fresh tower on the card; hidden stack {tuple(got.shape)} bit-equal "
+            f"{torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"HF import, {name}: the hidden stacks differ")
+        del made, source, fresh, sd, tree, args
+        torch.cuda.empty_cache()
 
 
 def w8a8_split(fn):
@@ -2567,9 +2911,13 @@ def main() -> int:
     busy_by_route = {}  # the uncached step's device-busy ms on each tower route
     iisan_counts = train_iisan_uncached(device, ucounters, busy_by_route)
     torch.cuda.empty_cache()
-    fft_counts = train_fft(device, ucounters)
+    step_stats = {}  # (host ms, device-busy ms, peak GiB) of each tower-training step
+    fft_counts = train_fft(device, ucounters, step_stats)
     torch.cuda.empty_cache()
-    check_uncached_routes(device)
+    check_uncached_routes(device, (
+        ("IISAN", 3 * 64, {}),
+        ("FFT", 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, adding_adapter_to="None",
+                                    adapter_type="houslby"))))
     uncached = {k: iisan_counts[k] + fft_counts[k] for k in iisan_counts}
 
     # IISAN-Versa: the streamed cascade kernel and the dispatch on the card,
@@ -2597,6 +2945,22 @@ def main() -> int:
     routes = train_subblock_routes(device, tcounters, busy_by_route)
     long_tokens = train_uncached_257(device, tcounters)
     towers = {k: int8[k] + routes[k] + long_tokens[k] for k in int8}
+    torch.cuda.empty_cache()
+
+    # The tower-training baselines: LoRA, Houlsby and BitFit at FFT's batch,
+    # their kernel and module routes, multi-attribute text, tower remat and
+    # the transformers weight import.
+    peft = [train_baseline(device, ucounters, name, (24, bwd), step_stats, **kw)
+            for name, bwd, kw in BASELINES]
+    torch.cuda.empty_cache()
+    check_uncached_routes(device, tuple(
+        (name, 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, **kw))
+        for name, _, kw in BASELINES if name != "BitFit"))
+    peft.append(train_multi_attribute(device, ucounters, step_stats))
+    log_baselines(step_stats)
+    peft.append(train_remat(device, ucounters))
+    check_hf_import(device)
+    peft = {k: sum(c[k] for c in peft) for k in peft[0]}
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
@@ -2616,12 +2980,13 @@ def main() -> int:
         entry("user_encoder_fwd", "iisan_tpu/ops/fused_user_encoder.py:264",
               counts[0] + train_counts["user_encoder_fwd"]
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
-              + towers["user_encoder_fwd"],
+              + towers["user_encoder_fwd"] + peft["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
-              + versa["user_encoder_bwd"] + towers["user_encoder_bwd"],
+              + versa["user_encoder_bwd"] + towers["user_encoder_bwd"]
+              + peft["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
@@ -2632,14 +2997,16 @@ def main() -> int:
               versa["san_cascade_streamed_fwd"], streamed["err"],
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
-              uncached["mha_fwd"] + towers["mha_fwd"], attn["fwd_err"], attn["fwd_ms"],
-              attn["fwd_plain_ms"], attn["fwd_bound"], attn["fwd_sdpa_ms"]),
+              uncached["mha_fwd"] + towers["mha_fwd"] + peft["mha_fwd"],
+              attn["fwd_err"], attn["fwd_ms"], attn["fwd_plain_ms"],
+              attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",
-              uncached["mha_bwd"], attn["bwd_err"], attn["bwd_ms"],
-              attn["bwd_plain_ms"], attn["bwd_bound"], attn["bwd_sdpa_ms"]),
+              uncached["mha_bwd"] + towers["mha_bwd"] + peft["mha_bwd"],
+              attn["bwd_err"], attn["bwd_ms"], attn["bwd_plain_ms"],
+              attn["bwd_bound"], attn["bwd_sdpa_ms"]),
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
-              uncached["mha_mask_replay"], 0.0, attn["replay_ms"],
-              attn["replay_plain_ms"], attn["replay_bound"], None),
+              uncached["mha_mask_replay"] + peft["mha_mask_replay"], 0.0,
+              attn["replay_ms"], attn["replay_plain_ms"], attn["replay_bound"], None),
         entry("attn_subblock_fwd", "iisan_tpu/ops/fused_attn_subblock.py:107",
               towers["fused_attn_subblock"], subblock[False]["err"],
               subblock[False]["ms"], subblock[False]["plain_ms"],

@@ -23,6 +23,15 @@ it per encoder call and expand it with Philox per (layer, head).
 ``quant="int8"`` makes every dense layer an ``ops.int8_linear.Int8Dense``
 (W8A8, kernel #10 on a CUDA input): frozen towers only.
 
+The baselines' tower options (``models/peft.py``): ``lora_rank > 0``
+makes ``query`` and ``value`` ``LoRADense`` layers (never int8; the
+subblock routes then run ``fused_mha``, as the JAX layers do), and
+``houlsby_down > 0`` adds ``attention_adapter`` after the attention
+output's dropout and ``output_adapter`` after the FFN's.  ``remat`` (False,
+True or "mlp") rematerialises each layer in the backward
+(``modules.tower_layer``).  ``params_from_hf_torch`` maps a transformers
+``BertModel`` state dict onto this tree.
+
 Parameter names and layouts are the JAX tree's (``layer_3.attention.query
 .kernel`` of shape (in, out), ``word_embeddings.embedding``), so
 ``utils/jax_params.load_jax_params`` carries a JAX tree across unchanged.
@@ -30,9 +39,11 @@ Parameter names and layouts are the JAX tree's (``layer_3.attention.query
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,16 +52,17 @@ from ..ops import philox
 from ..ops.fused_attention import fused_mha
 from ..ops.fused_attn_subblock import fused_attn_subblock, fused_attn_subblock_v2
 from ..ops.int8_linear import dense_or_int8
-from .modules import LayerNorm, _dropout, lecun_normal_init
+from .modules import LayerNorm, _dropout, lecun_normal_init, tower_layer
+from .peft import HoulsbyAdapter, LoRADense
 
 LN_EPS = 1e-12
 SUBBLOCK_OPS = {"subblock": fused_attn_subblock,
                 "subblock_v2": fused_attn_subblock_v2}
 
 
-def subblock_route(fused, quant: str) -> bool:
-    """The JAX layers' test for the subblock branch (no LoRA in the port)."""
-    return fused in SUBBLOCK_OPS and quant == "none"
+def subblock_route(fused, quant: str, lora_rank: int = 0) -> bool:
+    """The JAX layers' test for the subblock branch."""
+    return fused in SUBBLOCK_OPS and lora_rank == 0 and quant == "none"
 
 
 def module_attention(q, k, v, n_heads: int, key_bias, dt, dropout: float,
@@ -77,13 +89,18 @@ class SelfAttention(nn.Module):
     """Q/K/V projections and the attention (BERT's and ViT's alike)."""
 
     def __init__(self, dim: int, num_heads: int, dtype, dropout: float,
-                 fused, quant: str = "none", device=None, generator=None):
+                 fused, quant: str = "none", lora_rank: int = 0, device=None,
+                 generator=None):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
         self.dropout, self.fused = dropout, fused
-        self.query, self.key, self.value = (
-            dense_or_int8(dim, dim, dtype, quant, device, generator)
-            for _ in range(3))
+
+        def dense(lora: bool):  # LoRA layers are never int8, as in JAX
+            if lora and lora_rank > 0:
+                return LoRADense(dim, dim, lora_rank, dtype, device, generator)
+            return dense_or_int8(dim, dim, dtype, quant, device, generator)
+
+        self.query, self.key, self.value = dense(True), dense(False), dense(True)
 
     def forward(self, x, key_bias=None, deterministic: bool = True,
                 generator=None, seed: Optional[int] = None, layer: int = 0):
@@ -122,7 +139,7 @@ def attention_seed(module: nn.Module, x: torch.Tensor, deterministic: bool,
     run in train mode."""
     if deterministic or module.dropout <= 0.0:
         return None
-    if not (subblock_route(module.fused, module.quant)
+    if not (subblock_route(module.fused, module.quant, module.lora_rank)
             or (module.fused and x.is_cuda)):
         return None
     if generator is None:
@@ -130,28 +147,43 @@ def attention_seed(module: nn.Module, x: torch.Tensor, deterministic: bool,
     return philox.draw_seed(generator)
 
 
+def houlsby_adapter(dim: int, down: int, activation: str, dtype, device,
+                    generator) -> nn.Module:
+    """A Houlsby adapter of width ``down``; the identity for 0."""
+    if down > 0:
+        return HoulsbyAdapter(dim, down, activation, dtype, device, generator)
+    return nn.Identity()
+
+
 class BertLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, intermediate_dim: int, dtype,
-                 dropout: float, fused, quant: str = "none", device=None,
-                 generator=None):
+                 dropout: float, fused, quant: str = "none", lora_rank: int = 0,
+                 houlsby_down: int = 0, adapter_activation: str = "RELU",
+                 device=None, generator=None):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
-        self.fused, self.quant = fused, quant
+        self.fused, self.quant, self.lora_rank = fused, quant, lora_rank
         self.attention = SelfAttention(dim, num_heads, dtype, dropout, fused,
-                                       quant, device, generator)
+                                       quant, lora_rank, device, generator)
         self.attention_output = dense_or_int8(dim, dim, dtype, quant, device,
                                               generator)
+        self.attention_adapter = houlsby_adapter(
+            dim, houlsby_down, adapter_activation, dtype, device, generator)
         self.attention_layernorm = LayerNorm(dim, LN_EPS, device)
         self.intermediate = dense_or_int8(dim, intermediate_dim, dtype, quant,
                                           device, generator)
         self.output = dense_or_int8(intermediate_dim, dim, dtype, quant, device,
                                     generator)
+        self.output_adapter = houlsby_adapter(
+            dim, houlsby_down, adapter_activation, dtype, device, generator)
         self.output_layernorm = LayerNorm(dim, LN_EPS, device)
 
-    def forward(self, x, key_bias, deterministic: bool = True, generator=None,
-                seed: Optional[int] = None, layer: int = 0):
+    def attention_block(self, x, key_bias, deterministic, seed, layer,
+                        generator=None):
+        """x -> LN(x + adapter(dropout(attention))), twice: the residual
+        and the FFN's input are one tensor in a post-LN layer."""
         dt = self.dtype or x.dtype
-        if subblock_route(self.fused, self.quant):
+        if subblock_route(self.fused, self.quant, self.lora_rank):
             attn = subblock_attention(self.fused, self.attention,
                                       self.attention_output, x, key_bias,
                                       deterministic, seed, layer)
@@ -159,10 +191,27 @@ class BertLayer(nn.Module):
             attn = self.attention_output(self.attention(
                 x, key_bias, deterministic, generator, seed, layer))
         attn = _dropout(attn, self.dropout, deterministic, generator)
+        attn = self.attention_adapter(attn)
         x = self.attention_layernorm((x + attn).float()).to(dt)
-        h = F.gelu(self.intermediate(x))
-        h = _dropout(self.output(h), self.dropout, deterministic, generator)
+        return x, x
+
+    def mlp_block(self, x, h, deterministic, generator=None):
+        """(residual, pre-GELU hidden) -> the layer's output."""
+        dt = self.dtype or x.dtype
+        h = _dropout(self.output(F.gelu(h)), self.dropout, deterministic,
+                     generator)
+        h = self.output_adapter(h)
         return self.output_layernorm((x + h).float()).to(dt)
+
+    def forward(self, x, key_bias, deterministic: bool = True, generator=None,
+                seed: Optional[int] = None, layer: int = 0, remat=False):
+        return tower_layer(
+            remat, functools.partial(self.attention_block, key_bias=key_bias,
+                                     deterministic=deterministic, seed=seed,
+                                     layer=layer),
+            self.intermediate,
+            functools.partial(self.mlp_block, deterministic=deterministic),
+            x, generator)
 
 
 class Embed(nn.Module):
@@ -184,6 +233,8 @@ class BertEncoder(nn.Module):
                  num_layers: int = 12, num_heads: int = 12,
                  intermediate_dim: int = 3072, max_position: int = 512,
                  type_vocab_size: int = 2, dtype=None, dropout: float = 0.1,
+                 lora_rank: int = 0, houlsby_down: int = 0,
+                 adapter_activation: str = "RELU", remat=False,
                  fused_attention=False, collect: str = "full",
                  quant: str = "none", device=None, generator=None):
         super().__init__()
@@ -191,6 +242,7 @@ class BertEncoder(nn.Module):
             raise ValueError(f"collect must be 'full' or 'cls', got {collect!r}")
         self.num_layers, self.dtype, self.dropout = num_layers, dtype, dropout
         self.fused, self.collect, self.quant = fused_attention, collect, quant
+        self.lora_rank, self.remat = lora_rank, remat
         self.word_embeddings = Embed(vocab_size, hidden_dim, device, generator)
 
         def normal(shape):
@@ -203,7 +255,8 @@ class BertEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BertLayer(
                 hidden_dim, num_heads, intermediate_dim, dtype, dropout,
-                fused_attention, quant, device, generator))
+                fused_attention, quant, lora_rank, houlsby_down,
+                adapter_activation, device, generator))
 
     def forward(self, input_ids, attention_mask, deterministic: bool = True,
                 generator=None):
@@ -220,6 +273,50 @@ class BertEncoder(nn.Module):
         hiddens = [reduce(x)]
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, key_bias, deterministic,
-                                            generator, seed, i)
+                                            generator, seed, i, self.remat)
             hiddens.append(reduce(x))
         return x, torch.stack(hiddens, 0)
+
+
+def params_from_hf_torch(state_dict, num_layers: int = 12, lora: bool = False):
+    """A transformers ``BertModel`` state dict (tensors on any device) ->
+    ``BertEncoder``'s tree as numpy arrays (``kernel = weight.T``), for
+    ``utils/jax_params.load_jax_params``.  ``lora=True`` nests q and v
+    under ``base``; the LoRA factors are not in the state dict, and the
+    caller completes the tree with the model's own
+    (``utils/jax_params.with_lora_factors``)."""
+
+    def t(name):
+        return state_dict[name].detach().cpu().float().numpy()
+
+    def lin(prefix):
+        return {"kernel": np.ascontiguousarray(t(prefix + ".weight").T),
+                "bias": t(prefix + ".bias")}
+
+    def qv(prefix):
+        return {"base": lin(prefix)} if lora else lin(prefix)
+
+    def ln(prefix):
+        return {"scale": t(prefix + ".weight"), "bias": t(prefix + ".bias")}
+
+    p = {
+        "word_embeddings": {"embedding": t("embeddings.word_embeddings.weight")},
+        "position_embeddings": t("embeddings.position_embeddings.weight"),
+        "token_type_embeddings": t("embeddings.token_type_embeddings.weight"),
+        "embeddings_layernorm": ln("embeddings.LayerNorm"),
+    }
+    for i in range(num_layers):
+        e = f"encoder.layer.{i}"
+        p[f"layer_{i}"] = {
+            "attention": {
+                "query": qv(f"{e}.attention.self.query"),
+                "key": lin(f"{e}.attention.self.key"),
+                "value": qv(f"{e}.attention.self.value"),
+            },
+            "attention_output": lin(f"{e}.attention.output.dense"),
+            "attention_layernorm": ln(f"{e}.attention.output.LayerNorm"),
+            "intermediate": lin(f"{e}.intermediate.dense"),
+            "output": lin(f"{e}.output.dense"),
+            "output_layernorm": ln(f"{e}.output.LayerNorm"),
+        }
+    return p

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
 # JAX's truncated normal is cut at +-2 std; this factor restores the variance.
@@ -62,7 +63,8 @@ def adapter_normal_init(shape, device=None, generator=None) -> torch.Tensor:
 
 class TorchLinear(nn.Module):
     """Dense layer, ``kernel`` (in, out); torch-default uniform init, or
-    ``init="xavier"`` / ``"lecun"`` (flax ``nn.Dense``) with zero bias."""
+    ``init="xavier"`` / ``"lecun"`` (flax ``nn.Dense``) / ``"adapter"``
+    (N(0, 1e-2)) with zero bias."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, init: str = "torch",
@@ -79,6 +81,9 @@ class TorchLinear(nn.Module):
             bias = torch.zeros(features, device=device)
         elif init == "lecun":  # flax nn.Dense
             kernel = lecun_normal_init(shape, in_features, device, generator)
+            bias = torch.zeros(features, device=device)
+        elif init == "adapter":
+            kernel = adapter_normal_init(shape, device, generator)
             bias = torch.zeros(features, device=device)
         else:
             raise ValueError(f"unknown init {init!r}")
@@ -126,6 +131,62 @@ def _dropout(x, rate: float, deterministic: bool, generator=None):
     u = torch.rand(x.shape, generator=generator, device=generator.device)
     keep = (u >= rate).to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def checkpointed(fn, generator, *args):
+    """``fn(*args, generator=...)`` under ``torch.utils.checkpoint``
+    (non-reentrant, so parameters inside ``fn`` get their gradients even
+    where no input needs one): its activations are recomputed in the
+    backward instead of stored.
+
+    Dropout inside ``fn`` draws from an explicit generator, which the
+    checkpoint does not replay.  So ``fn`` runs on a generator of its own,
+    set to ``generator``'s state at forward time both in the forward and
+    in the recompute (the recompute draws the forward's masks), and
+    ``generator`` ends where the forward left it, as without the
+    checkpoint."""
+    if generator is None:
+        return checkpoint(fn, *args, generator=None, use_reentrant=False,
+                          preserve_rng_state=False)
+    start, end = generator.get_state(), []
+
+    def replay(*a):
+        g = torch.Generator(generator.device)
+        g.set_state(start)
+        out = fn(*a, generator=g)
+        if not end:
+            end.append(g.get_state())
+        return out
+
+    out = checkpoint(replay, *args, use_reentrant=False,
+                     preserve_rng_state=False)
+    generator.set_state(end[0])
+    return out
+
+
+def tower_layer(remat, attention_block, intermediate, mlp_block, x, generator):
+    """One BERT or ViT layer, split at its stored pre-GELU hidden:
+    ``attention_block(x, generator=g)`` -> (residual, MLP input), ``h =
+    intermediate(MLP input)``, ``mlp_block(residual, h, generator=g)``.
+
+    ``remat`` (the JAX encoders' ``remat``): False stores everything;
+    True checkpoints the whole layer (``intermediate`` runs again in the
+    backward); "mlp" checkpoints the two blocks around ``intermediate``,
+    whose input and pre-GELU output are stored, so the backward does not
+    run it again.  Without autograd (frozen towers under ``no_grad``)
+    remat does nothing."""
+
+    def whole(x, generator):
+        residual, mlp_in = attention_block(x, generator=generator)
+        return mlp_block(residual, intermediate(mlp_in), generator=generator)
+
+    if not remat or not torch.is_grad_enabled():
+        return whole(x, generator)
+    if remat == "mlp":
+        residual, mlp_in = checkpointed(attention_block, generator, x)
+        return checkpointed(mlp_block, generator, residual,
+                            intermediate(mlp_in))
+    return checkpointed(whole, generator, x)
 
 
 class MultiHeadedAttention(nn.Module):

@@ -3,7 +3,10 @@
 Port of ``iisan_tpu/models/towers.py``:
 
 - ``TextTower``: BERT over the packed ``[ids | mask]`` title row, then
-  ``gelu(fc(CLS))`` and the hidden stack;
+  ``gelu(fc(CLS))`` and the hidden stack; with several text attributes
+  (``attr_num_words``) one ``[ids | mask]`` block each, all through the
+  same BERT and ``fc``, the vector their mean and the hiddens the first
+  block's;
 - ``ImageTower``: ViT, then ``gelu(classifier(CLS of the final-LN
   output))`` and the hidden stack;
 - ``take_cls_taps``: hidden stack -> (N, K, D) CLS taps for the SAN;
@@ -13,9 +16,12 @@ Port of ``iisan_tpu/models/towers.py``:
   ``stop_gradient``), so no tower activation is kept for a backward;
 - ``FFTRecModel``: the full fine-tuning baseline, the towers' output heads
   fused by ``com_dense`` (the "fft" modality) and trained end to end;
+  with LoRA or Houlsby towers, or the BitFit mask, the same class is the
+  parameter-efficient baselines;
 - ``towers_from_config``: both towers at the configuration's geometry,
   with the JAX package's checks of ``tower_quant`` and
-  ``fused_tower_attention``.
+  ``fused_tower_attention`` and its reading of ``adapter_type``,
+  ``remat_towers`` and ``news_attributes``.
 """
 
 from __future__ import annotations
@@ -38,20 +44,41 @@ from .vit import ViTEncoder
 
 
 class TextTower(nn.Module):
-    """BERT + CLS head; ``tokens`` (N, 2 * num_words) int, ids then mask."""
+    """BERT + CLS head; ``tokens`` (N, sum of 2 * width) int, each text
+    attribute's ``[ids | mask]`` block in turn (the title alone by
+    default: ``attr_num_words=()`` reads ``num_words``)."""
 
     def __init__(self, bert: BertEncoder, hidden_dim: int, embedding_dim: int,
-                 num_words: int, device=None, generator=None):
+                 num_words: int, attr_num_words: Tuple[int, ...] = (),
+                 device=None, generator=None):
         super().__init__()
         self.bert, self.num_words = bert, num_words
+        self.widths = tuple(attr_num_words) or (num_words,)
         self.fc = TorchLinear(hidden_dim, embedding_dim, device=device,
                               generator=generator)
 
+    def blocks(self, tokens):
+        """(ids, mask) of each attribute's block."""
+        start = 0
+        for nw in self.widths:
+            yield tokens[:, start:start + nw], tokens[:, start + nw:start + 2 * nw]
+            start += 2 * nw
+
+    def hiddens(self, tokens, deterministic: bool = True, generator=None):
+        """The first block's hidden stack alone (IISAN reads no text
+        vector, so the other blocks would run for nothing)."""
+        return self.bert(*next(self.blocks(tokens)), deterministic, generator)[1]
+
     def forward(self, tokens, deterministic: bool = True, generator=None):
-        nw = self.num_words
-        last, hiddens = self.bert(tokens[:, :nw], tokens[:, nw:2 * nw],
-                                  deterministic, generator)
-        return F.gelu(self.fc(last[:, 0])), hiddens
+        vecs, hiddens0 = [], None
+        for ids, mask in self.blocks(tokens):
+            last, hiddens = self.bert(ids, mask, deterministic, generator)
+            vecs.append(F.gelu(self.fc(last[:, 0])))
+            hiddens0 = hiddens if hiddens0 is None else hiddens0
+        if len(vecs) == 1:
+            return vecs[0], hiddens0
+        # the mean accumulates in fp32 and rounds once, as jnp.mean
+        return torch.stack(vecs, 1).float().mean(1).to(vecs[0].dtype), hiddens0
 
 
 class ImageTower(nn.Module):
@@ -105,7 +132,7 @@ class UncachedIISANModel(nn.Module):
         frozen = self.freeze_towers
         with torch.no_grad() if frozen else contextlib.nullcontext():
             _, h_cv = self.image_tower(images, deterministic, generator)
-            _, h_text = self.text_tower(tokens, deterministic, generator)
+            h_text = self.text_tower.hiddens(tokens, deterministic, generator)
         cv_taps = take_cls_taps(h_cv, self.image_tap_ids)
         text_taps = take_cls_taps(h_text, self.text_tap_ids)
         if frozen:
@@ -124,7 +151,7 @@ class UncachedIISANModel(nn.Module):
     def forward(self, item_ids, images, tokens, log_mask, pop_prob,
                 deterministic: bool = False, generator=None):
         """Training loss: item_ids (bs, L+1); images (bs*(L+1), H, W, 3)
-        normalised; tokens (bs*(L+1), 2 * num_words); log_mask (bs, L)."""
+        normalised; tokens (bs*(L+1), packed text width); log_mask (bs, L)."""
         cv_taps, text_taps = self.encode_taps(images, tokens, deterministic,
                                               generator)
         score_embs = self.fuse(*self.san(cv_taps, text_taps))
@@ -175,10 +202,17 @@ def towers_from_config(cfg, dtype=None, device=None, generator=None):
     """(TextTower, ImageTower) at the configuration's geometry: heads of
     width 64, MLP 4x, BERT dropout 0.1 and ViT 0.0 unless
     ``tower_dropout`` >= 0 sets both; CLS-only hidden stacks;
-    ``tower_quant="int8"`` gives W8A8 encoders (their heads stay float).
-    Raises ``ValueError`` where the JAX package does (an unknown or
-    removed quant value, int8 towers that train, an unknown attention
-    route) and ``NotImplementedError`` for what the port does not have."""
+    ``tower_quant="int8"`` gives W8A8 encoders (their heads stay float);
+    ``remat_towers`` on both encoders.  ``adapter_type="lora"`` puts LoRA
+    of rank ``bert_adapter_down_size`` on both towers' q and v, and
+    ``"houslby"`` (the reference's spelling, and the only one that adds
+    adapters: ``"houlsby"`` and ``"adapter"`` build plain towers, as in
+    the JAX package) Houlsby adapters of width ``bert_adapter_down_size``
+    in BERT and ``cv_adapter_down_size`` in the ViT, each only when
+    ``adding_adapter_to`` is not "None".  The text tower takes every
+    active text attribute unless that is the title alone.  Raises
+    ``ValueError`` where the JAX package does (an unknown or removed
+    quant value, int8 towers that train, an unknown attention route)."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     quant = getattr(cfg, "tower_quant", "none")
     if quant == "int8_pallas":
@@ -205,29 +239,34 @@ def towers_from_config(cfg, dtype=None, device=None, generator=None):
                       "backward: the towers train, so they run fused_mha "
                       "(fused_tower_attention=True) instead", stacklevel=2)
         fta = True
-    if getattr(cfg, "remat_towers", False):
-        raise NotImplementedError("remat_towers is not ported yet")
-    if cfg.adding_adapter_to != "None" and cfg.adapter_type in (
-            "lora", "houslby", "houlsby", "adapter"):
-        raise NotImplementedError(f"adapter_type={cfg.adapter_type!r} (LoRA / "
-                                  "Houlsby tower adapters) is not ported yet")
-    if cfg.active_text_attributes() != ("title",):
-        raise NotImplementedError("multi-attribute text items are not ported "
-                                  "yet (news_attributes must be title only)")
+    adapters = cfg.adding_adapter_to != "None"
+    lora = cfg.bert_adapter_down_size if (
+        adapters and cfg.adapter_type == "lora") else 0
+    houlsby = adapters and cfg.adapter_type == "houslby"
     td = getattr(cfg, "tower_dropout", -1.0)
+    remat = getattr(cfg, "remat_towers", False)
     D_t, D_v = cfg.word_embedding_dim, cfg.image_embedding_dim
     bert = BertEncoder(hidden_dim=D_t, num_layers=cfg.text_layers,
                        num_heads=max(1, D_t // 64), intermediate_dim=4 * D_t,
                        dtype=dtype, dropout=td if td >= 0 else 0.1,
+                       lora_rank=lora,
+                       houlsby_down=cfg.bert_adapter_down_size if houlsby else 0,
+                       adapter_activation=cfg.adapter_activation, remat=remat,
                        fused_attention=fta, collect="cls", quant=quant,
                        device=device, generator=generator)
     vit = ViTEncoder(image_size=cfg.CV_resize, hidden_dim=D_v,
                      num_layers=cfg.image_layers, num_heads=max(1, D_v // 64),
                      intermediate_dim=4 * D_v, dtype=dtype,
-                     dropout=td if td >= 0 else 0.0, fused_attention=fta,
-                     collect="cls", quant=quant, device=device,
-                     generator=generator)
-    text = TextTower(bert, D_t, cfg.embedding_dim, cfg.num_words_title, device,
-                     generator)
+                     dropout=td if td >= 0 else 0.0, lora_rank=lora,
+                     houlsby_down=cfg.cv_adapter_down_size if houlsby else 0,
+                     adapter_activation=cfg.adapter_activation, remat=remat,
+                     fused_attention=fta, collect="cls", quant=quant,
+                     device=device, generator=generator)
+    # A single non-title attribute has its own width, so the widths go in
+    # whenever the active set is anything but the title alone.
+    attrs = (() if cfg.active_text_attributes() == ("title",)
+             else cfg.attr_num_words())
+    text = TextTower(bert, D_t, cfg.embedding_dim, cfg.num_words_title, attrs,
+                     device, generator)
     image = ImageTower(vit, D_v, cfg.embedding_dim, device, generator)
     return text, image

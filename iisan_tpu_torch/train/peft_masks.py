@@ -12,8 +12,11 @@ slashes, and a trailing slash, as the JAX package spells tree paths):
 with the reference's precedence: the index freeze at load time <
 ``fine_tune_to`` < the method's re-enables < ``finetune_layernorm``.
 ``trainable_mask`` returns ``{name: bool}`` and sets ``requires_grad`` to
-match.  (The port has no LoRA or Houlsby modules yet, so those methods
-find nothing of theirs to re-enable.)
+match.  LoRA's factors (``lora_A`` / ``lora_B``) and the Houlsby adapters
+(``attention_adapter`` / ``output_adapter``) are ``models/peft.py``'s,
+which ``towers_from_config`` builds only for ``adapter_type`` "lora" and
+"houslby": under "houlsby" or "adapter" the towers are plain, and those
+methods re-enable the heads alone, as in the JAX package.
 """
 
 from __future__ import annotations

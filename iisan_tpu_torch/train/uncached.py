@@ -1,13 +1,16 @@
-"""IISAN (Uncached) and full fine-tuning training on one device.
+"""IISAN (Uncached), full fine-tuning and the PEFT baselines on one device.
 
 Port of ``iisan_tpu/train/uncached.py``: the BERT and ViT towers run inside
 every training step.  ``build_uncached_model`` picks the model from the
 adapter method (IISAN: ``UncachedIISANModel`` with frozen towers; otherwise
-``FFTRecModel``), and ``trainable_mask`` decides what the optimizer
-updates.  A step: upload the batch's uint8 images, normalise them on the
+``FFTRecModel``: FFT, and LoRA, Houlsby and BitFit, whose towers
+``towers_from_config`` builds), and ``trainable_mask`` decides what the
+optimizer updates.  A step: upload the batch's uint8 images, normalise them on the
 device, the model's training forward, ``backward``, one Adam step.  Images
 are decoded on a thread pool one batch ahead (``ParallelImageLoader``);
-titles are rows of the packed token table.
+text items are rows of the packed token table (every active attribute's
+``[ids | mask]`` block).  ``remat_towers`` rematerialises the towers' layers
+in the backward.
 
 The frozen IISAN towers run under any of the JAX package's options:
 ``tower_quant="int8"`` (W8A8 encoders; float ``tower_params`` trees are
@@ -32,7 +35,7 @@ from ..eval.evaluate import evaluate
 from ..models.san import san_from_config
 from ..models.towers import FFTRecModel, UncachedIISANModel, towers_from_config
 from ..ops.int8_linear import quantize_dense_tree
-from ..utils.jax_params import load_jax_params
+from ..utils.jax_params import load_jax_params, with_lora_factors
 from .loop import TrainLoopMixin
 from .optim import build_optimizer, log_group_sizes
 from .peft_masks import trainable_mask
@@ -80,10 +83,13 @@ class UncachedTrainer(TrainLoopMixin):
     """Uncached training with both towers in the step.
 
     cfg: an ``IISANConfig`` (either package's); corpus: a ``Corpus``;
-    token_table: (item_num+1, 2 * num_words) packed title rows;
+    token_table: (item_num+1, ``cfg.packed_text_width()``) packed rows,
+    one ``[ids | mask]`` block per active text attribute;
     image_store: ``.get(name)`` -> (H, W, 3) uint8; tower_params: optional
     {"text_tower/bert": JAX tree, ...} grafted over the initial weights
-    (float trees are quantised first under ``tower_quant="int8"``).
+    (float trees are quantised first under ``tower_quant="int8"``; a tree
+    without LoRA factors, such as ``params_from_hf_torch(lora=True)``'s,
+    takes the model's own).
     The model is initialised on the CPU from ``cfg.seed`` and moved to
     ``device`` (default the first CUDA card; the CPU only when asked
     for).  Dropout draws from a generator on ``device`` seeded from
@@ -103,7 +109,8 @@ class UncachedTrainer(TrainLoopMixin):
             tower_params = {k: quantize_grafted(k, v)
                             for k, v in tower_params.items()}
         for key, tree in (tower_params or {}).items():
-            load_jax_params(self.model.get_submodule(key.replace("/", ".")), tree)
+            sub = self.model.get_submodule(key.replace("/", "."))
+            load_jax_params(sub, with_lora_factors(sub, tree))
         self.model.to(self.device)
         self.mask = trainable_mask(
             self.model, self.method,
@@ -131,7 +138,7 @@ class UncachedTrainer(TrainLoopMixin):
 
     def train_step(self, ids, images_u8, tokens, log_mask) -> torch.Tensor:
         """One step: ids (bs, L+1), images_u8 (bs*(L+1), H, W, 3) uint8,
-        tokens (bs*(L+1), 2 * num_words), log_mask (bs, L), all on the
+        tokens (bs*(L+1), packed text width), log_mask (bs, L), all on the
         device; returns the loss (not synchronised)."""
         images = normalize_images(images_u8, self.dtype)
         loss = self.model(ids.long(), images, tokens, log_mask, self.pop_prob,

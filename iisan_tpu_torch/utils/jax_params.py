@@ -75,6 +75,24 @@ def load_jax_params(model: nn.Module, params) -> None:
             p.copy_(torch.tensor(arrays[name]))
 
 
+def with_lora_factors(model: nn.Module, params) -> dict:
+    """``params`` completed with the model's own ``lora_A`` / ``lora_B``
+    where it has none (a tree from ``params_from_hf_torch(lora=True)``:
+    a pretrained checkpoint holds no LoRA factors), ready for the strict
+    ``load_jax_params``.  Nothing else is filled in."""
+    tree, have = dict(params), flatten_tree(params)
+    for name, p in model.named_parameters():
+        *parents, leaf = name.split(".")
+        if leaf not in ("lora_A", "lora_B") or name in have:
+            continue
+        node = tree
+        for part in parents:
+            node[part] = dict(node.get(part, {}))
+            node = node[part]
+        node[leaf] = p.detach().cpu().float().numpy()
+    return tree
+
+
 def export_jax_params(model: nn.Module) -> dict:
     """The model's parameters as a JAX-layout tree of numpy arrays: fp32,
     and int8 for the int8 buffers."""

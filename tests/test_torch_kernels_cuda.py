@@ -72,8 +72,11 @@ widths that are not a multiple of 8 (D = 36 and 12, which the JAX kernel
 takes), and at the widths the kernels took before (forward D = 5,461 with
 43 heads, backward D = 1,820); the Python plan equals the layout the
 library computes; one cached step at max_seq_len=20 and one fp32 FFT step at 197
-tokens run through the kernels.  The encoder backward repeats bit for bit
-on both routes; on the bf16 route (tensor cores) its device memory at the
+tokens run through the kernels, and a LoRA BERT at BERT-base width through
+#5 / #6 agrees with its module path and with its rematerialised runs
+(``test_lora_bert_through_the_attention_kernels_and_remat``).  The
+encoder backward repeats bit for bit on both routes; on the bf16 route
+(tensor cores) its device memory at the
 training geometry stays under 4 MB, and its weight-gradient pass run
 without one layer's gq|gk|gv rows breaks the bound on that layer's wq, wk
 and wv.
@@ -985,6 +988,71 @@ def test_fft_step_fp32_at_197_tokens_runs_the_kernels(cuda_device):
         # 2 text + 2 image layers; the image layers' T is 197 (fp32: CUDA cores)
         assert fa.mha_bwd.launches - b0 == (4 if route else 0)
     assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
+
+
+def _lora_bert_step(device, state, kw, cot, ids, mask, fused, remat):
+    """One forward and backward of a LoRA BERT, the LoRA factors alone
+    trainable (layer 0's input needs no gradient); returns (loss, the
+    factors' gradients, mha_fwd and mha_bwd launches)."""
+    from iisan_tpu_torch.models.bert import BertEncoder
+
+    enc = BertEncoder(**kw, fused_attention=fused, remat=remat)
+    enc.load_state_dict(state)
+    enc.to(device)
+    for n, p in enc.named_parameters():
+        p.requires_grad_("lora_" in n)
+    f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
+    _, hiddens = enc(ids, mask, deterministic=False,
+                     generator=torch.Generator(device).manual_seed(1))
+    loss = (hiddens.float() * cot).sum()
+    loss.backward()
+    grads = {n: p.grad for n, p in enc.named_parameters() if "lora_" in n}
+    return (loss.detach().reshape(1), grads,
+            (fa.mha_fwd.launches - f0, fa.mha_bwd.launches - b0))
+
+
+@pytest.mark.cuda
+def test_lora_bert_through_the_attention_kernels_and_remat(cuda_device):
+    """A 2-layer LoRA BERT at BERT-base width (rank 64 on q and v, bf16,
+    dropout 0): through #5 / #6 and through the module path the loss and
+    every ``lora_A`` / ``lora_B`` gradient agree within the bf16 bound
+    (their only route to a gradient is #6's dq and dv); remat True and
+    "mlp" give the no-remat kernel route's gradients within the same
+    bound, #5 replayed in the backward."""
+    from iisan_tpu_torch.models.bert import BertEncoder
+
+    kw = dict(vocab_size=1000, hidden_dim=768, num_layers=2, num_heads=12,
+              intermediate_dim=3072, dtype=torch.bfloat16, dropout=0.0,
+              lora_rank=64, collect="cls")
+    gen = torch.Generator().manual_seed(0)
+    ref = BertEncoder(**kw, generator=gen)
+    with torch.no_grad():
+        for n, p in ref.named_parameters():
+            if n.endswith("lora_B"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    state = ref.state_dict()
+    ids = torch.randint(1, 1000, (16, 30), generator=gen).to(cuda_device)
+    mask = torch.ones(16, 30, dtype=torch.long)
+    mask[3, 17:] = 0
+    mask = mask.to(cuda_device)
+    cot = torch.randn((3, 16, 768), generator=gen).to(cuda_device)
+    run = {}
+    for name, fused, remat in (("module", False, False), ("kernels", True, False),
+                               ("remat", True, True), ("mlp", True, "mlp")):
+        run[name] = _lora_bert_step(cuda_device, state, kw, cot, ids, mask,
+                                    fused, remat)
+    assert run["module"][2] == (0, 0) and run["kernels"][2] == (2, 2)
+    assert run["remat"][2] == (4, 2) and run["mlp"][2] == (4, 2)
+    loss, grads, _ = run["kernels"]
+    assert len(grads) == 8
+    assert all(bool(g.abs().sum() > 0) for g in grads.values())
+    _assert_grad_close(loss, run["module"][0], torch.bfloat16)
+    for n, g in grads.items():
+        _assert_grad_close(g, run["module"][1][n], torch.bfloat16)
+    for other in ("remat", "mlp"):
+        _assert_grad_close(run[other][0], loss, torch.bfloat16)
+        for n, g in grads.items():
+            _assert_grad_close(run[other][1][n], g, torch.bfloat16)
 
 
 # ----------------------------------------------------------------------

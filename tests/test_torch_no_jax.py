@@ -1,9 +1,11 @@
 """The port imports no JAX and builds nothing at import time.
 
 A fresh interpreter imports every module of iisan_tpu_torch (the trainers
-included); afterwards no ``jax`` / ``flax`` / ``optax`` module and no
-module of the JAX package (``iisan_tpu`` or ``iisan_tpu.*``) is loaded,
-and the kernel library has not been built or loaded.
+included); afterwards no ``jax`` / ``flax`` / ``optax`` module, no module
+of the JAX package (``iisan_tpu`` or ``iisan_tpu.*``) and no
+``transformers`` module (the GPU machine has none: ``params_from_hf_torch``
+reads a state dict without it) is loaded, and the kernel library has not
+been built or loaded.
 """
 
 import json
@@ -24,8 +26,9 @@ from iisan_tpu_torch.kernels import build
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 reference = sorted(m for m in sys.modules if m.split(".")[0] == "iisan_tpu")
+hf = sorted(m for m in sys.modules if m.split(".")[0] == "transformers")
 print(json.dumps({"modules": names, "jax": loaded, "reference": reference,
-                  "built": build._lib is not None}))
+                  "transformers": hf, "built": build._lib is not None}))
 """
 
 
@@ -45,7 +48,10 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "iisan_tpu_torch.ops.int8_linear" in out["modules"]
     assert "iisan_tpu_torch.ops.fused_w8a8" in out["modules"]
     assert "iisan_tpu_torch.ops.fused_attn_subblock" in out["modules"]
+    assert "iisan_tpu_torch.models.peft" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (
         f"JAX-package modules loaded by the port: {out['reference']}")
+    assert out["transformers"] == [], (
+        f"transformers modules loaded by the port: {out['transformers'][:5]}")
     assert not out["built"]

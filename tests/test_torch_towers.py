@@ -22,8 +22,8 @@ Also: ``normalize_images`` bit for bit against JAX in bf16 and fp32, the
 stable synthetic images and token rows, ``take_cls_taps``, ``com_dense``
 on the "fft" modality, ``towers_from_config``'s checks (the JAX package's
 errors, the subblock-to-``fused_mha`` warning for towers that train, and
-the port's refusals), and ``trainable_mask`` against the JAX package's
-path predicates.
+the options it once refused, now built as the JAX package builds them),
+and ``trainable_mask`` against the JAX package's path predicates.
 """
 
 import warnings
@@ -222,12 +222,35 @@ IISAN = dict(adapter_type="IISAN", adding_adapter_to="all", fine_tune_to="None")
     dict(remat_towers=True),
     dict(remat_towers="mlp"),
     dict(adapter_type="lora", adding_adapter_to="all"),
-    dict(adapter_type="houslby", adding_adapter_to="all"),
+    dict(adapter_type="houslby", adding_adapter_to="all", cv_adapter_down_size=4),
     dict(news_attributes=("title", "abstract")),
 ])
 def test_towers_from_config_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
-        towers_from_config(IISANConfig(**{**SMALL, **kw}))
+    """Each of these options was once refused; now each builds, and the
+    towers carry it as the JAX package's ``towers_from_config`` does."""
+    from iisan_tpu.models.towers import towers_from_config as jax_towers
+    from iisan_tpu_torch.models.peft import HoulsbyAdapter, LoRADense
+
+    cfg = IISANConfig(**{**SMALL, **kw})
+    text, image = towers_from_config(cfg)
+    jtext, jimage = jax_towers(JaxConfig(**{**SMALL, **kw}))
+    assert text.widths == (tuple(jtext.attr_num_words)
+                           or (cfg.num_words_title,))
+    for enc, jenc in ((text.bert, jtext.bert), (image.vit, jimage.vit)):
+        assert enc.remat == jenc.remat and enc.lora_rank == jenc.lora_rank
+        for i in range(enc.num_layers):
+            layer = getattr(enc, f"layer_{i}")
+            a = layer.attention
+            assert isinstance(a.query, LoRADense) == (jenc.lora_rank > 0)
+            assert isinstance(a.value, LoRADense) == (jenc.lora_rank > 0)
+            assert not isinstance(a.key, LoRADense)
+            if jenc.lora_rank:
+                assert a.query.lora_A.shape == (128, jenc.lora_rank)
+                assert a.value.lora_B.shape == (jenc.lora_rank, 128)
+            for adapter in (layer.attention_adapter, layer.output_adapter):
+                assert isinstance(adapter, HoulsbyAdapter) == (jenc.houlsby_down > 0)
+                if jenc.houlsby_down:
+                    assert adapter.fc_down.kernel.shape == (128, jenc.houlsby_down)
 
 
 @pytest.mark.parametrize("kw,route,quant", [
