@@ -3,8 +3,9 @@
 uncached training paths (IISAN and full fine-tuning, IISAN's W8A8 and
 attention-subblock tower options, and the LoRA, Houlsby and BitFit
 baselines with multi-attribute text, tower remat and the transformers
-weight import) and IISAN-Versa (``pipeline="cached_asym"``) once on one
-NVIDIA GPU.
+weight import), IISAN-Versa (``pipeline="cached_asym"``) and the
+hidden-state cache builders with the Versa towers (Llama, EVA, CLIP) once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -208,10 +209,47 @@ Phases, each of which raises (and so exits non-zero) on failure:
    inverse of ``params_from_hf_torch``), read back through
    ``params_from_hf_torch`` into fresh towers on the card: hidden stacks
    bit-equal to the source towers'.
-26. Print the uncached step's device-busy time on each tower route of this
-   run, one JSON line of per-kernel results (the launches of phases 21,
-   23 and 24 counted in #5, #6 and the encoder rows), then the final
-   status line.
+26. Last, after phases 27-30: print the uncached step's device-busy time
+   on each tower route of this run, one JSON line of per-kernel results
+   (the launches of phases 21, 23, 24 and 27-30 counted in #5, #6, the
+   encoder and the cascade rows), then the final status line.
+27. IISAN's caches (``cache_builder``): BERT-base x ViT-base towers from
+   ``towers_from_config(IISANConfig(...))`` (bf16, #5, seeded random
+   weights) over a synthetic catalogue of 4,096 items (titles of 4-30
+   words; the only cut) at batch 128: text and image stores in fp16 and
+   the text store in int8, 12 ``mha_fwd`` launches a batch; build time per
+   1,000 items, bytes written, and two batches of each build under the
+   profiler (device-busy by kernel family, idle share).  The stores
+   against the module path (``fused_tower_attention=False``, same
+   weights) within ``MHA_TOL["fwd"]``; rows 1, 2, 129 and 4,095 bit-equal
+   to a direct forward of their own batch rounded to fp16; a 3-shard
+   build on one store (``create_or_open``), 3 shard stores merged by the
+   command line's ``--finalize-shards``, and a build stopped after two
+   batches and resumed, each bit-equal to the single build.  Then
+   ``CachedTrainer`` opens the stores through ``open_cache`` and trains 20
+   steps at ``bench.py``'s settings on each SAN route (the encoder
+   kernels once a step, #3 twice on ``use_pallas``); and at tower dropout
+   0, from one set of SAN, head and encoder weights, its item table from
+   the stores is within ``TABLE_TOL`` of ``UncachedTrainer``'s over the
+   same towers, and the text taps shifted by one layer break that bound.
+28. Llama-3-70B text states: ``LlamaEncoder`` at the published width
+   (``LLAMA_70B``), depth 4 of 80 (80 bf16 layers are about 140 GB),
+   random bf16 weights built on the card, ``build_text_cache(pool="mean")``
+   over 1,024 titles of 30 tokens in ``tokenize_titles_llama``'s layout
+   (a word-hash tokenizer) at batch 128: rows (5, 8192), finite, the first
+   16 rows bit-equal to the mean of their batch's full stack.  Then the
+   Versa "llama" preset (text taps cut to the 5 rows built) trains 10
+   steps on ``use_pallas`` from this store and a ViT-tiny store built here
+   (192 wide, 12 layers, 3 heads, #5): #4 and #3 once a step.
+29. EVA-CLIP-18B image states: ``eva18b_geometry()`` at full depth (48
+   layers, 5,120 wide; about 35 GB in bf16, random weights built on the
+   card), 256 synthetic images at batch 32: rows (49, 5120), finite;
+   ``collect="cls"`` bit-equal to the full stack's CLS on 4 images; a
+   2-layer EVA at the same width in bf16 within ``TABLE_TOL`` of its
+   fp32 copy.  The tower is freed before the next phase.
+30. CLIP ViT-L/14 image states (``CLIP_L14``, full depth, bf16), 512
+   images at batch 128: phase 29's checks with rows (25, 1024); the build
+   time per 1,000 images beside EVA's and ViT-base's.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -308,6 +346,28 @@ VERSA_CFG = dict(TRAIN_CFG, pipeline="cached_asym", adapter_type="IISAN",
                  cached_text_model="llama70b_GPTQ_embeddings",
                  cached_image_model="vit_tiny_outputs",
                  cached_text_prefix="llama", cached_image_prefix="vit")
+# IISAN's caches (phase 27): BERT-base x ViT-base over a synthetic
+# catalogue of CACHE_ITEMS items at the builder's batch; phases 28-30: the
+# Versa towers at their published widths.
+CACHE_ITEMS, CACHE_USERS, CACHE_BATCH = 4096, 2048, 128
+CACHE_STEPS = 20
+# Rows held against a direct forward: the first two, one in the second
+# batch and one in the last.
+CACHE_ROWS = (1, 2, 129, 4095)
+LLAMA_ITEMS, LLAMA_DEPTH, LLAMA_USERS, LLAMA_STEPS = 1024, 4, 704, 10
+LLAMA_CHECK_ROWS = 16  # rows held against the full stack's mean
+# meta-llama/Meta-Llama-3-70B's config (80 layers; built at LLAMA_DEPTH).
+LLAMA_70B = dict(vocab_size=128256, hidden_dim=VERSA_TEXT_DIM, num_heads=64,
+                 num_kv_heads=8, intermediate_dim=28672, rope_theta=500000.0,
+                 rms_eps=1e-5)
+VIT_TINY = dict(hidden_dim=192, num_layers=12, num_heads=3, intermediate_dim=768)
+EVA_IMAGES, EVA_BATCH, CLIP_IMAGES = 256, 32, 512
+# openai/clip-vit-large-patch14's vision config.
+CLIP_L14 = dict(image_size=224, patch_size=14, hidden_dim=1024, num_layers=24,
+                num_heads=16, intermediate_dim=4096, hidden_act="quick_gelu")
+# The bf16 bound of the item tables and the towers' fp32-vs-bf16 checks:
+# max |diff| <= 0.05 x max |reference| (phase 4's table bound).
+TABLE_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -2770,6 +2830,475 @@ def run_slice(device, use_pallas, cv_taps, text_taps, split, requests, tmp):
     return model, table
 
 
+class MemoImages:
+    """An image store that keeps each image it has made (the first build
+    pays the synthetic decode; the repeats of phase 27 do not)."""
+
+    def __init__(self, store):
+        self.store, self.resize, self.cache = store, store.resize, {}
+
+    def get(self, name):
+        if name not in self.cache:
+            self.cache[name] = self.store.get(name)
+        return self.cache[name]
+
+
+class WordTokenizer:
+    """A duck-typed tokenizer for ``tokenize_titles_llama``: Llama-3's
+    begin-of-text id, then one id in [1, 128000) per word (CRC-32)."""
+
+    def encode(self, text, add_special_tokens=True):
+        import zlib
+
+        ids = [zlib.crc32(w.encode()) % 127999 + 1 for w in text.split()]
+        return ([128000] if add_special_tokens else []) + ids
+
+
+def store_bytes(store) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(store.path, f))
+               for f in os.listdir(store.path))
+
+
+def same_store(a, b) -> bool:
+    import numpy as np
+
+    if not np.array_equal(np.asarray(a._arr), np.asarray(b._arr)):
+        return False
+    return a._scales is None or np.array_equal(np.asarray(a._scales),
+                                               np.asarray(b._scales))
+
+
+def build_profile(fn):
+    """(host s, device-busy ms, ms by kernel family) of one call of ``fn``
+    under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    families, _ = kernel_families(prof, 1)
+    return host, sum(families.values()), families
+
+
+def set_fused(enc, fused):
+    """The attention route of every layer of a BERT / ViT tower."""
+    for m in enc.modules():
+        if hasattr(m, "fused"):
+            m.fused = fused
+
+
+def run_iisan_caches(device, counters, tmp):
+    """Phase 27: IISAN's caches through #5 and cached training from them.
+    Returns the launches (the builds' ``mha_fwd``, the training steps'
+    encoder and cascade kernels)."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch import cache_builder as cb
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.data.cache_store import HiddenStateCache, write_shard_range
+    from iisan_tpu_torch.data.images import (SyntheticImageStore, normalize_images,
+                                             synthetic_token_table)
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+    from iisan_tpu_torch.models.towers import towers_from_config
+    from iisan_tpu_torch.tools import build_caches
+    from iisan_tpu_torch.train.cached import CachedTrainer
+    from iisan_tpu_torch.train.pipelines import open_cache
+    from iisan_tpu_torch.train.uncached import UncachedTrainer
+
+    totals = {c.__name__: 0 for c in counters}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    cfg = IISANConfig(**dict(TRAIN_CFG, stored_vector_path=str(tmp)))
+    text, image = towers_from_config(
+        cfg, device=device, generator=torch.Generator(device).manual_seed(SEED))
+    bert, vit = text.bert, image.vit
+    n = CACHE_ITEMS + 1
+    corpus = synthetic_corpus(n_users=CACHE_USERS, item_num=CACHE_ITEMS,
+                              max_seq_len=SEQ_LEN, seed=SEED)
+    tokens = synthetic_token_table(CACHE_ITEMS, TITLE_T, seed=SEED)
+    lengths = np.random.default_rng(SEED).integers(4, TITLE_T + 1, size=CACHE_ITEMS)
+    tokens[1:, :TITLE_T] *= np.arange(TITLE_T) < lengths[:, None]  # titles of 4-30 words
+    tokens[1:, TITLE_T:] = np.arange(TITLE_T) < lengths[:, None]
+    images = MemoImages(SyntheticImageStore(cfg.CV_resize))
+    names = corpus.item_names
+
+    def build(kind, path, enc=None, **kw):
+        if kind == "text":
+            return cb.build_text_cache(enc or bert, tokens, str(path),
+                                       batch=CACHE_BATCH, device=device, **kw)
+        return cb.build_image_cache(enc or vit, names, images, str(path),
+                                    batch=CACHE_BATCH, device=device, **kw)
+
+    # the fp16 stores (timed; the image build makes the synthetic images),
+    # and the text store again as int8
+    stores, per_1000 = {}, {}
+    for kind, name in (("text", "bert_outputs"), ("image", "vit_outputs")):
+        t0 = time.perf_counter()
+        stores[kind], launches = counted(counters, lambda: build(
+            kind, tmp / f"{name}.memmap"))
+        torch.cuda.synchronize()
+        per_1000[kind] = (time.perf_counter() - t0) / CACHE_ITEMS * 1e3
+        add(launches)
+        enc = bert if kind == "text" else vit
+        want = enc.num_layers * (CACHE_ITEMS // CACHE_BATCH)
+        if launches["mha_fwd"] != want:
+            raise AssertionError(f"{kind} cache build: mha_fwd {launches['mha_fwd']}, "
+                                 f"expected {want}")
+        cb.verify_cache(stores[kind], *cb.state_geometry(enc), first_row=1)
+    int8, launches = counted(counters, lambda: build(
+        "text", tmp / "bert_int8.memmap", dtype="int8"))
+    add(launches)
+    fp16 = stores["text"].load_full()
+    q = int8.load_full()
+    q_err = float(np.abs(q - fp16).max())
+    q_bound = float((np.abs(fp16).max(-1) / 254).max()) + 1e-2
+    log(f"phase 27 cache builds (BERT-base x ViT-base, {CACHE_ITEMS} items, batch "
+        f"{CACHE_BATCH}, bf16 towers, #5): text {per_1000['text'] * 1e3:.1f} ms and "
+        f"image {per_1000['image'] * 1e3:.1f} ms per 1,000 items (host clock; the "
+        f"image build makes its synthetic images); mha_fwd {bert.num_layers} "
+        f"launches a batch; bytes written: text fp16 {store_bytes(stores['text'])}, image "
+        f"fp16 {store_bytes(stores['image'])}, text int8 {store_bytes(int8)}; int8 vs "
+        f"fp16 store max |diff| {q_err:.5g} (bound {q_bound:.5g})")
+    if q_err > q_bound:
+        raise AssertionError("the int8 store leaves the fp16 one")
+
+    # the device-busy split of two batches of each build
+    for kind, enc in (("text", bert), ("image", vit)):
+        host, busy, fam = build_profile(lambda: build(
+            kind, tmp / f"profiled_{kind}", enc, end_item=1 + 2 * CACHE_BATCH))
+        log(f"phase 27 {kind} build, 2 batches of {CACHE_BATCH} under the profiler: "
+            f"host {host * 1e3:.1f} ms, device-busy {busy:.2f} ms (idle share "
+            f"{1 - busy / (host * 1e3):.1%}); attention kernels "
+            f"{fam['attention kernels']:.2f} ms ({fam['attention kernels'] / busy:.1%}), "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.items()
+                        if v > 0 and k != "attention kernels"))
+
+    # against the module path: the same weights with fused_tower_attention=False
+    for kind, enc in (("text", bert), ("image", vit)):
+        set_fused(enc, False)
+        try:
+            plain, launches = counted(counters, lambda: build(kind, tmp / f"plain_{kind}"))
+        finally:
+            set_fused(enc, True)
+        if launches["mha_fwd"]:
+            raise AssertionError("the module path launched #5")
+        got = torch.as_tensor(stores[kind].load_full()[1:])
+        ratio = mha_ratio([got], [torch.as_tensor(plain.load_full()[1:])])
+        log(f"phase 27 {kind} store, #5 vs the module path: max |diff| / (max |plain| + "
+            f"|plain|) {ratio:.3g} (tol {MHA_TOL['fwd']})")
+        if ratio > MHA_TOL["fwd"]:
+            raise AssertionError(f"{kind} store: #5 and the module path disagree")
+
+    # against a direct forward of the rows' own batches (the same M)
+    with torch.inference_mode():
+        for row in CACHE_ROWS:
+            s = 1 + (row - 1) // CACHE_BATCH * CACHE_BATCH
+            ids = np.resize(np.arange(s, min(s + CACHE_BATCH, n)), CACHE_BATCH)
+            tok = torch.as_tensor(tokens[ids]).to(device)
+            direct = {"text": bert(tok[:, :TITLE_T], tok[:, TITLE_T:])[1]}
+            u8 = torch.as_tensor(np.stack([images.get(names[i]) for i in ids])).to(device)
+            direct["image"] = vit(normalize_images(u8, torch.float32))[1]
+            for kind, h in direct.items():
+                want = h[:, row - s].float().cpu().numpy().astype(np.float16)
+                if not np.array_equal(np.asarray(stores[kind]._arr[row]), want):
+                    raise AssertionError(f"{kind} store row {row} is not the direct forward's")
+    log(f"phase 27: store rows {CACHE_ROWS} equal a direct forward's CLS rows of "
+        f"each layer (their own batch of {CACHE_BATCH}), rounded to fp16, bit for bit")
+
+    # shard invariance and resume, bit for bit
+    for kind, name in (("text", "bert_outputs"), ("image", "vit_outputs")):
+        shard_dir = tmp / f"shards_{kind}"
+        for shard in range(3):
+            lo, hi = build_caches.shard_range(n, shard, 3)
+            _, launches = counted(counters, lambda: build(
+                kind, tmp / f"shared_{kind}", start_item=lo, end_item=hi))
+            add(launches)
+            path = shard_dir / f"{name}.memmap.shard{shard}"
+            _, launches = counted(counters, lambda: build(
+                kind, path, start_item=lo, end_item=hi))
+            add(launches)
+            write_shard_range(str(path), lo, hi)
+        build_caches.main(["--out", str(shard_dir), "--finalize-shards"])
+        stop = 1 + 2 * CACHE_BATCH
+        _, launches = counted(counters, lambda: build(kind, tmp / f"resume_{kind}",
+                                                      end_item=stop))
+        add(launches)
+        _, launches = counted(counters, lambda: build(kind, tmp / f"resume_{kind}",
+                                                      start_item=stop))
+        add(launches)
+        checks = {"3 shards, one store": HiddenStateCache.open(str(tmp / f"shared_{kind}")),
+                  "3 shard stores merged": HiddenStateCache.open(str(shard_dir / f"{name}.memmap")),
+                  "stopped after 2 batches, resumed": HiddenStateCache.open(str(tmp / f"resume_{kind}"))}
+        bad = [k for k, st in checks.items() if not same_store(st, stores[kind])]
+        log(f"phase 27 {kind}: " + ", ".join(checks) + " -> bit-equal to the single "
+            f"build: {not bad}")
+        if bad:
+            raise AssertionError(f"{kind}: {bad} differ from the single build")
+
+    # cached training from the stores on both SAN routes
+    cv_taps = open_cache(cfg, "image", corpus).load_taps(cfg.san_image_taps())
+    text_taps = open_cache(cfg, "text", corpus).load_taps(cfg.san_text_taps())
+    for use_pallas in (False, True):
+        tr = CachedTrainer(cfg.replace(use_pallas=use_pallas), corpus, cv_taps,
+                           text_taps, device=device)
+        perm = torch.as_tensor(tr.epoch_permutation(1), device=device).long()
+        t0 = time.perf_counter()
+        losses, launches = counted(counters, lambda: [
+            float(tr.train_step(tr.train_seqs[perm[i]], tr.train_log_mask[perm[i]]))
+            for i in range(CACHE_STEPS)])
+        step_ms = (time.perf_counter() - t0) / CACHE_STEPS * 1e3
+        add(launches)
+        want = {"user_encoder_fwd": CACHE_STEPS, "user_encoder_bwd": CACHE_STEPS,
+                "san_cascade_fwd": 2 * CACHE_STEPS if use_pallas else 0,
+                "san_cascade_streamed_fwd": 0, "mha_fwd": 0}
+        log(f"phase 27 train from the stores [{'use_pallas' if use_pallas else 'default'}]: "
+            f"{CACHE_STEPS} steps, {step_ms:.2f} ms/step (host clock, with the loss "
+            f"fetched each step), losses {losses[0]:.5f} ... {losses[-1]:.5f}; launches "
+            f"{launches}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"training from the stores: losses {losses}")
+        if launches != want:
+            raise AssertionError(f"training from the stores: launches {launches}, "
+                                 f"expected {want}")
+        del tr
+    del cv_taps, text_taps
+
+    # Cached == Uncached: the uncached trainer's item table over the same
+    # towers against the cached trainer's from the built stores
+    ucfg = IISANConfig(**dict(UNCACHED_CFG, tower_dropout=0.0, stored_vector_path=str(tmp)))
+    uc = UncachedTrainer(ucfg, corpus, tokens, images, device=device)
+    uc.model.text_tower.bert.load_state_dict(bert.state_dict())
+    uc.model.image_tower.vit.load_state_dict(vit.state_dict())
+    del text, image, bert, vit
+    torch.cuda.empty_cache()
+
+    def cached_table(text_taps):
+        ct = CachedTrainer(ucfg.replace(pipeline="cached"), corpus,
+                           open_cache(ucfg, "image", corpus).load_taps(ucfg.san_image_taps()),
+                           open_cache(ucfg, "text", corpus).load_taps(text_taps),
+                           device=device)
+        for part in ("san", "user_encoder", "fuse"):
+            getattr(ct.model, part).load_state_dict(getattr(uc.model, part).state_dict())
+        return ct.fused_item_table()[1:].float()
+
+    table, launches = counted(counters, lambda: uc.item_embedding_tables(CACHE_BATCH))
+    add(launches)
+    ref = table[1:].float()
+    scale = float(ref.abs().max())
+    diff = float((cached_table(ucfg.san_text_taps()) - ref).abs().max())
+    shifted = tuple(min(i + 1, ucfg.text_layers) for i in ucfg.san_text_taps())
+    shift_diff = float((cached_table(shifted) - ref).abs().max())
+    log(f"phase 27 Cached == Uncached (tower dropout 0, one set of SAN, head and "
+        f"encoder weights, items 1..{CACHE_ITEMS}): max |cached - uncached| "
+        f"{diff:.5g} = {diff / scale:.3%} of max |uncached| {scale:.4g} (tol "
+        f"{TABLE_TOL:.0%}); text taps shifted by one layer: {shift_diff:.5g} = "
+        f"{shift_diff / scale:.3%} (must break the bound); uncached table launches "
+        f"{launches}")
+    if not np.isfinite(scale) or diff > TABLE_TOL * scale:
+        raise AssertionError("the cached item table leaves the uncached one")
+    if shift_diff <= TABLE_TOL * scale:
+        raise AssertionError("the tap shift stays within the bound: it has no teeth")
+    return totals, per_1000
+
+
+def tower_checks(name, enc, make, images_u8):
+    """Phases 29 and 30: ``collect="cls"`` of the built tower ``enc``
+    bit-equal to its full stack's CLS on 4 images; then (``enc`` freed by
+    the caller) a 2-layer tower at the same width from ``make(dtype,
+    depth)`` in fp32 against its bf16 copy, within ``TABLE_TOL``.  Returns
+    the second check, a callable."""
+    import torch
+
+    from iisan_tpu_torch.data.images import normalize_images
+
+    x = normalize_images(images_u8, torch.float32)
+    with torch.inference_mode():
+        enc.collect = "full"
+        full = enc(x)[1][:, :, 0]
+        enc.collect = "cls"
+        cls = enc(x)[1]
+    if not torch.equal(full, cls):
+        raise AssertionError(f"{name}: collect='cls' is not the full stack's CLS")
+
+    def fp32_vs_bf16():
+        ref = make(torch.float32, 2)
+        low = make(torch.bfloat16, 2)
+        low.load_state_dict(ref.state_dict())
+        with torch.inference_mode():
+            want = ref(x)[1].float()
+            got = low(x)[1].float()
+        ratio = float((got - want).abs().max() / want.abs().max())
+        log(f"{name}: collect='cls' bit-equal to the full stack's CLS on 4 images; "
+            f"2 layers at the same width, bf16 vs fp32: max |diff| / max |fp32| "
+            f"{ratio:.4g} (tol {TABLE_TOL})")
+        if ratio > TABLE_TOL:
+            raise AssertionError(f"{name}: bf16 leaves fp32")
+
+    return fp32_vs_bf16
+
+
+def run_versa_caches(device, counters, tmp, vit_base_per_1000):
+    """Phases 28-30: Llama-3-70B text states (depth 4) and Versa training
+    from them, EVA-CLIP-18B and CLIP ViT-L/14 image states.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch import cache_builder as cb
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.data.images import SyntheticImageStore
+    from iisan_tpu_torch.data.preprocess import tokenize_titles_llama
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+    from iisan_tpu_torch.models import clip_vit, eva
+    from iisan_tpu_torch.models.llama import LlamaEncoder
+    from iisan_tpu_torch.models.modules import hidden_reducer
+    from iisan_tpu_torch.models.vit import ViTEncoder
+    from iisan_tpu_torch.train.cached import CachedTrainer
+    from iisan_tpu_torch.train.pipelines import open_cache
+
+    totals = {c.__name__: 0 for c in counters}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # 28: Llama-3-70B at depth 4, mean-pooled over tokenize_titles_llama's rows
+    cfg = IISANConfig(**dict(VERSA_CFG, use_pallas=True, stored_vector_path=str(tmp),
+                             text_layers=LLAMA_DEPTH,
+                             side_adapter_bert_list="0,1,2,3"))
+    corpus = synthetic_corpus(n_users=LLAMA_USERS, item_num=LLAMA_ITEMS,
+                              max_seq_len=SEQ_LEN, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    words = [f"w{i}" for i in range(5000)]
+    titles = {i: " ".join(rng.choice(words, size=int(rng.integers(3, 40))))
+              for i in range(1, LLAMA_ITEMS + 1)}
+    tokens = tokenize_titles_llama(titles, WordTokenizer(), TITLE_T)
+    t0 = time.perf_counter()
+    llm = LlamaEncoder(num_layers=LLAMA_DEPTH, dtype=torch.bfloat16, device=device,
+                       generator=torch.Generator(device).manual_seed(SEED + 28),
+                       **LLAMA_70B)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = cb.build_text_cache(llm, tokens, str(tmp / f"{cfg.cached_text_model}.memmap"),
+                                batch=CACHE_BATCH, pool="mean", device=device)
+    torch.cuda.synchronize()
+    llama_per_1000 = (time.perf_counter() - t0) / LLAMA_ITEMS * 1e3
+    cb.verify_cache(store, LLAMA_DEPTH + 1, VERSA_TEXT_DIM, first_row=1)
+    with torch.inference_mode():  # the first batch, full stack, reduced per layer
+        batch = torch.as_tensor(tokens[1:1 + CACHE_BATCH]).to(device)
+        llm.collect = "full"
+        _, full = llm(batch[:, :TITLE_T], batch[:, TITLE_T:])
+        llm.collect = "mean"
+        reduce = hidden_reducer("mean", batch[:, TITLE_T:])
+        want = torch.stack([reduce(h) for h in full], 1)[:LLAMA_CHECK_ROWS].cpu().numpy()
+    rows = np.asarray(store._arr[1:1 + LLAMA_CHECK_ROWS])
+    full_rows = store.load_full()
+    if not np.array_equal(rows, want.astype(np.float16)):
+        raise AssertionError("llama: the collect='mean' store is not the full stack's mean")
+    if store._arr.shape[1:] != (LLAMA_DEPTH + 1, VERSA_TEXT_DIM) or not np.isfinite(full_rows).all():
+        raise AssertionError(f"llama: rows {store._arr.shape[1:]}")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del llm, full, batch
+    torch.cuda.empty_cache()
+    vit = ViTEncoder(dtype=torch.bfloat16, fused_attention=True, collect="cls",
+                     device=device, generator=torch.Generator(device).manual_seed(SEED),
+                     **VIT_TINY)
+    images = MemoImages(SyntheticImageStore(cfg.CV_resize))
+    image_store, launches = counted(counters, lambda: cb.build_image_cache(
+        vit, corpus.item_names, images, str(tmp / f"{cfg.cached_image_model}.memmap"),
+        batch=CACHE_BATCH, device=device))
+    add(launches)
+    want_mha = vit.num_layers * (LLAMA_ITEMS // CACHE_BATCH)
+    g = LLAMA_70B
+    log(f"phase 28 Llama-3-70B text states ({g['hidden_dim']} wide, {g['num_heads']} / "
+        f"{g['num_kv_heads']} heads, FFN {g['intermediate_dim']}, vocab {g['vocab_size']}, "
+        f"depth {LLAMA_DEPTH} of 80, bf16, random weights built on the "
+        f"card in {init_s:.2f} s): {LLAMA_ITEMS} titles of {TITLE_T} tokens, batch "
+        f"{CACHE_BATCH}, {llama_per_1000 * 1e3:.1f} ms per 1,000 items (host clock); "
+        f"rows ({LLAMA_DEPTH + 1}, {VERSA_TEXT_DIM}), finite, {store_bytes(store)} "
+        f"bytes; rows 1-{LLAMA_CHECK_ROWS} equal the mean of their batch's full stack bit for bit; "
+        f"peak memory {peak:.2f} GiB; ViT-tiny image store: mha_fwd "
+        f"{launches['mha_fwd']} launches (expected {want_mha})")
+    if launches["mha_fwd"] != want_mha:
+        raise AssertionError("ViT-tiny build: mha_fwd launches")
+    tr = CachedTrainer(cfg, corpus,
+                       open_cache(cfg, "image", corpus).load_taps(cfg.san_image_taps()),
+                       open_cache(cfg, "text", corpus).load_taps(cfg.san_text_taps()),
+                       device=device)
+    perm = torch.as_tensor(tr.epoch_permutation(1), device=device).long()
+    losses, launches = counted(counters, lambda: [
+        float(tr.train_step(tr.train_seqs[perm[i]], tr.train_log_mask[perm[i]]))
+        for i in range(LLAMA_STEPS)])
+    add(launches)
+    want = {"user_encoder_fwd": LLAMA_STEPS, "user_encoder_bwd": LLAMA_STEPS,
+            "san_cascade_fwd": LLAMA_STEPS, "san_cascade_streamed_fwd": LLAMA_STEPS,
+            "mha_fwd": 0}
+    log(f"phase 28 Versa 'llama' preset, text taps cut to the {LLAMA_DEPTH + 1} rows "
+        f"built (0,1,2,3 -> rows 0-4), use_pallas: {LLAMA_STEPS} steps from the built "
+        f"stores, losses {losses[0]:.5f} ... {losses[-1]:.5f}; launches {launches}")
+    if not np.isfinite(losses).all() or launches != want:
+        raise AssertionError(f"versa from built stores: losses {losses}, launches "
+                             f"{launches}, expected {want}")
+    del tr, vit
+    torch.cuda.empty_cache()
+
+    per_1000 = {"ViT-base (phase 27)": vit_base_per_1000}
+    for phase, name, n_img, batch, geometry, make in (
+            (29, "EVA-CLIP-18B", EVA_IMAGES, EVA_BATCH, eva.eva18b_geometry(),
+             lambda dt, depth, g: eva.EvaVisionEncoder(
+                 dtype=dt, device=device, generator=torch.Generator(device).manual_seed(SEED + 29),
+                 **dict(g, num_layers=depth or g["num_layers"]))),
+            (30, "CLIP ViT-L/14", CLIP_IMAGES, CACHE_BATCH, CLIP_L14,
+             lambda dt, depth, g: clip_vit.CLIPVisionEncoder(
+                 dtype=dt, device=device, generator=torch.Generator(device).manual_seed(SEED + 30),
+                 **dict(g, num_layers=depth or g["num_layers"])))):
+        names = ["<pad>"] + [f"item{i}" for i in range(1, n_img + 1)]
+        images = MemoImages(SyntheticImageStore(geometry["image_size"]))  # each build makes its images
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        enc = make(torch.bfloat16, None, geometry)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in enc.parameters())
+        t0 = time.perf_counter()
+        st = cb.build_image_cache(enc, names, images, str(tmp / f"phase{phase}.memmap"),
+                                  batch=batch, device=device)
+        torch.cuda.synchronize()
+        per_1000[name] = (time.perf_counter() - t0) / n_img * 1e3
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        full_rows = st.load_full()
+        shape = (geometry["num_layers"] + 1, geometry["hidden_dim"])
+        log(f"phase {phase} {name} image states (full depth {geometry['num_layers']}, "
+            f"width {geometry['hidden_dim']}, {geometry['num_heads']} heads, FFN "
+            f"{geometry['intermediate_dim']}, {n_params / 1e9:.2f}B parameters in bf16 "
+            f"built on the card in {init_s:.2f} s): {n_img} images at batch {batch}, "
+            f"{per_1000[name] * 1e3:.1f} ms per 1,000 images (host clock), rows "
+            f"{st._arr.shape[1:]}, finite {bool(np.isfinite(full_rows).all())}, "
+            f"{store_bytes(st)} bytes, peak memory {peak:.2f} GiB")
+        if st._arr.shape[1:] != shape or not np.isfinite(full_rows).all():
+            raise AssertionError(f"{name}: rows {st._arr.shape[1:]}, expected {shape}")
+        u8 = torch.as_tensor(np.stack([images.get(names[i]) for i in range(1, 5)])).to(device)
+        second = tower_checks(name, enc, lambda dt, depth: make(dt, depth, geometry), u8)
+        del enc, st, full_rows
+        torch.cuda.empty_cache()
+        second()
+        torch.cuda.empty_cache()
+    log("build time per 1,000 images (host clock): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in per_1000.items()))
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2961,6 +3490,18 @@ def main() -> int:
     peft.append(train_remat(device, ucounters))
     check_hf_import(device)
     peft = {k: sum(c[k] for c in peft) for k in peft[0]}
+    torch.cuda.empty_cache()
+
+    # IISAN's caches through #5 and cached training from them, then the
+    # Versa towers' caches (phases 27-30).
+    ccounters = (fa.mha_fwd, fue.user_encoder_fwd, fue.user_encoder_bwd,
+                 fs.san_cascade_fwd, fs.san_cascade_streamed_fwd)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        caches, per_1000 = run_iisan_caches(device, ccounters, Path(tmp))
+        torch.cuda.empty_cache()
+        versa_caches = run_versa_caches(device, ccounters, Path(tmp), per_1000["image"])
+    caches = {k: caches[k] + versa_caches[k] for k in caches}
+    torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
@@ -2980,24 +3521,28 @@ def main() -> int:
         entry("user_encoder_fwd", "iisan_tpu/ops/fused_user_encoder.py:264",
               counts[0] + train_counts["user_encoder_fwd"]
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
-              + towers["user_encoder_fwd"] + peft["user_encoder_fwd"],
+              + towers["user_encoder_fwd"] + peft["user_encoder_fwd"]
+              + caches["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
               + versa["user_encoder_bwd"] + towers["user_encoder_bwd"]
-              + peft["user_encoder_bwd"],
+              + peft["user_encoder_bwd"] + caches["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
-              + versa["san_cascade_fwd"], cascade["err"], cascade["ms"],
+              + versa["san_cascade_fwd"] + caches["san_cascade_fwd"],
+              cascade["err"], cascade["ms"],
               cascade["plain_ms"], cascade_bound(*CASCADE_TABLE), None),
         entry("san_cascade_streamed_fwd", "iisan_tpu/ops/fused_san.py:94",
-              versa["san_cascade_streamed_fwd"], streamed["err"],
+              versa["san_cascade_streamed_fwd"] + caches["san_cascade_streamed_fwd"],
+              streamed["err"],
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
-              uncached["mha_fwd"] + towers["mha_fwd"] + peft["mha_fwd"],
+              uncached["mha_fwd"] + towers["mha_fwd"] + peft["mha_fwd"]
+              + caches["mha_fwd"],
               attn["fwd_err"], attn["fwd_ms"], attn["fwd_plain_ms"],
               attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",

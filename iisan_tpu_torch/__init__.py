@@ -7,7 +7,9 @@ HR@10 / nDCG@10), IISAN (Cached) training (``train.cached``), IISAN-Versa
 over asymmetric towers with int8 tap tables and on-disk hidden-state
 stores (``pipeline="cached_asym"``), and IISAN (Uncached) training with
 its full fine-tuning baseline, the BERT and ViT towers in the step
-(``train.uncached``).  Its hand-written kernels (the fused user-encoder
+(``train.uncached``), and the builders of the hidden-state caches
+(``cache_builder``, ``tools.build_caches``) with the Versa towers (Llama,
+CLIP, EVA).  Its hand-written kernels (the fused user-encoder
 forward and backward, the SAN cascade forward, resident and step-streamed,
 the tower attention forward, backward and mask replay) live in ``csrc/``
 and are built on first use by ``kernels/build.py``.  The package imports no

@@ -4,35 +4,9 @@ same seed, so both packages train on the same batches."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List
-
 import numpy as np
 
-
-@dataclass
-class Corpus:
-    """What the trainer and the evaluation read, as dense arrays (the
-    fields of ``iisan_tpu.data.preprocess.Corpus``)."""
-
-    item_num: int
-    max_seq_len: int
-    item_names: List[str]
-    train_seqs: np.ndarray      # (n_users, L+1) int32, left-padded with 0
-    train_log_mask: np.ndarray  # (n_users, L) float32
-    valid_tokens: np.ndarray    # (n_users, L) int32
-    valid_log_mask: np.ndarray  # (n_users, L) float32
-    valid_target: np.ndarray    # (n_users,) int32, 1-based item id
-    valid_history: np.ndarray   # (n_users, L+2) int32, 0-padded
-    test_tokens: np.ndarray
-    test_log_mask: np.ndarray
-    test_target: np.ndarray
-    test_history: np.ndarray
-    pop_prob: np.ndarray        # (item_num+1,) float32, pop_prob[0] = 1
-
-    @property
-    def n_users(self) -> int:
-        return self.train_seqs.shape[0]
+from .preprocess import Corpus
 
 
 def synthetic_corpus(n_users: int = 64, item_num: int = 200,

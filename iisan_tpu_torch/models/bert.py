@@ -52,7 +52,8 @@ from ..ops import philox
 from ..ops.fused_attention import fused_mha
 from ..ops.fused_attn_subblock import fused_attn_subblock, fused_attn_subblock_v2
 from ..ops.int8_linear import dense_or_int8
-from .modules import LayerNorm, _dropout, lecun_normal_init, tower_layer
+from .modules import (LayerNorm, _dropout, hidden_reducer, lecun_normal_init,
+                      tower_layer)
 from .peft import HoulsbyAdapter, LoRADense
 
 LN_EPS = 1e-12
@@ -215,19 +216,23 @@ class BertLayer(nn.Module):
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``'s parameter (``embedding``, (vocab, dim))."""
+    """flax ``nn.Embed``'s parameter (``embedding``, (vocab, dim)), fp32
+    unless ``param_dtype`` names another dtype."""
 
-    def __init__(self, vocab: int, dim: int, device=None, generator=None):
+    def __init__(self, vocab: int, dim: int, device=None, generator=None,
+                 param_dtype=None):
         super().__init__()
-        self.embedding = nn.Parameter(
-            lecun_normal_init((vocab, dim), dim, device, generator))
+        table = lecun_normal_init((vocab, dim), dim, device, generator)
+        self.embedding = nn.Parameter(table.to(param_dtype or table.dtype))
 
 
 class BertEncoder(nn.Module):
     """BERT-base geometry by default; ``forward`` returns (last hidden
     (B, T, D), hidden stack): the stack is (layers+1, B, T, D) with
-    ``collect="full"`` and the CLS rows (layers+1, B, D) with ``"cls"``,
-    embeddings output first."""
+    ``collect="full"``, the CLS rows (layers+1, B, D) with ``"cls"`` and
+    with ``"mean"`` the attention-masked token mean of each layer (an fp32
+    sum over the unmasked tokens over max(their count, 1), rounded back to
+    the hidden's dtype), embeddings output first."""
 
     def __init__(self, vocab_size: int = 30522, hidden_dim: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
@@ -238,9 +243,11 @@ class BertEncoder(nn.Module):
                  fused_attention=False, collect: str = "full",
                  quant: str = "none", device=None, generator=None):
         super().__init__()
-        if collect not in ("full", "cls"):
-            raise ValueError(f"collect must be 'full' or 'cls', got {collect!r}")
+        if collect not in ("full", "cls", "mean"):
+            raise ValueError(
+                f"collect must be 'full', 'cls' or 'mean', got {collect!r}")
         self.num_layers, self.dtype, self.dropout = num_layers, dtype, dropout
+        self.hidden_dim = hidden_dim
         self.fused, self.collect, self.quant = fused_attention, collect, quant
         self.lora_rank, self.remat = lora_rank, remat
         self.word_embeddings = Embed(vocab_size, hidden_dim, device, generator)
@@ -269,7 +276,7 @@ class BertEncoder(nn.Module):
         x = _dropout(x, self.dropout, deterministic, generator)
         key_bias = (1.0 - attention_mask.float()) * -1e9
         seed = attention_seed(self, x, deterministic, generator)
-        reduce = (lambda h: h[:, 0, :]) if self.collect == "cls" else (lambda h: h)
+        reduce = hidden_reducer(self.collect, attention_mask, round_mean=True)
         hiddens = [reduce(x)]
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, key_bias, deterministic,

@@ -64,11 +64,15 @@ def adapter_normal_init(shape, device=None, generator=None) -> torch.Tensor:
 class TorchLinear(nn.Module):
     """Dense layer, ``kernel`` (in, out); torch-default uniform init, or
     ``init="xavier"`` / ``"lecun"`` (flax ``nn.Dense``) / ``"adapter"``
-    (N(0, 1e-2)) with zero bias."""
+    (N(0, 1e-2)) with zero bias.  Parameters are fp32 unless
+    ``param_dtype`` names another dtype (the large frozen towers keep
+    theirs in the compute dtype: the cast at every call rounds fp32 weights
+    to the same values)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, init: str = "torch",
-                 device=None, generator=None):
+                 device=None, generator=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         shape = (in_features, features)
@@ -87,6 +91,8 @@ class TorchLinear(nn.Module):
             bias = torch.zeros(features, device=device)
         else:
             raise ValueError(f"unknown init {init!r}")
+        if param_dtype is not None:  # weights kept in the compute dtype
+            kernel, bias = kernel.to(param_dtype), bias.to(param_dtype)
         self.kernel = nn.Parameter(kernel)
         self.bias = nn.Parameter(bias) if use_bias else None
 
@@ -118,6 +124,53 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
                             self.eps)
+
+
+def attention_core(q, k, v, dt, bias=None) -> torch.Tensor:
+    """Plain attention over (B, H, T, dh) heads, the JAX towers' cast
+    chain: fp32 scores of dt operands ``/ sqrt(dh) (+ bias)``, fp32
+    softmax rounded to dt, fp32 product with V rounded to dt."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        logits = logits + bias
+    p = torch.softmax(logits, dim=-1).to(dt)
+    return (p.float() @ v.float()).to(dt)
+
+
+def split_heads(y: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, n*dh) -> (B, n, T, dh)."""
+    b, t, d = y.shape
+    return y.reshape(b, t, n_heads, d // n_heads).transpose(1, 2)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, n, T, dh) -> (B, T, n*dh)."""
+    b, n, t, dh = o.shape
+    return o.transpose(1, 2).reshape(b, t, n * dh)
+
+
+def patchify(images: torch.Tensor, patch: int, dt) -> torch.Tensor:
+    """(B, H, W, 3) channels-last -> (B, n*n, p*p*3) patch vectors in dt,
+    row-major over the patch grid (the JAX towers' reshape)."""
+    b, n = images.shape[0], images.shape[1] // patch
+    x = images.to(dt).reshape(b, n, patch, n, patch, 3).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, n * n, patch * patch * 3)
+
+
+def hidden_reducer(collect: str, mask=None, round_mean: bool = False):
+    """The per-layer reduction of a tower's hidden states (B, T, D):
+    ``"full"`` keeps them, ``"cls"`` takes token 0, ``"mean"`` the
+    ``mask``-weighted token mean, an fp32 sum over max(sum(mask), 1), left
+    in fp32 or, with ``round_mean``, rounded back to the hidden's dtype."""
+    if collect == "cls":
+        return lambda h: h[:, 0, :]
+    if collect == "mean":
+        w = mask.float()[:, :, None]
+        denom = torch.clamp(w.sum(1), min=1.0)
+        if round_mean:
+            return lambda h: ((h.float() * w).sum(1) / denom).to(h.dtype)
+        return lambda h: (h.float() * w).sum(1) / denom
+    return lambda h: h
 
 
 def _dropout(x, rate: float, deterministic: bool, generator=None):

@@ -30,7 +30,7 @@ from torch import nn
 from ..ops.int8_linear import dense_or_int8
 from .bert import (LN_EPS, SelfAttention, attention_seed, houlsby_adapter,
                    subblock_attention, subblock_route)
-from .modules import LayerNorm, _dropout, tower_layer
+from .modules import LayerNorm, _dropout, hidden_reducer, patchify, tower_layer
 
 
 class ViTBlock(nn.Module):
@@ -106,6 +106,7 @@ class ViTEncoder(nn.Module):
         if collect not in ("full", "cls"):
             raise ValueError(f"collect must be 'full' or 'cls', got {collect!r}")
         self.image_size, self.patch_size = image_size, patch_size
+        self.hidden_dim = hidden_dim
         self.num_layers, self.dtype, self.dropout = num_layers, dtype, dropout
         self.fused, self.collect, self.quant = fused_attention, collect, quant
         self.lora_rank, self.remat = lora_rank, remat
@@ -127,15 +128,12 @@ class ViTEncoder(nn.Module):
 
     def forward(self, images, deterministic: bool = True, generator=None):
         dt = self.dtype or torch.float32
-        b, p = images.shape[0], self.patch_size
-        n = self.image_size // p
-        x = images.to(dt).reshape(b, n, p, n, p, 3).permute(0, 1, 3, 2, 4, 5)
-        x = self.patch_projection(x.reshape(b, n * n, p * p * 3))
-        cls = self.cls_token.to(dt).expand(b, 1, x.shape[-1])
+        x = self.patch_projection(patchify(images, self.patch_size, dt))
+        cls = self.cls_token.to(dt).expand(x.shape[0], 1, x.shape[-1])
         x = torch.cat([cls, x], 1) + self.position_embeddings.to(dt)
         x = _dropout(x, self.dropout, deterministic, generator)
         seed = attention_seed(self, x, deterministic, generator)
-        reduce = (lambda h: h[:, 0, :]) if self.collect == "cls" else (lambda h: h)
+        reduce = hidden_reducer(self.collect)
         hiddens = [reduce(x)]
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, deterministic, generator, seed,

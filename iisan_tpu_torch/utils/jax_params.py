@@ -6,6 +6,13 @@ The port's modules keep the JAX tree's names, so a leaf at path
 stays ``(in, out)`` in both packages, and stacked adapter weights stay
 ``(K, ...)``.  So the bridge is a rename with shape checks, nothing more.
 
+Scanned stacks: the JAX Llama, CLIP and EVA towers run their layers as
+one ``nn.scan``, so their trees hold every layer under ``layers.block.*``
+with a leading layer axis.  The port's towers keep one submodule a layer
+(``layers.0.*``, ``layers.1.*``, ...) and name such a child in their
+``jax_scan`` attribute; the bridge unstacks that subtree on the way in and
+stacks it on the way out, and its strict checks see the per-layer names.
+
 Int8 leaves (the W8A8 towers' ``kernel_q``, ``ops/int8_linear.Int8Dense``)
 live in int8 buffers, not parameters: autograd tracks no int8 tensor.  The
 bridge carries them bit for bit both ways, and counts them in its strict
@@ -33,6 +40,47 @@ def flatten_tree(tree, sep: str = ".", prefix: str = "") -> Dict[str, object]:
     return out
 
 
+SCAN_BLOCK = "block"
+
+
+def _scan_prefixes(model: nn.Module):
+    """Dotted names of the children that the JAX tree stacks under
+    ``<name>.block`` (modules' ``jax_scan`` attribute)."""
+    return [f"{name}.{child}" if name else child
+            for name, m in model.named_modules()
+            for child in getattr(m, "jax_scan", ())]
+
+
+def _unscan(leaves: Dict[str, object], prefixes) -> Dict[str, object]:
+    """``<p>.block.<rest>`` of shape (L, ...) -> ``<p>.<i>.<rest>``."""
+    out = {}
+    for name, value in leaves.items():
+        p = next((p for p in prefixes
+                  if name.startswith(f"{p}.{SCAN_BLOCK}.")), None)
+        if p is None:
+            out[name] = value
+            continue
+        rest = name[len(p) + len(SCAN_BLOCK) + 2:]
+        for i, layer in enumerate(np.asarray(value)):
+            out[f"{p}.{i}.{rest}"] = layer
+    return out
+
+
+def _scan(flat: Dict[str, np.ndarray], prefixes) -> Dict[str, np.ndarray]:
+    """The inverse of ``_unscan``: per-layer leaves stacked in layer order."""
+    out, stacks = {}, {}
+    for name, value in flat.items():
+        p = next((p for p in prefixes if name.startswith(p + ".")), None)
+        if p is None:
+            out[name] = value
+            continue
+        i, rest = name[len(p) + 1:].split(".", 1)
+        stacks.setdefault(f"{p}.{SCAN_BLOCK}.{rest}", {})[int(i)] = value
+    for name, layers in stacks.items():
+        out[name] = np.stack([layers[i] for i in sorted(layers)])
+    return out
+
+
 def _tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's parameters and its int8 buffers, by dotted name."""
     own = dict(model.named_parameters())
@@ -50,7 +98,7 @@ def load_jax_params(model: nn.Module, params) -> None:
     is copied.  Float values are cast to the parameter's dtype; int8
     values are copied as they are.
     """
-    leaves = flatten_tree(params)
+    leaves = _unscan(flatten_tree(params), _scan_prefixes(model))
     own = _tensors(model)
     missing = sorted(own.keys() - leaves.keys())
     extra = sorted(leaves.keys() - own.keys())
@@ -95,13 +143,16 @@ def with_lora_factors(model: nn.Module, params) -> dict:
 
 def export_jax_params(model: nn.Module) -> dict:
     """The model's parameters as a JAX-layout tree of numpy arrays: fp32,
-    and int8 for the int8 buffers."""
-    tree: dict = {}
+    and int8 for the int8 buffers; scanned stacks stacked again."""
+    flat = {}
     for name, p in _tensors(model).items():
+        t = p.detach().cpu()
+        flat[name] = (t if p.dtype == torch.int8 else t.float()).numpy()
+    tree: dict = {}
+    for name, value in _scan(flat, _scan_prefixes(model)).items():
         node = tree
         *parents, leaf = name.split(".")
         for part in parents:
             node = node.setdefault(part, {})
-        t = p.detach().cpu()
-        node[leaf] = (t if p.dtype == torch.int8 else t.float()).numpy()
+        node[leaf] = value
     return tree

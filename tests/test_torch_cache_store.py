@@ -5,14 +5,17 @@ package's format byte for byte.
 Stores written by the JAX ``HiddenStateCache`` (float16, float32, int8)
 load bit-equal through the port's ``load_taps`` / ``load_full``, and
 stores the port writes load bit-equal through the JAX package's, with the
-same files on disk.  Resume and ``open_cache`` behave as the JAX ones.
+same files on disk.  Resume and ``open_cache`` (which imports a
+reference ``.pt`` directory on first use) behave as the JAX ones.
 """
 
 import filecmp
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from iisan_tpu.config import IISANConfig
 from iisan_tpu.data import cache_store as jcs
@@ -91,15 +94,39 @@ def test_resume_reopens_and_refuses_a_mismatch(tmp_path):
 
 
 def test_open_cache_finds_the_configured_stores(tmp_path):
+    """Stores open as the JAX ``open_cache`` opens them, and a reference
+    directory of per-item ``.pt`` files is imported to ``<name>.memmap``
+    on first use, byte for byte as the JAX package imports it."""
     cfg = IISANConfig(stored_vector_path=str(tmp_path),
                       cached_text_model="llama_out", cached_image_model="vit_out")
     _write(jcs, tmp_path / "llama_out.memmap", "float16", _states())
     _write(jcs, tmp_path / "vit_out.memmap", "int8", _states(1))
     for which in ("text", "image"):
-        got = open_cache(cfg, which).load_taps(LAYER_IDS)
+        got = open_cache(cfg, which, None).load_taps(LAYER_IDS)
         _same(got, jax_open_cache(cfg, which, None).load_taps(LAYER_IDS))
-    os.makedirs(tmp_path / "pt_only")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        open_cache(cfg.replace(cached_text_model="pt_only"), "text")
+
+    corpus = SimpleNamespace(
+        item_names=["<pad>"] + [f"item{i}" for i in range(1, N_ITEMS)])
+    states = _states(2)
+    stores = {}
+    for pkg, opener in (("port", open_cache), ("jax", jax_open_cache)):
+        root = tmp_path / pkg
+        os.makedirs(root / "pt_only")
+        for i, name in enumerate(corpus.item_names[1:]):
+            torch.save(torch.from_numpy(states[i]).half(),
+                       root / "pt_only" / f"llama_{name}.pt")
+        c = cfg.replace(stored_vector_path=str(root), cached_text_model="pt_only",
+                        cached_text_prefix="llama")
+        stores[pkg] = opener(c, "text", corpus)
+        assert stores[pkg].path == str(root / "pt_only.memmap")
+        assert not os.path.exists(str(root / "pt_only.memmap") + ".importing")
+        # the second open finds the imported store and imports nothing
+        assert open_cache(c, "text", None).meta.__dict__ == stores[pkg].meta.__dict__
+    for name in (tcs.META_NAME, tcs.DATA_NAME):
+        assert filecmp.cmp(os.path.join(stores["port"].path, name),
+                           os.path.join(stores["jax"].path, name), shallow=False)
+    full = stores["port"].load_full()
+    assert not full[0].any()
+    np.testing.assert_array_equal(full[1:], states.astype(np.float16))
     with pytest.raises(FileNotFoundError):
-        open_cache(cfg.replace(cached_text_model="missing"), "text")
+        open_cache(cfg.replace(cached_text_model="missing"), "text", None)

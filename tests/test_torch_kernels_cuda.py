@@ -98,6 +98,11 @@ fp32 product, |diff| <= 2^-7 |plain| + 1e-4 max|plain|, with a partial last
 128-row tile and N = 3D at D = 192, 768 and 1024; a head's k taken from its
 neighbour's columns and the partial tile not stored must break that
 bound.
+The cache builder at its batch (128 titles x 30 tokens, 128 images x 197,
+BERT- and ViT-base width, 2 layers) launches #5 twice a batch, and a build
+in three shards on one store is the single build bit for bit (every
+launch has the same M).  A Llama layer (GQA 8 / 2) in bf16 stays within
+max |diff| / max |fp32| < 0.05 of its fp32 copy.
 """
 
 import math
@@ -1424,3 +1429,79 @@ def test_subblock_eval_backward_is_the_plain_gradient(cuda_device, v2):
     leaves = [t.clone().requires_grad_(True) for t in (x, wqkv, bqkv, wo, bo)]
     with pytest.raises(NotImplementedError, match="dropout"):
         SUBBLOCK[v2](*leaves, 4, key_bias=bias, drop_rate=0.1, seed=5).backward(g)
+
+
+def _cache_tower(kind, device):
+    """A BERT-base- or ViT-base-wide tower of 2 layers, bf16, the attention
+    through #5 (``towers_from_config``'s tower settings)."""
+    from iisan_tpu_torch.models.bert import BertEncoder
+    from iisan_tpu_torch.models.vit import ViTEncoder
+
+    gen = torch.Generator(device).manual_seed(7)
+    kw = dict(hidden_dim=768, num_layers=2, num_heads=12, intermediate_dim=3072,
+              dtype=torch.bfloat16, fused_attention=True, collect="cls",
+              device=device, generator=gen)
+    return (BertEncoder(dropout=0.1, **kw) if kind == "text"
+            else ViTEncoder(dropout=0.0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text", "image"])
+def test_cache_build_runs_mha_fwd_and_shards_are_bit_equal(cuda_device, kind, tmp_path):
+    """The cache builder's batch (128 titles x 30 tokens, 128 images x 197)
+    through #5, two launches a batch; a build in three shards on one store
+    is the single build bit for bit (every launch has the same M)."""
+    import numpy as np
+
+    from iisan_tpu_torch import cache_builder as cb
+    from iisan_tpu_torch.data.cache_store import HiddenStateCache
+    from iisan_tpu_torch.data.images import SyntheticImageStore, synthetic_token_table
+    from iisan_tpu_torch.tools.build_caches import shard_range
+
+    n = 300
+    enc = _cache_tower(kind, cuda_device)
+    tokens = synthetic_token_table(n - 1, 30, seed=1)
+    tokens[1::3, 20:30] = 0  # padded titles: the key bias matters
+    names = ["<pad>"] + [f"item{i}" for i in range(1, n)]
+    images = SyntheticImageStore(224)
+
+    def build(path, **kw):
+        if kind == "text":
+            return cb.build_text_cache(enc, tokens, str(path), batch=128,
+                                       device=cuda_device, **kw)
+        return cb.build_image_cache(enc, names, images, str(path), batch=128,
+                                    device=cuda_device, **kw)
+
+    before = fa.mha_fwd.launches
+    single = build(tmp_path / "single")
+    assert fa.mha_fwd.launches - before == 2 * 3  # 3 batches of 128
+    for shard in range(3):
+        lo, hi = shard_range(n, shard, 3)
+        build(tmp_path / "shared", start_item=lo, end_item=hi)
+    shared = HiddenStateCache.open(str(tmp_path / "shared"))
+    assert np.array_equal(np.asarray(shared._arr), np.asarray(single._arr))
+    rows = single.load_full()
+    assert np.isfinite(rows).all() and not rows[0].any() and rows[1:].any()
+
+
+@pytest.mark.cuda
+def test_llama_layer_bf16_matches_fp32(cuda_device):
+    """One Llama layer (GQA 8 / 2, rope theta 5e5) in bf16 on the card
+    against the same weights in fp32: max |diff| / max |fp32| < 0.05."""
+    from iisan_tpu_torch.models.llama import LlamaEncoder
+
+    kw = dict(vocab_size=1000, hidden_dim=1024, num_layers=1, num_heads=8,
+              num_kv_heads=2, intermediate_dim=2816, rope_theta=500000.0,
+              device=cuda_device)
+    ref = LlamaEncoder(dtype=torch.float32,
+                       generator=torch.Generator(cuda_device).manual_seed(3), **kw)
+    low = LlamaEncoder(dtype=torch.bfloat16, **kw)
+    low.load_state_dict(ref.state_dict())
+    g = torch.Generator(cuda_device).manual_seed(4)
+    ids = torch.randint(0, 1000, (16, 30), device=cuda_device, generator=g)
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        want = ref(ids, mask)[1].float()
+        got = low(ids, mask)[1].float()
+    assert torch.isfinite(got).all() and got.shape == (2, 16, 30, 1024)
+    assert float((got - want).abs().max() / want.abs().max()) < 0.05

@@ -3,8 +3,9 @@
 A fresh interpreter imports every module of iisan_tpu_torch (the trainers
 included); afterwards no ``jax`` / ``flax`` / ``optax`` module, no module
 of the JAX package (``iisan_tpu`` or ``iisan_tpu.*``) and no
-``transformers`` module (the GPU machine has none: ``params_from_hf_torch``
-reads a state dict without it) is loaded, and the kernel library has not
+``transformers`` module (the GPU machine has none: the ``params_from_*``
+importers read a state dict without it, and the cache-build command line
+imports it only inside ``main``) is loaded, and the kernel library has not
 been built or loaded.
 """
 
@@ -49,6 +50,9 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "iisan_tpu_torch.ops.fused_w8a8" in out["modules"]
     assert "iisan_tpu_torch.ops.fused_attn_subblock" in out["modules"]
     assert "iisan_tpu_torch.models.peft" in out["modules"]
+    for name in ("data.preprocess", "cache_builder", "tools.build_caches",
+                 "models.llama", "models.clip_vit", "models.eva"):
+        assert f"iisan_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (
         f"JAX-package modules loaded by the port: {out['reference']}")

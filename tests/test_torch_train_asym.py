@@ -69,7 +69,7 @@ def trained_pair(request, tmp_path_factory):
     corpus = synthetic_corpus(n_users=USERS, item_num=ITEMS, seed=3)
     taps = {}
     for pkg, opener in (("jax", lambda c, w: jax_open_cache(c, w, corpus)),
-                        ("port", open_cache)):
+                        ("port", lambda c, w: open_cache(c, w, corpus))):
         taps[pkg] = (opener(cfg, "image").load_taps(cfg.san_image_taps()),
                      opener(cfg, "text").load_taps(cfg.san_text_taps()))
     jt = JaxTrainer(cfg, corpus, *taps["jax"])
