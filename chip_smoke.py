@@ -4,8 +4,9 @@ uncached training paths (IISAN and full fine-tuning, IISAN's W8A8 and
 attention-subblock tower options, and the LoRA, Houlsby and BitFit
 baselines with multi-attribute text, tower remat and the transformers
 weight import), IISAN-Versa (``pipeline="cached_asym"``) and the
-hidden-state cache builders with the Versa towers (Llama, EVA, CLIP) once
-on one NVIDIA GPU.
+hidden-state cache builders with the Versa towers (Llama, EVA, CLIP), and
+the run path from the command line (training, resume, test mode, warm
+starts) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -250,6 +251,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
 30. CLIP ViT-L/14 image states (``CLIP_L14``, full depth, bf16), 512
    images at batch 128: phase 29's checks with rows (25, 1024); the build
    time per 1,000 images beside EVA's and ViT-base's.
+31. The run path from the command line: a Scientific-size dataset in the
+   reference's format (20,825 items, 12,076 users; two fp16 stores of
+   (20,826, 13, 768) random rows) is written to a temporary directory;
+   ``python -m iisan_tpu_torch.cli --pipeline cached`` at ``bench.py``'s
+   settings trains 2 epochs as a subprocess (checkpoints, an artifact,
+   finite losses, each epoch's host time and valid HR@10 / nDCG@10 from
+   its log), resumes from the latest checkpoint for one more epoch, tests
+   it (``--mode test``: its artifact's ``top_k`` ids at batch 1, 32 and
+   256 equal those of ``Recommender.from_trainer`` of the resumed trainer),
+   trains an epoch with ``--use_pallas true`` (#3 launched) and 2 epochs
+   with ``--item_tower id`` (export and ``top_k``).  In this process,
+   ``run_from_config`` for 2 epochs and for 1 epoch, a checkpoint, a resume
+   and 1 more agree bit for bit (parameters and Adam moments), and a fresh
+   trainer warm-started from a reference ``.pt`` of the trained model
+   (``--pretrained_recsys_model``) gives its test HR@10 / nDCG@10.  Each
+   command line logs its kernel launches; they join the kernel line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -3299,6 +3316,267 @@ def run_versa_caches(device, counters, tmp, vit_base_per_1000):
     return totals
 
 
+CLI_EPOCHS = 2
+# The fp16 stores of phase 31 are written in chunks of this many rows.
+STORE_CHUNK = 4096
+
+
+def write_cli_dataset(device, root: Path):
+    """Phase 31's dataset: ``items.tsv`` and ``users.tsv`` in the reference
+    format at the Scientific size (every item in some sequence of 5-13
+    items, from a seeded numpy generator) and two fp16 stores of seeded
+    random rows (made on the card), ``bert_outputs.memmap`` and
+    ``vit_outputs.memmap``, (items + 1, 13, 768).  Returns the bytes
+    written."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.data.cache_store import HiddenStateCache
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(5, SEQ_LEN + 4, USERS)
+    stream = np.concatenate([rng.permutation(ITEMS),
+                             rng.integers(0, ITEMS, int(lengths.sum()) - ITEMS)])
+    rng.shuffle(stream)
+    with open(root / "items.tsv", "w") as f:
+        f.writelines(f"I{i:05d}\tTitle of item {i}\n" for i in range(ITEMS))
+    with open(root / "users.tsv", "w") as f:
+        for u, seq in enumerate(np.split(stream, np.cumsum(lengths)[:-1])):
+            f.write(f"U{u}\t" + " ".join(f"I{i:05d}" for i in seq) + "\n")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for name in ("bert_outputs", "vit_outputs"):
+        store = HiddenStateCache.create(str(root / "vecs" / f"{name}.memmap"),
+                                        ITEMS + 1, 13, TAP_DIM, "float16")
+        for start in range(1, ITEMS + 1, STORE_CHUNK):
+            n = min(STORE_CHUNK, ITEMS + 1 - start)
+            rows = torch.randn((n, 13, TAP_DIM), generator=gen, device=device)
+            store.write_rows(start, rows.half().cpu().numpy())
+        store.flush()
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def cli_args(device, root: Path, name: str, *extra):
+    """``python -m iisan_tpu_torch.cli`` at ``bench.py``'s settings over
+    phase 31's dataset on ``device``, its checkpoints and logs under
+    ``root / name``."""
+    cfg = dict(TRAIN_CFG, device=device, pipeline="cached", side_adapter_vit_list="1,3,5,7,9,11",
+               side_adapter_bert_list="1,3,5,7,9,11", modality="intra_inter",
+               root_data_dir=str(root), dataset="", behaviors="users.tsv",
+               news="items.tsv", stored_vector_path=str(root / "vecs"),
+               ckpt_dir=str(root / name / "ckpt"), log_dir=str(root / name / "logs"))
+    del cfg["epoch"]
+    return [a for k, v in cfg.items() for a in (f"--{k}", str(v))] + list(extra)
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_cli(args, what: str):
+    """Run the port's command line on the card; returns (its log lines,
+    {"launches": kernel launches, "epochs": [(epoch, loss, hit, ndcg, s)],
+    "test": (hit, ndcg) or None, "seconds": wall})."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "iisan_tpu_torch.cli", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stderr.splitlines()
+    if proc.returncode != 0:
+        print("\n".join(lines[-40:]), file=sys.stderr)
+        raise AssertionError(f"phase 31 {what}: the command line exited "
+                             f"{proc.returncode}")
+    out = {"seconds": seconds, "launches": None, "epochs": [], "test": None}
+    for line in lines:
+        m = re.search(r"epoch (\d+) loss (\S+) valid Hit10 (\S+) nDCG10 (\S+) "
+                      r"\((\S+)s\)", line)
+        if m:
+            out["epochs"].append((int(m[1]), float(m[2]), float(m[3]) / 100,
+                                  float(m[4]) / 100, float(m[5])))
+        m = re.search(r"test_results\s+(\S+)\s+(\S+)", line)
+        if m:
+            out["test"] = (float(m[1]) / 100, float(m[2]) / 100)
+        if "kernel launches: " in line:
+            out["launches"] = json.loads(line.split("kernel launches: ", 1)[1])
+    if out["launches"] is None:
+        raise AssertionError(f"phase 31 {what}: no launch counts in the log")
+    return lines, out
+
+
+def run_cli_path(device, counters, root: Path):
+    """Phase 31: the run path from the command line over a Scientific-size
+    dataset.  Returns the launches of the user-encoder kernels and #3."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.cli import parse_args
+    from iisan_tpu_torch.serve import Recommender
+    from iisan_tpu_torch.train.pipelines import run_from_config
+    from iisan_tpu_torch.utils.checkpoint import latest_checkpoint
+    from iisan_tpu_torch.utils.torch_import import save_reference_checkpoint
+    from iisan_tpu_torch.utils.jax_params import export_jax_params
+
+    t_phase = time.perf_counter()
+    names = ("user_encoder_fwd", "user_encoder_bwd", "san_cascade_fwd")
+    totals = dict.fromkeys(names, 0)
+
+    def add(launches):
+        for k in names:
+            totals[k] += launches[k]
+
+    t0 = time.perf_counter()
+    nbytes = write_cli_dataset(device, root)
+    log(f"phase 31 dataset: {ITEMS} items, {USERS} users (TSVs) and two fp16 stores "
+        f"({ITEMS + 1}, 13, {TAP_DIM}): {nbytes} bytes written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = -(-USERS // 64)
+
+    # train from the command line, then resume
+    rec_path = root / "rec.npz"
+    _, train = run_cli(cli_args(device, root, "cli", "--epoch", str(CLI_EPOCHS),
+                                "--export_recommender", str(rec_path)), "train")
+    add(train["launches"])
+    ckpt_dir = root / "cli" / "ckpt"
+    latest = latest_checkpoint(str(ckpt_dir))
+    losses = [e[1] for e in train["epochs"]]
+    log(f"phase 31 CLI train (cached, bench.py's settings, {CLI_EPOCHS} epochs of "
+        f"{steps} steps): process wall {train['seconds']:.2f} s; "
+        + "; ".join(f"epoch {e} host {s:.3f} s (the loop's epoch_times), loss "
+                    f"{loss:.5f}, valid HR@10 {h:.6f} nDCG@10 {n:.6f}"
+                    for e, loss, h, n, s in train["epochs"])
+        + f"; checkpoint {latest}; launches {nonzero(train['launches'])}")
+    if (len(losses) != CLI_EPOCHS or not np.isfinite(losses).all()
+            or latest is None or not rec_path.is_file()):
+        raise AssertionError(f"phase 31 train: epochs {train['epochs']}, checkpoint "
+                             f"{latest}, artifact {rec_path.is_file()}")
+    if (train["launches"]["user_encoder_bwd"] != CLI_EPOCHS * steps
+            or train["launches"]["user_encoder_fwd"] < CLI_EPOCHS * steps):
+        raise AssertionError(f"phase 31 train: launches {train['launches']}")
+    saved = int(latest.split("-")[1])
+    _, resumed = run_cli(cli_args(device, root, "cli", "--epoch", "1", "--load_ckpt_name",
+                                  latest), "resume")
+    add(resumed["launches"])
+    log(f"phase 31 CLI resume from {latest}: logged epochs "
+        f"{[e[0] for e in resumed['epochs']]}, epoch host "
+        f"{resumed['epochs'][0][4]:.3f} s, loss {resumed['epochs'][0][1]:.5f}")
+    if [e[0] for e in resumed["epochs"]] != [saved + 1]:
+        raise AssertionError(f"phase 31 resume: epochs {resumed['epochs']}")
+
+    # in this process: 2 uninterrupted epochs against 1 + resume + 1
+    cfg, _ = parse_args(cli_args(device, root, "a"))
+
+    def in_process(name, **kw):
+        out, launches = counted(counters, lambda: run_from_config(
+            cfg.replace(ckpt_dir=str(root / name), **kw), device=device))
+        add(launches)
+        return out[0]
+
+    t0 = time.perf_counter()
+    straight = in_process("straight", epoch=2)
+    in_process("split", epoch=1)
+    split = in_process("split", epoch=1, load_ckpt_name="epoch-1")
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(straight.model.parameters(), split.model.parameters())]
+    moments = [float((sa[k] - sb[k]).abs().max())
+               for sa, sb in zip(straight.optimizer.state.values(),
+                                 split.optimizer.state.values())
+               for k in ("exp_avg", "exp_avg_sq")]
+    log(f"phase 31 resume in-process (run_from_config, 2 epochs vs 1 + checkpoint + "
+        f"resume + 1, {time.perf_counter() - t0:.2f} s): max |diff| over "
+        f"{len(diffs)} parameters {max(diffs):.6g}, over the Adam moments "
+        f"{max(moments):.6g}")
+    if max(diffs) != 0.0 or max(moments) != 0.0:
+        raise AssertionError("phase 31: the resumed run is not the uninterrupted one")
+    del straight, split
+    torch.cuda.empty_cache()
+
+    # test mode re-exports; its artifact is the resumed trainer's
+    test_path = root / "rec_test.npz"
+    _, tested = run_cli(cli_args(device, root, "cli", "--mode", "test", "--load_ckpt_name",
+                                 latest, "--export_recommender", str(test_path)),
+                        "test mode")
+    add(tested["launches"])
+    loaded, launches = counted(counters, lambda: run_from_config(
+        cfg.replace(ckpt_dir=str(ckpt_dir), load_ckpt_name=latest, epoch=0),
+        device=device)[0])
+    add(launches)
+    mine = root / "rec_in_process.npz"
+    Recommender.from_trainer(loaded).save(str(mine))
+    corpus = loaded.corpus
+    requests = {b: [row[row > 0].tolist() for row in corpus.test_history[:b]]
+                for b in (1, 32, 256)}
+    with np.load(test_path) as za, np.load(mine) as zb:
+        if za.files != zb.files or not all(np.array_equal(za[k], zb[k])
+                                           for k in za.files):
+            raise AssertionError("phase 31 test mode: the CLI's artifact is not the "
+                                 "in-process export")
+    a = Recommender.load(str(test_path), device=device)
+    b = Recommender.load(str(mine), device=device)
+    for n, seqs in requests.items():
+        ids_a, ids_b = a.top_k(seqs, k=10)[0], b.top_k(seqs, k=10)[0]
+        if not np.array_equal(ids_a, ids_b) or ids_a.min() < 1:
+            raise AssertionError(f"phase 31 test mode: top_k ids differ at batch {n}")
+    source = loaded.evaluate_split("test")
+    if tested["test"] is None or max(
+            abs(t - s) for t, s in zip(tested["test"], source)) > 1e-7:
+        raise AssertionError(f"phase 31 test mode: {tested['test']} vs {source}")
+    log(f"phase 31 CLI test mode ({latest}): test HR@10 {tested['test'][0]:.6f} "
+        f"nDCG@10 {tested['test'][1]:.6f} (in this process {source[0]:.6f} / "
+        f"{source[1]:.6f}); the re-exported artifact is bit-equal to "
+        f"Recommender.from_trainer(resumed trainer).save, and its top_k ids at batch "
+        f"1, 32 and 256 equal those of that export")
+
+    # a warm start from a reference-layout .pt of the trained model
+    pt = root / "epoch-9.pt"
+    save_reference_checkpoint(export_jax_params(loaded.model), str(pt))
+    warm, launches = counted(counters, lambda: run_from_config(
+        cfg.replace(ckpt_dir=str(root / "warm"), pretrained_recsys_model=str(pt),
+                    mode="test"), eval_only=True, device=device)[0])
+    add(launches)
+    got = warm.evaluate_split("test")
+    log(f"phase 31 warm start from a reference .pt (--pretrained_recsys_model, "
+        f"--mode test): test HR@10 {got[0]:.6f} nDCG@10 {got[1]:.6f}, the source "
+        f"trainer's {source[0]:.6f} / {source[1]:.6f}")
+    if got != source:
+        raise AssertionError("phase 31: the warm start serves other numbers")
+    del loaded, warm, a, b
+    torch.cuda.empty_cache()
+
+    # --use_pallas true: one cached epoch through #3
+    _, pallas = run_cli(cli_args(device, root, "pallas", "--epoch", "1", "--use_pallas",
+                                 "true", "--save_checkpoints", "false"), "use_pallas")
+    add(pallas["launches"])
+    log(f"phase 31 CLI --use_pallas true: epoch host {pallas['epochs'][0][4]:.3f} s, "
+        f"loss {pallas['epochs'][0][1]:.5f}; launches {nonzero(pallas['launches'])} "
+        f"({2 * steps} of san_cascade_fwd in the steps, the rest building item tables)")
+    if pallas["launches"]["san_cascade_fwd"] < 2 * steps:
+        raise AssertionError(f"phase 31 use_pallas: launches {pallas['launches']}")
+
+    # --item_tower id: two epochs, the export and top_k
+    id_path = root / "id.npz"
+    _, ided = run_cli(cli_args(device, root, "id", "--epoch", str(CLI_EPOCHS), "--item_tower",
+                               "id", "--export_recommender", str(id_path)), "id")
+    add(ided["launches"])
+    rec = Recommender.load(str(id_path), device=device)
+    for n, seqs in requests.items():
+        ids = rec.top_k(seqs, k=10)[0]
+        hist = [set(s) for s in seqs]
+        if ids.shape != (n, 10) or ids.min() < 1 or any(
+                set(row) & h for row, h in zip(ids.tolist(), hist)):
+            raise AssertionError(f"phase 31 id: top_k at batch {n}: {ids[:2]}")
+    log(f"phase 31 CLI --item_tower id ({CLI_EPOCHS} epochs): "
+        + "; ".join(f"epoch {e} host {s:.3f} s, loss {loss:.5f}, valid HR@10 {h:.6f}"
+                    for e, loss, h, n, s in ided["epochs"])
+        + f"; table {tuple(rec.fused_table.shape)}, top_k at batch 1, 32, 256 "
+        f"(history excluded); launches {nonzero(ided['launches'])}")
+    if (ided["launches"]["user_encoder_bwd"] != CLI_EPOCHS * steps
+            or not np.isfinite([e[1] for e in ided["epochs"]]).all()):
+        raise AssertionError(f"phase 31 id: {ided['epochs']} {ided['launches']}")
+    log(f"phase 31 wall time {time.perf_counter() - t_phase:.2f} s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3502,6 +3780,11 @@ def main() -> int:
         versa_caches = run_versa_caches(device, ccounters, Path(tmp), per_1000["image"])
     caches = {k: caches[k] + versa_caches[k] for k in caches}
     torch.cuda.empty_cache()
+
+    # The run path from the command line (phase 31).
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        cli = run_cli_path(device, counters, Path(tmp))
+    torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
@@ -3522,18 +3805,20 @@ def main() -> int:
               counts[0] + train_counts["user_encoder_fwd"]
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
               + towers["user_encoder_fwd"] + peft["user_encoder_fwd"]
-              + caches["user_encoder_fwd"],
+              + caches["user_encoder_fwd"] + cli["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
               + versa["user_encoder_bwd"] + towers["user_encoder_bwd"]
-              + peft["user_encoder_bwd"] + caches["user_encoder_bwd"],
+              + peft["user_encoder_bwd"] + caches["user_encoder_bwd"]
+              + cli["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
-              + versa["san_cascade_fwd"] + caches["san_cascade_fwd"],
+              + versa["san_cascade_fwd"] + caches["san_cascade_fwd"]
+              + cli["san_cascade_fwd"],
               cascade["err"], cascade["ms"],
               cascade["plain_ms"], cascade_bound(*CASCADE_TABLE), None),
         entry("san_cascade_streamed_fwd", "iisan_tpu/ops/fused_san.py:94",

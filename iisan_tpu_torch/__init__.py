@@ -9,9 +9,13 @@ stores (``pipeline="cached_asym"``), and IISAN (Uncached) training with
 its full fine-tuning baseline, the BERT and ViT towers in the step
 (``train.uncached``), and the builders of the hidden-state caches
 (``cache_builder``, ``tools.build_caches``) with the Versa towers (Llama,
-CLIP, EVA).  Its hand-written kernels (the fused user-encoder
-forward and backward, the SAN cascade forward, resident and step-streamed,
-the tower attention forward, backward and mask replay) live in ``csrc/``
+CLIP, EVA), the ID-SASRec baseline (``train.id_pipeline``), and the run
+path: ``python -m iisan_tpu_torch.cli`` and
+``train.pipelines.run_from_config`` (dispatch, checkpoints and resume,
+warm starts from reference ``.pt`` files, export) and ``sweep``.  Its
+hand-written kernels (the fused user-encoder forward and backward, the SAN
+cascade forward, resident and step-streamed, the tower attention forward,
+backward and mask replay) live in ``csrc/``
 and are built on first use by ``kernels/build.py``.  The package imports no
 JAX; the JAX package ``iisan_tpu`` is the reference it is tested against.
 """

@@ -1,9 +1,10 @@
 """Top-level recommendation model: SAN -> com_dense -> SASRec user encoder.
 
-Port of ``IISANRecModel`` and ``ComDense`` from ``iisan_tpu/models/model.py``:
-``item_embeddings`` (the SAN over tap tensors), ``fuse_embeddings``
-(``com_dense``), ``user_scores`` (the user encoder) and ``forward``, the
-training loss.
+Port of ``IISANRecModel``, ``ComDense`` and ``IDRecModel`` from
+``iisan_tpu/models/model.py``: ``item_embeddings`` (the SAN over tap
+tensors), ``fuse_embeddings`` (``com_dense``), ``user_scores`` (the user
+encoder) and ``forward``, the training loss; the ID baseline takes its item
+embeddings from a learned table instead of the SAN.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import sequence_train_loss
-from .modules import TorchLinear
+from .modules import TorchLinear, xavier_normal_init
 from .san import SideAdapterNetwork, san_from_config
 from .user_encoder import UserEncoder
 
@@ -111,6 +112,64 @@ def rec_model_from_config(cfg, device=None, generator=None) -> IISANRecModel:
         transformer_block=cfg.transformer_block,
         drop_rate=cfg.drop_rate,
         modality=cfg.modality,
+        dtype=getattr(torch, cfg.compute_dtype),
+        fused_user_encoder=None if getattr(cfg, "fused_user_encoder", True)
+        else False,
+        device=device, generator=generator,
+    )
+
+
+class IDRecModel(nn.Module):
+    """The ID-embedding baseline (the reference's ``use_modal=False``):
+    item embeddings are rows of a learned (item_num+1, emb) table,
+    xavier-normal from ``generator``; the user encoder and the loss are the
+    cached model's."""
+
+    def __init__(self, item_num: int, embedding_dim: int, max_seq_len: int,
+                 num_attention_heads: int, transformer_block: int,
+                 drop_rate: float, dtype: Optional[torch.dtype] = None,
+                 fused_user_encoder: Optional[bool] = None, device=None,
+                 generator=None):
+        super().__init__()
+        self.id_embedding = nn.Embedding(item_num + 1, embedding_dim,
+                                         device=device)
+        with torch.no_grad():
+            self.id_embedding.weight.copy_(xavier_normal_init(
+                (item_num + 1, embedding_dim), device, generator))
+        self.user_encoder = UserEncoder(
+            embedding_dim, max_seq_len, num_attention_heads,
+            transformer_block, drop_rate, dtype, fused_user_encoder, device,
+            generator)
+
+    def item_table(self) -> torch.Tensor:
+        return self.id_embedding.weight
+
+    def user_scores(self, input_embs, log_mask, deterministic: bool = True):
+        return self.user_encoder(input_embs, log_mask, deterministic)
+
+    def forward(self, item_ids, log_mask, pop_prob,
+                deterministic: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Training forward -> scalar fp32 loss; item_ids (bs, L+1),
+        log_mask (bs, L), pop_prob (item_num+1,)."""
+        score_embs = self.id_embedding(item_ids.reshape(-1).long())
+        return sequence_train_loss(self.user_encoder, score_embs, item_ids,
+                                   log_mask, pop_prob,
+                                   self.user_encoder.max_seq_len,
+                                   score_embs.shape[-1], deterministic,
+                                   generator)
+
+
+def id_model_from_config(cfg, item_num: int, device=None,
+                         generator=None) -> IDRecModel:
+    """The ID model of an ``IISANConfig`` over ``item_num`` items."""
+    return IDRecModel(
+        item_num=item_num,
+        embedding_dim=cfg.embedding_dim,
+        max_seq_len=cfg.max_seq_len,
+        num_attention_heads=cfg.num_attention_heads,
+        transformer_block=cfg.transformer_block,
+        drop_rate=cfg.drop_rate,
         dtype=getattr(torch, cfg.compute_dtype),
         fused_user_encoder=None if getattr(cfg, "fused_user_encoder", True)
         else False,

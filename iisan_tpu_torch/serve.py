@@ -59,11 +59,14 @@ class Recommender:
     def from_trainer(cls, trainer) -> "Recommender":
         """Serve a trainer's model: the cached trainers' fused item table
         (``fused_item_table``), the uncached ones' (``item_embedding_tables``),
-        built once from the current weights."""
+        built once from the current weights, or the ID model's embedding
+        table (``id_embedding.weight``)."""
         if hasattr(trainer, "fused_item_table"):
             table = trainer.fused_item_table()
-        else:
+        elif hasattr(trainer, "item_embedding_tables"):
             table = trainer.item_embedding_tables()
+        else:
+            table = trainer.model.id_embedding.weight.detach().clone()
         return cls(trainer.model, table, trainer.cfg.max_seq_len)
 
     def _prep(self, seqs, hist_len: int = None

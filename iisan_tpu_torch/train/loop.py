@@ -2,9 +2,11 @@
 
 Port of ``iisan_tpu/train/loop.py``: per-epoch validation with early-stop
 patience (``early_stop_count > early_stop_patience``), a NaN-loss abort,
-a test-set evaluation on a new best or every 10th epoch, and the per-step
-loss lines.  Checkpoints are not ported yet: ``save_checkpoints=True`` and
-``resume`` raise.
+a test-set evaluation on a new best or every 10th epoch, then a
+checkpoint there with ``save_checkpoints`` (``utils/checkpoint.py``: the
+model, the optimizer, the dropout generator and the epoch), and the
+per-step loss lines.  ``resume`` loads such a checkpoint and returns its
+epoch; training on from it runs what the uninterrupted run would have run.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import checkpoint as ckpt_lib
+from ..utils.profiling import report_time_eval
 
 log = logging.getLogger("iisan_tpu_torch")
 
@@ -38,8 +43,10 @@ class TrainResult:
 
 
 class TrainLoopMixin:
-    """Requires: self.cfg, self.corpus, self.device, self.run_epoch(epoch)
-    -> loss, self.evaluate_split(split) -> (hit, ndcg)."""
+    """Requires: self.cfg, self.corpus, self.device, self.model,
+    self.optimizer, self.generator (the dropout generator),
+    self.run_epoch(epoch) -> loss, self.evaluate_split(split) -> (hit,
+    ndcg)."""
 
     def epoch_permutation(self, epoch: int) -> np.ndarray:
         """Shuffled user indices wrapped to whole batches, (steps, batch)
@@ -74,8 +81,6 @@ class TrainLoopMixin:
 
     def train(self, save_checkpoints: bool = False,
               start_epoch: int = 0) -> TrainResult:
-        if save_checkpoints:
-            raise NotImplementedError("checkpoints are not ported yet")
         cfg = self.cfg
         res = TrainResult(0.0, 0.0, 0, 0)
         max_hit10, early_stop_count = 0.0, 0
@@ -94,8 +99,7 @@ class TrainLoopMixin:
             self._log_step_losses(now_epoch)
             eval_t0 = time.time()
             hit, ndcg = self.evaluate_split("valid")
-            log.info("##### (time) eval(valid and test): %.1f seconds #####",
-                     time.time() - eval_t0)
+            report_time_eval(eval_t0)
             log.info("epoch %d loss %.5f valid Hit10 %.5f nDCG10 %.5f (%.2fs)",
                      now_epoch, loss, hit * 100, ndcg * 100, epoch_time)
             res.epochs_run = now_epoch
@@ -117,9 +121,25 @@ class TrainLoopMixin:
                     res.best_test_metrics = res.test_metrics
                 log.info("test Hit10 %.5f nDCG10 %.5f",
                          res.test_metrics[0] * 100, res.test_metrics[1] * 100)
+                if save_checkpoints:
+                    ckpt_lib.save_checkpoint(cfg.ckpt_dir, now_epoch,
+                                             self.checkpoint_state(now_epoch))
         log.info("max eval Hit10 %.5f in epoch %d (total %.1fs)",
                  res.best_hit10 * 100, res.best_epoch, time.time() - start)
         return res
 
+    def checkpoint_state(self, epoch: int) -> dict:
+        """What a checkpoint holds (``utils/checkpoint.py``)."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(), "epoch": epoch}
+
     def resume(self, ckpt_name: str) -> int:
-        raise NotImplementedError("checkpoints are not ported yet")
+        """Load the model, the optimizer and the generator from
+        ``<cfg.ckpt_dir>/<ckpt_name>``; returns the epoch to go on from."""
+        state, epoch = ckpt_lib.restore_checkpoint(self.cfg.ckpt_dir,
+                                                   ckpt_name)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
+        return epoch

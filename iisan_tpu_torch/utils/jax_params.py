@@ -13,6 +13,10 @@ with a leading layer axis.  The port's towers keep one submodule a layer
 ``jax_scan`` attribute; the bridge unstacks that subtree on the way in and
 stacks it on the way out, and its strict checks see the per-layer names.
 
+Embedding tables: flax ``nn.Embed`` names its table ``embedding``, so an
+``nn.Embedding``'s ``weight`` (the ID model's ``id_embedding``) crosses
+the bridge under that name.
+
 Int8 leaves (the W8A8 towers' ``kernel_q``, ``ops/int8_linear.Int8Dense``)
 live in int8 buffers, not parameters: autograd tracks no int8 tensor.  The
 bridge carries them bit for bit both ways, and counts them in its strict
@@ -82,8 +86,17 @@ def _scan(flat: Dict[str, np.ndarray], prefixes) -> Dict[str, np.ndarray]:
 
 
 def _tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's parameters and its int8 buffers, by dotted name."""
-    own = dict(model.named_parameters())
+    """The model's parameters and its int8 buffers, by dotted name; an
+    ``nn.Embedding``'s ``weight`` carries the name of flax ``nn.Embed``'s
+    parameter, ``embedding``."""
+    embeds = {name for name, m in model.named_modules()
+              if isinstance(m, nn.Embedding)}
+    own = {}
+    for name, p in model.named_parameters():
+        parent, _, leaf = name.rpartition(".")
+        if leaf == "weight" and parent in embeds:
+            name = f"{parent}.embedding" if parent else "embedding"
+        own[name] = p
     own.update((n, b) for n, b in model.named_buffers()
                if b.dtype == torch.int8)
     return own

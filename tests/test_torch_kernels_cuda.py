@@ -103,6 +103,10 @@ BERT- and ViT-base width, 2 layers) launches #5 twice a batch, and a build
 in three shards on one store is the single build bit for bit (every
 launch has the same M).  A Llama layer (GQA 8 / 2) in bf16 stays within
 max |diff| / max |fp32| < 0.05 of its fp32 copy.
+The run path (``train.pipelines.run_from_config``) trains the cached and
+the ID pipelines through both encoder kernels on a tiny TSV dataset, and
+one epoch, a checkpoint, a resume and one more epoch are the two-epoch
+run bit for bit.
 """
 
 import math
@@ -1505,3 +1509,71 @@ def test_llama_layer_bf16_matches_fp32(cuda_device):
         got = low(ids, mask)[1].float()
     assert torch.isfinite(got).all() and got.shape == (2, 16, 30, 1024)
     assert float((got - want).abs().max() / want.abs().max()) < 0.05
+
+
+def _write_run_dataset(root, cached: bool):
+    """The tiny TSV dataset of the CPU run-path tests (30 items, 15 users)
+    and, for the cached pipeline, two fp32 stores of width 32."""
+    import numpy as np
+
+    from iisan_tpu_torch.data.cache_store import HiddenStateCache
+
+    rng = np.random.default_rng(0)
+    with open(root / "items.tsv", "w") as f:
+        for i in range(30):
+            f.write(f"I{i:04d}\tTitle of item {i}\n")
+    with open(root / "users.tsv", "w") as f:
+        for u in range(15):
+            seq = " ".join(f"I{int(x):04d}" for x in
+                           rng.integers(0, 30, size=int(rng.integers(5, 12))))
+            f.write(f"U{u}\t{seq}\n")
+    if cached:
+        for name in ("bert_outputs", "vit_outputs"):
+            st = HiddenStateCache.create(str(root / "vecs" / f"{name}.memmap"),
+                                         31, 13, 32, "float32")
+            st.write_rows(1, rng.standard_normal((30, 13, 32)).astype("float32"))
+            st.flush()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["cached", "id"])
+def test_run_from_config_trains_through_the_encoder_kernels_and_resumes(
+        cuda_device, pipeline, tmp_path):
+    """run_from_config on the card (bf16): both encoder kernels launch a
+    step, and 1 epoch + checkpoint + resume + 1 epoch is the 2-epoch run
+    bit for bit (parameters and Adam moments)."""
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.train.pipelines import run_from_config
+
+    _write_run_dataset(tmp_path, pipeline == "cached")
+    base = IISANConfig(
+        root_data_dir=str(tmp_path), dataset="", behaviors="users.tsv",
+        news="items.tsv", batch_size=8, embedding_dim=64,
+        side_adapter_vit_list="1,3", side_adapter_bert_list="1,3",
+        word_embedding_dim=32, image_embedding_dim=32,
+        bert_adapter_down_size=8, cv_adapter_down_size=8, eval_batch_size=16,
+        stored_vector_path=str(tmp_path / "vecs"), log_dir=str(tmp_path / "logs"),
+        item_tower="id" if pipeline == "id" else "modal")
+
+    def run(name, **kw):
+        cfg = base.replace(ckpt_dir=str(tmp_path / name), **kw)
+        return run_from_config(cfg, device=cuda_device)
+
+    f0, b0 = fue.user_encoder_fwd.launches, fue.user_encoder_bwd.launches
+    straight, res = run("straight", epoch=2)
+    assert res.epochs_run == 2 and all(math.isfinite(x) for x in res.losses)
+    steps = 2 * straight.epoch_permutation(1).shape[0]
+    assert fue.user_encoder_bwd.launches - b0 == steps
+    assert fue.user_encoder_fwd.launches - f0 >= steps  # + the evaluations
+
+    run("split", epoch=1)
+    resumed, res2 = run("split", epoch=1, load_ckpt_name="epoch-1")
+    assert res2.epochs_run == 2
+    for (name, a), b in zip(straight.model.named_parameters(),
+                            resumed.model.parameters()):
+        assert torch.equal(a, b), name
+    for sa, sb in zip(straight.optimizer.state.values(),
+                      resumed.optimizer.state.values()):
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+    assert resumed.evaluate_split("test") == straight.evaluate_split("test")

@@ -1,11 +1,13 @@
 """The port imports no JAX and builds nothing at import time.
 
 A fresh interpreter imports every module of iisan_tpu_torch (the trainers
-included); afterwards no ``jax`` / ``flax`` / ``optax`` module, no module
-of the JAX package (``iisan_tpu`` or ``iisan_tpu.*``) and no
-``transformers`` module (the GPU machine has none: the ``params_from_*``
-importers read a state dict without it, and the cache-build command line
-imports it only inside ``main``) is loaded, and the kernel library has not
+included, and the run path: the command line, the pipelines, the sweep
+and the utilities); afterwards no ``jax`` / ``flax`` / ``optax`` /
+``orbax`` module, no module of the JAX package (``iisan_tpu`` or
+``iisan_tpu.*``) and no ``transformers`` module (the GPU machine has none:
+the ``params_from_*`` importers read a state dict without it, and the
+cache-build command line and ``load_tokenizer`` import it only when
+called) is loaded, and the kernel library has not
 been built or loaded.
 """
 
@@ -25,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 from iisan_tpu_torch.kernels import build
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "orbax"))
 reference = sorted(m for m in sys.modules if m.split(".")[0] == "iisan_tpu")
 hf = sorted(m for m in sys.modules if m.split(".")[0] == "transformers")
 print(json.dumps({"modules": names, "jax": loaded, "reference": reference,
@@ -51,7 +54,10 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "iisan_tpu_torch.ops.fused_attn_subblock" in out["modules"]
     assert "iisan_tpu_torch.models.peft" in out["modules"]
     for name in ("data.preprocess", "cache_builder", "tools.build_caches",
-                 "models.llama", "models.clip_vit", "models.eva"):
+                 "models.llama", "models.clip_vit", "models.eva", "cli",
+                 "train.pipelines", "train.id_pipeline", "sweep",
+                 "utils.logging", "utils.checkpoint", "utils.profiling",
+                 "utils.tpme", "utils.torch_import", "utils.jax_params"):
         assert f"iisan_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (

@@ -19,6 +19,7 @@ patched, as tests/test_loop.py does for the JAX trainer.
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -113,8 +114,14 @@ def test_parameters_and_metrics_track_jax(trained_pair):
 
 def test_port_config_and_corpus_are_the_jax_ones():
     ours, theirs = IISANConfig(), JaxConfig()
-    for f in dataclasses.fields(ours):
+    assert ([(f.name, f.type) for f in dataclasses.fields(ours)]
+            == [(f.name, f.type) for f in dataclasses.fields(theirs)])
+    for f in dataclasses.fields(theirs):
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    for load in ("bert_large_uncased", "bert_mini", "vit"):
+        assert (IISANConfig(bert_model_load=load).with_bert_dims()
+                == IISANConfig(**dataclasses.asdict(JaxConfig(
+                    bert_model_load=load).with_bert_dims())))
     small = IISANConfig(side_adapter_vit_list="1,3",
                         side_adapter_bert_list="1,3", remove_first="TRUE",
                         fusion_method="add")
@@ -137,7 +144,7 @@ def _port_trainer(**kw):
     return CachedTrainer(cfg, corpus, cv, text, device="cpu")
 
 
-def test_port_trainer_trains_with_dropout_reproducibly():
+def test_port_trainer_trains_with_dropout_reproducibly(tmp_path):
     a, b = _port_trainer(drop_rate=0.1), _port_trainer(drop_rate=0.1)
     res = a.train()
     b.run_epoch(1)
@@ -149,8 +156,12 @@ def test_port_trainer_trains_with_dropout_reproducibly():
     c = _port_trainer(drop_rate=0.1)
     c.run_epoch(1)
     assert torch.equal(b._last_step_losses, c._last_step_losses)
-    with pytest.raises(NotImplementedError):
-        a.train(save_checkpoints=True)
+    # checkpoints are written on a new best or every 10th epoch
+    a.cfg = a.cfg.replace(ckpt_dir=str(tmp_path / "ckpt"))
+    res = a.train(save_checkpoints=True, start_epoch=2)
+    saved = sorted(os.listdir(tmp_path / "ckpt"))
+    assert saved and set(saved) <= {"epoch-3", "epoch-4"}
+    assert "epoch-3" in saved  # the first epoch of a run is always tested
     with pytest.raises(ValueError, match="tap table"):
         CachedTrainer(a.cfg, a.corpus, np.zeros((5, K, DIM), np.float32),
                       np.zeros((41, K, DIM), np.float32), device="cpu")
