@@ -4,9 +4,10 @@ uncached training paths (IISAN and full fine-tuning, IISAN's W8A8 and
 attention-subblock tower options, and the LoRA, Houlsby and BitFit
 baselines with multi-attribute text, tower remat and the transformers
 weight import), IISAN-Versa (``pipeline="cached_asym"``) and the
-hidden-state cache builders with the Versa towers (Llama, EVA, CLIP), and
-the run path from the command line (training, resume, test mode, warm
-starts) once on one NVIDIA GPU.
+hidden-state cache builders with the Versa towers (Llama, EVA, CLIP), the
+run path from the command line (training, resume, test mode, warm
+starts), and uncached training and cache builds from the real-data image
+stores (LMDB, JPEG) with ``device_bench`` once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -267,6 +268,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    trainer warm-started from a reference ``.pt`` of the trained model
    (``--pretrained_recsys_model``) gives its test HR@10 / nDCG@10.  Each
    command line logs its kernel launches; they join the kernel line.
+32. The real-data image stores: the machine's image libraries (Pillow,
+   pandas, lmdb, libjpeg, g++); an LMDB of 1,024 seeded 500 x 375 images
+   written by the port's backend; where Pillow is here, the JPEG fixtures
+   of ``iisan_tpu_torch/data/fixtures`` under the 800 training names
+   through ``python -m iisan_tpu_torch.tools.build_lmdb`` (records equal to
+   Pillow's decode, the bad-file report), and the JPEG directory's store
+   (built, or its named error where libjpeg is missing); ``python -m
+   iisan_tpu_torch.cli --pipeline uncached`` trains one epoch of 32 steps
+   (2,048 users x 800 items, BERT-base x ViT-base, batch 64) from the LMDB
+   (#5 24 times a step); the feed alone on 4 and 8 threads and its
+   one-thread split (LMDB read, unpickle, resize), the staged step's
+   device-busy time and the fed step's idle share (P9); the
+   ViT-base image cache of the 1,024 items from the LMDB through
+   ``--image-source``'s routing, per 1,000 items; ``device_bench(10)`` at
+   batch 64 with its TFLOP/s against 989.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -1098,7 +1114,9 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
 def w8a8_bound(M: int, K: int, N: int, xsz: int = 2, osz: int = 2):
     """#10 reads x, the int8 weight, kscale and bias once and writes y;
     2 M K N int8 operations."""
-    return bound(M * K * xsz + K * N + 8 * N + M * N * osz, 2 * M * K * N,
+    from iisan_tpu_torch.utils import flops
+
+    return bound(M * K * xsz + K * N + 8 * N + M * N * osz, flops.w8a8(M, K, N),
                  PEAK_INT8_OPS)
 
 
@@ -1110,8 +1128,10 @@ def w8a8_quant_bound(M: int, K: int, xsz: int = 2):
 def w8a8_gemm_bound(M: int, K: int, N: int, osz: int = 2):
     """#10's GEMM reads xq, sx, the (N, K_p) weight, kscale and bias once
     and writes y; 2 M K N int8 operations."""
+    from iisan_tpu_torch.utils import flops
+
     Kp = -(-K // 16) * 16
-    return bound(M * Kp + 4 * M + N * Kp + 8 * N + M * N * osz, 2 * M * K * N,
+    return bound(M * Kp + 4 * M + N * Kp + 8 * N + M * N * osz, flops.w8a8(M, K, N),
                  PEAK_INT8_OPS)
 
 
@@ -1119,10 +1139,11 @@ def subblock_bound(B: int, T: int, bias: bool):
     """#8 / #9 read x, the bf16 weights and fp32 biases (and the key bias)
     once and write the bf16 output; the qkv projection, attention's two
     products and the output projection."""
+    from iisan_tpu_torch.utils import flops
+
     D, H = TOWER_D, TOWER_H
     nbytes = B * T * D * 4 + 4 * D * D * 2 + 4 * D * 4 + (B * T * 4 if bias else 0)
-    flops = 2 * B * T * D * 4 * D + 4 * B * H * T * T * (D // H)
-    return bound(nbytes, flops)
+    return bound(nbytes, flops.subblock(B, T, D, H))
 
 
 def mha_bound(B, T, D, H, bias: bool, bwd: bool, itemsize: int = 2):
@@ -1130,17 +1151,20 @@ def mha_bound(B, T, D, H, bias: bool, bwd: bool, itemsize: int = 2):
     o (or gq, gk, gv) written in bf16 (itemsize 2) or fp32, the bias read
     once; the forward's two products, the backward's five (the function's,
     without recomputation), at the bf16 tensor-core or the fp32 peak."""
+    from iisan_tpu_torch.utils import flops
+
     tensors = 7 if bwd else 4
     nbytes = tensors * B * T * D * itemsize + (B * T * 4 if bias else 0)
-    flops = (10 if bwd else 4) * B * H * T * T * (D // H)
-    return bound(nbytes, flops, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
+    return bound(nbytes, flops.mha(B, T, D, H, bwd),
+                 PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
 def encoder_flops(B: int) -> float:
     """Forward operations of the user encoder over B sequences: per block
     the four projections, the two attention products and the FFN."""
-    L, D, F = SEQ_LEN, EMB, 4 * EMB
-    return B * BLOCKS * (8 * L * D * D + 4 * L * L * D + 4 * L * D * F)
+    from iisan_tpu_torch.utils import flops
+
+    return flops.encoder(B, SEQ_LEN, EMB, 4 * EMB, BLOCKS)
 
 
 def encoder_param_count() -> int:
@@ -1168,8 +1192,10 @@ def cascade_bound(S: int, N: int, D: int = TAP_DIM, R: int = BOTTLENECK,
                   K: int = K_TAPS):
     """A cascade kernel reads its taps, carry and bf16 weights once and
     writes the final carry; two products of D x R per tap."""
+    from iisan_tpu_torch.utils import flops
+
     nbytes = (S * N * K * D + 2 * S * N * D + S * K * (2 * D * R + R + D)) * 2
-    return bound(nbytes, S * N * K * 4 * D * R)
+    return bound(nbytes, flops.cascade(S, N, K, D, R))
 
 
 def mha_ratio(got, want):
@@ -3372,7 +3398,7 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
-def run_cli(args, what: str):
+def run_cli(args, what: str, phase: int = 31):
     """Run the port's command line on the card; returns (its log lines,
     {"launches": kernel launches, "epochs": [(epoch, loss, hit, ndcg, s)],
     "test": (hit, ndcg) or None, "seconds": wall})."""
@@ -3385,7 +3411,7 @@ def run_cli(args, what: str):
     lines = proc.stderr.splitlines()
     if proc.returncode != 0:
         print("\n".join(lines[-40:]), file=sys.stderr)
-        raise AssertionError(f"phase 31 {what}: the command line exited "
+        raise AssertionError(f"phase {phase} {what}: the command line exited "
                              f"{proc.returncode}")
     out = {"seconds": seconds, "launches": None, "epochs": [], "test": None}
     for line in lines:
@@ -3400,7 +3426,7 @@ def run_cli(args, what: str):
         if "kernel launches: " in line:
             out["launches"] = json.loads(line.split("kernel launches: ", 1)[1])
     if out["launches"] is None:
-        raise AssertionError(f"phase 31 {what}: no launch counts in the log")
+        raise AssertionError(f"phase {phase} {what}: no launch counts in the log")
     return lines, out
 
 
@@ -3574,6 +3600,435 @@ def run_cli_path(device, counters, root: Path):
             or not np.isfinite([e[1] for e in ided["epochs"]]).all()):
         raise AssertionError(f"phase 31 id: {ided['epochs']} {ided['launches']}")
     log(f"phase 31 wall time {time.perf_counter() - t_phase:.2f} s; launches {totals}")
+    return totals
+
+
+# Phase 32: the real-data image stores.  One LMDB holds the uncached
+# cell's 800 items and the cache build's catalogue of 1,024, each a seeded
+# random original of 500 x 375 (not square and larger than 224, so the
+# resize does real work); the users are STORE_USERS (32 steps of 64).
+STORE_ITEMS, STORE_TRAIN_ITEMS, STORE_USERS = 1024, 800, 2048
+STORE_SHAPE = (375, 500, 3)
+FEED_BATCHES = 6  # the first one (pool start-up) is not timed
+FED_WARM, FED_TIMED = 4, 10  # fed steps before and in each timed window
+FIXTURES = ROOT / "iisan_tpu_torch" / "data" / "fixtures"
+
+
+def image_inventory():
+    """This machine's image libraries: Pillow, pandas and lmdb (versions or
+    "missing"), g++, and libjpeg as the port's JPEG decoder finds it (its
+    build error's first line where it does not build)."""
+    import importlib
+    import shutil
+
+    from iisan_tpu_torch.data import fastimage
+
+    out = {}
+    for mod in ("PIL", "pandas", "lmdb"):
+        try:
+            out[mod] = getattr(importlib.import_module(mod), "__version__", "present")
+        except ImportError:
+            out[mod] = "missing"
+    gxx = shutil.which("g++")
+    out["g++"] = subprocess.run([gxx, "-dumpfullversion"], capture_output=True,
+                                text=True).stdout.strip() if gxx else "missing"
+    try:
+        fastimage.library()
+        out["libjpeg"] = "present (the port's JPEG decoder built)"
+    except fastimage.DecoderUnavailable as e:
+        out["libjpeg"] = "missing: " + str(e).splitlines()[0]
+    return out
+
+
+def write_image_dataset(root: Path):
+    """Phase 32's dataset: ``ds/items.tsv`` (the 800 training items),
+    ``ds/users.tsv`` (STORE_USERS users of 5-13 items), a BERT vocabulary
+    for the port's tokenizer, and ``ds/image.lmdb`` written by the port's
+    LMDB backend (STORE_ITEMS records in the reference layout, one
+    commit).  Returns (seconds to write the LMDB, its bytes)."""
+    import pickle
+
+    import numpy as np
+
+    from iisan_tpu_torch.data import images
+
+    rng = np.random.default_rng(SEED)
+    ds = root / "ds"
+    ds.mkdir(parents=True)
+    with open(ds / "items.tsv", "w") as f:
+        f.writelines(f"I{i:05d}\tTitle of item {i}\n" for i in range(STORE_TRAIN_ITEMS))
+    lengths = rng.integers(5, SEQ_LEN + 4, STORE_USERS)
+    stream = np.concatenate([rng.permutation(STORE_TRAIN_ITEMS), rng.integers(
+        0, STORE_TRAIN_ITEMS, int(lengths.sum()) - STORE_TRAIN_ITEMS)])
+    rng.shuffle(stream)
+    with open(ds / "users.tsv", "w") as f:
+        for u, seq in enumerate(np.split(stream, np.cumsum(lengths)[:-1])):
+            f.write(f"U{u}\t" + " ".join(f"I{i:05d}" for i in seq) + "\n")
+    vocab = root / "pretrained_models" / "bert" / "bert_base_uncased"
+    vocab.mkdir(parents=True)
+    (vocab / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "title", "of", "item"]
+        + [str(d) for d in range(10)] + [f"##{d}" for d in range(10)]) + "\n")
+    path = ds / "image.lmdb"
+    t0 = time.perf_counter()
+    env = images.lmdb.open(str(path), subdir=False, map_size=2 ** 40)
+    names = [f"I{i:05d}" for i in range(STORE_ITEMS)]
+    with env.begin(write=True) as txn:
+        for name in names:
+            img = rng.integers(0, 256, STORE_SHAPE, dtype=np.uint8)
+            txn.put(name.encode(), pickle.dumps(images.LMDBImage(img, name)))
+        txn.put(b"__keys__", pickle.dumps([n.encode() for n in names]))
+        txn.put(b"__len__", pickle.dumps(len(names)))
+    env.close()
+    return time.perf_counter() - t0, path.stat().st_size
+
+
+def check_jpeg_paths(root: Path, inventory, smi):
+    """The JPEG side: with Pillow here, the fixtures copied under the 800
+    training names (and one listed name without a file) go through
+    ``python -m iisan_tpu_torch.tools.build_lmdb``; its records must hold
+    the pixels Pillow decodes from each fixture, and its report the
+    missing name.  The directory store decodes with the port's libjpeg
+    build: where that is missing, routing the directory must raise the
+    decoder's named error."""
+    import shutil
+
+    import numpy as np
+
+    from iisan_tpu_torch.data import fastimage, images
+
+    jpgs = root / "jpgs"
+    jpgs.mkdir()
+    fixtures = sorted(FIXTURES.glob("*.jpg"))
+    names = [f"I{i:05d}" for i in range(STORE_TRAIN_ITEMS)]
+    for i, name in enumerate(names):
+        shutil.copyfile(fixtures[i % len(fixtures)], jpgs / f"{name}.jpg")
+    if inventory["PIL"] == "missing":
+        log("phase 32: no JPEG decoder for build_lmdb on this machine (Pillow is "
+            "missing); the build-lmdb command line is not run")
+    else:
+        (root / "jpg_items.tsv").write_text(
+            "".join(f"{n}\tTitle\n" for n in names + ["I_MISSING"]))
+        out = root / "jpeg.lmdb"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "iisan_tpu_torch.tools.build_lmdb", "--items",
+             str(root / "jpg_items.tsv"), "--images", str(jpgs), "--out", str(out),
+             "--bad-report", str(root / "bad.tsv")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "done; 1 bad files" not in proc.stdout:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError("phase 32: the build-lmdb command line failed")
+        if (root / "bad.tsv").read_text() != "I_MISSING\n":
+            raise AssertionError("phase 32: wrong bad-file report")
+        from PIL import Image
+
+        env = images.lmdb.open(str(out), subdir=False, readonly=True)
+        with env.begin() as txn:
+            for i, fx in enumerate(fixtures):
+                with Image.open(fx) as im:
+                    want = np.asarray(im.convert("RGB"))
+                got = images.load_record(txn.get(names[i].encode())).get_image()
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"phase 32: record {names[i]} is not {fx.name}")
+        env.close()
+        log(f"phase 32 build-lmdb command line: {len(names)} JPEGs (copies of "
+            f"{len(fixtures)} 500 x 375 fixtures, one grayscale) + 1 missing in "
+            f"{seconds:.2f} s (process wall), {out.stat().st_size:,} bytes; "
+            f"records equal Pillow's decode of each fixture; bad-file report "
+            f"I_MISSING ({smi})")
+    try:
+        images.open_image_source(str(jpgs), 224)
+        log("phase 32 JPEG directory store: the port's libjpeg decoder built here")
+    except fastimage.DecoderUnavailable as e:
+        log("phase 32: no JPEG decoder for the directory store on this machine "
+            f"(libjpeg): routing {jpgs.name}/ raises {type(e).__name__}: "
+            f"{str(e).splitlines()[0]}")
+
+
+def feed_ms(store, name_batches, threads: int) -> float:
+    """Host ms a batch of ``ParallelImageLoader`` over ``store`` on
+    ``threads`` threads, with nothing consuming but the loop: the feed
+    alone (the first batch, the pool's start, untimed)."""
+    from iisan_tpu_torch.data.images import ParallelImageLoader
+
+    loader = ParallelImageLoader(store, num_threads=threads)
+    it = loader.iter_batches(name_batches)
+    next(it)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)
+    loader.pool.shutdown()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def feed_split(store, names):
+    """Host ms an image, on one thread, of the LMDB read, the unpickle and
+    the rest of ``store.get`` (Pillow's resize), over ``names``."""
+    from iisan_tpu_torch.data.images import load_record
+
+    read = unpickle = whole = 0.0
+    for name in names:
+        t0 = time.perf_counter()
+        with store.env.begin() as txn:
+            raw = txn.get(store.key(name))
+        t1 = time.perf_counter()
+        load_record(raw).get_image()
+        t2 = time.perf_counter()
+        store.get(name)
+        t3 = time.perf_counter()
+        read, unpickle, whole = read + t1 - t0, unpickle + t2 - t1, whole + t3 - t2
+    n = len(names) / 1e3
+    return read / n, unpickle / n, (whole - read - unpickle) / n
+
+
+def fed_profile(tr, batch, warm: int, timed: int):
+    """P9 traced on the fed steps themselves: one pass of the trainer's
+    epoch-2 order through its own ``ParallelImageLoader``, stepped as
+    ``run_epoch`` steps it.  After ``warm`` steps (the loader's prefetch
+    filled), ``timed`` steps untraced, then ``timed`` under the profiler;
+    each window starts and ends synchronised.  Returns ms per step: the
+    untraced and the traced window's wall time, the device-busy time from
+    the trace, and the launching thread's split of the traced window into
+    waiting for the loader, the four uploads and the ``train_step`` call;
+    and the ``train_step`` call's median on the staged ``batch`` with the
+    loader idle (the launches alone, the device drained first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    c = tr.corpus
+    perm = tr.epoch_permutation(2)[: warm + 2 * timed]
+    flat = [c.train_seqs[p].reshape(-1) for p in perm]
+    it = tr.loader.iter_batches([tr._names(f) for f in flat])
+
+    def steps(lo, hi):
+        wait = put = call = 0.0
+        for p, f in zip(perm[lo:hi], flat[lo:hi]):
+            t0 = time.perf_counter()
+            imgs = next(it)
+            t1 = time.perf_counter()
+            args = (tr._put(c.train_seqs[p]), tr._put(imgs),
+                    tr._put(tr.token_table[f]), tr._put(c.train_log_mask[p]))
+            t2 = time.perf_counter()
+            tr.train_step(*args)
+            t3 = time.perf_counter()
+            wait, put, call = wait + t1 - t0, put + t2 - t1, call + t3 - t2
+        return wait / timed * 1e3, put / timed * 1e3, call / timed * 1e3
+
+    launches = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(*batch)
+        launches.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    steps(0, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(warm, warm + timed)
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) / timed * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        split = steps(warm + timed, warm + 2 * timed)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) / timed * 1e3
+    if next(it, None) is not None:
+        raise AssertionError("fed_profile: the loader gave more batches than asked")
+    families, _ = kernel_families(prof, timed)
+    return dict(untraced=untraced, traced=traced, busy=sum(families.values()),
+                wait=split[0], put=split[1], call=split[2],
+                staged_call=sorted(launches)[1])
+
+
+def product_count(fn) -> int:
+    """2 M K N for every matrix product PyTorch dispatches while ``fn``
+    runs (``mm``, ``addmm``, ``bmm``, ``baddbmm``, ``convolution``): a
+    count independent of ``utils/flops.py`` and of ``FlopCounterMode``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class ProductCount(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            op = func.overloadpacket
+            if op in (aten.mm, aten.bmm, aten.addmm, aten.baddbmm):
+                a, b = args[:2] if op in (aten.mm, aten.bmm) else args[1:3]
+                batch = a.shape[0] if a.dim() == 3 else 1
+                self.total += 2 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
+            elif op is aten.convolution:
+                self.total += 2 * out.numel() * args[1][0].numel()
+            return out
+
+    with ProductCount() as counter:
+        fn()
+    return counter.total
+
+
+def device_bench_batch(tr):
+    """The batch ``UncachedTrainer.device_bench`` stages, made again."""
+    import numpy as np
+
+    cfg, c = tr.cfg, tr.corpus
+    bs, L, R = cfg.batch_size, cfg.max_seq_len, cfg.CV_resize
+    seqs = np.resize(c.train_seqs, (bs, L + 1))
+    images = np.random.default_rng(0).integers(0, 256, (bs * (L + 1), R, R, 3), np.uint8)
+    return (tr._put(seqs), tr._put(images), tr._put(tr.token_table[seqs.reshape(-1)]),
+            tr._put(np.resize(c.train_log_mask, (bs, L))))
+
+
+def run_image_stores(device, counters, root: Path, smi: str, staged_busy: float,
+                     synthetic_per_1000: float):
+    """Phase 32: the real-data image stores; ``staged_busy`` and
+    ``synthetic_per_1000`` are phase 8's step and phase 27's ViT-base
+    build (ms per 1,000 synthetic images) of this run.  Returns the
+    launches of the uncached command line, the cache build and
+    ``device_bench``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch import cache_builder as cb
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.data.images import LmdbImageStore, open_image_source
+    from iisan_tpu_torch.train.pipelines import _image_store, load_corpus
+    from iisan_tpu_torch.train.uncached import UncachedTrainer
+
+    inv = image_inventory()
+    log("phase 32 inventory: " + "; ".join(f"{k} {v}" for k, v in inv.items()))
+    lmdb_s, lmdb_bytes = write_image_dataset(root)
+    log(f"phase 32 LMDB: {STORE_ITEMS} records of {STORE_SHAPE[1]} x {STORE_SHAPE[0]} "
+        f"uint8 written by the port's backend in {lmdb_s:.2f} s ({lmdb_bytes:,} bytes; "
+        f"{smi})")
+    check_jpeg_paths(root, inv, smi)
+
+    fields = dict(UNCACHED_CFG, pipeline="uncached", root_data_dir=str(root),
+                  dataset="ds", behaviors="users.tsv", news="items.tsv",
+                  lmdb_data="image.lmdb")
+    args = dict(fields, device=device, ckpt_dir=str(root / "ckpt"),
+                log_dir=str(root / "logs"))
+    lines, cli = run_cli([a for k, v in args.items() for a in (f"--{k}", str(v))],
+                         "uncached train from the LMDB", phase=32)
+    cfg = IISANConfig(**fields)
+    corpus, tokens = load_corpus(cfg)
+    steps = math.ceil(corpus.n_users / cfg.batch_size)
+    tables = len(cli["epochs"]) + sum("test Hit10" in ln for ln in lines)
+    per_step = cfg.text_layers + cfg.image_layers  # #5 once a tower layer
+    per_table = per_step * math.ceil((corpus.item_num + 1) / 256)
+    launches = cli["launches"]
+    mha_per_step = (launches["mha_fwd"] - per_table * tables) / steps
+    (_, loss, hit, ndcg, epoch_s), = cli["epochs"]
+    fed_ms = epoch_s / steps * 1e3
+
+    store = _image_store(cfg)
+    if not isinstance(store, LmdbImageStore):
+        raise AssertionError(f"phase 32: run_from_config routed to {type(store).__name__}")
+    tr = UncachedTrainer(cfg, corpus, tokens, store, device=device)
+    perm = tr.epoch_permutation(1)
+    name_batches = [tr._names(corpus.train_seqs[p].reshape(-1))
+                    for p in perm[:FEED_BATCHES]]
+    feed = {n: feed_ms(store, name_batches, n) for n in (cfg.num_workers, 8)}
+    split = feed_split(store, [n for n in name_batches[0] if n is not None][:128])
+    batch = staged_batch(tr, 0)
+    host, busy, families = uncached_breakdown(tr, batch, 5)
+    fed = fed_profile(tr, batch, FED_WARM, FED_TIMED)
+    log(f"phase 32 CLI uncached IISAN from the LMDB (scripts/bench_uncached.py's "
+        f"geometry, BERT-base x ViT-base, batch 64, {STEP_ROWS} images a step): "
+        f"{steps} steps in {epoch_s:.3f} s, {fed_ms:.1f} ms a step with the feed "
+        f"(host clock, {cfg.num_workers} loader threads); loss {loss:.5f}, valid "
+        f"HR@10 {hit:.6f} nDCG@10 {ndcg:.6f}; mha_fwd {mha_per_step:.1f} a step "
+        f"({launches['mha_fwd']} over {steps} steps and {tables} item tables of "
+        f"{per_table}); launches {nonzero(launches)} ({smi})")
+    log(f"phase 32 P9: the feed alone (LMDB read, unpickle, Pillow's bilinear "
+        f"resize to 224) {feed[cfg.num_workers]:.1f} ms a batch of {STEP_ROWS} on "
+        f"{cfg.num_workers} threads, {feed[8]:.1f} ms on 8 (one thread, an image: "
+        f"LMDB read {split[0]:.3f} ms, unpickle {split[1]:.3f}, resize "
+        f"{split[2]:.3f}); the staged step "
+        f"host {host:.2f} ms, device-busy {busy:.2f} ms (phase 8: "
+        f"{staged_busy:.2f}) ({smi})")
+    log(f"phase 32 P9 traced on fed steps (this trainer, its {cfg.num_workers}-thread "
+        f"loader, {FED_WARM} steps' warm-up, {FED_TIMED} steps a window): "
+        f"{fed['untraced']:.1f} ms a step untraced, {fed['traced']:.1f} traced, "
+        f"device-busy {fed['busy']:.2f} ms a step in the trace: device idle "
+        f"{100 * (1 - fed['busy'] / fed['traced']):.1f}% of a fed step; the launching "
+        f"thread a step: waiting for the loader {fed['wait']:.1f} ms, the uploads "
+        f"{fed['put']:.1f}, the train_step call {fed['call']:.1f} (on the staged "
+        f"batch with the loader idle: {fed['staged_call']:.1f}) ({smi})")
+    if (mha_per_step != per_step or launches["user_encoder_bwd"] != steps
+            or not (np.isfinite(loss) and 0 <= ndcg <= hit <= 1)):
+        raise AssertionError(f"phase 32 CLI: launches {launches}, expected {per_step} "
+                             f"mha_fwd and one user_encoder_bwd a step; loss {loss}, "
+                             f"HR@10 {hit}")
+
+    names = ["<pad>"] + [f"I{i:05d}" for i in range(STORE_ITEMS)]
+    source = open_image_source(str(root / "ds" / "image.lmdb"), cfg.CV_resize)
+    vit = tr.model.image_tower.vit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built, build_launches = counted(counters, lambda: cb.build_image_cache(
+        vit, names, source, str(root / "vit_outputs.memmap"), batch=CACHE_BATCH,
+        device=device))
+    torch.cuda.synchronize()
+    per_1000 = (time.perf_counter() - t0) / STORE_ITEMS * 1e6
+    cb.verify_cache(built, *cb.state_geometry(vit), first_row=1)
+    rows = built.load_full()
+    want_mha = vit.num_layers * math.ceil(STORE_ITEMS / CACHE_BATCH)
+    # two batches again under the profiler: does the device wait on the feed?
+    (p_host, p_busy, _), p_launches = counted(counters, lambda: build_profile(
+        lambda: cb.build_image_cache(vit, names, source, str(root / "profiled.memmap"),
+                                     batch=CACHE_BATCH, end_item=1 + 2 * CACHE_BATCH,
+                                     device=device)))
+    build_launches = {k: v + p_launches[k] for k, v in build_launches.items()}
+    log(f"phase 32 ViT-base image cache from the LMDB (--image-source routing, "
+        f"{STORE_ITEMS} items, batch {CACHE_BATCH}): {per_1000:.1f} ms per 1,000 items "
+        f"(host clock; phase 27's synthetic images: {synthetic_per_1000:.1f}); rows "
+        f"{tuple(rows.shape)}; 2 batches under the profiler: host {p_host * 1e3:.1f} "
+        f"ms, device-busy {p_busy:.2f} ms (idle {1 - p_busy / (p_host * 1e3):.1%}); "
+        f"mha_fwd {build_launches['mha_fwd']} ({smi})")
+    want_mha += vit.num_layers * 2
+    if (build_launches["mha_fwd"] != want_mha or not np.isfinite(rows).all()
+            or rows[0].any() or not rows[1:].any()):
+        raise AssertionError(f"phase 32 cache build: launches {build_launches}, "
+                             f"finite {np.isfinite(rows).all()}")
+
+    bench, bench_launches = counted(counters, lambda: tr.device_bench(10))
+    tflops = bench["flops_per_step"] / bench["seconds_per_step"] / 1e12
+    # device_bench's count (the counter's plus the kernels' from their
+    # shapes) against the products of one step of its batch on the module
+    # route, where every product goes through the dispatcher.  The kernel
+    # route does more by one user-encoder forward (#2 recomputes it),
+    # under 1e-5 of the step.
+    routes = {m: m.fused for m in tr.model.modules() if hasattr(m, "fused")}
+    set_fused(tr.model, False)
+    plain_flops, plain_launches = counted(counters, lambda: product_count(
+        lambda: tr.train_step(*device_bench_batch(tr))))
+    for m, fused in routes.items():
+        m.fused = fused
+    log(f"phase 32 device_bench(10) at batch {cfg.batch_size}: seconds_per_step "
+        f"{bench['seconds_per_step']:.6f}, flops_per_step {bench['flops_per_step']:.6g}, "
+        f"users_per_sec {bench['users_per_sec']:.2f}, memory_bytes "
+        f"{bench['memory_bytes']:,}; {tflops:.2f} TFLOP/s = "
+        f"{100 * tflops * 1e12 / PEAK_BF16_FLOPS:.2f}% of 989; the module route's "
+        f"products of one step {plain_flops:.6g} (device_bench's count "
+        f"{100 * (bench['flops_per_step'] / plain_flops - 1):+.4f}%) (staged step "
+        f"device-busy, phase 8: {staged_busy:.2f} ms; {bench['device']}; {smi})")
+    if not (all(np.isfinite(bench[k]) and bench[k] > 0 for k in (
+            "seconds_per_step", "flops_per_step", "users_per_sec", "memory_bytes"))
+            and bench_launches["mha_fwd"] == per_step * 12
+            and abs(bench["flops_per_step"] - plain_flops) <= 0.01 * plain_flops
+            and not any(plain_launches.values())):
+        raise AssertionError(f"phase 32 device_bench: {bench}, launches {bench_launches}, "
+                             f"module-route products {plain_flops}, launches "
+                             f"{nonzero(plain_launches)}")
+    del tr, vit
+    torch.cuda.empty_cache()
+    totals = {c.__name__: build_launches[c.__name__] + bench_launches[c.__name__]
+              + launches.get(c.__name__, 0) for c in counters}
     return totals
 
 
@@ -3785,6 +4240,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         cli = run_cli_path(device, counters, Path(tmp))
     torch.cuda.empty_cache()
+    # The real-data image stores, uncached training and a cache build from
+    # them, and device_bench (phase 32).
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        stores = run_image_stores(
+            device, (fa.mha_fwd, fue.user_encoder_fwd, fue.user_encoder_bwd),
+            Path(tmp), smi, busy_by_route["fused_mha"], per_1000["image"] * 1e3)
+    torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
@@ -3805,14 +4267,15 @@ def main() -> int:
               counts[0] + train_counts["user_encoder_fwd"]
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
               + towers["user_encoder_fwd"] + peft["user_encoder_fwd"]
-              + caches["user_encoder_fwd"] + cli["user_encoder_fwd"],
+              + caches["user_encoder_fwd"] + cli["user_encoder_fwd"]
+              + stores["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
               + versa["user_encoder_bwd"] + towers["user_encoder_bwd"]
               + peft["user_encoder_bwd"] + caches["user_encoder_bwd"]
-              + cli["user_encoder_bwd"],
+              + cli["user_encoder_bwd"] + stores["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
@@ -3827,7 +4290,7 @@ def main() -> int:
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
               uncached["mha_fwd"] + towers["mha_fwd"] + peft["mha_fwd"]
-              + caches["mha_fwd"],
+              + caches["mha_fwd"] + stores["mha_fwd"],
               attn["fwd_err"], attn["fwd_ms"], attn["fwd_plain_ms"],
               attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",

@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 
 from . import philox
+from ..utils import flops
 
 DK = 64                     # head width the kernels take
 MAX_GRID = 65535            # B and H are grid dimensions
@@ -242,10 +243,12 @@ def mha_fwd(q, k, v, bias, *, n_heads: int, seed: int = 0, rate: float = 0.0,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_fwd")
     mha_fwd.launches += 1
+    mha_fwd.flops += flops.mha(B, T, D, n_heads)
     return out
 
 
 mha_fwd.launches = 0
+mha_fwd.flops = 0
 
 
 def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
@@ -278,10 +281,12 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "mha_bwd")
     mha_bwd.launches += 1
+    mha_bwd.flops += flops.mha(B, T, D, n_heads, bwd=True)
     return gq, gk, gv
 
 
 mha_bwd.launches = 0
+mha_bwd.flops = 0
 
 
 def mha_mask_replay(seed: int, B: int, T: int, H: int, rate: float,

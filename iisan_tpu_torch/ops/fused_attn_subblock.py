@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import flops
 from .fused_attention import (DK, MAX_GRID, MAX_T, attention_dropout_masks,
                               reference_mha, reference_mha_masked)
 from .fused_attention import supported as _mha_supported
@@ -244,10 +245,12 @@ def _forward(v2: bool, x, wqkv, bqkv, wo, bo, bias, n_heads: int, seed: int,
         out = _launch("iisan_attn_subblock_v2_fwd", x, wqkv, bqkv, wo, bo, bias,
                       n_heads, seed, rate, layer, GROUP)
         fused_attn_subblock_v2.launches += 1
+        fused_attn_subblock_v2.flops += flops.subblock(B, T, D, n_heads)
         return out
     out = _launch("iisan_attn_subblock_fwd", x, wqkv, bqkv, wo, bo, bias,
                   n_heads, seed, rate, layer)
     fused_attn_subblock.launches += 1
+    fused_attn_subblock.flops += flops.subblock(B, T, D, n_heads)
     return out
 
 
@@ -359,4 +362,6 @@ def fused_attn_subblock_v2(x, wqkv, bqkv, wo, bo, n_heads: int,
 
 fused_attn_subblock.launches = 0
 fused_attn_subblock_v2.launches = 0
+fused_attn_subblock.flops = 0
+fused_attn_subblock_v2.flops = 0
 qkv_projection.launches = 0

@@ -44,6 +44,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
+
 GATE_TEMPERATURE = 0.1
 _DTYPES = (torch.float32, torch.bfloat16)
 # Shared memory a block may opt in to on the H100 (227 KB); the kernels are
@@ -349,10 +351,12 @@ def san_cascade_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
         torch.cuda.current_stream(taps.device).cuda_stream)
     check(err, "san_cascade_fwd")
     san_cascade_fwd.launches += 1
+    san_cascade_fwd.flops += flops.cascade(S, N, K, D, R)
     return out
 
 
 san_cascade_fwd.launches = 0
+san_cascade_fwd.flops = 0
 
 
 def san_cascade_streamed_fwd_plain(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
@@ -436,10 +440,12 @@ def san_cascade_streamed_fwd(coef_a, coef_b, taps, wd, bd, wu, bu, c0,
         torch.cuda.current_stream(taps.device).cuda_stream)
     check(err, "san_cascade_streamed_fwd")
     san_cascade_streamed_fwd.launches += 1
+    san_cascade_streamed_fwd.flops += flops.cascade(1, N, K, D, R)
     return out
 
 
 san_cascade_streamed_fwd.launches = 0
+san_cascade_streamed_fwd.flops = 0
 
 
 def _act_grad(z, activation: str):

@@ -44,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 from . import philox
+from ..utils import flops
 
 _EPS = 1e-6
 PER_BLOCK = 12  # wq wk wv wo ln1s ln1b w1 b1 w2 b2 ln2s ln2b
@@ -640,10 +641,12 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "user_encoder_fwd")
     user_encoder_fwd.launches += 1
+    user_encoder_fwd.flops += flops.encoder(B, L, D, d_ff, n_layers)
     return out
 
 
 user_encoder_fwd.launches = 0
+user_encoder_fwd.flops = 0
 
 
 def _bwd_sweep(x, mask3, params, image, gout, gx, work, n_layers, n_heads,
@@ -728,10 +731,12 @@ def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
             torch.cuda.current_stream(x.device).cuda_stream)
         check(err, "user_encoder_bwd")
     user_encoder_bwd.launches += 1
+    user_encoder_bwd.flops += flops.encoder(B, L, D, d_ff, n_layers, bwd=True)
     return gx, gparams
 
 
 user_encoder_bwd.launches = 0
+user_encoder_bwd.flops = 0
 
 
 class FusedEncoderFn(torch.autograd.Function):

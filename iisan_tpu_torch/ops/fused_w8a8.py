@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import flops
 from .int8_linear import int8_matmul, quantize_rows
 
 TILE_M, TILE_N, STAGES = 128, 256, 3   # the GEMM's tile and ring depth
@@ -150,10 +151,12 @@ def w8a8_gemm(xq, sx, wt, kscale, bias, out_dtype) -> torch.Tensor:
             torch.cuda.current_stream(xq.device).cuda_stream)
         check(err, "w8a8_gemm")
         w8a8_gemm.launches += 1
+        w8a8_gemm.flops += flops.w8a8(M, Kp, N)
     return out if ld == N else out[:, :N]
 
 
 w8a8_gemm.launches = 0
+w8a8_gemm.flops = 0
 
 
 def _check(x, kernel_q, kscale, bias, out_dtype, kernel_qt):

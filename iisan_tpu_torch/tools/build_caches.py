@@ -16,9 +16,11 @@ checkpoints (or an EVA directory), and writes one store per tower under
 
 The towers run on ``--device`` (default the first CUDA card; raises
 without one; ``--device cpu`` for the CPU); BERT and ViT attention goes
-through the attention kernel on the card.  ``--image-source`` must be
-empty for now: the image states are then synthetic, one seeded image per
-item name (directory and LMDB image stores are not ported yet).
+through the attention kernel on the card.  ``--image-source`` names the
+images (``data/images.open_image_source``): an LMDB (``python -m
+iisan_tpu_torch.tools.build_lmdb`` writes one) or a directory of JPEGs;
+empty, or nothing at the path, gives synthetic image states (one seeded
+image per item name) with a warning.
 
 Sharding: ``--num-shards N --shard-id i`` builds a contiguous range of
 rows; processes on one host share each store, processes on several hosts
@@ -70,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "Versa tower from a local directory (config.json + "
                          "pytorch_model.bin in the eva_clip naming)")
     ap.add_argument("--image-source", default="",
-                    help="must be empty: synthetic image states (directory "
-                         "and LMDB image stores are not ported yet)")
+                    help="an image LMDB (file or directory form) or a "
+                         "directory of <name>.jpg; empty: synthetic images")
     ap.add_argument("--out", required=True)
     ap.add_argument("--pool", default="cls", choices=["cls", "mean"],
                     help="mean: the per-layer masked token mean")
@@ -197,19 +199,13 @@ def main(argv=None):
     for flag in ("dataset", "items", "behaviors"):
         if getattr(args, flag) is None:
             ap.error(f"--{flag} is required (unless --finalize-shards)")
-    if args.image_source:
-        raise NotImplementedError(
-            f"--image-source {args.image_source!r}: directory and LMDB image "
-            "stores are not ported yet (ROADMAP queue 1 item 4); leave it "
-            "empty for synthetic image states")
-
     from transformers import AutoConfig, AutoModel, AutoTokenizer
 
     from ..cache_builder import (build_image_cache, build_text_cache,
                                  state_geometry, verify_cache)
     from ..data import preprocess as prep
     from ..data.cache_store import write_shard_range
-    from ..data.images import SyntheticImageStore
+    from ..data.images import open_image_source
     from ..device import resolve_device
 
     logging.basicConfig(level=logging.INFO,
@@ -233,6 +229,9 @@ def main(argv=None):
         print(f"{what} cache: {path} ({store.meta.n_items} items x "
               f"{store.meta.n_layers} layers x {store.meta.dim} dim)")
 
+    # the image source is opened first: one that cannot be opened stops
+    # the build before any tower runs
+    images = open_image_source(args.image_source, args.resize)
     hf = SimpleNamespace(AutoConfig=AutoConfig, AutoModel=AutoModel)
     tok = AutoTokenizer.from_pretrained(args.text_model)
     enc, full_tokens, pool, name = _text_tower(args, hf, titles, tok, device)
@@ -243,8 +242,6 @@ def main(argv=None):
     del enc
 
     enc, name = _image_tower(args, hf, device)
-    print("WARNING: no image source - writing synthetic image states")
-    images = SyntheticImageStore(args.resize)
     build("image", enc, len(corpus.item_names), name,
           lambda path, lo, hi: build_image_cache(
               enc, corpus.item_names, images, path, batch=args.batch,

@@ -8,10 +8,10 @@ item and behaviour TSVs (``load_corpus``), opens the hidden-state stores
 from a reference ``.pt`` or a checkpoint's model, trains (or, with
 ``eval_only``, evaluates the test split) and exports a serving artifact.
 
-Not ported: the directory and LMDB image stores of the uncached pipeline
-(ROADMAP queue 1 item 4; a configuration whose image source exists is
-refused), meshes and multi-host runs (``mesh_shape``, ``dist_*``,
-queue 1 item 7).  ``dropout_prng`` names a JAX PRNG; the port's dropout
+The uncached pipeline reads its images from ``<root_data_dir>/<dataset>/
+<lmdb_data>``: an LMDB or a directory of JPEGs (``data/images.py``).  Not
+ported: meshes and multi-host runs (``mesh_shape``, ``dist_*``, queue 1
+item 7).  ``dropout_prng`` names a JAX PRNG; the port's dropout
 bits are Philox4x32-10's under either accepted value.
 """
 
@@ -38,16 +38,18 @@ log = logging.getLogger("iisan_tpu_torch")
 def load_tokenizer(cfg):
     """The BERT tokenizer of ``<root_data_dir>/pretrained_models/bert/
     <bert_model_load>``, else of the reference's shipped
-    ``bert_base_uncased`` beside it.  Nothing is downloaded: without either
-    directory this raises."""
+    ``bert_base_uncased`` beside it: the port's WordPiece tokenizer over
+    its ``vocab.txt`` (``data/wordpiece.py``, the ids of transformers'
+    ``BertTokenizerFast``, which the GPU machine does not have).  Nothing
+    is downloaded: without either directory this raises."""
+    from ..data.wordpiece import BertWordPiece
+
     candidates = [
         os.path.join(cfg.root_data_dir, "pretrained_models/bert", name)
         for name in (cfg.bert_model_load, "bert_base_uncased")]
     for c in candidates:
         if os.path.isdir(c):
-            from transformers import BertTokenizerFast
-
-            return BertTokenizerFast.from_pretrained(c)
+            return BertWordPiece.from_dir(c)
     raise FileNotFoundError(
         f"no BERT tokenizer at {candidates}; put the tokenizer's files "
         "(vocab.txt) in the first of these directories")
@@ -184,19 +186,14 @@ def effective_pipeline(cfg) -> str:
 
 
 def _image_store(cfg):
-    """The uncached pipeline's images: synthetic ones where nothing is at
-    ``<root_data_dir>/<dataset>/<lmdb_data>``; a source there is refused,
-    since the directory and LMDB stores are not ported."""
-    from ..data.images import SyntheticImageStore
+    """The uncached pipeline's images: the store at ``<root_data_dir>/
+    <dataset>/<lmdb_data>`` (an LMDB, or a directory of JPEGs), synthetic
+    ones with a warning where nothing is there (``open_image_source``)."""
+    from ..data.images import open_image_source
 
-    lmdb_path = os.path.join(cfg.root_data_dir, cfg.dataset, cfg.lmdb_data)
-    if os.path.exists(lmdb_path):
-        raise NotImplementedError(
-            f"an image source exists at {lmdb_path}, but the directory and "
-            "LMDB image stores are not ported yet (ROADMAP queue 1 item 4); "
-            "move it away to train on synthetic images")
-    log.warning("no image source at %s - synthetic images", lmdb_path)
-    return SyntheticImageStore(cfg.CV_resize)
+    return open_image_source(
+        os.path.join(cfg.root_data_dir, cfg.dataset, cfg.lmdb_data),
+        cfg.CV_resize)
 
 
 def build_trainer(cfg, corpus, token_table, device):

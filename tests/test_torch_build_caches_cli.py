@@ -15,7 +15,8 @@ take the port's synthetic images (the JAX store seeds from the salted
 
 Also: ``--num-shards 2 --shard-files`` and ``--finalize-shards`` give the
 single build bit for bit, and ``--finalize-shards`` runs with transformers
-unimportable; a non-empty ``--image-source`` is refused; without
+unimportable; an ``--image-source`` that exists but cannot be opened (a
+legacy pickle-shim directory, a garbage ``data.mdb``) is refused; without
 ``--device`` the build asks for the first CUDA card.
 """
 
@@ -32,6 +33,7 @@ import torch
 import iisan_tpu.data.images as jimages
 from iisan_tpu.tools import build_caches as jcli
 from iisan_tpu_torch.data.cache_store import HiddenStateCache
+from iisan_tpu_torch.data import images as timages
 from iisan_tpu_torch.data.images import SyntheticImageStore
 from iisan_tpu_torch.tools import build_caches as tcli
 
@@ -125,6 +127,36 @@ def test_both_clis_build_the_same_stores(models, tmp_path, monkeypatch, text,
     assert not list(shards.glob("*.shard*"))
 
 
+@pytest.mark.parametrize("source", ["lmdb", "jpeg_dir"])
+def test_both_clis_build_image_states_from_an_image_source(models, tmp_path, source):
+    """``--image-source`` an LMDB the port's ``build_lmdb`` wrote, or the
+    JPEG directory itself: both packages' image stores agree as above."""
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    jpgs = tmp_path / "jpgs"
+    jpgs.mkdir()
+    names = [ln.split("\t")[0] for ln in (models / "items.tsv").read_text().splitlines()]
+    for name in names:
+        Image.fromarray(rng.integers(0, 256, (40, 36, 3), dtype=np.uint8)).save(
+            jpgs / f"{name}.jpg", quality=90)
+    src = jpgs
+    if source == "lmdb":
+        src = tmp_path / "image.lmdb"
+        assert timages.build_lmdb(str(models / "items.tsv"), str(jpgs), str(src)) == []
+    jcli.main(_argv(models, tmp_path / "jax", "bert", "clip", "float32",
+                    "--image-source", str(src)))
+    tcli.main(_argv(models, tmp_path / "port", "bert", "clip", "float32",
+                    "--device", "cpu", "--image-source", str(src)))
+    want = HiddenStateCache.open(str(tmp_path / "jax" / "clip_outputs.memmap"))
+    got = HiddenStateCache.open(str(tmp_path / "port" / "clip_outputs.memmap"))
+    assert got.meta == want.meta
+    _agree(got, want, "float32")
+    synthetic = timages.SyntheticImageStore(32).get(names[0])
+    assert not np.array_equal(timages.open_image_source(str(src), 32).get(names[0]),
+                              synthetic)
+
+
 def test_finalize_shards_needs_no_transformers(tmp_path):
     from iisan_tpu_torch.data.cache_store import write_shard_range
 
@@ -150,8 +182,16 @@ def test_finalize_shards_needs_no_transformers(tmp_path):
 def test_image_source_is_refused_and_the_card_is_the_default(models, tmp_path,
                                                              monkeypatch):
     argv = _argv(models, tmp_path / "out", "bert", "clip", "float16")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tcli.main(argv + ["--device", "cpu", "--image-source", str(tmp_path)])
+    shim = tmp_path / "shim"
+    shim.mkdir()
+    (shim / "data.shimdb").write_bytes(b"IISAN-LMDB-SHIM-v1\n")
+    with pytest.raises(RuntimeError, match="legacy pickle-shim"):
+        tcli.main(argv + ["--device", "cpu", "--image-source", str(shim)])
+    garbage = tmp_path / "garbage.lmdb"
+    garbage.mkdir()
+    (garbage / "data.mdb").write_bytes(b"\x00" * 64)
+    with pytest.raises(timages.lmdb.Error):
+        tcli.main(argv + ["--device", "cpu", "--image-source", str(garbage)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(argv)

@@ -5,10 +5,11 @@ included, and the run path: the command line, the pipelines, the sweep
 and the utilities); afterwards no ``jax`` / ``flax`` / ``optax`` /
 ``orbax`` module, no module of the JAX package (``iisan_tpu`` or
 ``iisan_tpu.*``) and no ``transformers`` module (the GPU machine has none:
-the ``params_from_*`` importers read a state dict without it, and the
-cache-build command line and ``load_tokenizer`` import it only when
-called) is loaded, and the kernel library has not
-been built or loaded.
+the ``params_from_*`` importers read a state dict without it,
+``load_tokenizer`` returns the port's WordPiece tokenizer, and the
+cache-build command line imports it only when called) is loaded, and
+neither the kernel library nor the JPEG decoder (``data/fastimage.py``)
+has been built or loaded.
 """
 
 import json
@@ -26,13 +27,15 @@ names = [m.name for m in pkgutil.walk_packages(iisan_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 from iisan_tpu_torch.kernels import build
+from iisan_tpu_torch.data import fastimage
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "orbax"))
 reference = sorted(m for m in sys.modules if m.split(".")[0] == "iisan_tpu")
 hf = sorted(m for m in sys.modules if m.split(".")[0] == "transformers")
 print(json.dumps({"modules": names, "jax": loaded, "reference": reference,
-                  "transformers": hf, "built": build._lib is not None}))
+                  "transformers": hf,
+                  "built": build._lib is not None or fastimage._lib is not None}))
 """
 
 
@@ -57,7 +60,9 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "models.llama", "models.clip_vit", "models.eva", "cli",
                  "train.pipelines", "train.id_pipeline", "sweep",
                  "utils.logging", "utils.checkpoint", "utils.profiling",
-                 "utils.tpme", "utils.torch_import", "utils.jax_params"):
+                 "utils.tpme", "utils.torch_import", "utils.jax_params",
+                 "data.lmdbfile", "data.fastimage", "data.images",
+                 "data.wordpiece", "tools.build_lmdb", "utils.flops"):
         assert f"iisan_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (

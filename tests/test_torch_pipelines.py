@@ -9,7 +9,8 @@ hidden-state stores (taps 1,3 of 13 rows, width 32).  On it:
   and without the items TSV (arrays equal);
 - ``run_from_config`` trains each of the four pipelines it dispatches on
   the CPU (cached, cached_asym, id, uncached on synthetic images) to finite
-  losses, and refuses an uncached run whose image source exists;
+  losses, and refuses an uncached run whose image source exists but
+  cannot be opened (a garbage ``data.mdb``, a legacy pickle-shim);
 - the served numbers agree: JAX parameters (the JAX trainer's initial
   ones, moved off their init) written by the JAX package's
   ``save_reference_checkpoint`` and read by the port's
@@ -31,6 +32,7 @@ from iisan_tpu.data import preprocess as jprep
 from iisan_tpu.train import pipelines as jpipe
 from iisan_tpu.utils import torch_import as jimport
 from iisan_tpu_torch.config import IISANConfig
+from iisan_tpu_torch.data import images as timages
 from iisan_tpu_torch.data.cache_store import HiddenStateCache
 from iisan_tpu_torch.train import pipelines as tpipe
 from iisan_tpu_torch.utils import torch_import as timport
@@ -166,8 +168,14 @@ def test_run_from_config_trains_each_pipeline(dataset, pipeline):
 
 def test_uncached_run_with_an_image_source_raises(dataset, tmp_path):
     (tmp_path / "image.lmdb").mkdir()
+    (tmp_path / "image.lmdb" / "data.mdb").write_bytes(b"\x00" * 64)
     kw = fields(dataset, **{**UNCACHED, "lmdb_data": str(tmp_path / "image.lmdb")})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(timages.lmdb.Error):
+        tpipe.run_from_config(IISANConfig(**kw), device="cpu")
+    (tmp_path / "shim").mkdir()
+    (tmp_path / "shim" / "data.shimdb").write_bytes(b"IISAN-LMDB-SHIM-v1\n")
+    kw = fields(dataset, **{**UNCACHED, "lmdb_data": str(tmp_path / "shim")})
+    with pytest.raises(RuntimeError, match="legacy pickle-shim"):
         tpipe.run_from_config(IISANConfig(**kw), device="cpu")
 
 
