@@ -7,7 +7,8 @@ weight import), IISAN-Versa (``pipeline="cached_asym"``) and the
 hidden-state cache builders with the Versa towers (Llama, EVA, CLIP), the
 run path from the command line (training, resume, test mode, warm
 starts), and uncached training and cache builds from the real-data image
-stores (LMDB, JPEG) with ``device_bench`` once on one NVIDIA GPU.
+stores (LMDB, JPEG) with ``device_bench``, and int8 and sharded serving
+and training on ``torch.distributed`` ranks, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -274,7 +275,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of ``iisan_tpu_torch/data/fixtures`` under the 800 training names
    through ``python -m iisan_tpu_torch.tools.build_lmdb`` (records equal to
    Pillow's decode, the bad-file report), and the JPEG directory's store
-   (built, or its named error where libjpeg is missing); ``python -m
+   (the libjpeg its decoder links, or Pillow where none is found); ``python -m
    iisan_tpu_torch.cli --pipeline uncached`` trains one epoch of 32 steps
    (2,048 users x 800 items, BERT-base x ViT-base, batch 64) from the LMDB
    (#5 24 times a step); the feed alone on 4 and 8 threads and its
@@ -283,6 +284,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ViT-base image cache of the 1,024 items from the LMDB through
    ``--image-source``'s routing, per 1,000 items; ``device_bench(10)`` at
    batch 64 with its TFLOP/s against 989.
+33. int8 and sharded serving and the parallel layer: phase 31's dataset
+   again; one cached epoch in this process without a mesh (its artifact
+   exported) and one through ``torchrun --nproc_per_node 1 -m
+   iisan_tpu_torch.cli --mesh_shape data:1`` (NCCL): the two artifacts
+   bit-equal and the logged losses equal, each step time printed.  Then
+   ``Recommender`` over that artifact (20,826 x 64, 2 blocks, L=10) against
+   ``quantize_table()`` at batch 1, 32 and 256, and the same at a
+   4,000,000-row random catalogue: host-clock medians, device-busy time,
+   the table's resident bytes and the peak memory of a batch-256 call; the
+   int8 ids equal dense scoring of the dequantised table up to ties, scores
+   within 1e-5 relative.  ``python -m iisan_tpu_torch.serve --quant int8
+   --save-as`` writes the in-process quantisation bit for bit and serves
+   its ids.  On a one-rank NCCL group in this process,
+   ``ShardedRecommender`` (fp32 and int8) gives ``top_k``'s ids and scores,
+   and ``run_from_config`` trains 5 uncached steps at ``data:1`` from a
+   JPEG directory (the fixtures; the decoder's libjpeg route, or Pillow,
+   printed).  ``--shard`` through ``torchrun`` writes the one-process ids,
+   and ``--shard --http`` answers them.  Launches join the kernel line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -3398,14 +3417,15 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
-def run_cli(args, what: str, phase: int = 31):
-    """Run the port's command line on the card; returns (its log lines,
-    {"launches": kernel launches, "epochs": [(epoch, loss, hit, ndcg, s)],
-    "test": (hit, ndcg) or None, "seconds": wall})."""
+def run_cli(args, what: str, phase: int = 31, launcher=(sys.executable,)):
+    """Run the port's command line on the card (under ``launcher``, e.g.
+    ``TORCHRUN``); returns (its log lines, {"launches": kernel launches,
+    "epochs": [(epoch, loss, hit, ndcg, s)], "test": (hit, ndcg) or None,
+    "seconds": wall})."""
     import re
 
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "iisan_tpu_torch.cli", *args],
+    proc = subprocess.run([*launcher, "-m", "iisan_tpu_torch.cli", *args],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     lines = proc.stderr.splitlines()
@@ -3632,9 +3652,9 @@ def image_inventory():
     gxx = shutil.which("g++")
     out["g++"] = subprocess.run([gxx, "-dumpfullversion"], capture_output=True,
                                 text=True).stdout.strip() if gxx else "missing"
+    out["Pillow's bundled libjpeg"] = fastimage.pillow_libjpeg() or "none"
     try:
-        fastimage.library()
-        out["libjpeg"] = "present (the port's JPEG decoder built)"
+        out["libjpeg"] = "the port's JPEG decoder built against " + fastimage.route()
     except fastimage.DecoderUnavailable as e:
         out["libjpeg"] = "missing: " + str(e).splitlines()[0]
     return out
@@ -3738,13 +3758,17 @@ def check_jpeg_paths(root: Path, inventory, smi):
             f"{seconds:.2f} s (process wall), {out.stat().st_size:,} bytes; "
             f"records equal Pillow's decode of each fixture; bad-file report "
             f"I_MISSING ({smi})")
-    try:
-        images.open_image_source(str(jpgs), 224)
-        log("phase 32 JPEG directory store: the port's libjpeg decoder built here")
-    except fastimage.DecoderUnavailable as e:
-        log("phase 32: no JPEG decoder for the directory store on this machine "
-            f"(libjpeg): routing {jpgs.name}/ raises {type(e).__name__}: "
-            f"{str(e).splitlines()[0]}")
+    log(f"phase 32 JPEG directory store: {jpeg_route(images.open_image_source(str(jpgs), 224))}")
+
+
+def jpeg_route(store) -> str:
+    """Which decoder a ``DirImageStore`` runs: the libjpeg the port's
+    decoder links, or Pillow where none was found."""
+    from iisan_tpu_torch.data import fastimage
+
+    if store.native:
+        return f"the port's decoder (csrc/fastimage.cc) linked against {fastimage.route()}"
+    return "Pillow's decode and bilinear resize for every image (no libjpeg found)"
 
 
 def feed_ms(store, name_batches, threads: int) -> float:
@@ -4032,6 +4056,296 @@ def run_image_stores(device, counters, root: Path, smi: str, staged_busy: float,
     return totals
 
 
+# Phase 33: int8 and sharded serving, and training on torch.distributed
+# ranks.  One process under torchrun (the card takes one NCCL rank).
+TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1")
+SERVE_BIG = 4_000_000  # rows of the large synthetic catalogue
+SERVE_TOL = 1e-5  # int8 scores against dense scoring of the dequantised table
+JPEG_USERS, JPEG_ITEMS = 320, 200  # 5 uncached steps of 64
+
+
+def topk_mismatch(got, want, tol=SERVE_TOL):
+    """Where two top-K answers differ other than by ties: scores past
+    ``tol`` relative, or an id whose score ties with no id of the other at
+    its position.  Returns a message or None."""
+    import numpy as np
+
+    (gi, gs), (wi, ws) = got, want
+    if not np.allclose(gs, ws, rtol=tol, atol=1e-6):
+        return f"scores differ by up to {np.abs(gs - ws).max():.3g}"
+    for row in range(len(gi)):
+        for j in np.flatnonzero(gi[row] != wi[row]):
+            tied = np.isclose(ws[row], ws[row, j], rtol=tol, atol=1e-6)
+            if gi[row, j] not in wi[row][tied]:
+                return f"row {row}: ids {gi[row].tolist()} vs {wi[row].tolist()}"
+    return None
+
+
+def serve_profile(rec, requests):
+    """top_k at each batch: (host-clock median ms, device-busy ms), the
+    table's resident bytes, and the extra peak bytes of a batch-256 call."""
+    import torch
+
+    out = {b: (host_timed(lambda s=seqs: rec.top_k(s, k=10), 20),
+               device_ms(lambda s=seqs: rec.top_k(s, k=10), 10))
+           for b, seqs in requests.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec.top_k(requests[256], k=10)
+    torch.cuda.synchronize()
+    return out, rec.table_bytes, torch.cuda.max_memory_allocated() - base
+
+
+def compare_int8(dense, quant, requests, name, smi):
+    """fp32 against int8 serving of one catalogue; the int8 answers against
+    dense scoring of the dequantised table."""
+    from iisan_tpu_torch.ops.quant import dequantize
+    from iisan_tpu_torch.serve import Recommender
+
+    deq = Recommender(dense.model, dequantize(quant.fused_table)[:, 0, :],
+                      dense.max_seq_len)
+    for b, seqs in requests.items():
+        bad = topk_mismatch(quant.top_k(seqs, k=10), deq.top_k(seqs, k=10))
+        if bad:
+            raise AssertionError(f"phase 33 {name} int8 vs dequantised at batch {b}: {bad}")
+    del deq
+    rows = []
+    for label, rec in (("fp32", dense), ("int8", quant)):
+        times, resident, peak = serve_profile(rec, requests)
+        rows.append(f"{label}: " + ", ".join(
+            f"batch {b} {t:.3f} ms host / {d:.4f} ms device-busy"
+            for b, (t, d) in times.items())
+            + f"; table resident {resident:,} bytes; batch-256 call peak +{peak:,} bytes")
+    log(f"phase 33 serving {name} ({dense.n_rows:,} rows x {EMB}, {BLOCKS} blocks, "
+        f"L={SEQ_LEN}): " + " | ".join(rows) + f"; int8 ids equal dense scoring of the "
+        f"dequantised table up to ties, scores within {SERVE_TOL} ({smi})")
+
+
+def write_jpeg_dataset(root: Path):
+    """A JPEG directory of JPEG_ITEMS items (copies of the fixtures), its
+    items and users TSVs (JPEG_USERS users of 5-13 items) and a BERT
+    vocabulary, under ``root``; returns the dataset directory's name."""
+    import shutil
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    ds = root / "jds"
+    (ds / "jpgs").mkdir(parents=True)
+    fixtures = sorted(FIXTURES.glob("*.jpg"))
+    names = [f"J{i:04d}" for i in range(JPEG_ITEMS)]
+    for i, name in enumerate(names):
+        shutil.copyfile(fixtures[i % len(fixtures)], ds / "jpgs" / f"{name}.jpg")
+    (ds / "items.tsv").write_text("".join(f"{n}\tTitle of item {i}\n"
+                                          for i, n in enumerate(names)))
+    with open(ds / "users.tsv", "w") as f:
+        for u in range(JPEG_USERS):
+            seq = rng.integers(0, JPEG_ITEMS, int(rng.integers(5, SEQ_LEN + 4)))
+            f.write(f"U{u}\t" + " ".join(names[i] for i in seq) + "\n")
+    vocab = root / "pretrained_models" / "bert" / "bert_base_uncased"
+    vocab.mkdir(parents=True)
+    (vocab / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "title", "of", "item"]
+        + [str(d) for d in range(10)] + [f"##{d}" for d in range(10)]) + "\n")
+    return ds.name
+
+
+def run_parallel(device, counters, root: Path, smi: str):
+    """Phase 33: int8 and sharded serving, and training on one NCCL rank.
+    Returns the launches of the user-encoder kernels and #5."""
+    import signal
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from iisan_tpu_torch.cli import parse_args
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.serve import Recommender, ShardedRecommender
+    from iisan_tpu_torch.train.pipelines import _image_store, run_from_config
+
+    t_phase = time.perf_counter()
+    names = tuple(c.__name__ for c in counters)
+    totals = dict.fromkeys(names, 0)
+
+    def add(launches):
+        for k in names:
+            totals[k] += launches.get(k, 0)
+
+    write_cli_dataset(device, root)
+    steps = -(-USERS // 64)
+
+    # one cached epoch without a mesh, then at data:1 through torchrun
+    plain_path, ranked_path = root / "plain.npz", root / "ranked.npz"
+    cfg, _ = parse_args(cli_args(device, root, "plain"))
+    (tr, res), launches = counted(counters, lambda: run_from_config(cfg.replace(
+        epoch=1, save_checkpoints=False, export_recommender=str(plain_path)),
+        device=device))
+    add(launches)
+    corpus, plain_s = tr.corpus, res.epoch_times[0]
+    del tr
+    torch.cuda.empty_cache()
+    _, ranked = run_cli(cli_args(device, root, "ranked", "--epoch", "1", "--mesh_shape",
+                                 "data:1", "--save_checkpoints", "false",
+                                 "--export_recommender", str(ranked_path)),
+                        "torchrun --mesh_shape data:1", phase=33, launcher=TORCHRUN)
+    add(ranked["launches"])
+    with np.load(plain_path) as za, np.load(ranked_path) as zb:
+        same = za.files == zb.files and all(np.array_equal(za[k], zb[k]) for k in za.files)
+    (_, ranked_loss, _, _, ranked_s), = ranked["epochs"]
+    log(f"phase 33 cached epoch at bench.py's settings ({steps} steps): without a mesh "
+        f"(this process) {plain_s:.3f} s, {plain_s / steps * 1e3:.2f} ms a step, loss "
+        f"{res.losses[0]:.5f}; torchrun --nproc_per_node 1 --mesh_shape data:1 (one NCCL "
+        f"rank) {ranked_s:.3f} s, {ranked_s / steps * 1e3:.2f} ms a step, loss "
+        f"{ranked_loss:.5f}, process wall {ranked['seconds']:.2f} s; exported artifacts "
+        f"bit-equal: {same}; launches {nonzero(ranked['launches'])} ({smi})")
+    if not same or f"{res.losses[0]:.5f}" != f"{ranked_loss:.5f}" or \
+            ranked["launches"]["user_encoder_bwd"] != steps:
+        raise AssertionError("phase 33: the data:1 epoch is not the unsharded one")
+
+    # fp32 against int8 serving, at 20,826 and 4,000,000 rows
+    requests = {b: [row[row > 0].tolist() for row in corpus.test_history[:b]]
+                for b in (1, 32, 256)}
+    dense = Recommender.load(str(plain_path), device=device)
+    quant = dense.quantize_table()
+    _, launches = counted(counters, lambda: compare_int8(
+        dense, quant, requests, "Scientific", smi))
+    add(launches)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    big = Recommender(dense.model, torch.randn((SERVE_BIG, EMB), generator=gen,
+                                               device=device), SEQ_LEN)
+    big_q = big.quantize_table()
+    _, launches = counted(counters, lambda: compare_int8(
+        big, big_q, requests, "4M-row catalogue", smi))
+    add(launches)
+    del big, big_q
+    torch.cuda.empty_cache()
+
+    # the command line's --quant int8 --save-as
+    small = root / "small.npz"
+    proc = subprocess.run([sys.executable, "-m", "iisan_tpu_torch.serve", str(plain_path),
+                           "--quant", "int8", "--save-as", str(small)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("phase 33: serve --quant int8 --save-as failed")
+    served = Recommender.load(str(small), device=device)
+    if not (torch.equal(served.fused_table.q, quant.fused_table.q)
+            and torch.equal(served.fused_table.scale, quant.fused_table.scale)):
+        raise AssertionError("phase 33: the --save-as table is not quantize_table's")
+    for b, seqs in requests.items():
+        if not np.array_equal(served.top_k(seqs, k=10)[0], quant.top_k(seqs, k=10)[0]):
+            raise AssertionError(f"phase 33: the int8 artifact serves other ids at {b}")
+    log(f"phase 33 serve --quant int8 --save-as: {small.stat().st_size:,} bytes against "
+        f"{plain_path.stat().st_size:,} fp32; q and scales bit-equal to this process's "
+        f"quantize_table, the same ids at batch 1, 32 and 256")
+
+    # one NCCL rank in this process: sharded serving, 5 uncached steps at data:1
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        for label, rec in (("fp32", dense), ("int8", quant)):
+            sharded = ShardedRecommender(rec)
+            for b, seqs in requests.items():
+                bad = topk_mismatch(sharded.top_k(seqs, k=10), rec.top_k(seqs, k=10))
+                if bad:
+                    raise AssertionError(f"phase 33 ShardedRecommender {label} at {b}: {bad}")
+            ms = host_timed(lambda: sharded.top_k(requests[256], k=10), 10)
+            log(f"phase 33 ShardedRecommender {label} on one NCCL rank: ids and scores "
+                f"of Recommender.top_k at batch 1, 32 and 256; batch 256 {ms:.3f} ms "
+                f"host ({smi})")
+        jname = write_jpeg_dataset(root)
+        jcfg = IISANConfig(**dict(UNCACHED_CFG, pipeline="uncached", root_data_dir=str(root),
+                                  dataset=jname, behaviors="users.tsv", news="items.tsv",
+                                  lmdb_data="jpgs", mesh_shape="data:1",
+                                  save_checkpoints=False, ckpt_dir=str(root / "jckpt"),
+                                  log_dir=str(root / "jlogs")))
+        route = jpeg_route(_image_store(jcfg))
+        t0 = time.perf_counter()
+        (utr, ures), launches = counted(counters, lambda: run_from_config(jcfg, device=device))
+        add(launches)
+        useconds = time.perf_counter() - t0
+        usteps = utr.epoch_permutation(1).shape[0]
+        users = utr.corpus.n_users
+        per_step = jcfg.text_layers + jcfg.image_layers
+        log(f"phase 33 uncached IISAN at data:1 from a JPEG directory through "
+            f"run_from_config (one NCCL rank; BERT-base x ViT-base, batch 64, "
+            f"{users} users, {usteps} steps): {route}; epoch {ures.epoch_times[0]:.3f} s, "
+            f"{ures.epoch_times[0] / usteps * 1e3:.1f} ms a step, loss {ures.losses[0]:.5f}, "
+            f"valid HR@10 {ures.best_hit10:.6f}; run_from_config {useconds:.2f} s; launches "
+            f"{nonzero(launches)} ({smi})")
+        if (usteps != -(-users // 64) or usteps < 2
+                or launches["user_encoder_bwd"] != usteps
+                or launches["mha_fwd"] < per_step * usteps
+                or not np.isfinite(ures.losses[0]) or utr.shard is None):
+            raise AssertionError(f"phase 33 uncached data:1: {launches} {ures.losses}")
+        del utr
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # --shard and --shard --http through torchrun
+    inp, out = root / "requests.tsv", root / "recs.tsv"
+    inp.write_text("".join(f"U{i}\t{' '.join(map(str, s))}\n"
+                           for i, s in enumerate(requests[256])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([*TORCHRUN, "-m", "iisan_tpu_torch.serve", str(plain_path),
+                           "--shard", "--input", str(inp), "--out", str(out), "--k", "10"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("phase 33: serve --shard under torchrun failed")
+    rows = [line.split("\t") for line in out.read_text().splitlines()]
+    got = (np.array([list(map(int, r[1].split())) for r in rows]),
+           np.array([list(map(float, r[2].split())) for r in rows]))
+    bad = topk_mismatch(got, dense.top_k(requests[256], k=10), tol=1e-4)
+    if bad:
+        raise AssertionError(f"phase 33 --shard: {bad}")
+    log(f"phase 33 torchrun serve --shard ({len(rows)} users, one NCCL rank): the ids of "
+        f"Recommender.top_k; process wall {time.perf_counter() - t0:.2f} s")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        http_port = sock.getsockname()[1]
+    server = subprocess.Popen([*TORCHRUN, "-m", "iisan_tpu_torch.serve", str(plain_path),
+                               "--shard", "--http", f"127.0.0.1:{http_port}"], cwd=ROOT,
+                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        url = f"http://127.0.0.1:{http_port}"
+        deadline = time.monotonic() + 180
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+                    json.load(r)
+                break
+            except OSError:
+                if server.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("phase 33: the --shard --http server did not start")
+                time.sleep(0.5)
+        for b, seqs in requests.items():
+            body = post(url + "/recommend", {"sequences": seqs, "k": 10})
+            bad = topk_mismatch((np.array(body["items"]), np.array(body["scores"])),
+                                dense.top_k(seqs, k=10))
+            if bad:
+                raise AssertionError(f"phase 33 --shard --http at batch {b}: {bad}")
+    finally:
+        server.send_signal(signal.SIGTERM)
+        try:
+            server.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.communicate()
+    log("phase 33 torchrun serve --shard --http: the ids of Recommender.top_k at batch "
+        f"1, 32 and 256; phase 33 wall time {time.perf_counter() - t_phase:.2f} s; "
+        f"launches {totals} ({smi})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4247,6 +4561,12 @@ def main() -> int:
             device, (fa.mha_fwd, fue.user_encoder_fwd, fue.user_encoder_bwd),
             Path(tmp), smi, busy_by_route["fused_mha"], per_1000["image"] * 1e3)
     torch.cuda.empty_cache()
+    # int8 and sharded serving, training on one NCCL rank (phase 33)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        par = run_parallel(device, (fa.mha_fwd, fue.user_encoder_fwd,
+                                    fue.user_encoder_bwd, fs.san_cascade_fwd),
+                           Path(tmp), smi)
+    torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
@@ -4268,20 +4588,21 @@ def main() -> int:
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
               + towers["user_encoder_fwd"] + peft["user_encoder_fwd"]
               + caches["user_encoder_fwd"] + cli["user_encoder_fwd"]
-              + stores["user_encoder_fwd"],
+              + stores["user_encoder_fwd"] + par["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
               train_counts["user_encoder_bwd"] + uncached["user_encoder_bwd"]
               + versa["user_encoder_bwd"] + towers["user_encoder_bwd"]
               + peft["user_encoder_bwd"] + caches["user_encoder_bwd"]
-              + cli["user_encoder_bwd"] + stores["user_encoder_bwd"],
+              + cli["user_encoder_bwd"] + stores["user_encoder_bwd"]
+              + par["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
               + versa["san_cascade_fwd"] + caches["san_cascade_fwd"]
-              + cli["san_cascade_fwd"],
+              + cli["san_cascade_fwd"] + par["san_cascade_fwd"],
               cascade["err"], cascade["ms"],
               cascade["plain_ms"], cascade_bound(*CASCADE_TABLE), None),
         entry("san_cascade_streamed_fwd", "iisan_tpu/ops/fused_san.py:94",
@@ -4290,7 +4611,7 @@ def main() -> int:
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
               uncached["mha_fwd"] + towers["mha_fwd"] + peft["mha_fwd"]
-              + caches["mha_fwd"] + stores["mha_fwd"],
+              + caches["mha_fwd"] + stores["mha_fwd"] + par["mha_fwd"],
               attn["fwd_err"], attn["fwd_ms"], attn["fwd_plain_ms"],
               attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",

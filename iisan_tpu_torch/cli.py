@@ -7,6 +7,13 @@ the same name, so a command written for the reference (``run.py`` and its
 the pipeline.  One flag is added: ``--device`` (default the first CUDA
 card; there is no fallback to the CPU, ``--device cpu`` asks for it).
 
+``--mesh_shape`` and ``--dist_*`` lay the run over ranks: ``main`` starts
+the process group (``parallel.distributed.initialize_runtime``) from
+``--dist_coordinator`` / ``--dist_num_processes`` / ``--dist_process_id``,
+or from ``torchrun``'s environment, before training, e.g.
+``torchrun --nproc_per_node 2 -m iisan_tpu_torch.cli --mesh_shape data:2
+...`` (NCCL on the cards, gloo with ``--device cpu``).
+
 Flags whose field holds a bool or a string (``--remat_towers``,
 ``--fused_tower_attention``) read ``true`` / ``false`` as bools and keep
 any other value (``mlp``, ``subblock``, ``subblock_v2``) as the string;
@@ -92,16 +99,22 @@ def parse_config(argv=None) -> IISANConfig:
 
 
 def main(argv=None) -> int:
+    from .parallel.distributed import initialize_runtime, shutdown_runtime
     from .train.pipelines import run_from_config
 
     cfg, device = parse_args(argv)
-    if "train" in cfg.mode:
-        run_from_config(cfg, device=device)
-        return 0
-    if "test" in cfg.mode:
-        run_from_config(cfg, eval_only=True, device=device)
-        return 0
-    raise SystemExit(f"unknown mode {cfg.mode}")
+    if "train" not in cfg.mode and "test" not in cfg.mode:
+        raise SystemExit(f"unknown mode {cfg.mode}")
+    initialize_runtime(
+        coordinator_address=cfg.dist_coordinator or None,
+        num_processes=cfg.dist_num_processes or None,
+        process_id=cfg.dist_process_id if cfg.dist_process_id >= 0 else None,
+        device=device)
+    try:
+        run_from_config(cfg, eval_only="train" not in cfg.mode, device=device)
+    finally:
+        shutdown_runtime()
+    return 0
 
 
 if __name__ == "__main__":

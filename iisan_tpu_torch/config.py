@@ -13,9 +13,8 @@ Fields that select something the port does not do:
   dispatch knobs (the unroll of the epoch's ``lax.scan``, one dispatch for
   an epoch and its evaluation). They are accepted and ignored: the port's
   epoch is a loop of steps, then the evaluation.
-- ``mesh_shape`` and ``dist_*`` lay a run over a mesh of devices or
-  several hosts. Meshes are not ported: ``train.pipelines.validate_config``
-  refuses a value other than the default.
+- ``mesh_shape`` and ``dist_*`` lay a run over ranks of
+  ``torch.distributed`` (``parallel/``; ``cli.main`` starts the group).
 - ``dropout_prng`` names a JAX PRNG; the port draws its dropout bits from
   Philox4x32-10 whichever of the two JAX values is given.
 - The reference's accepted-and-ignored flags (``arch``, ``l2_weight``,

@@ -15,7 +15,8 @@ Port of ``iisan_tpu/data/images.py`` and of the synthetic token rows of
   port to the port's ``LMDBImage`` and refuses every other global, so a
   record never imports the JAX package or runs code;
 - ``DirImageStore``: a directory of ``<name>.jpg`` files, decoded by the
-  port's build of ``csrc/fastimage.cc`` (libjpeg);
+  port's build of ``csrc/fastimage.cc`` (libjpeg: Pillow's bundled one or
+  the system's), or by Pillow where neither is found;
 - ``SyntheticImageStore``: a seeded random image per item name;
 - ``open_image_source``: the store a path names (both entry points route
   through it);
@@ -28,8 +29,8 @@ Port of ``iisan_tpu/data/images.py`` and of the synthetic token rows of
 Resizing (``LmdbImageStore``, and ``DirImageStore`` for what libjpeg does
 not decode) and decoding in ``build_lmdb`` use Pillow's, as the JAX
 package does: ``Image.resize(..., BILINEAR)`` and ``Image.open(...)
-.convert("RGB")``.  Where Pillow or libjpeg is missing, the path that
-needs it raises an error naming it.
+.convert("RGB")``.  Where Pillow is missing, the path that needs it raises
+an error naming it.
 """
 
 from __future__ import annotations
@@ -174,23 +175,34 @@ class DirImageStore:
     """A directory of ``<name>.jpg`` files, decoded and resized by the
     port's build of ``csrc/fastimage.cc`` (libjpeg with DCT-domain
     downscaling and a bilinear remainder; the JAX package's native path,
-    pixel for pixel).  It is built when the store is made, and raises
-    ``fastimage.DecoderUnavailable`` where g++ or libjpeg is missing.  A
-    file libjpeg cannot decode (a PNG named ``.jpg``) takes Pillow's
-    decode and bilinear resize, the JAX package's fallback.
+    pixel for pixel; ``fastimage.route()`` names the libjpeg linked).  A
+    file libjpeg cannot decode (a PNG named ``.jpg``) takes Pillow's decode
+    and bilinear resize, the JAX package's fallback.  Where no libjpeg is
+    found (``fastimage.DecoderUnavailable``), every image takes that
+    fallback, with a warning naming the missing library, as the JAX
+    package's store does without its native library (``native`` is then
+    False).
     """
 
     def __init__(self, root: str, resize: int = 224):
         self.root = root
         self.resize = resize
-        fastimage.library()
+        try:
+            fastimage.library()
+            self.native = True
+        except fastimage.DecoderUnavailable as e:
+            log.warning("no libjpeg for the JPEG decoder (%s): the images of "
+                        "%s are decoded and resized by Pillow", str(e).splitlines()[0],
+                        root)
+            self.native = False
 
     def get(self, name: str) -> np.ndarray:
         path = os.path.join(self.root, name + ".jpg")
-        with open(path, "rb") as f:
-            out, ok = fastimage.decode_resize(f.read(), self.resize)
-        if ok:
-            return out
+        if self.native:
+            with open(path, "rb") as f:
+                out, ok = fastimage.decode_resize(f.read(), self.resize)
+            if ok:
+                return out
         Image = _pil_image()
         with Image.open(path) as im:
             return _resize_u8(np.asarray(im.convert("RGB")), self.resize)

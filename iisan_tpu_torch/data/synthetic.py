@@ -1,6 +1,7 @@
-"""Synthetic corpora: random interaction sequences with the layout of the
-JAX package's ``iisan_tpu/data/synthetic.py``, array for array from the
-same seed, so both packages train on the same batches."""
+"""Synthetic corpora and tap tables: random interaction sequences and
+hidden-state rows with the layout of the JAX package's
+``iisan_tpu/data/synthetic.py``, array for array from the same seed, so
+both packages train on the same batches."""
 
 from __future__ import annotations
 
@@ -52,3 +53,14 @@ def synthetic_corpus(n_users: int = 64, item_num: int = 200,
         valid_tokens=vt, valid_log_mask=vm, valid_target=vg, valid_history=vh,
         test_tokens=tt, test_log_mask=tm, test_target=tg, test_history=th,
         pop_prob=pop_prob)
+
+
+def synthetic_taps(item_num: int, k: int, dim: int,
+                   seed: int = 0) -> np.ndarray:
+    """A seeded (item_num+1, k, dim) fp32 tap table of standard normals,
+    the pad item's row (0) zero: the JAX package's ``synthetic_taps``,
+    array for array."""
+    rng = np.random.default_rng(seed)
+    taps = rng.standard_normal((item_num + 1, k, dim)).astype(np.float32)
+    taps[0] = 0.0
+    return taps

@@ -12,6 +12,12 @@ Port of ``iisan_tpu/eval/evaluate.py``:
 The tap tables are expected on the device, in the compute dtype or as
 int8 ``QuantTaps`` (``ops/quant.py``), which are dequantised one chunk of
 ids at a time.
+
+On a mesh, ``evaluate``'s ``axis`` (the ``data`` axis) splits each eval
+batch's users over its ranks when the batch divides it (the JAX package's
+``eval_sharding``; replicated otherwise); the per-user metrics are
+all-gathered in user order and the wrap-padded rows cropped before the
+mean, as the reference's ``eval_concat`` does.
 """
 
 from __future__ import annotations
@@ -23,23 +29,24 @@ import torch
 
 from ..ops.metrics import hit_ndcg_at_k, mask_history
 from ..ops.quant import gather_rows, n_rows
+from ..parallel.distributed import all_gather_rows
 
 
 @torch.no_grad()
-def compute_item_tables(model, cv_taps, text_taps,
-                        chunk: int = 8192) -> torch.Tensor:
+def compute_item_tables(model, cv_taps, text_taps, chunk: int = 8192,
+                        rows=gather_rows) -> torch.Tensor:
     """Chunked SAN + ``com_dense`` pass over the catalogue.
 
     cv_taps/text_taps: (item_num+1, K, dim) tensors or ``QuantTaps``; each
-    chunk of ids is gathered (and dequantised) on its own, so the working
-    set is one chunk.  Returns the fused (item_num+1, emb) table in the
+    chunk of ids is gathered (and dequantised) on its own by ``rows(table,
+    ids)`` (a feature-sharded trainer passes its own), so the working set
+    is one chunk.  Returns the fused (item_num+1, emb) table in the
     compute dtype.
     """
     outs = []
     for start in range(0, n_rows(cv_taps), chunk):
         ids = slice(start, start + chunk)
-        emb = model.item_embeddings(gather_rows(cv_taps, ids),
-                                    gather_rows(text_taps, ids))
+        emb = model.item_embeddings(rows(cv_taps, ids), rows(text_taps, ids))
         outs.append(model.fuse_embeddings(*emb))
     return torch.cat(outs)
 
@@ -72,15 +79,21 @@ def _eval_step(model, fused_table, table32, tokens, log_mask, target,
 
 @torch.no_grad()
 def evaluate(model, fused_table, tokens, log_mask, target, history,
-             batch_size: int = 256) -> Tuple[float, float]:
+             batch_size: int = 256, axis=None) -> Tuple[float, float]:
     """Mean HR@10 / nDCG@10 over all users; the index arrays are host
-    arrays, moved to the table's device."""
+    arrays, moved to the table's device.  ``axis`` (a
+    ``parallel.mesh.Axis``) splits each batch's users over its ranks, where
+    the batch divides it."""
     (tokens, log_mask, target, history), n = stack_eval_batches(
         (tokens, log_mask, target, history), batch_size, fused_table.device)
+    rows = axis.rows(batch_size) if axis is not None else slice(None)
     table32 = fused_table.float()
-    out = torch.cat([
-        _eval_step(model, fused_table, table32, tokens[s], log_mask[s],
-                   target[s], history[s])
-        for s in range(tokens.shape[0])])
-    hit, ndcg = out[:n].mean(dim=0).tolist()
+    out = torch.stack([
+        _eval_step(model, fused_table, table32, tokens[s, rows],
+                   log_mask[s, rows], target[s, rows], history[s, rows])
+        for s in range(tokens.shape[0])])                      # (S, b, 2)
+    if axis is not None and axis.splits(batch_size):
+        out = all_gather_rows(out, axis).reshape(axis.size, *out.shape)
+        out = out.transpose(0, 1)                              # (S, ranks, b, 2)
+    hit, ndcg = out.reshape(-1, 2)[:n].mean(dim=0).tolist()
     return hit, ndcg

@@ -84,8 +84,9 @@ class IISANRecModel(nn.Module):
 
     def forward(self, item_ids, cv_states, text_states, log_mask, pop_prob,
                 deterministic: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """Training forward -> scalar fp32 loss.
+                generator: Optional[torch.Generator] = None, shard=None):
+        """Training forward -> scalar fp32 loss (with ``shard``, this
+        rank's share: ``ops.losses.sequence_train_loss``).
 
         item_ids (bs, L+1); cv_states / text_states (bs*(L+1), K, dim) tap
         tensors; log_mask (bs, L); pop_prob (item_num+1,).  Train-mode
@@ -97,7 +98,7 @@ class IISANRecModel(nn.Module):
                                    log_mask, pop_prob,
                                    self.user_encoder.max_seq_len,
                                    score_embs.shape[-1], deterministic,
-                                   generator)
+                                   generator, shard)
 
 
 def rec_model_from_config(cfg, device=None, generator=None) -> IISANRecModel:
@@ -149,15 +150,17 @@ class IDRecModel(nn.Module):
 
     def forward(self, item_ids, log_mask, pop_prob,
                 deterministic: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """Training forward -> scalar fp32 loss; item_ids (bs, L+1),
+                generator: Optional[torch.Generator] = None, shard=None):
+        """Training forward -> scalar fp32 loss (with ``shard``, this
+        rank's share); item_ids (bs, L+1),
         log_mask (bs, L), pop_prob (item_num+1,)."""
-        score_embs = self.id_embedding(item_ids.reshape(-1).long())
+        rows = shard.rows(item_ids.shape[0]) if shard is not None else slice(None)
+        score_embs = self.id_embedding(item_ids[rows].reshape(-1).long())
         return sequence_train_loss(self.user_encoder, score_embs, item_ids,
                                    log_mask, pop_prob,
                                    self.user_encoder.max_seq_len,
                                    score_embs.shape[-1], deterministic,
-                                   generator)
+                                   generator, shard)
 
 
 def id_model_from_config(cfg, item_num: int, device=None,

@@ -149,7 +149,7 @@ class UncachedIISANModel(nn.Module):
         return self.user_encoder(input_embs, log_mask, deterministic)
 
     def forward(self, item_ids, images, tokens, log_mask, pop_prob,
-                deterministic: bool = False, generator=None):
+                deterministic: bool = False, generator=None, shard=None):
         """Training loss: item_ids (bs, L+1); images (bs*(L+1), H, W, 3)
         normalised; tokens (bs*(L+1), packed text width); log_mask (bs, L)."""
         cv_taps, text_taps = self.encode_taps(images, tokens, deterministic,
@@ -157,7 +157,8 @@ class UncachedIISANModel(nn.Module):
         score_embs = self.fuse(*self.san(cv_taps, text_taps))
         return sequence_train_loss(self.user_encoder, score_embs, item_ids,
                                    log_mask, pop_prob, self.max_seq_len,
-                                   self.embedding_dim, deterministic, generator)
+                                   self.embedding_dim, deterministic, generator,
+                                   shard)
 
 
 class FFTRecModel(nn.Module):
@@ -189,13 +190,14 @@ class FFTRecModel(nn.Module):
         return self.user_encoder(input_embs, log_mask, deterministic)
 
     def forward(self, item_ids, images, tokens, log_mask, pop_prob,
-                deterministic: bool = False, generator=None):
+                deterministic: bool = False, generator=None, shard=None):
         emb_cv, _ = self.image_tower(images, deterministic, generator)
         emb_text, _ = self.text_tower(tokens, deterministic, generator)
         score_embs = self.fuse(emb_cv, emb_text, None)
         return sequence_train_loss(self.user_encoder, score_embs, item_ids,
                                    log_mask, pop_prob, self.max_seq_len,
-                                   self.embedding_dim, deterministic, generator)
+                                   self.embedding_dim, deterministic, generator,
+                                   shard)
 
 
 def towers_from_config(cfg, dtype=None, device=None, generator=None):

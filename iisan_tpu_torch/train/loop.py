@@ -7,6 +7,12 @@ checkpoint there with ``save_checkpoints`` (``utils/checkpoint.py``: the
 model, the optimizer, the dropout generator and the epoch), and the
 per-step loss lines.  ``resume`` loads such a checkpoint and returns its
 epoch; training on from it runs what the uninterrupted run would have run.
+
+On a mesh of ranks (``_init_mesh``) every rank trains and evaluates; only
+rank 0 writes the checkpoint, with a barrier after it, and every rank
+resumes from the same file, so all hold the same state.  A checkpoint of a
+split batch also holds each data rank's dropout generator
+(``generators``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import (all_reduce_grads, all_reduce_sum, barrier,
+                                    broadcast_, is_main, rank_seed)
+from ..parallel.mesh import make_mesh
 from ..utils import checkpoint as ckpt_lib
 from ..utils.profiling import report_time_eval
 
@@ -47,6 +56,45 @@ class TrainLoopMixin:
     self.optimizer, self.generator (the dropout generator),
     self.run_epoch(epoch) -> loss, self.evaluate_split(split) -> (hit,
     ndcg)."""
+
+    def _init_mesh(self, mesh=None) -> None:
+        """The run's mesh (``make_mesh(cfg.mesh_shape)`` unless given),
+        ``data_axis``, and ``shard``: the data axis where it splits a
+        step's batch (``Axis.splits``), else None (one rank, or every data
+        rank computing the whole batch)."""
+        self.mesh = mesh if mesh is not None else make_mesh(
+            getattr(self.cfg, "mesh_shape", ""))
+        self.data_axis = self.mesh.axis("data")
+        self.shard = (self.data_axis if self.data_axis.splits(self.cfg.batch_size)
+                      else None)
+
+    def dropout_seed(self) -> int:
+        """The seed of this rank's dropout generator: ``cfg.seed``, or per
+        data rank on a split batch (``rank_seed``)."""
+        index = self.data_axis.index if self.shard is not None else 0
+        return rank_seed(self.cfg.seed, index)
+
+    def batch_rows(self, bs: int) -> slice:
+        """This rank's users of a step's batch of bs."""
+        return self.shard.rows(bs) if self.shard is not None else slice(0, bs)
+
+    def _replicate(self) -> None:
+        """Every rank takes rank 0's parameters and buffers."""
+        broadcast_(self.model.state_dict().values())
+
+    def reduce_gradients(self) -> None:
+        """Sum the gradients over the data axis of a split batch (each
+        rank's are those of its share of the loss)."""
+        if self.shard is not None:
+            all_reduce_grads(self.model.parameters(), self.shard)
+
+    def epoch_losses(self, losses) -> torch.Tensor:
+        """The epoch's per-step losses: each rank's shares summed over the
+        data axis of a split batch."""
+        losses = torch.stack(losses)
+        if self.shard is not None:
+            all_reduce_sum(losses, self.shard)
+        return losses
 
     def epoch_permutation(self, epoch: int) -> np.ndarray:
         """Shuffled user indices wrapped to whole batches, (steps, batch)
@@ -122,24 +170,44 @@ class TrainLoopMixin:
                 log.info("test Hit10 %.5f nDCG10 %.5f",
                          res.test_metrics[0] * 100, res.test_metrics[1] * 100)
                 if save_checkpoints:
-                    ckpt_lib.save_checkpoint(cfg.ckpt_dir, now_epoch,
-                                             self.checkpoint_state(now_epoch))
+                    state = self.checkpoint_state(now_epoch)
+                    if is_main():
+                        ckpt_lib.save_checkpoint(cfg.ckpt_dir, now_epoch, state)
+                    barrier()
         log.info("max eval Hit10 %.5f in epoch %d (total %.1fs)",
                  res.best_hit10 * 100, res.best_epoch, time.time() - start)
         return res
 
     def checkpoint_state(self, epoch: int) -> dict:
-        """What a checkpoint holds (``utils/checkpoint.py``)."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "generator": self.generator.get_state(), "epoch": epoch}
+        """What a checkpoint holds (``utils/checkpoint.py``); on a split
+        batch also every data rank's generator state, in axis order (every
+        rank calls this)."""
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "generator": self.generator.get_state(), "epoch": epoch}
+        if self.shard is not None:
+            gens = [None] * self.shard.size
+            torch.distributed.all_gather_object(
+                gens, self.generator.get_state(), group=self.shard.group)
+            state["generators"] = gens
+        return state
 
     def resume(self, ckpt_name: str) -> int:
         """Load the model, the optimizer and the generator from
-        ``<cfg.ckpt_dir>/<ckpt_name>``; returns the epoch to go on from."""
+        ``<cfg.ckpt_dir>/<ckpt_name>`` (on every rank; a data rank takes
+        its own generator where the checkpoint holds one for it, and
+        re-seeds from ``dropout_seed`` otherwise); returns the epoch to go
+        on from."""
         state, epoch = ckpt_lib.restore_checkpoint(self.cfg.ckpt_dir,
                                                    ckpt_name)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"])
+        index = self.data_axis.index if self.shard is not None else 0
+        gens = state.get("generators") or [state["generator"]]
+        if index < len(gens):
+            self.generator.set_state(gens[index])
+        else:
+            log.warning("%s holds no dropout generator for data rank %d: "
+                        "re-seeded", ckpt_name, index)
+            self.generator.manual_seed(self.dropout_seed())
         return epoch

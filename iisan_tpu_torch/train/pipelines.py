@@ -9,10 +9,12 @@ from a reference ``.pt`` or a checkpoint's model, trains (or, with
 ``eval_only``, evaluates the test split) and exports a serving artifact.
 
 The uncached pipeline reads its images from ``<root_data_dir>/<dataset>/
-<lmdb_data>``: an LMDB or a directory of JPEGs (``data/images.py``).  Not
-ported: meshes and multi-host runs (``mesh_shape``, ``dist_*``, queue 1
-item 7).  ``dropout_prng`` names a JAX PRNG; the port's dropout
-bits are Philox4x32-10's under either accepted value.
+<lmdb_data>``: an LMDB or a directory of JPEGs (``data/images.py``).
+``mesh_shape`` lays the trainers over the ranks of the process group that
+``cli.main`` starts from ``dist_*`` or ``torchrun`` (``parallel/``): every
+rank trains and evaluates, rank 0 writes checkpoints, logs and the
+artifact.  ``dropout_prng`` names a JAX PRNG; the port's dropout bits are
+Philox4x32-10's under either accepted value.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import numpy as np
 from ..data import preprocess as prep
 from ..data.cache_store import HiddenStateCache, import_reference_pt_dir
 from ..device import resolve_device
+from ..parallel.distributed import barrier, is_main
+from ..parallel.mesh import parse_mesh_spec
 from ..utils.logging import setup_logger
 from ..utils.profiling import kernel_launches
 from ..utils.tpme import TPMETracker
@@ -114,9 +118,10 @@ def open_cache(cfg, which: str, corpus) -> HiddenStateCache:
 
 
 def validate_config(cfg) -> None:
-    """Refuse, with a ValueError, every value that the JAX package refuses,
-    and the mesh settings the port does not run: a reference command either
-    trains what it says or stops."""
+    """Refuse, with a ValueError, every value that the JAX package refuses:
+    a reference command either trains what it says or stops.  A mesh must
+    hold the world the run will have (``dist_num_processes``, else
+    ``torchrun``'s ``WORLD_SIZE``, else one process)."""
     if cfg.item_tower not in ("modal", "id"):
         raise ValueError(
             f"item_tower={cfg.item_tower!r}: supported values are 'modal' "
@@ -168,14 +173,22 @@ def validate_config(cfg) -> None:
             f"dropout_prng={cfg.dropout_prng!r}: supported values are "
             "'threefry2x32' and 'rbg' (the JAX package's; the port draws "
             "Philox4x32-10 under either)")
-    if (cfg.mesh_shape or cfg.dist_coordinator or cfg.dist_num_processes
-            or cfg.dist_process_id != -1):
+    if cfg.dist_num_processes > 1 and not cfg.dist_coordinator:
         raise ValueError(
-            f"mesh_shape={cfg.mesh_shape!r}, dist_coordinator="
-            f"{cfg.dist_coordinator!r}, dist_num_processes="
-            f"{cfg.dist_num_processes}, dist_process_id="
-            f"{cfg.dist_process_id}: meshes and multi-host runs are not "
-            "ported (ROADMAP queue 1 item 7); the port runs on one device")
+            f"dist_num_processes={cfg.dist_num_processes} needs "
+            "dist_coordinator (host:port of process 0)")
+    if cfg.dist_num_processes > 1 and not (
+            0 <= cfg.dist_process_id < cfg.dist_num_processes):
+        raise ValueError(
+            f"dist_process_id={cfg.dist_process_id} is not a rank of "
+            f"dist_num_processes={cfg.dist_num_processes}")
+    world = cfg.dist_num_processes if cfg.dist_num_processes > 1 else \
+        int(os.environ.get("WORLD_SIZE", 1))
+    _, sizes = parse_mesh_spec(cfg.mesh_shape, world)
+    if int(np.prod(sizes)) != world:
+        raise ValueError(
+            f"mesh_shape={cfg.mesh_shape!r} holds {int(np.prod(sizes))} "
+            f"ranks but the run has {world} process(es)")
 
 
 def effective_pipeline(cfg) -> str:
@@ -267,8 +280,14 @@ def run_from_config(cfg, eval_only: bool = False, device=None):
         if cfg.export_recommender:
             from ..serve import Recommender
 
-            Recommender.from_trainer(trainer).save(cfg.export_recommender)
-            log.info("exported serving artifact to %s", cfg.export_recommender)
+            # every rank builds the item table (a feature-sharded one takes
+            # collectives); rank 0 writes the file
+            rec = Recommender.from_trainer(trainer)
+            if is_main():
+                rec.save(cfg.export_recommender)
+                log.info("exported serving artifact to %s",
+                         cfg.export_recommender)
+            barrier()
         log.info("kernel launches: %s", json.dumps(kernel_launches()))
 
     if eval_only:

@@ -1,4 +1,5 @@
-"""IISAN (Uncached), full fine-tuning and the PEFT baselines on one device.
+"""IISAN (Uncached), full fine-tuning and the PEFT baselines on one device
+or a mesh of ranks.
 
 Port of ``iisan_tpu/train/uncached.py``: the BERT and ViT towers run inside
 every training step.  ``build_uncached_model`` picks the model from the
@@ -18,7 +19,15 @@ quantised at graft time, as ``_quantize_grafted`` does there) and
 ``fused_tower_attention`` True, False, "subblock" or "subblock_v2".
 
 ``device_bench`` times training steps on one staged batch with CUDA
-events.  Not ported: meshes.
+events.
+
+A ``data`` axis (``cfg.mesh_shape``) splits each step's ``bs * (L+1)``
+item rows by user (replicated where the batch does not divide it, as the
+JAX package falls back): each rank decodes and uploads only its own rows'
+images and titles (``owned_rows``, the JAX ``_owned_image_iter``), runs the
+towers on them, and the loss gathers every rank's item embeddings
+(``ops/losses.py``); the gradients are summed over the axis.  Every rank
+builds the whole item table for evaluation.
 """
 
 from __future__ import annotations
@@ -105,13 +114,15 @@ class UncachedTrainer(TrainLoopMixin):
     The model is initialised on the CPU from ``cfg.seed`` and moved to
     ``device`` (default the first CUDA card; the CPU only when asked
     for).  Dropout draws from a generator on ``device`` seeded from
-    ``cfg.seed``.
+    ``cfg.seed`` (per data rank, ``TrainLoopMixin.dropout_seed``).
+    ``mesh``: a ``parallel.mesh.Mesh``, default ``make_mesh(cfg.mesh_shape)``.
     """
 
     def __init__(self, cfg, corpus, token_table, image_store,
-                 tower_params: Optional[Dict] = None, device=None):
+                 tower_params: Optional[Dict] = None, device=None, mesh=None):
         self.device = resolve_device(device)
         self.cfg, self.corpus = cfg, corpus
+        self._init_mesh(mesh)
         self.token_table = np.asarray(token_table)
         self.loader = ParallelImageLoader(image_store,
                                           num_threads=max(cfg.num_workers, 1))
@@ -124,6 +135,7 @@ class UncachedTrainer(TrainLoopMixin):
             sub = self.model.get_submodule(key.replace("/", "."))
             load_jax_params(sub, with_lora_factors(sub, tree))
         self.model.to(self.device)
+        self._replicate()
         self.mask = trainable_mask(
             self.model, self.method,
             finetune_layernorm="None" not in cfg.finetune_layernorm,
@@ -131,7 +143,8 @@ class UncachedTrainer(TrainLoopMixin):
             fine_tune_to_all="all" in cfg.fine_tune_to)
         self.optimizer = build_optimizer(cfg, self.model, self.mask)
         log_group_sizes(cfg, self.model, self.mask)
-        self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            self.dropout_seed())
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.pop_prob = torch.as_tensor(np.asarray(corpus.pop_prob),
                                         device=self.device)
@@ -149,27 +162,32 @@ class UncachedTrainer(TrainLoopMixin):
         return torch.as_tensor(np.asarray(x)).to(self.device)
 
     def train_step(self, ids, images_u8, tokens, log_mask) -> torch.Tensor:
-        """One step: ids (bs, L+1), images_u8 (bs*(L+1), H, W, 3) uint8,
-        tokens (bs*(L+1), packed text width), log_mask (bs, L), all on the
-        device; returns the loss (not synchronised)."""
+        """One step: ids (bs, L+1) and log_mask (bs, L), the whole batch;
+        images_u8 (n, H, W, 3) uint8 and tokens (n, packed text width), the
+        rows of this rank's users (all bs*(L+1) without a split), all on
+        the device; returns the loss, this rank's share on a split batch
+        (not synchronised)."""
         images = normalize_images(images_u8, self.dtype)
         loss = self.model(ids.long(), images, tokens, log_mask, self.pop_prob,
-                          deterministic=False, generator=self.generator)
+                          deterministic=False, generator=self.generator,
+                          shard=self.shard)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.reduce_gradients()
         self.optimizer.step()
         return loss.detach()
 
     def run_epoch(self, epoch: int) -> float:
         c = self.corpus
         perm = self.epoch_permutation(epoch)
-        flat = [c.train_seqs[p].reshape(-1) for p in perm]
+        own = perm[:, self.batch_rows(perm.shape[1])]  # this rank's users
+        flat = [c.train_seqs[p].reshape(-1) for p in own]
         images = self.loader.iter_batches([self._names(f) for f in flat])
         losses = [self.train_step(self._put(c.train_seqs[p]), self._put(imgs),
                                   self._put(self.token_table[f]),
                                   self._put(c.train_log_mask[p]))
                   for p, f, imgs in zip(perm, flat, images)]
-        self._last_step_losses = torch.stack(losses)
+        self._last_step_losses = self.epoch_losses(losses)
         return float(self._last_step_losses.float().mean())
 
     def device_bench(self, n_steps: int = 10) -> dict:
@@ -202,10 +220,12 @@ class UncachedTrainer(TrainLoopMixin):
         cfg, c = self.cfg, self.corpus
         bs, L, R = cfg.batch_size, cfg.max_seq_len, cfg.CV_resize
         seqs = np.resize(c.train_seqs, (bs, L + 1))
+        own = seqs[self.batch_rows(bs)].reshape(-1)
         images = np.random.default_rng(0).integers(
             0, 256, (bs * (L + 1), R, R, 3), np.uint8)
-        batch = (self._put(seqs), self._put(images),
-                 self._put(self.token_table[seqs.reshape(-1)]),
+        images = images.reshape(bs, L + 1, R, R, 3)[self.batch_rows(bs)]
+        batch = (self._put(seqs), self._put(images.reshape(-1, R, R, 3)),
+                 self._put(self.token_table[own]),
                  self._put(np.resize(c.train_log_mask, (bs, L))))
         cuda = torch.device(self.device).type == "cuda"
         saved = ({n: p.detach().cpu().clone()
@@ -273,7 +293,8 @@ class UncachedTrainer(TrainLoopMixin):
         else:
             args = (c.test_tokens, c.test_log_mask, c.test_target, c.test_history)
         return evaluate(self.model, self.item_embedding_tables(), *args,
-                        batch_size=batch_size or self.cfg.eval_batch_size)
+                        batch_size=batch_size or self.cfg.eval_batch_size,
+                        axis=self.data_axis)
 
     def gate_values(self) -> Dict[str, np.ndarray]:
         """The learned fusion gates, sigmoid(theta / 0.1) (IISAN only)."""

@@ -139,14 +139,30 @@ def test_validate_config_accepts_what_jax_accepts(kw):
             jpipe.effective_pipeline(JaxConfig(**{**FLAG_CASE, **kw}))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh_shape="data:8"), dict(dist_coordinator="localhost:1234"),
-    dict(dist_num_processes=2), dict(dist_process_id=0)])
-def test_validate_config_refuses_meshes(kw):
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+@pytest.mark.parametrize("kw, match", [
+    (dict(mesh_shape="data:8"), "holds 8 ranks but the run has 1"),
+    (dict(mesh_shape="data"), "each axis is 'name:size'"),
+    (dict(dist_num_processes=2), "needs dist_coordinator"),
+    (dict(dist_num_processes=2, dist_coordinator="localhost:1234",
+          dist_process_id=2), "is not a rank of")])
+def test_validate_config_refuses_meshes(kw, match):
+    """Meshes are ported: what is refused is a mesh the run's world cannot
+    hold (one process here) or a malformed one, and a multi-process run
+    without its coordinator or with a rank outside it, where the JAX
+    package's make_mesh / jax.distributed.initialize fail too."""
+    with pytest.raises(ValueError, match=match):
         tpipe.validate_config(IISANConfig(**{**FLAG_CASE, **kw}))
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match=match):
         tcli.parse_config([f"--{k}={v}" for k, v in kw.items()])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh_shape="data:1"), dict(mesh_shape="data:1,model:1"),
+    dict(dist_coordinator="localhost:1234"), dict(dist_process_id=0)])
+def test_validate_config_accepts_meshes_of_the_world(kw):
+    tpipe.validate_config(IISANConfig(**{**FLAG_CASE, **kw}))
+    cfg = tcli.parse_config([f"--{k}={v}" for k, v in kw.items()])
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
 def write_dataset(root):

@@ -25,7 +25,14 @@ JPEGs written here by Pillow (non-square RGB, grayscale, one PNG under a
 - ``ParallelImageLoader`` batches from the LMDB store, pads included, equal
   the JAX loader's;
 - one uncached epoch from an LMDB store: both packages' per-step losses
-  within 1e-4 relative (``tests/test_torch_train_uncached.py``'s bound).
+  within 1e-4 relative (``tests/test_torch_train_uncached.py``'s bound);
+- the decoder's libjpeg routes (``fastimage.routes``: Pillow's bundled
+  libjpeg through the headers in ``csrc/jpeg``, then the system's): each
+  route that builds here decodes the fixture JPEGs
+  (``iisan_tpu_torch/data/fixtures``) bit-equal to the JAX package's
+  native library; without any libjpeg the directory store decodes every
+  image with Pillow, as the JAX store does without its native library,
+  with a warning naming libjpeg.
 """
 
 import io
@@ -338,3 +345,45 @@ def test_uncached_epoch_from_lmdb_tracks_jax(tmp_path):
     assert got.shape == want.shape == (2,) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
     assert torch.is_tensor(tt._last_step_losses)
+
+
+FIXTURES = REPO / "iisan_tpu_torch" / "data" / "fixtures"
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_each_libjpeg_route_is_the_native_path_on_the_fixtures(which):
+    routes = tfast.routes()
+    if which >= len(routes):  # no Pillow wheel here: only the system route
+        which = len(routes) - 1
+    name = routes[which][0]
+    path, built = tfast.build(names=[name])
+    assert built == name
+    lib = tfast.load(path)
+    fixtures = sorted(FIXTURES.glob("item*.jpg"))
+    assert len(fixtures) == 4
+    for fx in fixtures:
+        blob = fx.read_bytes()
+        for resize in (16, 224):
+            got, ok = tfast.decode_resize(blob, resize, lib=lib)
+            assert ok
+            np.testing.assert_array_equal(got, jfast.decode_resize(blob, resize))
+    assert "libjpeg" in name
+    assert tfast.route() in [r[0] for r in routes]
+
+
+def test_dir_store_takes_pillow_where_no_libjpeg_is_found(tmp_path, monkeypatch,
+                                                          caplog):
+    def missing():
+        raise tfast.DecoderUnavailable("the JPEG decoder did not build: it "
+                                       "needs libjpeg")
+
+    monkeypatch.setattr(tfast, "library", missing)
+    for fx in FIXTURES.glob("item*.jpg"):
+        (tmp_path / fx.name).write_bytes(fx.read_bytes())
+    with caplog.at_level(logging.WARNING, logger="iisan_tpu_torch"):
+        store = timages.open_image_source(str(tmp_path), 64)
+    assert isinstance(store, timages.DirImageStore) and not store.native
+    assert any("libjpeg" in r.getMessage() for r in caplog.records)
+    jstore = jimages.DirImageStore(str(tmp_path), 64, use_native=False)
+    for fx in sorted(FIXTURES.glob("item*.jpg")):
+        np.testing.assert_array_equal(store.get(fx.stem), jstore.get(fx.stem))

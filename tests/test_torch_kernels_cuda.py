@@ -1577,3 +1577,68 @@ def test_run_from_config_trains_through_the_encoder_kernels_and_resumes(
         assert torch.equal(sa["exp_avg"], sb["exp_avg"])
         assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
     assert resumed.evaluate_split("test") == straight.evaluate_split("test")
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_serves_and_trains_as_one_process(cuda_device):
+    """On a one-rank NCCL group: ``ShardedRecommender`` (fp32 and int8
+    tables) gives ``Recommender.top_k``'s ids (up to ties) and scores
+    within 1e-5, and a ``data:1`` cached trainer, through the collectives
+    of the data axis, the losses and parameters of the same trainer
+    without a process group bit for bit."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus, synthetic_taps
+    from iisan_tpu_torch.models.model import IISANRecModel
+    from iisan_tpu_torch.serve import Recommender, ShardedRecommender
+    from iisan_tpu_torch.train.cached import CachedTrainer
+
+    cfg = IISANConfig(batch_size=16, embedding_dim=64, side_adapter_vit_list="1,3",
+                      side_adapter_bert_list="1,3", word_embedding_dim=32,
+                      image_embedding_dim=32, bert_adapter_down_size=8,
+                      cv_adapter_down_size=8, eval_batch_size=32)
+    corpus = synthetic_corpus(n_users=64, item_num=300, seed=1)
+    taps = synthetic_taps(300, 3, 32, 1), synthetic_taps(300, 3, 32, 2)
+
+    def train(mesh_shape):
+        tr = CachedTrainer(cfg.replace(mesh_shape=mesh_shape), corpus, *taps,
+                           device=cuda_device)
+        losses = [tr.run_epoch(e) for e in (1, 2)]
+        return tr, losses, tr._last_step_losses.cpu()
+
+    plain, plain_losses, plain_steps = train("")
+    model = IISANRecModel(None, 64, 10, 2, 2, 0.0, dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).eval()
+    table = torch.randn(1000, 64, device=cuda_device)
+    seqs = [[1, 2, 999], [500, 501, 3, 4], list(range(10, 40)), [998]]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        for rec in (Recommender(model, table, 10),
+                    Recommender(model, table, 10).quantize_table()):
+            want = rec.top_k(seqs, k=20)
+            got = ShardedRecommender(rec).top_k(seqs, k=20)
+            np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
+            for row in range(len(seqs)):
+                for j in np.flatnonzero(got[0][row] != want[0][row]):
+                    assert np.isclose(got[1][row, j], want[1][row, j], rtol=1e-5)
+        ranked, ranked_losses, ranked_steps = train("data:1")
+        assert ranked.shard is not None and ranked.shard.group is not None
+        ranked_eval = ranked.evaluate_split("valid")  # gathered over the axis
+    finally:
+        dist.destroy_process_group()
+    assert ranked_losses == plain_losses
+    assert torch.equal(ranked_steps, plain_steps)
+    for (name, a), b in zip(plain.model.named_parameters(),
+                            ranked.model.parameters()):
+        assert torch.equal(a, b), name
+    assert ranked_eval == plain.evaluate_split("valid")

@@ -9,7 +9,10 @@ the ``params_from_*`` importers read a state dict without it,
 ``load_tokenizer`` returns the port's WordPiece tokenizer, and the
 cache-build command line imports it only when called) is loaded, and
 neither the kernel library nor the JPEG decoder (``data/fastimage.py``)
-has been built or loaded.
+has been built or loaded.  The same holds for the module the rank tests
+start their worlds from (``tests/test_torch_ranks.py``), which is imported in
+the same interpreter; every spawned rank also reports what it loaded
+(``test_torch_ranks.run_world`` fails on any such module).
 """
 
 import json
@@ -26,6 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(iisan_tpu_torch.__path__,
                                                "iisan_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+sys.path.insert(0, "tests")
+import test_torch_ranks
 from iisan_tpu_torch.kernels import build
 from iisan_tpu_torch.data import fastimage
 loaded = sorted(m for m in sys.modules
@@ -62,7 +67,8 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "utils.logging", "utils.checkpoint", "utils.profiling",
                  "utils.tpme", "utils.torch_import", "utils.jax_params",
                  "data.lmdbfile", "data.fastimage", "data.images",
-                 "data.wordpiece", "tools.build_lmdb", "utils.flops"):
+                 "data.wordpiece", "tools.build_lmdb", "utils.flops",
+                 "parallel", "parallel.mesh", "parallel.distributed"):
         assert f"iisan_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (

@@ -32,6 +32,7 @@ from iisan_tpu.data.synthetic import synthetic_taps
 from iisan_tpu.train.cached import CachedTrainer as JaxTrainer
 from iisan_tpu_torch.config import IISANConfig
 from iisan_tpu_torch.data.synthetic import synthetic_corpus
+from iisan_tpu_torch.data.synthetic import synthetic_taps as port_taps
 from iisan_tpu_torch.train.cached import CachedTrainer
 from iisan_tpu_torch.utils.jax_params import (export_jax_params, flatten_tree,
                                               load_jax_params)
@@ -110,6 +111,15 @@ def test_parameters_and_metrics_track_jax(trained_pair):
                           "side_gate_params_mm"}
     for name, vals in jt.gate_values().items():
         np.testing.assert_allclose(gates[name], vals, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("item_num, k, dim, seed", [(200, 3, 32, 1), (7, 1, 5, 0),
+                                                   (40, 7, 768, 2)])
+def test_synthetic_taps_are_the_jax_ones(item_num, k, dim, seed):
+    got, want = port_taps(item_num, k, dim, seed), synthetic_taps(item_num, k, dim, seed)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert not got[0].any()
 
 
 def test_port_config_and_corpus_are_the_jax_ones():
