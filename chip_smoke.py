@@ -81,13 +81,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and 257 tokens in train mode and ViT in eval mode (bf16: the
    tensor-core design), ViT in fp32 (the CUDA-core one), each case's
    design printed, and two launches bit-equal at ViT's shape; the mask
-   replay kernel bit for bit.  Planted faults (the key bias dropped on the
-   padded batch, the backward run with another seed, the softmax row term
-   dropped from the backward) must break the bounds; all-pad rows must
-   stay finite.  The library call ``scaled_dot_product_attention`` is
-   timed beside every case: on the eval-mode forward shapes (fp32 too),
-   and its backward alone beside each #6 case (the padding bias as
-   ``attn_mask``, ``dropout_p`` in train mode: timing only).
+   replay kernel bit for bit at the BERT step (704 x 30) and the FFT
+   step's ViT attention (88 x 197), timed by CUDA events and profiler.
+   Planted faults (the key bias dropped on the padded batch, the backward
+   run with another seed, the softmax row term dropped from the backward)
+   must break the bounds; all-pad rows must stay finite.  The library
+   call ``scaled_dot_product_attention`` is timed beside every case: on
+   the eval-mode forward shapes (fp32 too), and its backward alone beside
+   each #6 case (the padding bias as ``attn_mask``, ``dropout_p`` in train
+   mode: timing only).
 8. IISAN (Uncached) training at the published configuration
    (``scripts/bench_uncached.py``'s, at the default batch of 64):
    BERT-base and ViT-base geometry (12 layers, 768 wide, 12 heads, 224 x
@@ -1341,12 +1343,32 @@ def check_attention(device):
     if not torch.equal(masks, plain_masks) or abs(keep - (1 - rate)) > 0.01:
         raise AssertionError("mha_mask_replay differs from its plain version")
     require(mha_ratio([got], [oracle]), MHA_TOL["fwd"], "mha_fwd vs the mask oracle")
-    out["replay_ms"] = cuda_timed(
-        lambda: fa.mha_mask_replay(seed, B, T, H, rate, 5, device), 20)
-    out["replay_plain_ms"] = cuda_timed(
-        lambda: fa.attention_dropout_masks(seed, B, T, H, rate, 5, device), 5)
+    # the replay kernel at the BERT step and at the FFT step's ViT attention
+    # (88 x 197: planes start misaligned, 197^2 = 1 mod 4), bit-equal, timed
+    # per call (CUDA events) and on the device (profiler)
+    for shape, (Bm, Tm) in (("", (B, T)), ("_vit", (FFT_BATCH * (SEQ_LEN + 1), IMAGE_T))):
+        def replay():
+            return fa.mha_mask_replay(seed, Bm, Tm, H, rate, 5, device)
+        if shape:
+            equal = torch.equal(replay(), fa.attention_dropout_masks(
+                seed, Bm, Tm, H, rate, 5, device))
+            log(f"mha_mask_replay B={Bm} T={Tm} H={H} rate {rate}: bit-equal to "
+                f"the plain masks {equal}")
+            if not equal:
+                raise AssertionError("mha_mask_replay differs from its plain version at ViT")
+        out[f"replay{shape}_ms"] = cuda_timed(replay, 20)
+        out[f"replay{shape}_device_ms"] = sum(
+            ms for key, ms in kernel_device_ms(replay, 10).items() if "mask_replay" in key)
+        out[f"replay{shape}_plain_ms"] = cuda_timed(
+            lambda: fa.attention_dropout_masks(seed, Bm, Tm, H, rate, 5, device), 3)
+        out[f"replay{shape}_bound"] = bound(Bm * H * Tm * Tm * 4, 0)
+        log(f"mha_mask_replay B={Bm} T={Tm} H={H}: kernel "
+            f"{out[f'replay{shape}_ms']:.4f} ms (device "
+            f"{out[f'replay{shape}_device_ms']:.4f}), plain "
+            f"{out[f'replay{shape}_plain_ms']:.4f} ms, bound "
+            f"{out[f'replay{shape}_bound'][0]:.4f} ms")
+        torch.cuda.empty_cache()
     out["replay_oracle_launches"] = fa.mha_mask_replay.launches - r0
-    out["replay_bound"] = bound(B * H * T * T * 4, 0)
     fault = mha_ratio([fa.mha_fwd(q, k, v, None, n_heads=H)],
                       [fa.mha_fwd_plain(q, k, v, bias, n_heads=H)])
     log(f"  planted fault 'key bias dropped' (padded batch): {fault:.4g} "
@@ -4620,7 +4642,8 @@ def main() -> int:
               attn["bwd_bound"], attn["bwd_sdpa_ms"]),
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
               uncached["mha_mask_replay"] + peft["mha_mask_replay"], 0.0,
-              attn["replay_ms"], attn["replay_plain_ms"], attn["replay_bound"], None),
+              attn["replay_ms"], attn["replay_plain_ms"], attn["replay_bound"], None,
+              device=attn["replay_device_ms"]),
         entry("attn_subblock_fwd", "iisan_tpu/ops/fused_attn_subblock.py:107",
               towers["fused_attn_subblock"], subblock[False]["err"],
               subblock[False]["ms"], subblock[False]["plain_ms"],

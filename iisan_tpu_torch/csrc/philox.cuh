@@ -31,9 +31,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
+// The four words of counter c: the bits of elements 4c .. 4c+3.
+__device__ __forceinline__ uint4 philox_bits4(unsigned seed, unsigned site, unsigned b,
+                                              unsigned c) {
+  return philox4x32_10(make_uint4(c, site, b, 0u), make_uint2(seed, 0u));
+}
+
 __device__ __forceinline__ unsigned philox_bits(unsigned seed, unsigned site, unsigned b,
                                                 unsigned e) {
-  const uint4 r = philox4x32_10(make_uint4(e >> 2, site, b, 0u), make_uint2(seed, 0u));
+  const uint4 r = philox_bits4(seed, site, b, e >> 2);
   switch (e & 3u) {
     case 0: return r.x;
     case 1: return r.y;
@@ -63,9 +69,8 @@ struct Dropout {
   __device__ __forceinline__ float keep(unsigned site, unsigned b, unsigned e) const {
     return dropout_keep(seed, site, b, e, rate, scale);
   }
-  // The four words of counter c: the bits of elements 4c .. 4c+3.
   __device__ __forceinline__ uint4 bits4(unsigned site, unsigned b, unsigned c) const {
-    return philox4x32_10(make_uint4(c, site, b, 0u), make_uint2(seed, 0u));
+    return philox_bits4(seed, site, b, c);
   }
   __device__ __forceinline__ float keep_bits(unsigned bits) const {
     return keep_of_bits(bits, rate, scale);

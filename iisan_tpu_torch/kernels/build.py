@@ -103,6 +103,7 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    u = ctypes.c_uint
     lib.iisan_user_encoder_weights.argtypes = [p, p, ll] + [i] * 4 + [p]
     lib.iisan_user_encoder_weights.restype = i
     lib.iisan_user_encoder_fwd.argtypes = [p] * 6 + [ll] + [i] * 9 + [f, f, p]
@@ -125,7 +126,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_mha_fwd.restype = i
     lib.iisan_mha_bwd.argtypes = [p] * 9 + [i] * 6 + [f, f, i, p]
     lib.iisan_mha_bwd.restype = i
-    lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [f, f, i, p]
+    lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [u, f, u, p]
     lib.iisan_mha_mask_replay.restype = i
     lib.iisan_w8a8_quant_rows.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.iisan_w8a8_quant_rows.restype = i

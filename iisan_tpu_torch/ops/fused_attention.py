@@ -15,7 +15,8 @@ and ViT layer of the uncached towers.  Three kernels:
   T the forward takes; in bf16 all ten of their products run on the tensor
   cores;
 - ``mha_mask_replay`` (``csrc/mha_mask_replay.cu``): the scaled keep masks
-  the two draw, as a (B, H, T, T) tensor, the oracle of train mode.
+  the two draw, as a (B, H, T, T) tensor, the oracle of train mode; one
+  Philox call per four elements, written at the card's write rate.
 
 ``FusedMHAFn`` ties the first two into autograd, as the JAX package's
 custom VJP does; ``fused_mha`` is the entry point.  On a CPU tensor each
@@ -290,22 +291,39 @@ mha_bwd.flops = 0
 
 
 def mha_mask_replay(seed: int, B: int, T: int, H: int, rate: float,
-                    layer: int, device) -> torch.Tensor:
+                    layer: int, device, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """The (B, H, T, T) fp32 scaled keep masks that ``mha_fwd`` and
     ``mha_bwd`` draw for (seed, rate, layer); the CUDA kernel on a CUDA
-    ``device``, ``attention_dropout_masks`` on the CPU.
+    ``device``, ``attention_dropout_masks`` on the CPU.  Written into
+    ``out`` (contiguous (B, H, T, T) fp32 on ``device``) where given.  Both
+    routes raise ``ValueError`` on the same inputs.
     ``mha_mask_replay.launches`` counts kernel launches."""
+    if (not 0 <= seed < 2 ** 31 or not 1 <= B < 2 ** 31
+            or not 1 <= H < 2 ** 31 or not 1 <= T <= MAX_T or layer < 0
+            or (layer + 1) * H > 2 ** 32
+            or not 0.0 <= rate < 1.0 or philox.to_fp32(rate) >= 1.0):
+        raise ValueError(
+            f"mha_mask_replay takes a seed in [0, 2^31), B, H >= 1, T in "
+            f"[1, {MAX_T}], layer >= 0 with sites layer * H + h below 2^32 and "
+            f"an fp32 rate in [0, 1); got seed {seed}, B {B}, T {T}, H {H}, "
+            f"layer {layer}, rate {rate}")
     device = torch.device(device)
+    if out is not None and (out.shape != (B, H, T, T) or out.dtype != torch.float32
+                            or out.device.type != device.type
+                            or not out.is_contiguous()):
+        raise ValueError(f"mha_mask_replay: out must be a contiguous ({B}, {H}, "
+                         f"{T}, {T}) fp32 tensor on {device}")
     if device.type != "cuda":
-        return attention_dropout_masks(seed, B, T, H, rate, layer, device)
+        masks = attention_dropout_masks(seed, B, T, H, rate, layer, device)
+        return masks if out is None else out.copy_(masks)
     from ..kernels.build import check, library
 
-    if not 0 <= seed < 2 ** 31 or not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout seed {seed} or rate {rate} out of range")
-    out = torch.empty((B, H, T, T), dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.empty((B, H, T, T), dtype=torch.float32, device=device)
     err = library().iisan_mha_mask_replay(
-        out.data_ptr(), B, T, H, seed, rate, 1.0 / (1.0 - rate), layer,
-        torch.cuda.current_stream(device).cuda_stream)
+        out.data_ptr(), B, T, H, seed, philox.keep_threshold(rate),
+        1.0 / (1.0 - rate), layer * H, torch.cuda.current_stream(out.device).cuda_stream)
     check(err, "mha_mask_replay")
     mha_mask_replay.launches += 1
     return out

@@ -20,6 +20,9 @@ split in 16-bit halves so that no intermediate exceeds 2^49.
 
 from __future__ import annotations
 
+import math
+import struct
+
 import torch
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
@@ -79,6 +82,21 @@ def dropout_mask(seed: int, site: int, batch: int, shape, rate: float,
     keep = u >= torch.tensor(rate, dtype=torch.float32, device=device)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=device)
     return (keep.float() * scale).reshape(batch, *shape)
+
+
+def to_fp32(x: float) -> float:
+    """``x`` rounded to the nearest fp32 value (as a Python float)."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def keep_threshold(rate: float) -> int:
+    """The uint32 t with ``bits >= t`` exactly where ``dropout_mask`` keeps
+    an element: (bits >> 8) / 2^24 >= fp32(rate) holds for the integer
+    bits >> 8 exactly when it is >= ceil(fp32(rate) * 2^24), a product that
+    is exact in float64.  Takes rates in [0, 1) whose fp32 value is below 1."""
+    if not 0.0 <= rate < 1.0 or to_fp32(rate) >= 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1) in fp32, got {rate}")
+    return math.ceil(to_fp32(rate) * (1 << 24)) << 8
 
 
 def draw_seed(generator: torch.Generator) -> int:

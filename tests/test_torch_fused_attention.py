@@ -24,6 +24,7 @@ from jax.experimental import pallas as pl
 
 from iisan_tpu.ops import fused_attention as jfa
 from iisan_tpu_torch.ops import fused_attention as fa
+from iisan_tpu_torch.ops import philox
 
 
 @pytest.fixture()
@@ -178,6 +179,75 @@ def test_dropout_masks_keep_rate_and_addressing():
     assert not torch.equal(m[:, 0], m[:, 1]) and not torch.equal(m[0], m[1])
     # a row's masks do not depend on how many images the call holds
     assert torch.equal(m[:2], fa.attention_dropout_masks(7, 2, T, H, rate, 2))
+
+
+@pytest.mark.parametrize("T", [3, 197])
+def test_dropout_masks_are_philox_lanes_of_four_element_counters(T):
+    """Element (b, h, i, j) is lane (i*T + j) % 4 of Philox at counter
+    (i*T + j) // 4, site layer*H + h, row b: the addressing the replay
+    kernel computes once per four elements."""
+    seed, B, H, rate, layer = 31, 2, 3, 0.1, 4
+    masks = fa.attention_dropout_masks(seed, B, T, H, rate, layer)
+    e = torch.arange(T * T, dtype=torch.int64)
+    scale = np.float32(1.0 / (1.0 - rate))
+    for b in range(B):
+        for h in range(H):
+            words = torch.stack(philox.philox4x32_10(
+                e // 4, torch.full_like(e, layer * H + h), torch.full_like(e, b),
+                torch.zeros_like(e), seed, 0))
+            bits = words[e % 4, e].numpy()
+            u = (bits >> 8).astype(np.float64) / 2.0 ** 24
+            want = np.where(u >= np.float32(rate), scale, np.float32(0))
+            np.testing.assert_array_equal(masks[b, h].reshape(-1).numpy(), want)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5, 1 / 3, 2.0 ** -24, 0.75 + 2.0 ** -24,
+                                  1 - 2.0 ** -24])
+def test_keep_threshold_is_the_float_keep_test(rate):
+    """``bits >= keep_threshold(rate)`` (the kernel's integer test) keeps
+    exactly the words the fp32 test (bits >> 8) / 2^24 >= rate keeps,
+    random words and the words around the threshold alike."""
+    t = philox.keep_threshold(rate)
+    rng = np.random.default_rng(5)
+    edge = np.array([0, 1, t - 257, t - 256, t - 1, t, t + 1, t + 255, t + 256,
+                     2 ** 32 - 1], dtype=np.int64)
+    bits = torch.from_numpy(np.concatenate([
+        rng.integers(0, 2 ** 32, 100_000, dtype=np.int64), edge.clip(0, 2 ** 32 - 1)]))
+    u = (bits >> 8).float() * (1.0 / (1 << 24))
+    assert torch.equal(bits >= t, u >= torch.tensor(rate, dtype=torch.float32))
+
+
+_REPLAY_ARGS = dict(seed=7, B=2, T=5, H=3, rate=0.1, layer=2)
+
+
+@pytest.mark.parametrize("bad", [dict(rate=-0.1), dict(rate=1.0), dict(rate=1 - 1e-10),
+                                 dict(seed=-1), dict(seed=2 ** 31), dict(layer=-1),
+                                 dict(layer=2 ** 30, H=4), dict(B=0), dict(T=0),
+                                 dict(T=46341), dict(H=0)],
+                         ids=lambda bad: ",".join(f"{k}={v}" for k, v in bad.items()))
+def test_mask_replay_routes_reject_the_same_inputs(bad):
+    """Both routes of ``mha_mask_replay`` check their inputs before the
+    device branch (the CUDA route raises before it needs a card)."""
+    args = {**_REPLAY_ARGS, **bad}
+    for device in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="mha_mask_replay takes"):
+            fa.mha_mask_replay(args["seed"], args["B"], args["T"], args["H"],
+                               args["rate"], args["layer"], device)
+    B, T, H = _REPLAY_ARGS["B"], _REPLAY_ARGS["T"], _REPLAY_ARGS["H"]
+    assert fa.mha_mask_replay(**_REPLAY_ARGS, device="cpu").shape == (B, H, T, T)
+
+
+def test_mask_replay_writes_only_its_view():
+    seed, B, T, H, rate, layer = 3, 2, 7, 3, 0.25, 1
+    n = B * H * T * T
+    buf = torch.full((n + 9,), -7.0)
+    got = fa.mha_mask_replay(seed, B, T, H, rate, layer, "cpu",
+                             out=buf[5:5 + n].view(B, H, T, T))
+    assert got.data_ptr() == buf[5:].data_ptr()
+    assert torch.equal(got, fa.attention_dropout_masks(seed, B, T, H, rate, layer))
+    assert bool((buf[:5] == -7).all()) and bool((buf[5 + n:] == -7).all())
+    with pytest.raises(ValueError, match="out must be"):
+        fa.mha_mask_replay(seed, B, T, H, rate, layer, "cpu", out=buf[:n].view(B, T, H, T))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

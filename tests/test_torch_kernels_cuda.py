@@ -809,6 +809,38 @@ def test_mha_train_mode_is_the_replayed_mask_oracle(cuda_device, dtype, B, T):
     assert _mha_ratio([got], [want]) <= MHA_TOL[dtype, "fwd"]
 
 
+# (B, T, H, layer, rate, pad): every residue of T^2 mod 4 (197^2 and 257^2
+# are 1 mod 4, so their planes start misaligned); more planes than grid y's
+# 65,535 (5,462 x 12) and more rows (70,001); with pad, the masks go into a
+# view of a buffer that starts ``pad`` floats in (1: misaligned, 4: 16
+# bytes) with guard words on both sides.
+MASK_REPLAY_CASES = (
+    [(3, T, H, layer, rate, None) for T in (1, 2, 3, 5, 30, 197, 257) for H in (1, 12)
+     for layer in (0, 11) for rate in (0.0, 0.1, 0.5)]
+    + [(5462, 2, 12, 3, 0.1, None), (70001, 1, 1, 0, 0.5, None)]
+    + [(4, T, 12, 5, 0.1, pad) for T in (30, 197) for pad in (1, 4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,layer,rate,pad", MASK_REPLAY_CASES)
+def test_mask_replay_is_bit_equal_to_the_plain_masks(cuda_device, B, T, H, layer, rate, pad):
+    n = B * H * T * T
+    r0 = fa.mha_mask_replay.launches
+    if pad is None:
+        got = fa.mha_mask_replay(97, B, T, H, rate, layer, cuda_device)
+    else:
+        buf = torch.full((n + pad + 7,), -7.0, device=cuda_device)
+        view = buf[pad:pad + n].view(B, H, T, T)
+        got = fa.mha_mask_replay(97, B, T, H, rate, layer, cuda_device, out=view)
+        assert got.data_ptr() == view.data_ptr()
+    want = fa.attention_dropout_masks(97, B, T, H, rate, layer, cuda_device)
+    torch.cuda.synchronize()
+    assert fa.mha_mask_replay.launches == r0 + 1
+    assert torch.equal(got, want)
+    if pad is not None:
+        assert bool((buf[:pad] == -7).all()) and bool((buf[pad + n:] == -7).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,B,T,D,H", [(torch.bfloat16, 8, 30, 768, 12),
                                            (torch.bfloat16, 4, 197, 768, 12),
