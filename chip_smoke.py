@@ -7,8 +7,10 @@ weight import), IISAN-Versa (``pipeline="cached_asym"``) and the
 hidden-state cache builders with the Versa towers (Llama, EVA, CLIP), the
 run path from the command line (training, resume, test mode, warm
 starts), and uncached training and cache builds from the real-data image
-stores (LMDB, JPEG) with ``device_bench``, and int8 and sharded serving
-and training on ``torch.distributed`` ranks, once on one NVIDIA GPU.
+stores (LMDB, JPEG) with ``device_bench``, int8 and sharded serving and
+training on ``torch.distributed`` ranks, and the paper's efficiency table
+(TPME over six methods) and the canonical sweep launchers, once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -214,9 +216,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    inverse of ``params_from_hf_torch``), read back through
    ``params_from_hf_torch`` into fresh towers on the card: hidden stacks
    bit-equal to the source towers'.
-26. Last, after phases 27-30: print the uncached step's device-busy time
+26. Last, after phases 27-34: print the uncached step's device-busy time
    on each tower route of this run, one JSON line of per-kernel results
-   (the launches of phases 21, 23, 24 and 27-30 counted in #5, #6, the
+   (the launches of phases 21, 23, 24 and 27-34 counted in #5, #6, the
    encoder and the cascade rows), then the final status line.
 27. IISAN's caches (``cache_builder``): BERT-base x ViT-base towers from
    ``towers_from_config(IISANConfig(...))`` (bf16, #5, seeded random
@@ -304,6 +306,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    JPEG directory (the fixtures; the decoder's libjpeg route, or Pillow,
    printed).  ``--shard`` through ``torchrun`` writes the one-process ids,
    and ``--shard --http`` answers them.  Launches join the kernel line.
+34. The paper's efficiency table and the sweep launchers: ``python -m
+   iisan_tpu_torch.tools.tpme_report --out <tmp>`` measures the six
+   methods (IISAN cached and uncached, FFT, LoRA, Houlsby, BitFit) at the
+   reference protocol, each in a process of its own: the cached epoch at
+   Scientific size (12,076 users, batch 64; median of 3), the uncached
+   methods at batch 32 (``device_bench(8)`` x 378 steps, and a host-fed
+   epoch over 256 users scaled to 12,076), peak memory by
+   ``max_memory_allocated``.  The six-row table (epoch seconds
+   device-bound and host-fed, trainable parameters, peak bytes, TPME,
+   remat) is printed with the card's name and power limit.  Every value
+   must be finite, each method's trainable parameters ``TPME.json``'s,
+   the encoder kernels launched in every method, #5 in the five uncached
+   ones and #6 in FFT, LoRA, Houlsby and BitFit.  Then ``run_iisan``'s
+   ``BASE | DATASETS["scientific"]`` and ``GRID`` through ``run_sweep``
+   for one epoch over phase 31's dataset under the registry's file names
+   (finite loss, valid HR@10 / nDCG@10), and the three launchers' dry
+   runs (one point per dataset, method and variant).  Launches join the
+   kernel line.
 
 fp32 matrix products in the plain versions run in full fp32: TF32 is
 switched off for matmuls and cuDNN below.  The script imports no JAX.
@@ -4368,6 +4388,159 @@ def run_parallel(device, counters, root: Path, smi: str):
     return totals
 
 
+# Phase 34: the paper's efficiency table (TPME) over its six methods, then
+# the canonical sweep launchers.
+TPME_METHODS = ("iisan_cached", "iisan_uncached", "fft", "lora", "houlsby", "bitfit")
+TPME_BWD = ("fft", "lora", "houlsby", "bitfit")  # the methods that train through #6
+
+
+def run_tpme_report(out: Path, timeout: int = 600) -> None:
+    """``python -m iisan_tpu_torch.tools.tpme_report --out out`` in a session
+    of its own (so that a timeout stops its method processes too); its
+    output is printed only if it fails."""
+    import os
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-m", "iisan_tpu_torch.tools.tpme_report",
+                             "--out", str(out)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase 34: the TPME report ran past {timeout} s")
+    if proc.returncode != 0:
+        print(stdout[-2000:], file=sys.stderr)
+        print(stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"phase 34: the TPME report exited {proc.returncode}")
+
+
+def check_tpme(report, published):
+    """Phase 34's checks of ``TPME_torch.json``: every value finite, the six
+    methods' trainable parameters those of ``TPME.json`` (``published``:
+    label -> count), and the kernels of each method's path launched."""
+    import math
+
+    records = {r["label"]: r for r in report["records"]}
+    if sorted(records) != sorted(TPME_METHODS):
+        raise AssertionError(f"phase 34: records of {sorted(records)}")
+    for label, r in records.items():
+        values = [r["epoch_seconds"], r["trainable_params"], r["memory_bytes"],
+                  report["tpme"][label]]
+        if label != "iisan_cached":
+            values += [r["epoch_seconds_e2e"], r["step_seconds"], r["tflops_per_step"]]
+        if not all(v is not None and math.isfinite(v) for v in values):
+            raise AssertionError(f"phase 34 {label}: a value is not finite: {values}")
+        if r["trainable_params"] != published[label]:
+            raise AssertionError(f"phase 34 {label}: {r['trainable_params']} trainable "
+                                 f"parameters, TPME.json has {published[label]}")
+        n = r["launches"]
+        need = ["user_encoder_fwd", "user_encoder_bwd"]
+        need += ["mha_fwd"] if label != "iisan_cached" else []
+        need += ["mha_bwd"] if label in TPME_BWD else []
+        if not all(n[k] > 0 for k in need):
+            raise AssertionError(f"phase 34 {label}: launches {nonzero(n)}")
+    return records
+
+
+def run_tpme_and_sweeps(device, counters, root: Path, smi: str):
+    """Phase 34: the TPME report over the six methods at the reference
+    protocol (each method a process of its own), then ``run_iisan``'s
+    Scientific sweep point for one epoch over phase 31's dataset, then the
+    three launchers' dry runs.  Returns the launches of the phase's kernels
+    (the report's processes' and this process's)."""
+    import contextlib
+    import io
+    import math
+
+    from iisan_tpu_torch import sweep
+    from iisan_tpu_torch.tools import run_baselines, run_iisan, run_iisan_versa
+    from iisan_tpu_torch.tools.datasets import DATASETS
+
+    t_phase = time.perf_counter()
+    names = tuple(c.__name__ for c in counters)
+    totals = dict.fromkeys(names, 0)
+
+    out = root / "tpme"
+    run_tpme_report(out)
+    report = json.loads((out / "TPME_torch.json").read_text())
+    published = {r["label"]: r["trainable_params"]
+                 for r in json.loads((ROOT / "TPME.json").read_text())["records"]}
+    records = check_tpme(report, published)
+    for r in records.values():
+        for k in names:
+            totals[k] += r["launches"].get(k, 0)
+    scores = report["tpme"]
+    log(f"phase 34 TPME (alpha {tuple(report['alpha'])}; lower is better; each method "
+        f"a process of its own; {smi}; devices recorded: "
+        f"{sorted({r['device'] for r in records.values()})}):")
+    log(f"  {'method':<15}{'epoch_s':>12}{'epoch_s_e2e':>13}{'params':>14}"
+        f"{'peak_bytes':>17}{'TPME':>8}  remat  step_ms  TFLOP/step")
+    for label in sorted(records, key=scores.get):
+        r = records[label]
+        e2e, step, tflop = (r.get(k) for k in ("epoch_seconds_e2e", "step_seconds",
+                                                "tflops_per_step"))
+        log(f"  {label:<15}{r['epoch_seconds']:>12.4f}"
+            f"{'-' if e2e is None else f'{e2e:.4f}':>13}{r['trainable_params']:>14,}"
+            f"{r['memory_bytes']:>17,}{scores[label]:>8.4f}  {r.get('remat_towers', False)!s:<5}"
+            f"  {'-' if step is None else f'{step * 1e3:.2f}':>7}"
+            f"  {'-' if tflop is None else f'{tflop:.4f}'}")
+    log("phase 34 TPME order: " + " < ".join(sorted(records, key=scores.get))
+        + "; launches by method: "
+        + "; ".join(f"{label} {nonzero(r['launches'])}" for label, r in records.items()))
+
+    # run_iisan's Scientific point for one epoch, over phase 31's dataset
+    # under the registry's file names
+    t0 = time.perf_counter()
+    write_cli_dataset(device, root)
+    sci = DATASETS["scientific"]
+    data = root / sci["dataset"]
+    data.mkdir(parents=True)
+    (data / sci["behaviors"]).symlink_to(root / "users.tsv")
+    (data / sci["news"]).symlink_to(root / "items.tsv")
+    base = {**run_iisan.BASE, **sci, "root_data_dir": str(root),
+            "stored_vector_path": str(root / "vecs"), "epoch": 1,
+            "log_dir": str(root / "sweep" / "logs"),
+            "ckpt_dir": str(root / "sweep" / "ckpt")}
+    results, launches = counted(counters, lambda: sweep.run_sweep(
+        base, run_iisan.GRID, device=device))
+    for k in names:
+        totals[k] += launches[k]
+    if len(results) != 1 or results[0][1] is None:
+        raise AssertionError(f"phase 34 run_iisan: {len(results)} points")
+    point, res = results[0]
+    loss = res.losses[0]
+    hit, ndcg = res.valid_history[0]
+    log(f"phase 34 run_iisan scientific (BASE | DATASETS['scientific'] and GRID, epoch 1, "
+        f"over phase 31's dataset): label {sweep.point_label(point)}; epoch "
+        f"{res.epoch_times[0]:.3f} s host, loss {loss:.5f}, valid HR@10 {hit:.6f} "
+        f"nDCG@10 {ndcg:.6f}; {time.perf_counter() - t0:.2f} s with the dataset "
+        f"written; launches {nonzero(launches)}")
+    if not (math.isfinite(loss) and math.isfinite(hit) and math.isfinite(ndcg)
+            and 0 <= hit <= 1 and launches["user_encoder_fwd"] > 0
+            and launches["user_encoder_bwd"] > 0):
+        raise AssertionError(f"phase 34 run_iisan: loss {loss}, HR@10 {hit}, "
+                             f"launches {launches}")
+
+    # the three launchers' dry runs: one point per dataset, method, variant
+    dry = []
+    for module, choices in ((run_iisan, [[]]),
+                            (run_baselines, [[m] for m in run_baselines.METHODS]),
+                            (run_iisan_versa, [[v] for v in run_iisan_versa.VARIANTS])):
+        for args in choices:
+            with contextlib.redirect_stdout(io.StringIO()):
+                n = len(module.main([*args, "--dry-run"]))
+            dry.append((module.__name__.rsplit(".", 1)[1], args, n))
+    log("phase 34 dry runs: " + ", ".join(f"{m} {' '.join(a) or '(default)'} {n} point(s)"
+                                          for m, a, n in dry))
+    if any(n != 1 for _, _, n in dry):
+        raise AssertionError(f"phase 34 dry runs: {dry}")
+    log(f"phase 34 wall time {time.perf_counter() - t_phase:.2f} s; launches {totals} "
+        f"({smi})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4589,6 +4762,12 @@ def main() -> int:
                                     fue.user_encoder_bwd, fs.san_cascade_fwd),
                            Path(tmp), smi)
     torch.cuda.empty_cache()
+    # the TPME report over six methods and the sweep launchers (phase 34)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tpme = run_tpme_and_sweeps(
+            device, (fa.mha_fwd, fa.mha_bwd, fa.mha_mask_replay, fue.user_encoder_fwd,
+                     fue.user_encoder_bwd, fs.san_cascade_fwd), Path(tmp), smi)
+    torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
@@ -4610,7 +4789,8 @@ def main() -> int:
               + uncached["user_encoder_fwd"] + versa["user_encoder_fwd"]
               + towers["user_encoder_fwd"] + peft["user_encoder_fwd"]
               + caches["user_encoder_fwd"] + cli["user_encoder_fwd"]
-              + stores["user_encoder_fwd"] + par["user_encoder_fwd"],
+              + stores["user_encoder_fwd"] + par["user_encoder_fwd"]
+              + tpme["user_encoder_fwd"],
               max([r[0] for r in ue.values()] + [train["fwd_err"]]),
               ue[256][1], ue[256][2], ue_bound, None, device=ue[256][3]),
         entry("user_encoder_bwd", "iisan_tpu/ops/fused_user_encoder.py:327",
@@ -4618,13 +4798,14 @@ def main() -> int:
               + versa["user_encoder_bwd"] + towers["user_encoder_bwd"]
               + peft["user_encoder_bwd"] + caches["user_encoder_bwd"]
               + cli["user_encoder_bwd"] + stores["user_encoder_bwd"]
-              + par["user_encoder_bwd"],
+              + par["user_encoder_bwd"] + tpme["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
               + versa["san_cascade_fwd"] + caches["san_cascade_fwd"]
-              + cli["san_cascade_fwd"] + par["san_cascade_fwd"],
+              + cli["san_cascade_fwd"] + par["san_cascade_fwd"]
+              + tpme["san_cascade_fwd"],
               cascade["err"], cascade["ms"],
               cascade["plain_ms"], cascade_bound(*CASCADE_TABLE), None),
         entry("san_cascade_streamed_fwd", "iisan_tpu/ops/fused_san.py:94",
@@ -4633,15 +4814,18 @@ def main() -> int:
               streamed["ms"], streamed["plain_ms"], streamed["bound"], None),
         entry("mha_fwd", "iisan_tpu/ops/fused_attention.py:73",
               uncached["mha_fwd"] + towers["mha_fwd"] + peft["mha_fwd"]
-              + caches["mha_fwd"] + stores["mha_fwd"] + par["mha_fwd"],
+              + caches["mha_fwd"] + stores["mha_fwd"] + par["mha_fwd"]
+              + tpme["mha_fwd"],
               attn["fwd_err"], attn["fwd_ms"], attn["fwd_plain_ms"],
               attn["fwd_bound"], attn["fwd_sdpa_ms"]),
         entry("mha_bwd", "iisan_tpu/ops/fused_attention.py:106",
-              uncached["mha_bwd"] + towers["mha_bwd"] + peft["mha_bwd"],
+              uncached["mha_bwd"] + towers["mha_bwd"] + peft["mha_bwd"]
+              + tpme["mha_bwd"],
               attn["bwd_err"], attn["bwd_ms"], attn["bwd_plain_ms"],
               attn["bwd_bound"], attn["bwd_sdpa_ms"]),
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
-              uncached["mha_mask_replay"] + peft["mha_mask_replay"], 0.0,
+              uncached["mha_mask_replay"] + peft["mha_mask_replay"]
+              + tpme["mha_mask_replay"], 0.0,
               attn["replay_ms"], attn["replay_plain_ms"], attn["replay_bound"], None,
               device=attn["replay_device_ms"]),
         entry("attn_subblock_fwd", "iisan_tpu/ops/fused_attn_subblock.py:107",

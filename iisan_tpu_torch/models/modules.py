@@ -113,7 +113,12 @@ def XavierLinear(in_features: int, features: int, use_bias: bool = True,
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm in fp32 with JAX's parameter names (``scale``, ``bias``)."""
+    """LayerNorm in fp32 with JAX's parameter names (``scale``, ``bias``).
+
+    Where the bias trains and the scale does not (BitFit), the bias is
+    added after ``F.layer_norm``: PyTorch 2.11's CUDA backward returns an
+    empty bias gradient for that mask at 69,344 rows (BitFit's ViT at
+    batch 32; at 52,008 rows it does not)."""
 
     def __init__(self, features: int, eps: float = LN_EPS, device=None):
         super().__init__()
@@ -122,6 +127,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias.requires_grad and not self.scale.requires_grad:
+            return F.layer_norm(x.float(), x.shape[-1:], self.scale, None,
+                                self.eps) + self.bias
         return F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
                             self.eps)
 

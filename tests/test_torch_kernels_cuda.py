@@ -1674,3 +1674,29 @@ def test_one_rank_nccl_group_serves_and_trains_as_one_process(cuda_device):
                             ranked.model.parameters()):
         assert torch.equal(a, b), name
     assert ranked_eval == plain.evaluate_split("valid")
+
+
+@pytest.mark.cuda
+def test_bitfit_layer_norm_bias_gradient_at_vit_batch_32_rows(cuda_device):
+    """BitFit's ViT at batch 32 normalises 352 x 197 = 69,344 rows with a
+    frozen scale and a trained bias, where PyTorch 2.11's CUDA backward
+    returns an empty bias gradient: the port's LayerNorm gives the bias
+    the sum of its output gradient, and x the gradient of the route with
+    both parameters trained."""
+    from iisan_tpu_torch.models.modules import LayerNorm
+
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.randn(352, 197, 768, generator=gen).to(cuda_device, torch.bfloat16)
+    cot = torch.randn(352, 197, 768, generator=gen).to(cuda_device)
+    grads = {}
+    for trains_scale in (False, True):
+        ln = LayerNorm(768, device=cuda_device)
+        ln.scale.requires_grad_(trains_scale)
+        x = x0.clone().requires_grad_()
+        (ln(x) * cot).sum().backward()
+        grads[trains_scale] = (x.grad.float(), ln.bias.grad)
+    assert grads[False][1].shape == (768,)
+    want = cot.sum((0, 1))
+    assert torch.allclose(grads[False][1], want, rtol=1e-4, atol=1e-2)
+    assert torch.allclose(grads[False][1], grads[True][1], rtol=1e-4, atol=1e-2)
+    assert torch.allclose(grads[False][0], grads[True][0], rtol=2**-7, atol=1e-6)

@@ -92,3 +92,38 @@ def test_user_encoder_matches_jax(dtype):
     assert np.isfinite(out).all()  # the all-pad row is not NaN
     np.testing.assert_allclose(out, np.asarray(want, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("trains", ["both", "scale", "bias", "neither"])
+def test_layer_norm_gradients_whichever_parameters_train(trains):
+    """The port's LayerNorm gives ``F.layer_norm``'s output and gradients
+    (fp64 reference) whichever of scale and bias train; with the bias alone
+    (BitFit) it adds the bias after the normalisation."""
+    from iisan_tpu_torch.models.modules import LayerNorm
+
+    gen = torch.Generator().manual_seed(0)
+    ln = LayerNorm(48)
+    with torch.no_grad():
+        ln.scale.copy_(1 + 0.1 * torch.randn(48, generator=gen))
+        ln.bias.copy_(0.1 * torch.randn(48, generator=gen))
+    ln.scale.requires_grad_(trains in ("both", "scale"))
+    ln.bias.requires_grad_(trains in ("both", "bias"))
+    x = torch.randn(5, 7, 48, generator=gen, requires_grad=True)
+    cot = torch.randn(5, 7, 48, generator=gen)
+    (ln(x) * cot).sum().backward()
+
+    x64 = x.detach().double().requires_grad_()
+    w64 = ln.scale.detach().double().requires_grad_()
+    b64 = ln.bias.detach().double().requires_grad_()
+    want = torch.nn.functional.layer_norm(x64, (48,), w64, b64, ln.eps)
+    (want * cot.double()).sum().backward()
+    np.testing.assert_allclose(ln(x).detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), x64.grad.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    for p, ref in ((ln.scale, w64), (ln.bias, b64)):
+        if p.requires_grad:
+            np.testing.assert_allclose(p.grad.numpy(), ref.grad.numpy(),
+                                       rtol=1e-4, atol=1e-4)
+        else:
+            assert p.grad is None

@@ -4,7 +4,8 @@ A fresh interpreter imports every module of iisan_tpu_torch (the trainers
 included, and the run path: the command line, the pipelines, the sweep
 and the utilities); afterwards no ``jax`` / ``flax`` / ``optax`` /
 ``orbax`` module, no module of the JAX package (``iisan_tpu`` or
-``iisan_tpu.*``) and no ``transformers`` module (the GPU machine has none:
+``iisan_tpu.*``) or of its ``scripts/`` (which the port's launchers and
+TPME report replace) and no ``transformers`` module (the GPU machine has none:
 the ``params_from_*`` importers read a state dict without it,
 ``load_tokenizer`` returns the port's WordPiece tokenizer, and the
 cache-build command line imports it only when called) is loaded, and
@@ -36,7 +37,8 @@ from iisan_tpu_torch.data import fastimage
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "orbax"))
-reference = sorted(m for m in sys.modules if m.split(".")[0] == "iisan_tpu")
+reference = sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("iisan_tpu", "scripts"))
 hf = sorted(m for m in sys.modules if m.split(".")[0] == "transformers")
 print(json.dumps({"modules": names, "jax": loaded, "reference": reference,
                   "transformers": hf,
@@ -68,7 +70,10 @@ def test_port_imports_no_jax_and_builds_nothing():
                  "utils.tpme", "utils.torch_import", "utils.jax_params",
                  "data.lmdbfile", "data.fastimage", "data.images",
                  "data.wordpiece", "tools.build_lmdb", "utils.flops",
-                 "parallel", "parallel.mesh", "parallel.distributed"):
+                 "parallel", "parallel.mesh", "parallel.distributed",
+                 "tools.datasets", "tools.run_iisan", "tools.run_baselines",
+                 "tools.run_iisan_versa", "tools.tpme_single",
+                 "tools.tpme_report"):
         assert f"iisan_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == [], f"JAX modules loaded by the port: {out['jax']}"
     assert out["reference"] == [], (
