@@ -20,7 +20,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. Build the CUDA kernels from ``iisan_tpu_torch/csrc`` and print the
    build time, ptxas's per-kernel report and the count of tensor-core
    instructions (HMMA, HGMMA, from ``cuobjdump -sass``) in each
-   user-encoder kernel; the bf16 route's three must have some.
+   user-encoder kernel; the bf16 route's three must have some; every
+   instance of the bf16 attention forward (#5's and the subblocks'
+   resident and streamed kernels) must have HGMMA and no HMMA.
 3. Hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the serving path gives it: the user-encoder forward
    at batch 1 and 256 (L=10, D=64, H=2, F=256, 2 blocks); the SAN cascade
@@ -78,7 +80,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    row) in eval mode and in train mode (dropout 0.1, the same Philox masks
    on both sides), at the ViT step geometry (704 images x 197 tokens,
    compared on a 64-image slice, timed at 704) in eval mode and in fp32,
-   and at 257 tokens (a 256-pixel ViT) in eval and train mode; the
+   and at 257 tokens (a 256-pixel ViT) in eval and train mode; at every
+   edge of the forward's tiling (``ATTN_FWD_EDGES``, 1 to 4,097 tokens, two
+   images) in eval and train mode with and without the key bias, each
+   image's eval output bit-equal to a launch of its own, and a train-mode
+   forward with #6's gradient of it at 197 and 257 tokens; the
    backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT
    and 257 tokens in train mode and ViT in eval mode (bf16: the
    tensor-core design), ViT in fp32 (the CUDA-core one), each case's
@@ -576,27 +582,6 @@ def split_text(split) -> str:
     parts = ", ".join(f"{k.split('(')[0].split(' ')[-1]} {v:.4f}"
                       for k, v in sorted(split.items()))
     return f"{sum(split.values()):.4f} ms ({parts})"
-
-
-def sass_mma_counts(lib_path, pattern: str):
-    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel of
-    the built library whose name holds ``pattern`` (cuobjdump -sass)."""
-    from iisan_tpu_torch.kernels import build
-
-    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        line = line.strip()
-        if line.startswith("Function :"):
-            name = line.split(":", 1)[1].strip()
-            if pattern in name:
-                counts[name] = 0
-        elif name in counts and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
-    return counts
 
 
 def cascade_inputs(device, gen, S, N, K, D, R, dtype=None):
@@ -1308,6 +1293,33 @@ def sdpa_bwd_ms(q, k, v, g, bias, rate: float, reps: int = 10):
     return cuda_timed(sdpa_bwd(q, k, v, g, bias, rate), reps)
 
 
+# The bf16 attention-forward kernels of #5 and of the subblocks' attention
+# step (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu): the resident design at
+# each key-chunk count, eval and train, and the streamed one.
+ATTN_FWD_KERNELS = ("mha_fwd_resident_kernel", "mha_fwd_streamed_kernel",
+                    "subblock_attn_resident_kernel", "subblock_attn_streamed_kernel")
+
+
+# Key counts at every edge of the bf16 forward's tiling (128 wide, 2 heads
+# past the resident limit's 321).
+ATTN_FWD_EDGES = (1, 5, 63, 64, 65, 128, 197, 256, 257, 320, 321, 1000, 4097)
+
+
+def check_attention_sass():
+    """Every bf16 attention-forward kernel runs its products on wgmma:
+    HGMMA in its SASS, and no HMMA (mma.sync)."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts("_kernel")
+    for pattern in ATTN_FWD_KERNELS:
+        mine = {name: n for name, n in counts.items() if pattern in name}
+        log(f"  SASS {pattern}: {len(mine)} instances, HGMMA "
+            f"{sorted({n['HGMMA'] for n in mine.values()})}, HMMA "
+            f"{sorted({n['HMMA'] for n in mine.values()})}")
+        if not mine or any(n["HGMMA"] == 0 or n["HMMA"] > 0 for n in mine.values()):
+            raise AssertionError(f"{pattern}: an instance without wgmma, or with mma.sync")
+
+
 def check_attention(device):
     """The tower-attention kernels against their plain versions at the
     uncached step's shapes; returns their JSON entries' numbers."""
@@ -1406,6 +1418,42 @@ def check_attention(device):
         f"{out['bert_fwd_plain_ms']:.4f} ms, scaled_dot_product_attention "
         f"{out['bert_sdpa_ms']:.4f} ms (medians, CUDA events); bound "
         f"{mha_bound(B, T, D, H, True, False)[0]:.4f} ms")
+
+    # The bf16 forward at every edge of its tiling (64-row query tiles,
+    # 64-key chunks, 8-key groups, the resident limit; two images, the first
+    # all padding), eval and train, with and without the key bias; an
+    # image's output bit-equal to a launch of its own (eval); and a
+    # train-mode forward with #6's gradient of it at ViT's token counts.
+    worst = 0.0
+    for T in ATTN_FWD_EDGES:
+        Dn, Hn = (D, H) if T <= 321 else (128, 2)
+        qe, ke, ve, ge = (torch.randn(2, T, Dn, generator=gen, device=device).to(torch.bfloat16)
+                          for _ in range(4))
+        be = padding_bias(device, gen, 2, T)
+        for mode, kw in (("eval", dict(n_heads=Hn)),
+                         ("train", dict(n_heads=Hn, seed=seed, rate=rate, layer=6))):
+            for b_ in (None, be):
+                got = fa.mha_fwd(qe, ke, ve, b_, **kw)
+                ratio = mha_ratio([got], [fa.mha_fwd_plain(qe, ke, ve, b_, **kw)])
+                worst = max(worst, ratio)
+                require(ratio, MHA_TOL["fwd"], f"mha_fwd T={T} {mode} bias {b_ is not None}")
+                if mode == "eval" and not torch.equal(got[1:], fa.mha_fwd(
+                        qe[1:], ke[1:], ve[1:], None if b_ is None else b_[1:], **kw)):
+                    raise AssertionError(f"mha_fwd T={T}: an image's output depends on its batch")
+        if T in (IMAGE_T, IMAGE_T_256):
+            kw = dict(n_heads=Hn, seed=seed, rate=rate, layer=6)
+            leaves = [t.clone().requires_grad_(True) for t in (qe, ke, ve)]
+            o = fa.fused_mha(*leaves, Hn, key_bias=be, drop_rate=rate, seed=seed, layer=6)
+            o.backward(ge)
+            fr = mha_ratio([o.detach()], [fa.mha_fwd_plain(qe, ke, ve, be, **kw)])
+            gr = mha_ratio([t.grad for t in leaves], fa.mha_bwd_plain(qe, ke, ve, be, ge, **kw))
+            log(f"fused_mha train T={T}: forward {fr:.4g} (tol {MHA_TOL['fwd']}), #6's "
+                f"gradient of it {gr:.4g} (tol {MHA_TOL['bwd']})")
+            require(fr, MHA_TOL["fwd"], f"fused_mha train T={T} forward")
+            require(gr, MHA_TOL["bwd"], f"fused_mha train T={T} gradient")
+    log(f"mha_fwd at the tile edges T={list(ATTN_FWD_EDGES)}, eval and train, with and "
+        f"without the key bias: worst ratio {worst:.4g} (tol {MHA_TOL['fwd']}); each "
+        "image's eval output bit-equal to its own launch")
 
     # ViT images: 197 tokens (224 pixels) and 257 (256 pixels), no bias;
     # compared on the first 64 images, timed at 704.  257 in eval and train
@@ -4575,13 +4623,14 @@ def main() -> int:
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  ptxas: " + line.strip())
-    mma = sass_mma_counts(lib_path, "user_encoder")
+    mma = build.sass_mma_counts("user_encoder")
     for name, n in sorted(mma.items()):
-        log(f"  SASS: {n} HMMA/HGMMA in {name}")
+        log(f"  SASS: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA in {name}")
     for kernel in ("user_encoder_fwd_tc_kernel", "user_encoder_bwd_tc_kernel",
                    "user_encoder_wgrad_kernel"):
-        if not any(kernel in name and n > 0 for name, n in mma.items()):
+        if not any(kernel in name and sum(n.values()) > 0 for name, n in mma.items()):
             raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
+    check_attention_sass()
 
     ue = check_user_encoder(device)
     cascade = check_cascade(device)

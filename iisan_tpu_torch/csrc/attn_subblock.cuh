@@ -10,9 +10,9 @@
 //    the layout #5's loaders read.  #9's values are #8's: its wrapper
 //    hands in the biases rounded to bf16 first.
 // 2. `subblock_attn_resident_kernel` (T <= 320) or
-//    `subblock_attn_streamed_kernel`: #5's tensor-core core (mha.cuh's
+//    `subblock_attn_streamed_kernel`: #5's wgmma/TMA core (mha.cuh's
 //    fwd_resident_block / fwd_streamed_block) on those tensors, dropout at
-//    sites layer * H + h, writing ctx (B, T, D) bf16.
+//    sites layer * H + h, writing ctx (B, T, D) bf16 by TMA.
 // 3. `subblock_out_gemm_kernel`: out = bf16(((bo + c_0) + c_1) + ...) on
 //    the same wgmma mainloop, c_g the fp32 sum over group g's kg rows of
 //    Wo: kg = D is #8's ctx . Wo + bo, kg = 4 heads' rows #9's head-group

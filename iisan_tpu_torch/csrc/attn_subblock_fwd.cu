@@ -15,7 +15,8 @@
 // its 739 GFLOP (qkv 491, output 164, attention 84) take 0.75 ms on the
 // bf16 tensor cores and its 0.43 GB of inputs and output 0.13 ms:
 // operations.  The scratch q, k, v and ctx (0.85 GB written, read once)
-// add 0.5 ms of traffic; the attention core is #5's, which sets the pace.
+// add 0.5 ms of traffic; the attention core is #5's (PERF.md's kernel
+// table splits the op's device time by kernel).
 //
 // This file also defines the kernels and `run`, which #9's entry point
 // (attn_subblock_v2_fwd.cu) calls with its head-group size.
@@ -48,21 +49,33 @@ static __global__ void __launch_bounds__(sm90::kThreads, 1)
 
 // #5's two block designs under the subblock's own names (its launch
 // counters and the profiler's kernel families keep the two ops apart).
-static __global__ void __launch_bounds__(kTcThreads)
-    subblock_attn_streamed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                                  bf16* __restrict__ out, Dims d, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  fwd_streamed_block(q, k, v, bias, out, d, drop, smem);
+template <int NC, bool kDrop>
+static __global__ void __launch_bounds__(kFwdThreads, 2)
+    subblock_attn_resident_kernel(const __grid_constant__ CUtensorMap qm,
+                                  const __grid_constant__ CUtensorMap km,
+                                  const __grid_constant__ CUtensorMap vm,
+                                  const __grid_constant__ CUtensorMap om,
+                                  const float* __restrict__ bias, Dims d, Dropout drop) {
+  fwd_resident_block<NC, kDrop>(&qm, &km, &vm, &om, bias, d, drop);
 }
 
-static __global__ void __launch_bounds__(kResWarps * 32, 2)
-    subblock_attn_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                                  bf16* __restrict__ out, Dims d, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  fwd_resident_block(q, k, v, bias, out, d, drop, smem);
+template <bool kDrop>
+static __global__ void __launch_bounds__(kFwdThreads, 3)
+    subblock_attn_streamed_kernel(const __grid_constant__ CUtensorMap qm,
+                                  const __grid_constant__ CUtensorMap km,
+                                  const __grid_constant__ CUtensorMap vm,
+                                  const __grid_constant__ CUtensorMap om,
+                                  const float* __restrict__ bias, Dims d, Dropout drop) {
+  fwd_streamed_block<kDrop>(&qm, &km, &vm, &om, bias, d, drop);
 }
+
+static const FwdKernels kAttnKernels = {
+    {{subblock_attn_resident_kernel<1, false>, subblock_attn_resident_kernel<1, true>},
+     {subblock_attn_resident_kernel<2, false>, subblock_attn_resident_kernel<2, true>},
+     {subblock_attn_resident_kernel<3, false>, subblock_attn_resident_kernel<3, true>},
+     {subblock_attn_resident_kernel<4, false>, subblock_attn_resident_kernel<4, true>},
+     {subblock_attn_resident_kernel<5, false>, subblock_attn_resident_kernel<5, true>}},
+    {subblock_attn_streamed_kernel<false>, subblock_attn_streamed_kernel<true>}};
 
 // q | k | v (3, M, D) = bf16(x . wqkv + bqkv), column n of the product at
 // plane n / D, column n % D.
@@ -82,8 +95,8 @@ cudaError_t run(const void* x, const void* wqkv, const void* bqkv, const void* w
                static_cast<unsigned>(layer * H)};
   const bf16* q = static_cast<const bf16*>(qkv);
   const size_t plane = static_cast<size_t>(M) * D;
-  err = launch_fwd_tc(subblock_attn_resident_kernel, subblock_attn_streamed_kernel, q, q + plane,
-                      q + 2 * plane, bias, ctx, B, d, make_dropout(seed, rate, scale), stream);
+  err = launch_fwd_tc(kAttnKernels, q, q + plane, q + 2 * plane, bias, ctx, B, d,
+                      make_dropout(seed, rate, scale), stream);
   if (err != cudaSuccess) return err;
   const float* bop = static_cast<const float*>(bo);
   if (D % 128 != 0)

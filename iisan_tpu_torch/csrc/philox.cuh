@@ -75,6 +75,11 @@ struct Dropout {
   __device__ __forceinline__ float keep_bits(unsigned bits) const {
     return keep_of_bits(bits, rate, scale);
   }
+  // Whether an element with Philox word `bits` is kept (keep_of_bits'
+  // test).
+  __device__ __forceinline__ bool keeps(unsigned bits) const {
+    return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) >= rate;
+  }
 };
 
 inline Dropout make_dropout(int seed, float rate, float scale) {

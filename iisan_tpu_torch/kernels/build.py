@@ -153,6 +153,26 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def sass_mma_counts(pattern: str) -> dict:
+    """Tensor-core instructions in the SASS of each kernel of the built
+    library whose name holds ``pattern`` (``cuobjdump -sass``), by opcode:
+    ``{kernel: {"HGMMA": n, "HMMA": m}}`` (wgmma and mma.sync)."""
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            if pattern in name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name in counts:
+            for op in ("HGMMA", "HMMA"):  # neither name holds the other
+                counts[name][op] += op in line
+    return counts
+
+
 def check(err: int, name: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if err != 0:

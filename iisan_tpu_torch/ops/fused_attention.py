@@ -4,10 +4,10 @@ Port of ``iisan_tpu/ops/fused_attention.py``, the attention of every BERT
 and ViT layer of the uncached towers.  Three kernels:
 
 - ``mha_fwd`` (``csrc/mha_fwd.cu``): per head, scores, an fp32 softmax with
-  the optional key bias, train-mode dropout, and the product with V; keys
-  go through shared memory in 64-key tiles (held whole up to 320 keys,
-  streamed beyond), so T up to 46,340 fits, and in bf16 both products run
-  on the tensor cores; heads unsplit in and out;
+  the optional key bias, train-mode dropout, and the product with V; in
+  bf16 the operands arrive by TMA and both products run on wgmma, keys
+  held whole up to 320 (one pass a query tile) and streamed beyond (two),
+  so T up to 46,340 fits; heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
   dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; two
   kernels, one over query tiles (gQ and each row's softmax statistics and
@@ -235,6 +235,9 @@ def mha_fwd(q, k, v, bias, *, n_heads: int, seed: int = 0, rate: float = 0.0,
     _check("mha_fwd", q, k, v, bias, n_heads, seed, rate,
            supported(B, T, D, n_heads, q.element_size()))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mha_fwd: bf16 q, k and v must start on 16-byte "
+                         "boundaries (the kernel reads them by TMA)")
     bias = None if bias is None else bias.contiguous()
     out = torch.empty_like(q)
     err = library().iisan_mha_fwd(

@@ -380,6 +380,9 @@ def test_dir_store_takes_pillow_where_no_libjpeg_is_found(tmp_path, monkeypatch,
     monkeypatch.setattr(tfast, "library", missing)
     for fx in FIXTURES.glob("item*.jpg"):
         (tmp_path / fx.name).write_bytes(fx.read_bytes())
+    # an earlier setup_logger in this process leaves the logger unpropagated,
+    # out of caplog's reach
+    monkeypatch.setattr(logging.getLogger("iisan_tpu_torch"), "propagate", True)
     with caplog.at_level(logging.WARNING, logger="iisan_tpu_torch"):
         store = timages.open_image_source(str(tmp_path), 64)
     assert isinstance(store, timages.DirImageStore) and not store.native

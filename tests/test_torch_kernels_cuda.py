@@ -65,6 +65,11 @@ backward's split, the dkv kernel's dropout element transposed, the row
 term taken as FlashAttention's rowsum(g * o), another head's statistics
 read in dkv) must break those bounds, and the backward repeats bit for
 bit.
+The bf16 forward runs on wgmma (HGMMA in the SASS of every instance, no
+HMMA) and is held to its plain version in eval and train mode, with and
+without the key bias, at every edge of its tiling (1 to 4,097 keys), an
+image's output bit-equal to a launch of its own; a train-mode forward and
+#6's gradient of it hold at 197 and 257 keys.
 Shapes reach past the first kernels' limits: 257 keys (a 256-pixel ViT),
 1024, the fp32 backward at ViT's 197 (CUDA cores), #10 at any K and N,
 the user encoder at L=20 and 50, at 6 layers (global scratch) and at
@@ -792,6 +797,70 @@ def test_mha_kernels_match_plain(cuda_device, dtype, rate, with_bias, B, T, D, H
                zip(grads, fa.mha_bwd(q, k, v, bias, g, **kw)))
 
 
+# Key counts at every edge of the bf16 forward's tiling (64-row query
+# tiles, 64-key chunks, 8-key groups, 16-key product steps, 320 resident
+# keys): one key, a ragged group, 63 / 64 / 65, two chunks, ViT's 197 (3 x
+# 64 + 5), 256 and 257, the resident limit and one past it, and long
+# streamed rows.
+MHA_FWD_EDGES = ([(2, T, 768, 12) for T in (1, 5, 63, 64, 65, 128, 197, 256, 257, 320, 321)]
+                 + [(1, 1000, 128, 2), (1, 4097, 128, 2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("B,T,D,H", MHA_FWD_EDGES)
+def test_mha_fwd_matches_plain_at_the_tile_edges(cuda_device, rate, with_bias, B, T, D, H):
+    q, k, v, _, bias = _mha_inputs(cuda_device, B, T, D, torch.bfloat16, seed=6)
+    bias = bias if with_bias else None
+    kw = dict(n_heads=H, seed=1234, rate=rate, layer=9)
+    f0 = fa.mha_fwd.launches
+    got = fa.mha_fwd(q, k, v, bias, **kw)
+    want = fa.mha_fwd_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert fa.mha_fwd.launches == f0 + 1
+    assert _mha_ratio([got], [want]) <= MHA_TOL[torch.bfloat16, "fwd"]
+    if rate == 0.0 and B > 1:  # an image's output does not depend on its batch
+        alone = fa.mha_fwd(q[1:], k[1:], v[1:], None if bias is None else bias[1:], **kw)
+        assert torch.equal(got[1:], alone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [197, 257])
+def test_train_mode_forward_and_its_gradient_through_both_kernels(cuda_device, T):
+    """fused_mha in train mode at ViT's token counts: #5's forward and #6's
+    gradient of it, each against its plain version (the same Philox
+    masks)."""
+    dt = torch.bfloat16
+    q, k, v, g, bias = _mha_inputs(cuda_device, 2, T, 768, dt, seed=7)
+    kw = dict(n_heads=12, seed=99, rate=0.1, layer=4)
+    f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.fused_mha(*leaves, 12, key_bias=bias, drop_rate=0.1, seed=99, layer=4)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fa.mha_fwd.launches == f0 + 1 and fa.mha_bwd.launches == b0 + 1
+    assert _mha_ratio([out.detach()], [fa.mha_fwd_plain(q, k, v, bias, **kw)]) <= \
+        MHA_TOL[dt, "fwd"]
+    plain = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
+    assert _mha_ratio([t.grad for t in leaves], plain) <= MHA_TOL[dt, "bwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["mha_fwd_resident_kernel", "mha_fwd_streamed_kernel",
+                                     "subblock_attn_resident_kernel",
+                                     "subblock_attn_streamed_kernel"])
+def test_attention_forward_kernels_run_on_wgmma(cuda_device, pattern):
+    """Each instance of the bf16 attention forward (resident at every key-
+    chunk count, streamed; eval and train) has HGMMA (wgmma) in its SASS
+    and no HMMA (mma.sync)."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts(pattern)
+    assert len(counts) == (10 if "resident" in pattern else 2)
+    assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,T", [(8, 30), (2, 257), (1, 1024)])
@@ -981,6 +1050,20 @@ def test_fused_mha_autograd_runs_both_kernels(cuda_device):
         grads.append([t.grad for t in leaves])
     assert fa.mha_fwd.launches == f0 + 1 and fa.mha_bwd.launches == b0 + 1
     assert _mha_ratio(grads[0], grads[1]) <= MHA_TOL[torch.float32, "bwd"]
+
+
+@pytest.mark.cuda
+def test_mha_fwd_raises_on_a_misaligned_bf16_view(cuda_device):
+    """The bf16 forward reads q, k and v by TMA, which needs 16-byte
+    aligned starts: a contiguous view one element into a buffer raises
+    (no launch, no copy)."""
+    q, k, v, _, bias = _mha_inputs(cuda_device, 2, 30, 768, torch.bfloat16)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    odd = flat[1:].view(q.shape).copy_(q)
+    before = fa.mha_fwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.mha_fwd(odd, k, v, bias, n_heads=12)
+    assert fa.mha_fwd.launches == before
 
 
 @pytest.mark.cuda

@@ -53,19 +53,28 @@ def test_tpme_tracker_counts_what_the_optimizer_updates():
 def test_logger_and_time_lines(tmp_path):
     assert tlogging.get_time(0.0, 3725.9) == jlogging.get_time(0.0, 3725.9)
     assert tlogging.FORMAT == jlogging.FORMAT
-    logger = tlogging.setup_logger(str(tmp_path), "lab", "test")
-    assert logger.name == "iisan_tpu_torch" and logger.level == logging.INFO
-    assert len(logger.handlers) == 2
-    logger.info("hello")
-    (name,) = os.listdir(tmp_path)
-    assert name.startswith("log_test_lab-") and name.endswith(".log")
-    for h in logger.handlers:
-        h.flush()
-    assert "] hello" in (tmp_path / name).read_text()
-    quiet = tlogging.setup_logger(str(tmp_path / "other"), "lab",
-                                  process_index=1)
-    assert quiet.level == logging.WARN and not quiet.handlers
-    assert not (tmp_path / "other").exists()
+    shared = logging.getLogger("iisan_tpu_torch")
+    saved = list(shared.handlers), shared.level, shared.propagate
+    try:
+        logger = tlogging.setup_logger(str(tmp_path), "lab", "test")
+        assert logger.name == "iisan_tpu_torch" and logger.level == logging.INFO
+        assert len(logger.handlers) == 2
+        logger.info("hello")
+        (name,) = os.listdir(tmp_path)
+        assert name.startswith("log_test_lab-") and name.endswith(".log")
+        for h in logger.handlers:
+            h.flush()
+        assert "] hello" in (tmp_path / name).read_text()
+        quiet = tlogging.setup_logger(str(tmp_path / "other"), "lab",
+                                      process_index=1)
+        assert quiet.level == logging.WARN and not quiet.handlers
+        assert not (tmp_path / "other").exists()
+    finally:  # the process's later tests find the logger as it was
+        for h in shared.handlers:
+            h.close()
+        shared.handlers[:] = saved[0]
+        shared.setLevel(saved[1])
+        shared.propagate = saved[2]
 
 
 def test_step_timer_trace_and_memory(tmp_path):

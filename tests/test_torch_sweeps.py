@@ -92,6 +92,9 @@ def test_dry_run_lists_the_jax_labels(monkeypatch, capsys, caplog, module,
                                       script, args):
     jax_base, jax_grid = _jax_sweep_args(monkeypatch, script, args)
     monkeypatch.undo()
+    # an earlier setup_logger in this process leaves the logger unpropagated,
+    # out of caplog's reach
+    monkeypatch.setattr(logging.getLogger("iisan_tpu"), "propagate", True)
     with caplog.at_level(logging.INFO, logger="iisan_tpu"):
         jax_results = jax_sweep.run_sweep(jax_base, jax_grid, dry_run=True)
     jax_labels = [r.getMessage().split("=== sweep point ")[1].rstrip(" =")
