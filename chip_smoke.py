@@ -86,9 +86,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    image's eval output bit-equal to a launch of its own, and a train-mode
    forward with #6's gradient of it at 197 and 257 tokens; the
    backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT
-   and 257 tokens in train mode and ViT in eval mode (bf16: the
-   tensor-core design), ViT in fp32 (the CUDA-core one), each case's
-   design printed, and two launches bit-equal at ViT's shape; the mask
+   and 257 tokens in train mode and ViT in eval mode (bf16: the cluster
+   design), 325 tokens in train mode (past 320 keys: the streamed
+   ``mma.sync`` pair), ViT in fp32 (the CUDA-core one), and ViT at the TPME report's
+   batch of 32 users (352 rows), each case's design and device time beside
+   SDPA's backward and the bound printed, and two launches bit-equal at
+   ViT's shape; the mask
    replay kernel bit for bit at the BERT step (704 x 30) and the FFT
    step's ViT attention (88 x 197), timed by CUDA events and profiler.
    Planted faults (the key bias dropped on the padded batch, the backward
@@ -286,8 +289,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``python -m iisan_tpu_torch.tools.build_lmdb`` (records equal to
    Pillow's decode, the bad-file report), and the JPEG directory's store
    (the libjpeg its decoder links, or Pillow where none is found); ``python -m
-   iisan_tpu_torch.cli --pipeline uncached`` trains one epoch of 32 steps
-   (2,048 users x 800 items, BERT-base x ViT-base, batch 64) from the LMDB
+   iisan_tpu_torch.cli --pipeline uncached`` trains one epoch of 8 steps
+   (512 users x 800 items, BERT-base x ViT-base, batch 64) from the LMDB
    (#5 24 times a step); the feed alone on 4 and 8 threads and its
    one-thread split (LMDB read, unpickle, resize), the staged step's
    device-busy time and the fed step's idle share (P9); the
@@ -313,12 +316,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    printed).  ``--shard`` through ``torchrun`` writes the one-process ids,
    and ``--shard --http`` answers them.  Launches join the kernel line.
 34. The paper's efficiency table and the sweep launchers: ``python -m
-   iisan_tpu_torch.tools.tpme_report --out <tmp>`` measures the six
+   iisan_tpu_torch.tools.tpme_report --users 32 --out <tmp>`` measures the six
    methods (IISAN cached and uncached, FFT, LoRA, Houlsby, BitFit) at the
    reference protocol, each in a process of its own: the cached epoch at
    Scientific size (12,076 users, batch 64; median of 3), the uncached
    methods at batch 32 (``device_bench(8)`` x 378 steps, and a host-fed
-   epoch over 256 users scaled to 12,076), peak memory by
+   epoch over 32 users, one batch, scaled to 12,076: the report's default
+   of 256 is cut to keep the run's time), peak memory by
    ``max_memory_allocated``.  The six-row table (epoch seconds
    device-bound and host-fed, trainable parameters, peak bytes, TPME,
    remat) is printed with the card's name and power limit.  Every value
@@ -337,6 +341,7 @@ switched off for matmuls and cuDNN below.  The script imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -452,6 +457,21 @@ TABLE_TOL = 0.05
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# (phase, host seconds) of this run, in order, for the summary at the end
+PHASE_SECONDS = []
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    """Logs the host seconds of the block it wraps and keeps them for the
+    run's summary."""
+    t0 = time.perf_counter()
+    yield
+    seconds = time.perf_counter() - t0
+    PHASE_SECONDS.append((label, seconds))
+    log(f"[{label}: {seconds:.1f} s]")
 
 
 def cuda_timed(fn, reps: int):
@@ -1238,13 +1258,17 @@ def mha_ratio(got, want):
 
 
 # The attention phase's dropout seed, and the backward's cases at the FFT
-# step's shapes (88 rows): name, tokens, padded keys (a -1e9 key bias with
-# an all-pad row), dtype, dropout layer (None: eval mode).
+# step's shapes (88 rows) and the TPME report's batch of 32 users (352):
+# name, rows, tokens, padded keys (a -1e9 key bias with an all-pad row),
+# dtype, dropout layer (None: eval mode).
 ATTN_SEED = 20251016
-MHA_BWD_CASES = (("BERT train", TITLE_T, True, "bfloat16", 3),
-                 ("ViT eval", IMAGE_T, False, "bfloat16", None),
-                 ("ViT eval fp32", IMAGE_T, False, "float32", None),
-                 ("ViT-256 train", IMAGE_T_256, True, "bfloat16", 4))
+FFT_ROWS, TPME_ROWS = FFT_BATCH * (SEQ_LEN + 1), 32 * (SEQ_LEN + 1)
+MHA_BWD_CASES = (("BERT train", FFT_ROWS, TITLE_T, True, "bfloat16", 3),
+                 ("ViT eval", FFT_ROWS, IMAGE_T, False, "bfloat16", None),
+                 ("ViT eval fp32", FFT_ROWS, IMAGE_T, False, "float32", None),
+                 ("ViT-256 train", FFT_ROWS, IMAGE_T_256, True, "bfloat16", 4),
+                 ("ViT-288 train", FFT_ROWS, IMAGE_T_288, True, "bfloat16", 5),
+                 ("ViT eval batch 32", TPME_ROWS, IMAGE_T, False, "bfloat16", None))
 
 
 def padding_bias(device, gen, B: int, T: int):
@@ -1256,12 +1280,12 @@ def padding_bias(device, gen, B: int, T: int):
     return torch.where(torch.arange(T, device=device)[None] < lengths[:, None], 0.0, -1e9)
 
 
-def mha_bwd_case(device, gen, T: int, padded: bool, dtype: str, layer):
+def mha_bwd_case(device, gen, B: int, T: int, padded: bool, dtype: str, layer):
     """(q, k, v, g, bias, kw) of one backward case: bf16-rounded normal
     values in ``dtype``, the padding bias or None, the kernels' keywords."""
     import torch
 
-    B, D = FFT_BATCH * (SEQ_LEN + 1), TOWER_D
+    D = TOWER_D
     q, k, v, g = (torch.randn(B, T, D, generator=gen, device=device).to(torch.bfloat16)
                   .to(getattr(torch, dtype)) for _ in range(4))
     bias = padding_bias(device, gen, B, T) if padded else None
@@ -1293,11 +1317,13 @@ def sdpa_bwd_ms(q, k, v, g, bias, rate: float, reps: int = 10):
     return cuda_timed(sdpa_bwd(q, k, v, g, bias, rate), reps)
 
 
-# The bf16 attention-forward kernels of #5 and of the subblocks' attention
-# step (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu): the resident design at
-# each key-chunk count, eval and train, and the streamed one.
-ATTN_FWD_KERNELS = ("mha_fwd_resident_kernel", "mha_fwd_streamed_kernel",
-                    "subblock_attn_resident_kernel", "subblock_attn_streamed_kernel")
+# The bf16 attention kernels on wgmma: #5's and the subblocks' attention
+# step's (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu: the resident design at
+# each key-chunk count, eval and train, and the streamed one) and #6's
+# cluster design (csrc/mha_bwd.cu, one to five key blocks, eval and train).
+ATTN_WGMMA_KERNELS = ("mha_fwd_resident_kernel", "mha_fwd_streamed_kernel",
+                      "subblock_attn_resident_kernel", "subblock_attn_streamed_kernel",
+                      "mha_bwd_cluster_kernel")
 
 
 # Key counts at every edge of the bf16 forward's tiling (128 wide, 2 heads
@@ -1305,13 +1331,11 @@ ATTN_FWD_KERNELS = ("mha_fwd_resident_kernel", "mha_fwd_streamed_kernel",
 ATTN_FWD_EDGES = (1, 5, 63, 64, 65, 128, 197, 256, 257, 320, 321, 1000, 4097)
 
 
-def check_attention_sass():
-    """Every bf16 attention-forward kernel runs its products on wgmma:
-    HGMMA in its SASS, and no HMMA (mma.sync)."""
-    from iisan_tpu_torch.kernels import build
-
-    counts = build.sass_mma_counts("_kernel")
-    for pattern in ATTN_FWD_KERNELS:
+def check_attention_sass(counts):
+    """Every bf16 attention kernel of ``ATTN_WGMMA_KERNELS`` runs its
+    products on wgmma: HGMMA in its SASS, and no HMMA (mma.sync);
+    ``counts`` is ``build.sass_mma_counts``' of every kernel."""
+    for pattern in ATTN_WGMMA_KERNELS:
         mine = {name: n for name, n in counts.items() if pattern in name}
         log(f"  SASS {pattern}: {len(mine)} instances, HGMMA "
             f"{sorted({n['HGMMA'] for n in mine.values()})}, HMMA "
@@ -1498,12 +1522,12 @@ def check_attention(device):
             del q32, k32, v32, heads32
         del heads
 
-    # The backward at the FFT step's shapes (88 rows): bf16 runs the
-    # tensor-core design at every T, fp32 the CUDA-core one
+    # The backward at the FFT step's shapes (88 rows) and the TPME report's
+    # batch (352): bf16 runs the cluster design up to 320 keys and the
+    # streamed pair beyond, fp32 the CUDA-core one
     bf16 = torch.bfloat16
-    for name, T, padded, dtype, layer in MHA_BWD_CASES:
-        q, k, v, g, b, kw = mha_bwd_case(device, gen, T, padded, dtype, layer)
-        B = q.shape[0]
+    for name, B, T, padded, dtype, layer in MHA_BWD_CASES:
+        q, k, v, g, b, kw = mha_bwd_case(device, gen, B, T, padded, dtype, layer)
         tol = MHA_TOL["bwd"] if q.dtype == bf16 else MHA_TOL_FP32
         got = fa.mha_bwd(q, k, v, b, g, **kw)
         want = fa.mha_bwd_plain(q, k, v, b, g, **kw)
@@ -1511,7 +1535,10 @@ def check_attention(device):
         ratio = mha_ratio(got, want)
         if q.dtype == bf16:
             out["bwd_err"] = max(out["bwd_err"], err(got, want))
-        design = fa.bwd_design(T, q.element_size())
+        design = fa.library_bwd_design(T, q.element_size())
+        if design != fa.bwd_design(T, q.element_size()):
+            raise AssertionError(f"mha_bwd {name}: the library runs {design}, "
+                                 f"bwd_design names {fa.bwd_design(T, q.element_size())}")
         log(f"mha_bwd {name} B={B} T={T} {dtype} ({design}): gq, gk, gv max "
             f"|diff| / (max|plain| + |plain|) {ratio:.4g} (tol {tol}); finite "
             f"{all(torch_finite(t) for t in got)}")
@@ -1540,11 +1567,16 @@ def check_attention(device):
         ms = cuda_timed(lambda: fa.mha_bwd(q, k, v, b, g, **kw), 10)
         plain_ms = cuda_timed(lambda: fa.mha_bwd_plain(q, k, v, b, g, **kw), 5)
         lib_ms = sdpa_bwd_ms(q, k, v, g, b, kw.get("rate", 0.0))
+        dev_ms = sum(t for key, t in kernel_device_ms(
+            lambda: fa.mha_bwd(q, k, v, b, g, **kw)).items() if "mha_bwd" in key)
+        lib_dev_ms = sum(kernel_device_ms(sdpa_bwd(q, k, v, g, b, kw.get("rate", 0.0))).values())
         bnd = mha_bound(B, T, D, H, padded, True, q.element_size())
         if name == "ViT eval":
-            out.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound=bnd, bwd_sdpa_ms=lib_ms)
-        log(f"mha_bwd {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention backward {lib_ms:.4f} ms"
+            out.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound=bnd, bwd_sdpa_ms=lib_ms,
+                       bwd_device_ms=dev_ms)
+        log(f"mha_bwd {name} B={B} T={T} ({design}): kernel {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
+            f"backward {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms"
             f"{' (timing only: other dropout masks)' if 'rate' in kw else ''}; "
             f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return out
@@ -3716,11 +3748,12 @@ def run_cli_path(device, counters, root: Path):
 # Phase 32: the real-data image stores.  One LMDB holds the uncached
 # cell's 800 items and the cache build's catalogue of 1,024, each a seeded
 # random original of 500 x 375 (not square and larger than 224, so the
-# resize does real work); the users are STORE_USERS (32 steps of 64).
-STORE_ITEMS, STORE_TRAIN_ITEMS, STORE_USERS = 1024, 800, 2048
+# resize does real work); the users are STORE_USERS (8 steps of 64: cut
+# from 32 to keep the run's time).
+STORE_ITEMS, STORE_TRAIN_ITEMS, STORE_USERS = 1024, 800, 512
 STORE_SHAPE = (375, 500, 3)
 FEED_BATCHES = 6  # the first one (pool start-up) is not timed
-FED_WARM, FED_TIMED = 4, 10  # fed steps before and in each timed window
+FED_WARM, FED_TIMED = 2, 5  # fed steps before and in each timed window (cut from 4, 10)
 FIXTURES = ROOT / "iisan_tpu_torch" / "data" / "fixtures"
 
 
@@ -4440,18 +4473,20 @@ def run_parallel(device, counters, root: Path, smi: str):
 # the canonical sweep launchers.
 TPME_METHODS = ("iisan_cached", "iisan_uncached", "fft", "lora", "houlsby", "bitfit")
 TPME_BWD = ("fft", "lora", "houlsby", "bitfit")  # the methods that train through #6
+TPME_USERS = 32  # users of each uncached method's host-fed epoch: one batch
 
 
 def run_tpme_report(out: Path, timeout: int = 600) -> None:
-    """``python -m iisan_tpu_torch.tools.tpme_report --out out`` in a session
-    of its own (so that a timeout stops its method processes too); its
-    output is printed only if it fails."""
+    """``python -m iisan_tpu_torch.tools.tpme_report --users TPME_USERS --out
+    out`` in a session of its own (so that a timeout stops its method
+    processes too); its output is printed only if it fails."""
     import os
     import signal
 
     proc = subprocess.Popen([sys.executable, "-m", "iisan_tpu_torch.tools.tpme_report",
-                             "--out", str(out)], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+                             "--users", str(TPME_USERS), "--out", str(out)], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -4615,25 +4650,29 @@ def main() -> int:
     from iisan_tpu_torch.ops import fused_san as fs
     from iisan_tpu_torch.ops import fused_user_encoder as fue
 
-    t0 = time.perf_counter()
-    lib_path = build.build()
-    build.library()
-    log(f"kernels built from {build.CSRC.relative_to(ROOT)} into "
-        f"{lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
-    mma = build.sass_mma_counts("user_encoder")
-    for name, n in sorted(mma.items()):
-        log(f"  SASS: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA in {name}")
-    for kernel in ("user_encoder_fwd_tc_kernel", "user_encoder_bwd_tc_kernel",
-                   "user_encoder_wgrad_kernel"):
-        if not any(kernel in name and sum(n.values()) > 0 for name, n in mma.items()):
-            raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
-    check_attention_sass()
+    with phase("build and SASS checks"):
+        t0 = time.perf_counter()
+        lib_path = build.build()
+        build.library()
+        log(f"kernels built from {build.CSRC.relative_to(ROOT)} into "
+            f"{lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+        for line in (lib_path.parent / "build.log").read_text().splitlines():
+            if ("registers" in line or "Compiling entry" in line or "spill" in line) \
+                    and "C7519" not in line:  # not the injected-arrive notes
+                log("  ptxas: " + line.strip())
+        mma = build.sass_mma_counts("_kernel")  # one cuobjdump for every check
+        for name, n in sorted(mma.items()):
+            if "user_encoder" in name:
+                log(f"  SASS: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA in {name}")
+        for kernel in ("user_encoder_fwd_tc_kernel", "user_encoder_bwd_tc_kernel",
+                       "user_encoder_wgrad_kernel"):
+            if not any(kernel in name and sum(n.values()) > 0 for name, n in mma.items()):
+                raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
+        check_attention_sass(mma)
 
-    ue = check_user_encoder(device)
-    cascade = check_cascade(device)
+    with phase("1-3 encoder and cascade kernels"):
+        ue = check_user_encoder(device)
+        cascade = check_cascade(device)
 
     import numpy as np
 
@@ -4658,11 +4697,12 @@ def main() -> int:
 
     fue.user_encoder_fwd.launches = 0
     fs.san_cascade_fwd.launches = 0
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        model, table_plain = run_slice(device, False, *taps, split, requests, tmp)
-        counts_default = (fue.user_encoder_fwd.launches,
-                          fs.san_cascade_fwd.launches)
-        _, table_kernel = run_slice(device, True, *taps, split, requests, tmp)
+    with phase("4 serving slice, both SAN routes"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            model, table_plain = run_slice(device, False, *taps, split, requests, tmp)
+            counts_default = (fue.user_encoder_fwd.launches,
+                              fs.san_cascade_fwd.launches)
+            _, table_kernel = run_slice(device, True, *taps, split, requests, tmp)
     counts = (fue.user_encoder_fwd.launches, fs.san_cascade_fwd.launches)
     log(f"launches: default run user_encoder_fwd {counts_default[0]}, "
         f"san_cascade_fwd {counts_default[1]}; use_pallas run "
@@ -4697,24 +4737,26 @@ def main() -> int:
 
     # Training: the kernels at the training shapes, then the trainer on
     # both SAN routes over the same tap tables.
-    train = check_user_encoder_train(device)
+    with phase("5 encoder training kernels"):
+        train = check_user_encoder_train(device)
     del model, table_plain, table_kernel, embs, fused, module
     torch.cuda.empty_cache()
     counters = (fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd,
                 fs.san_cascade_streamed_fwd)
     trained = {}
-    for use_pallas in (False, True):
-        per_step = {"user_encoder_fwd": 1, "user_encoder_bwd": 1,
-                    "san_cascade_fwd": 2 if use_pallas else 0,
-                    "san_cascade_streamed_fwd": 0}
-        tr, trained[use_pallas] = train_route(
-            device, corpus, taps, dict(TRAIN_CFG, use_pallas=use_pallas),
-            counters, per_step, "use_pallas" if use_pallas else "default")
-        del tr
-        torch.cuda.empty_cache()
-    log_step_split("cached", ("default", "use_pallas"))
-    check_gradients_reach_parameters(device, corpus, taps, TRAIN_CFG, "cached")
-    long_counts = train_cached_long(device, taps, counters)
+    with phase("6 cached training"):
+        for use_pallas in (False, True):
+            per_step = {"user_encoder_fwd": 1, "user_encoder_bwd": 1,
+                        "san_cascade_fwd": 2 if use_pallas else 0,
+                        "san_cascade_streamed_fwd": 0}
+            tr, trained[use_pallas] = train_route(
+                device, corpus, taps, dict(TRAIN_CFG, use_pallas=use_pallas),
+                counters, per_step, "use_pallas" if use_pallas else "default")
+            del tr
+            torch.cuda.empty_cache()
+        log_step_split("cached", ("default", "use_pallas"))
+        check_gradients_reach_parameters(device, corpus, taps, TRAIN_CFG, "cached")
+        long_counts = train_cached_long(device, taps, counters)
     train_counts = {k: trained[False][k] + trained[True][k] + long_counts[k]
                     for k in trained[False]}
     del taps
@@ -4724,28 +4766,34 @@ def main() -> int:
     # IISAN (Uncached), the FFT baseline and the two attention routes.
     from iisan_tpu_torch.ops import fused_attention as fa
 
-    attn = check_attention(device)
+    with phase("7 attention kernels"):
+        attn = check_attention(device)
     torch.cuda.empty_cache()
     ucounters = (fa.mha_fwd, fa.mha_bwd, fa.mha_mask_replay,
                  fue.user_encoder_fwd, fue.user_encoder_bwd, fs.san_cascade_fwd)
     busy_by_route = {}  # the uncached step's device-busy ms on each tower route
-    iisan_counts = train_iisan_uncached(device, ucounters, busy_by_route)
+    with phase("8 IISAN uncached"):
+        iisan_counts = train_iisan_uncached(device, ucounters, busy_by_route)
     torch.cuda.empty_cache()
     step_stats = {}  # (host ms, device-busy ms, peak GiB) of each tower-training step
-    fft_counts = train_fft(device, ucounters, step_stats)
+    with phase("9 FFT"):
+        fft_counts = train_fft(device, ucounters, step_stats)
     torch.cuda.empty_cache()
-    check_uncached_routes(device, (
-        ("IISAN", 3 * 64, {}),
-        ("FFT", 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, adding_adapter_to="None",
-                                    adapter_type="houslby"))))
+    with phase("10 kernel vs module routes"):
+        check_uncached_routes(device, (
+            ("IISAN", 3 * 64, {}),
+            ("FFT", 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, adding_adapter_to="None",
+                                        adapter_type="houslby"))))
     uncached = {k: iisan_counts[k] + fft_counts[k] for k in iisan_counts}
 
     # IISAN-Versa: the streamed cascade kernel and the dispatch on the card,
     # then training, int8 tap tables and serving at the published geometry.
-    streamed = check_streamed_cascade(device)
-    check_dispatch(device)
+    with phase("11-12 streamed cascade and dispatch"):
+        streamed = check_streamed_cascade(device)
+        check_dispatch(device)
     torch.cuda.empty_cache()
-    versa = run_versa(device, corpus, requests, counters)
+    with phase("13-15 Versa"):
+        versa = run_versa(device, corpus, requests, counters)
     torch.cuda.empty_cache()
 
     # The frozen-tower options of IISAN (Uncached): the W8A8 kernel and the
@@ -4753,33 +4801,42 @@ def main() -> int:
     from iisan_tpu_torch.ops import fused_attn_subblock as fsb
     from iisan_tpu_torch.ops import fused_w8a8 as fw
 
-    w8a8 = check_w8a8(device)
+    with phase("16 W8A8 kernel"):
+        w8a8 = check_w8a8(device)
     tcounters = (fw.fused_w8a8_matmul, fw.w8a8_quant_rows, fw.w8a8_gemm,
                  fsb.fused_attn_subblock,
                  fsb.fused_attn_subblock_v2, fa.mha_fwd, fa.mha_bwd,
                  fue.user_encoder_fwd, fue.user_encoder_bwd)
-    int8 = train_int8_uncached(device, tcounters, busy_by_route)
+    with phase("17 int8 towers"):
+        int8 = train_int8_uncached(device, tcounters, busy_by_route)
     torch.cuda.empty_cache()
-    subblock = check_subblock(device)
+    with phase("18 subblock kernels"):
+        subblock = check_subblock(device)
     torch.cuda.empty_cache()
-    routes = train_subblock_routes(device, tcounters, busy_by_route)
-    long_tokens = train_uncached_257(device, tcounters)
+    with phase("19-20 subblock routes, 257 tokens"):
+        routes = train_subblock_routes(device, tcounters, busy_by_route)
+        long_tokens = train_uncached_257(device, tcounters)
     towers = {k: int8[k] + routes[k] + long_tokens[k] for k in int8}
     torch.cuda.empty_cache()
 
     # The tower-training baselines: LoRA, Houlsby and BitFit at FFT's batch,
     # their kernel and module routes, multi-attribute text, tower remat and
     # the transformers weight import.
-    peft = [train_baseline(device, ucounters, name, (24, bwd), step_stats, **kw)
-            for name, bwd, kw in BASELINES]
+    with phase("21 baselines"):
+        peft = [train_baseline(device, ucounters, name, (24, bwd), step_stats, **kw)
+                for name, bwd, kw in BASELINES]
     torch.cuda.empty_cache()
-    check_uncached_routes(device, tuple(
-        (name, 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, **kw))
-        for name, _, kw in BASELINES if name != "BitFit"))
-    peft.append(train_multi_attribute(device, ucounters, step_stats))
+    with phase("22 baseline routes"):
+        check_uncached_routes(device, tuple(
+            (name, 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, **kw))
+            for name, _, kw in BASELINES if name != "BitFit"))
+    with phase("23 multi-attribute"):
+        peft.append(train_multi_attribute(device, ucounters, step_stats))
     log_baselines(step_stats)
-    peft.append(train_remat(device, ucounters))
-    check_hf_import(device)
+    with phase("24 remat"):
+        peft.append(train_remat(device, ucounters))
+    with phase("25 transformers import"):
+        check_hf_import(device)
     peft = {k: sum(c[k] for c in peft) for k in peft[0]}
     torch.cuda.empty_cache()
 
@@ -4787,35 +4844,40 @@ def main() -> int:
     # Versa towers' caches (phases 27-30).
     ccounters = (fa.mha_fwd, fue.user_encoder_fwd, fue.user_encoder_bwd,
                  fs.san_cascade_fwd, fs.san_cascade_streamed_fwd)
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        caches, per_1000 = run_iisan_caches(device, ccounters, Path(tmp))
-        torch.cuda.empty_cache()
-        versa_caches = run_versa_caches(device, ccounters, Path(tmp), per_1000["image"])
+    with phase("27-30 cache builds"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            caches, per_1000 = run_iisan_caches(device, ccounters, Path(tmp))
+            torch.cuda.empty_cache()
+            versa_caches = run_versa_caches(device, ccounters, Path(tmp), per_1000["image"])
     caches = {k: caches[k] + versa_caches[k] for k in caches}
     torch.cuda.empty_cache()
 
     # The run path from the command line (phase 31).
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        cli = run_cli_path(device, counters, Path(tmp))
+    with phase("31 command line"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            cli = run_cli_path(device, counters, Path(tmp))
     torch.cuda.empty_cache()
     # The real-data image stores, uncached training and a cache build from
     # them, and device_bench (phase 32).
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        stores = run_image_stores(
-            device, (fa.mha_fwd, fue.user_encoder_fwd, fue.user_encoder_bwd),
-            Path(tmp), smi, busy_by_route["fused_mha"], per_1000["image"] * 1e3)
+    with phase("32 image stores"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            stores = run_image_stores(
+                device, (fa.mha_fwd, fue.user_encoder_fwd, fue.user_encoder_bwd),
+                Path(tmp), smi, busy_by_route["fused_mha"], per_1000["image"] * 1e3)
     torch.cuda.empty_cache()
     # int8 and sharded serving, training on one NCCL rank (phase 33)
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        par = run_parallel(device, (fa.mha_fwd, fue.user_encoder_fwd,
-                                    fue.user_encoder_bwd, fs.san_cascade_fwd),
-                           Path(tmp), smi)
+    with phase("33 int8 and sharded serving, ranks"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            par = run_parallel(device, (fa.mha_fwd, fue.user_encoder_fwd,
+                                        fue.user_encoder_bwd, fs.san_cascade_fwd),
+                               Path(tmp), smi)
     torch.cuda.empty_cache()
     # the TPME report over six methods and the sweep launchers (phase 34)
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        tpme = run_tpme_and_sweeps(
-            device, (fa.mha_fwd, fa.mha_bwd, fa.mha_mask_replay, fue.user_encoder_fwd,
-                     fue.user_encoder_bwd, fs.san_cascade_fwd), Path(tmp), smi)
+    with phase("34 TPME report and sweeps"):
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            tpme = run_tpme_and_sweeps(
+                device, (fa.mha_fwd, fa.mha_bwd, fa.mha_mask_replay, fue.user_encoder_fwd,
+                         fue.user_encoder_bwd, fs.san_cascade_fwd), Path(tmp), smi)
     torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
@@ -4871,7 +4933,7 @@ def main() -> int:
               uncached["mha_bwd"] + towers["mha_bwd"] + peft["mha_bwd"]
               + tpme["mha_bwd"],
               attn["bwd_err"], attn["bwd_ms"], attn["bwd_plain_ms"],
-              attn["bwd_bound"], attn["bwd_sdpa_ms"]),
+              attn["bwd_bound"], attn["bwd_sdpa_ms"], device=attn["bwd_device_ms"]),
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
               uncached["mha_mask_replay"] + peft["mha_mask_replay"]
               + tpme["mha_mask_replay"], 0.0,
@@ -4892,6 +4954,9 @@ def main() -> int:
               towers["w8a8_gemm"], w8a8["err"], w8a8["gemm"]["ms"],
               w8a8["gemm"]["plain_ms"], w8a8["gemm"]["bound"], None, "w8a8_linear"),
     ]
+    log("seconds by phase (host clock): " + "; ".join(
+        f"{label} {sec:.1f}" for label, sec in PHASE_SECONDS)
+        + f"; all phases {sum(sec for _, sec in PHASE_SECONDS):.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

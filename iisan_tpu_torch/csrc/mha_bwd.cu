@@ -8,7 +8,8 @@
 //
 // The row term sum_j gP_ij p_ij is `_softmax_bwd`'s, over fp32 p, and not
 // FlashAttention's rowsum(dO * O), which would take the rounded, dropped pd
-// (the two agree up to that rounding only).
+// (the two agree up to that rounding only).  So every key of a query row
+// has to be seen before any gS of that row is formed.
 //
 // Replaces the Pallas TPU kernel `_mha_bwd_kernel` (iisan_tpu/ops/
 // fused_attention.py:106).  The TPU kernel replays its on-chip generator's
@@ -19,34 +20,85 @@
 // What bounds it on the H100: its bytes (q, k, v, g read, gq, gk, gv written:
 // 7 x B x T x D x 2 bytes) and its five products, 10 B H T^2 dk FLOP; at
 // the FFT geometry (88 images, T=197, D=768) that is 186 MB (0.056 ms at
-// 3.35 TB/s) and 26 GFLOP (0.027 ms on the bf16 tensor cores).  The design
-// below recomputes the scores and gP on both sides of the split, so it runs
-// ten products (52 GFLOP there), every one on mma.sync m16n8k16 with fp32
-// sums; the scores never reach device memory.
+// 3.35 TB/s) and 26 GFLOP (0.027 ms on the bf16 tensor cores).  Past those,
+// the per-element work: 41 M elements there, each an exp, a division, two
+// roundings and, in train mode, a quarter of a Philox call.
 //
-// Design (bf16): two kernels on the forward's tensor-core core (mha.cuh),
-// joined by an fp32 (B, H, T, 3) scratch of each query row's (max, sum, row
-// term):
-// - dq: a warp owns a 16-row m-tile, its Q and g rows as A fragments in
-//   registers, and makes three passes over the 64-key tiles: the rows' max
-//   and sum (as the forward); S again and gP = g . V^T (V rows are B
-//   fragments as K rows are for S), the keep factors, the row term summed
-//   across the quad; S and gP again and gS, formed in the C layout and
-//   taken as the A fragment of gS . K (K's B fragments through
-//   ldmatrix.trans, as V's for pd . V).  It writes gQ and the statistics.
-//   Up to 320 keys a block per (head, image) holds K_h and V_h whole and
-//   its 8 warps walk the m-tiles with no barrier after the load, as the
-//   forward does; beyond, a block per 64-row query tile streams K and V in
-//   64-key tiles (cp.async, two buffers).
+// Design (bf16, T <= 320 = kResMaxKeys): one launch, a thread-block cluster
+// of C = T / 64 rounded up blocks (1-5) per (head, image); block r owns
+// keys 64 r .. 64 r + 63 and is one warpgroup (128 threads).
+// - TMA (the forward's 3-D maps over (D, T, B), 64 x 64 boxes, 128-byte
+//   swizzle; rows past T read as zeros and no box reaches the next image)
+//   loads K_r and V_r once, each on its own mbarrier, and the 64-row query
+//   tiles of Q and g through a two-stage ring; one thread refills a stage
+//   once the block's products have read it.
+// - Per query tile (all C blocks walk the same C tiles in order):
+//   S = Q . K_r^T and gPd = g . V_r^T on wgmma m64n64k16 (query-major, so
+//   the accumulators have the forward's layout and mha.cuh's row_keep
+//   serves as it is).  Keys past T are -inf scores, selected and not
+//   branched around, so every element takes the same instructions and a
+//   thread's 32 stay independent work.  The rows' statistics over all keys
+//   come from three exchanges through distributed shared memory, each a
+//   cluster barrier: the partial maxes over the
+//   block's keys (then e = exp(s - max) once an element, with the same max
+//   as the forward's), the partial sums of e (then p = e / sum, the
+//   division's reciprocal taken once a row, `div_rn`), and the partial row
+//   terms sum gP p.  Every block combines the C partials in rank order
+//   0, 1, ..., C - 1, so every block holds the same bits.  Keep bits are
+//   drawn once per group of four elements (`row_keep`) while the first
+//   barrier is pending; pd is formed while the third is.
+// - pd and gS are rounded to bf16 into two swizzled 64 x 64 tiles in shared
+//   memory, which feed the three other products on wgmma: gV += pd^T . g
+//   and gK += gS^T . Q (the tiles read MN-major as A, wgmma's transpose bit
+//   for 16-bit types; g and Q MN-major as B) stay in registers across the
+//   query tiles; the gQ partial gS . K_r (the gS tile K-major as A, K_r
+//   MN-major as B) goes to an fp32 tile in shared memory.  After the next
+//   tile's first barrier, block r sums its 1 / C share of that tile's gQ
+//   across the cluster in rank order and writes it in bf16 (while the next
+//   tile's second barrier is pending).  gK and gV leave through a swizzled
+//   staging tile by TMA, clipped at T.
+// - So each (query tile, key tile) costs five products, one exp, one
+//   division and a quarter of a Philox call an element (train mode), and
+//   nothing goes through device memory between them: no scratch, no
+//   atomics, and two launches on the same inputs are bit-equal.
+// - 86 KB of shared memory a block, two blocks an SM; a thread holds four
+//   64 x 64 fp32 tiles (S, gPd, gK, gV; the gQ partial, a fifth, lives
+//   while S and gPd are rounded into the tiles).  ptxas: 232-241 registers
+//   a thread at two to five key blocks, 122-123 at one, no spills.  BERT's
+//   30 tokens (one block) run faster than on the mma.sync pair this design
+//   replaced, so no dispatch by T keeps that pair below 320 keys.
+// The forward forms the rows' sums in another order, so a probability may
+// round to the other bf16 neighbour here only (within the bf16 tolerance).
+//
+// On an H100 the block's chain of loads, products, exchanges and barriers
+// sets the pace at two blocks an SM, and the elementwise steps take most
+// of a tile's cycles (PERF.md).  Tried in development and not kept:
+// branching around 8-key groups past T, as the forward does (slower than
+// the selects above at 197 and 257 tokens); three blocks an SM (168
+// registers, the gQ partial in the pd / gS tiles: spills, slower); two
+// warpgroups a block, each on half the keys and head columns (64-byte-
+// swizzled half boxes, m64n32 products: not faster); the rows' max and sum
+// in one exchange, each block's sum rescaled by exp(its max - the
+// cluster's) (faster by a few percent, but p would no longer be exp(s -
+// max) / sum as the forward and the plain version form it).
+//
+// T > 320 (streamed, up to 46,340 keys): two kernels on mma.sync m16n8k16
+// with cp.async staging, joined by an fp32 (B, H, T, 3) scratch of each
+// query row's (max, sum, row term):
+// - dq: a block per (64-row query tile, head, image), a warp a 16-row
+//   m-tile with its Q and g rows as A fragments, three passes over 64-key
+//   tiles of K and V (two buffers): the rows' max and sum; S again and gP
+//   = g . V^T, the keep factors, the row term summed across the quad; S
+//   and gP again and gS, taken as the A fragment of gS . K.  It writes gQ
+//   and the statistics.
 // - dkv: a block per (64-key tile, head, image), a warp per 16 keys with
 //   their K and V rows as A fragments.  It walks the query tiles in order
 //   (Q, g and the statistics staged by cp.async, two buffers), 16 queries
 //   at a time: S^T = K . Q^T, p from the statistics, pd, gP^T = (V . g^T) *
-//   keep and gS, then gV += pd^T . g and gK += gS^T . Q with g and Q as B
-//   fragments through ldmatrix.trans; the sums stay in registers.  The
-//   dropout element stays query * T + key.
-// The two sides recompute S in other orders, so a probability may round to
-// the other bf16 neighbour on one side only (within the bf16 tolerance).
+//   keep and gS, then gV += pd^T . g and gK += gS^T . Q; the sums stay in
+//   registers.  The dropout element stays query * T + key.
+// That split computes ten products where the function has five; it is
+// kept past 320 keys, where a cluster could not hold an (image, head).
 //
 // fp32 (tests, the fp32 compute dtype): the same split on the CUDA cores
 // (mha.cuh's rows kernels), 32-row query tiles against 32-key tiles; no
@@ -60,7 +112,410 @@ namespace {
 using namespace mha;
 
 // ---------------------------------------------------------------------
-// Tensor-core backward (bf16)
+// bf16, T <= kResMaxKeys: the cluster design (see the top)
+// ---------------------------------------------------------------------
+
+constexpr int kBwdThreads = 128;     // a block: one warpgroup
+constexpr int kGqStr = kDk + 8;      // fp32 row stride of the gQ partial (spreads rows over banks)
+
+// Shared memory from the 1024-aligned base: K_r, V_r, the ring's two Q and
+// two g boxes, the pd and gS tiles (then the gK and gV staging tiles), the
+// gQ partial, the three exchanged row statistics, the key biases, the
+// barriers (K, V, ring stage 0, 1).
+struct ClusterLayout {
+  static constexpr int k = 0, v = kFwdBox, q = 2 * kFwdBox, g = 4 * kFwdBox;
+  static constexpr int pd = 6 * kFwdBox, gs = 7 * kFwdBox, gq = 8 * kFwdBox;
+  static constexpr int stats = gq + kFwdTile * kGqStr * 4;  // max, sum, term: 64 rows each
+  static constexpr int bias = stats + 3 * kFwdTile * 4;
+  static constexpr int bars = bias + kFwdTile * 4;
+  static constexpr size_t bytes = bars + 4 * sizeof(uint64_t) + 1024;  // + alignment
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in block `rank` of the
+// cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The rows (g, g + 8) of this warp's 16: their values of one exchanged
+// statistic (64 floats at `stat` in every block), combined over the NC
+// ranks in rank order by max or sum.
+template <int NC, bool kMax>
+__device__ __forceinline__ void combine_rows(float (&out)[2], uint32_t stat, int warp, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t row = stat + (16 * warp + lane / 4 + 8 * half) * 4;
+    float x[NC];
+#pragma unroll
+    for (int r = 0; r < NC; ++r) x[r] = ld_cluster(map_rank(row, r));
+    float v = x[0];
+#pragma unroll
+    for (int r = 1; r < NC; ++r) v = kMax ? fmaxf(v, x[r]) : v + x[r];
+    out[half] = v;
+  }
+}
+
+// This lane's shares of the rows (g, g + 8) summed across the quad and
+// written by its first lane to `stat` (64 floats).
+__device__ __forceinline__ void put_rows(float* stat, const float (&v)[2], int warp, int lane) {
+  if (lane % 4 == 0) {
+    stat[16 * warp + lane / 4] = v[0];
+    stat[16 * warp + lane / 4 + 8] = v[1];
+  }
+}
+
+// Block `rank`'s share of query tile mt's gQ: the 64 x 64 tile in 4-float
+// units, 1 / NC of them a block, each summed over the NC blocks' partials
+// in rank order and written in bf16 (rows past T skipped).
+template <int NC>
+__device__ __forceinline__ void reduce_gq(uint32_t part, bf16* __restrict__ gq, int mt, int rank,
+                                          int b, int h, const Dims& d) {
+  constexpr int kUnits = kFwdTile * kDk / 4, kPer = (kUnits + NC - 1) / NC;
+  const int u1 = min(kUnits, (rank + 1) * kPer);
+  for (int u = rank * kPer + static_cast<int>(threadIdx.x); u < u1; u += kBwdThreads) {
+    const int row = u / (kDk / 4), c4 = u % (kDk / 4), i = mt * kFwdTile + row;
+    if (i >= d.T) break;  // units run row by row
+    const uint32_t at = part + (row * kGqStr + 4 * c4) * 4;
+    float4 x[NC];
+#pragma unroll
+    for (int r = 0; r < NC; ++r) x[r] = ld_cluster4(map_rank(at, r));
+    float4 v = x[0];
+#pragma unroll
+    for (int r = 1; r < NC; ++r) {
+      v.x += x[r].x;
+      v.y += x[r].y;
+      v.z += x[r].z;
+      v.w += x[r].w;
+    }
+    *reinterpret_cast<uint2*>(gq + (static_cast<size_t>(b) * d.T + i) * d.D + h * kDk + 4 * c4) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+}
+
+// The bf16 pair (a, b) at row r, columns 8 j + 2t, +1 of a swizzled 64 x
+// 64 tile (the layout of the TMA boxes and of stage_o).
+__device__ __forceinline__ void put_pair(unsigned char* tile, int r, int j, int t, float a,
+                                         float b) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + r * 128 + ((j ^ (r & 7)) * 16) + t * 4) =
+      __floats2bfloat162_rn(a, b);
+}
+
+// The block's S tile in place: fp32(q . k) * scale [+ the key bias], -inf
+// at keys past T, and this lane's share of the rows' (g, g + 8) max.  Every
+// element takes the same instructions (a key past T is selected away, not
+// branched around), so the 32 values of a thread stay independent work;
+// every step below reads -inf past T as exp 0, p 0, pd 0 and gS 0.
+__device__ __forceinline__ void block_scores(float (&s)[32], float (&m)[2], const float* bias,
+                                             int j0, int Tn, float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = j0 + 8 * j + 2 * t + e;
+      const float bv = bias != nullptr ? bias[col - j0] : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = __fmul_rn(s[4 * j + 2 * half + e], scale);
+        if (bias != nullptr) v = __fadd_rn(v, bv);
+        v = col < Tn ? v : -INFINITY;
+        s[4 * j + 2 * half + e] = v;
+        m[half] = fmaxf(m[half], v);
+      }
+    }
+}
+
+// One block of the cluster design: NC key chunks (the cluster's size and
+// the number of query tiles), eval or train mode.
+template <int NC, bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    mha_bwd_cluster_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm,
+                           const __grid_constant__ CUtensorMap gm,
+                           const __grid_constant__ CUtensorMap gkm,
+                           const __grid_constant__ CUtensorMap gvm,
+                           const float* __restrict__ bias, bf16* __restrict__ gq, Dims d,
+                           Dropout drop) {
+  typedef ClusterLayout L;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* base = align1024(bwd_smem);
+  unsigned char* Pt = base + L::pd;
+  unsigned char* St = base + L::gs;
+  float* part = reinterpret_cast<float*>(base + L::gq);
+  float* stats = reinterpret_cast<float*>(base + L::stats);  // max, sum, term
+  float* Bs = reinterpret_cast<float*>(base + L::bias);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L::bars);  // K, V, ring stage 0, 1
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z, Tn = d.T;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
+  const int j0 = rank * kFwdTile;  // the block's first key
+  const unsigned site = d.site0 + h;
+  const uint32_t ka = sm90::smem_u32(base + L::k), va = sm90::smem_u32(base + L::v);
+  const uint32_t pa = sm90::smem_u32(Pt), sa = sm90::smem_u32(St);
+  const uint32_t stat_max = sm90::smem_u32(stats), stat_sum = stat_max + kFwdTile * 4,
+                 stat_term = stat_sum + kFwdTile * 4, part_a = sm90::smem_u32(part);
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) sm90::mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (bias != nullptr)
+    for (int j = tid; j < kFwdTile; j += kBwdThreads)
+      Bs[j] = j0 + j < Tn ? bias[static_cast<size_t>(b) * Tn + j0 + j] : 0.f;
+  __syncthreads();
+  auto load_tile = [&](int mt) {  // thread 0: query tile mt's Q and g into ring stage mt & 1
+    const int st = mt & 1;
+    sm90::mbar_expect_tx(&bar[2 + st], 2 * kFwdBox);
+    sm90::tma_load_3d(base + L::q + st * kFwdBox, &qm, &bar[2 + st], h * kDk, mt * kFwdTile, b);
+    sm90::tma_load_3d(base + L::g + st * kFwdBox, &gm, &bar[2 + st], h * kDk, mt * kFwdTile, b);
+  };
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar[0], kFwdBox);
+    sm90::tma_load_3d(base + L::k, &km, &bar[0], h * kDk, j0, b);
+    sm90::mbar_expect_tx(&bar[1], kFwdBox);
+    sm90::tma_load_3d(base + L::v, &vm, &bar[1], h * kDk, j0, b);
+    for (int mt = 0; mt < 2 && mt < NC; ++mt) load_tile(mt);
+  }
+  const float* bias_s = bias != nullptr ? Bs : nullptr;
+  float gk[32], gv[32];
+#pragma unroll 1
+  for (int mt = 0; mt < NC; ++mt) {
+    const int st = mt & 1;
+    const uint32_t qa = sm90::smem_u32(base + L::q + st * kFwdBox);
+    const uint32_t ga = sm90::smem_u32(base + L::g + st * kFwdBox);
+    sm90::mbar_wait(&bar[2 + st], (mt >> 1) & 1);
+    if (mt == 0) {
+      sm90::mbar_wait(&bar[0], 0);
+      sm90::mbar_wait(&bar[1], 0);
+    }
+    // S = Q . K_r^T and gPd = g . V_r^T, a commit group each.
+    float s[32], x[32];
+    sm90::fence_acc(s);
+    sm90::fence_acc(x);
+    sm90::wgmma_fence();
+    qk_chunk(s, qa, ka);
+    sm90::wgmma_commit();
+    qk_chunk(x, ga, va);
+    sm90::wgmma_commit();
+    const int r0 = mt * kFwdTile + 16 * warp;  // the warp's first query row
+    const bool live = r0 < Tn;  // a warp whose 16 rows lie past T feeds zeros to the products
+    sm90::wgmma_wait<1>();
+    sm90::fence_acc(s);
+    // Exchange 1: the rows' maxes over the block's keys.
+    float m[2] = {-FLT_MAX, -FLT_MAX};
+    if (live) {
+      block_scores(s, m, bias_s, j0, Tn, d.inv_sqrt_dk, t);
+      quad_max(m);
+    }
+    put_rows(stats, m, warp, lane);
+    cluster_arrive();
+    RowKeep keep[2];
+    if (kDrop && live) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        keep[half] = row_keep(drop, site, b, r0 + lane / 4 + 8 * half, j0, Tn, lane);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(x);
+    cluster_wait();
+    combine_rows<NC, true>(m, stat_max, warp, lane);
+    // Exchange 2: the rows' sums of e = exp(s - max).
+    float l[2] = {0.f, 0.f};
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = expf(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[i];
+      }
+      finish_sums(l);
+    }
+    put_rows(stats + kFwdTile, l, warp, lane);
+    cluster_arrive();
+    if (mt > 0) reduce_gq<NC>(part_a, gq, mt - 1, rank, b, h, d);
+    cluster_wait();
+    combine_rows<NC, false>(l, stat_sum, warp, lane);
+    // Exchange 3: the rows' terms sum_j gP p.  s becomes p, x becomes gP.
+    float term[2] = {0.f, 0.f};
+    if (live) {
+      const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int half = e4 >> 1;
+          const float p = div_rn(s[4 * j + e4], l[half], rl[half]);
+          float gp = x[4 * j + e4];
+          if (kDrop) gp *= keep[half].keeps(j, e4 & 1) ? drop.scale : 0.f;
+          s[4 * j + e4] = p;
+          x[4 * j + e4] = gp;
+          term[half] += gp * p;
+        }
+      }
+      finish_sums(term);
+    }
+    put_rows(stats + 2 * kFwdTile, term, warp, lane);
+    cluster_arrive();
+    // pd = T(p), dropped in train mode, into its tile while the barrier is
+    // pending; 0 past T and in warps past T.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float pd[2] = {0.f, 0.f};
+        if (live) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            pd[e] = round_to<bf16>(s[4 * j + 2 * half + e]);
+            if (kDrop) pd[e] = keep[half].keeps(j, e) ? round_to<bf16>(pd[e] * drop.scale) : 0.f;
+          }
+        }
+        put_pair(Pt, 16 * warp + lane / 4 + 8 * half, j, t, pd[0], pd[1]);
+      }
+    cluster_wait();
+    combine_rows<NC, false>(term, stat_term, warp, lane);
+    // gS = T(p (gP - term) / sqrt(dk)) into its tile.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float gs[2] = {0.f, 0.f};
+        if (live) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * half + e;
+            gs[e] = round_to<bf16>(
+                __fmul_rn(__fmul_rn(s[i], __fsub_rn(x[i], term[half])), d.inv_sqrt_dk));
+          }
+        }
+        put_pair(St, 16 * warp + lane / 4 + 8 * half, j, t, gs[0], gs[1]);
+      }
+    sm90::fence_async_shared();
+    __syncthreads();  // both tiles written
+    // gV += pd^T . g and gK += gS^T . Q over the tile's query rows (k16
+    // steps past T skipped; the first call's first step starts the sums),
+    // and the gQ partial gS . K_r over the block's keys.
+    float gqp[32];
+    sm90::fence_acc(gk);
+    sm90::fence_acc(gv);
+    sm90::fence_acc(gqp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (mt * kFwdTile + 16 * kk >= Tn) break;
+      const int acc = mt > 0 || kk > 0;
+      wgmma_ss<1, 1>(gv, sm90::desc_w(pa + kk * 2048), sm90::desc_w(ga + kk * 2048), acc);
+      wgmma_ss<1, 1>(gk, sm90::desc_w(sa + kk * 2048), sm90::desc_w(qa + kk * 2048), acc);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (j0 + 16 * kk >= Tn) break;
+      wgmma_ss<0, 1>(gqp, sm90::desc_a(sa + kk * 32), sm90::desc_w(ka + kk * 2048), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(gk);
+    sm90::fence_acc(gv);
+    sm90::fence_acc(gqp);
+    __syncthreads();  // every warp's products have read ring stage st and the tiles
+    if (tid == 0 && mt + 2 < NC) load_tile(mt + 2);
+    // The gQ partial, fp32, for the cluster's sum after the next barrier.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * warp + lane / 4 + 8 * half;
+        *reinterpret_cast<float2*>(part + r * kGqStr + 8 * j + 2 * t) =
+            make_float2(gqp[4 * j + 2 * half], gqp[4 * j + 2 * half + 1]);
+      }
+  }
+  cluster_arrive();  // the last tile's gQ partials are written
+  cluster_wait();
+  reduce_gq<NC>(part_a, gq, NC - 1, rank, b, h, d);
+  // gK and gV of the block's keys through the (free) pd and gS tiles.
+  stage_o(Pt, gk, warp, lane);
+  stage_o(St, gv, warp, lane);
+  sm90::fence_async_shared();
+  __syncthreads();
+  if (tid == 0) {
+    sm90::tma_store_3d(&gkm, Pt, h * kDk, j0, b);
+    sm90::tma_store_3d(&gvm, St, h * kDk, j0, b);
+    sm90::bulk_commit();
+  }
+  cluster_arrive();  // no block leaves while another reads its gQ partial
+  cluster_wait();
+  if (tid == 0) sm90::bulk_wait();
+}
+
+typedef void (*ClusterKernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                              const float*, bf16*, Dims, Dropout);
+
+// [NC - 1][train]
+const ClusterKernel kClusterKernels[kResMaxKeys / kFwdTile][2] = {
+    {mha_bwd_cluster_kernel<1, false>, mha_bwd_cluster_kernel<1, true>},
+    {mha_bwd_cluster_kernel<2, false>, mha_bwd_cluster_kernel<2, true>},
+    {mha_bwd_cluster_kernel<3, false>, mha_bwd_cluster_kernel<3, true>},
+    {mha_bwd_cluster_kernel<4, false>, mha_bwd_cluster_kernel<4, true>},
+    {mha_bwd_cluster_kernel<5, false>, mha_bwd_cluster_kernel<5, true>}};
+
+// One launch: grid (NC, H, B), clusters of NC blocks along x.  q, k, v, g,
+// gk and gv start on 16-byte boundaries (TMA), which the wrapper checks.
+cudaError_t launch_cluster(const void* q, const void* k, const void* v, const void* bias,
+                           const void* g, void* gq, void* gk, void* gv, int B, const Dims& d,
+                           const Dropout& drop, cudaStream_t stream) {
+  CUtensorMap maps[6];
+  const void* ptrs[6] = {q, k, v, g, gk, gv};
+  for (int i = 0; i < 6; ++i) {
+    const cudaError_t err = sm90::encode_planes(&maps[i], ptrs[i], d.D, d.T, B);
+    if (err != cudaSuccess) return err;
+  }
+  const int nc = (d.T + kFwdTile - 1) / kFwdTile;
+  const ClusterKernel kernel = kClusterKernels[nc - 1][drop.on ? 1 : 0];
+  cudaError_t err = allow_smem(kernel, ClusterLayout::bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc, d.H, B);
+  cfg.blockDim = dim3(kBwdThreads, 1, 1);
+  cfg.dynamicSmemBytes = ClusterLayout::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+                           static_cast<const float*>(bias), static_cast<bf16*>(gq), d, drop);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// bf16, T > kResMaxKeys: the streamed split on mma.sync (see the top)
 // ---------------------------------------------------------------------
 
 // One m-tile of the query side: 16 query rows (the first is i0) with their
@@ -183,66 +638,6 @@ struct DqTile {
     }
   }
 };
-
-// dq with keys resident (T <= kResMaxKeys): a block per (head, image), a
-// warp per m-tile in turn, each warp's Q and then g rows through its own
-// 16-row buffer.
-template <bool kDrop>
-__global__ void __launch_bounds__(kResWarps * 32, 2)
-    mha_bwd_dq_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const float* __restrict__ bias,
-                               const bf16* __restrict__ g, bf16* __restrict__ gq,
-                               float* __restrict__ stats, Dims d, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Tn = d.T, h = blockIdx.x, b = blockIdx.y, kp = padded_keys(Tn);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kp * kStr;
-  bf16* Rw = Vs + kp * kStr + warp * 16 * kStr;
-  float* Bs = reinterpret_cast<float*>(Vs + (kp + 16 * n_warps) * kStr);
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  const unsigned site = d.site0 + h;
-  float* st_h = stats + (static_cast<size_t>(b) * d.H + h) * Tn * 3;
-  stage_rows(Ks, k, row0, Tn, kp, d.D, h);
-  stage_rows(Vs, v, row0, Tn, kp, d.D, h);
-  if (bias != nullptr)
-    for (int j = threadIdx.x; j < kp; j += blockDim.x) Bs[j] = j < Tn ? bias[row0 + j] : 0.f;
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const float* no_bias = nullptr;
-  auto bias_of = [&](int kt) { return bias != nullptr ? Bs + kt * kKeyTile : no_bias; };
-  const int n_kt = kp / kKeyTile;
-  for (int mt = warp; mt * 16 < Tn; mt += n_warps) {
-    const int i0 = mt * 16, rows = min(16, Tn - i0);
-    DqTile<kDrop> w;
-    stage_warp_rows(Rw, q, row0 + i0, rows, d.D, h, lane);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncwarp();
-    load_q_frags(w.qf, Rw, lane);
-    __syncwarp();
-    stage_warp_rows(Rw, g, row0 + i0, rows, d.D, h, lane);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncwarp();
-    load_q_frags(w.gf, Rw, lane);
-    __syncwarp();  // the rows are read before the next m-tile's land
-    w.reset(i0);
-    for (int kt = 0; kt < n_kt; ++kt)
-      w.stats_tile(Ks + kt * kKeyTile * kStr, bias_of(kt), kt * kKeyTile, d, lane);
-    w.finish_stats();
-    for (int kt = 0; kt < n_kt; ++kt)
-      w.term_tile(Ks + kt * kKeyTile * kStr, Vs + kt * kKeyTile * kStr, bias_of(kt),
-                  kt * kKeyTile, d, drop, site, b, lane);
-    w.finish_term();
-    for (int kt = 0; kt < n_kt; ++kt)
-      w.grad_tile(Ks + kt * kKeyTile * kStr, Vs + kt * kKeyTile * kStr, bias_of(kt),
-                  kt * kKeyTile, d, drop, site, b, lane);
-    w.finish(gq + (row0 + i0) * d.D + h * kDk, st_h + static_cast<size_t>(i0) * 3, rows, d.D,
-             lane);
-  }
-}
 
 // dq with keys streamed (any T): a block per (64-row query tile, head,
 // image), K and V through two 64-key buffers in each of the three passes.
@@ -453,37 +848,27 @@ __global__ void __launch_bounds__(kTcThreads, 3)
 }
 
 template <bool kDrop>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* bias,
-                      const void* g, void* gq, void* gk, void* gv, float* stats, int B,
-                      const Dims& d, const Dropout& drop, cudaStream_t stream) {
+cudaError_t launch_streamed(const void* q, const void* k, const void* v, const void* bias,
+                            const void* g, void* gq, void* gk, void* gv, float* stats, int B,
+                            const Dims& d, const Dropout& drop, cudaStream_t stream) {
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v), *G = static_cast<const bf16*>(g);
   const float* bs = static_cast<const float*>(bias);
-  cudaError_t err;
-  if (d.T <= kResMaxKeys) {
-    const int n_warps = resident_warps(d.T);
-    err = allow_smem(mha_bwd_dq_resident_kernel<kDrop>, resident_bytes(kResMaxKeys, kResWarps));
-    if (err != cudaSuccess) return err;
-    mha_bwd_dq_resident_kernel<kDrop><<<dim3(d.H, B), n_warps * 32, resident_bytes(d.T, n_warps),
-                                 stream>>>(Q, K, V, bs, G, static_cast<bf16*>(gq), stats, d,
-                                           drop);
-  } else {
-    err = allow_smem(mha_bwd_dq_streamed_kernel<kDrop>, DqLayout::bytes);
-    if (err != cudaSuccess) return err;
-    mha_bwd_dq_streamed_kernel<kDrop><<<dim3((d.T + kQTile - 1) / kQTile, d.H, B), kTcThreads,
-                                 DqLayout::bytes, stream>>>(Q, K, V, bs, G,
-                                                            static_cast<bf16*>(gq), stats, d,
-                                                            drop);
-  }
+  cudaError_t err = allow_smem(mha_bwd_dq_streamed_kernel<kDrop>, DqLayout::bytes);
+  if (err != cudaSuccess) return err;
+  mha_bwd_dq_streamed_kernel<kDrop><<<dim3((d.T + kQTile - 1) / kQTile, d.H, B), kTcThreads,
+                                      DqLayout::bytes, stream>>>(Q, K, V, bs, G,
+                                                                 static_cast<bf16*>(gq), stats,
+                                                                 d, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = allow_smem(mha_bwd_dkv_tc_kernel<kDrop>, DkvLayout::bytes);
   if (err != cudaSuccess) return err;
   const int kv_warps = min(kTcWarps, (d.T + 15) / 16);
   mha_bwd_dkv_tc_kernel<kDrop><<<dim3((d.T + kKeyTile - 1) / kKeyTile, d.H, B), kv_warps * 32,
-                          DkvLayout::bytes, stream>>>(Q, K, V, bs, G, stats,
-                                                      static_cast<bf16*>(gk),
-                                                      static_cast<bf16*>(gv), d, drop);
+                                  DkvLayout::bytes, stream>>>(Q, K, V, bs, G, stats,
+                                                              static_cast<bf16*>(gk),
+                                                              static_cast<bf16*>(gv), d, drop);
   return cudaGetLastError();
 }
 
@@ -681,16 +1066,26 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
 }  // namespace
 }  // namespace iisan
 
+// The design iisan_mha_bwd runs at T keys: 0 the fp32 rows (CUDA cores), 1
+// the bf16 cluster (up to kResMaxKeys keys), 2 the bf16 streamed split.
+// The wrapper asks here which buffers and alignment a call needs.
+extern "C" int iisan_mha_bwd_design(int T, int is_bf16) {
+  return !is_bf16 ? 0 : T <= iisan::mha::kResMaxKeys ? 1 : 2;
+}
+
 // q, k, v, g, gq, gk, gv (B, T, D) T; bias (B, T) fp32 or null; the dropout
-// arguments are the forward's.  stats: an fp32 (B, H, T, 3) scratch for
-// each query row's (max, sum, row term).  T is bf16 when is_bf16 (tensor
-// cores), else fp32 (CUDA cores).  Returns the CUDA error of the launches
-// (0 on success).
+// arguments are the forward's.  T is bf16 when is_bf16 (tensor cores: the
+// cluster design, whose q, k, v, g, gk and gv start on 16-byte boundaries,
+// or the streamed split), else fp32 (CUDA cores).  stats: an fp32 (B, H,
+// T, 3) scratch for each query row's (max, sum, row term), for the
+// two-kernel designs (the streamed split and fp32); the cluster design
+// takes null.  Returns the CUDA error of the launches (0 on success).
 extern "C" int iisan_mha_bwd(const void* q, const void* k, const void* v, const void* bias,
                              const void* g, void* gq, void* gk, void* gv, void* stats, int B,
                              int T, int D, int H, int is_bf16, int seed, float rate, float scale,
                              int layer, void* stream) {
-  if (!iisan::mha::supported(B, T, D, H) || stats == nullptr)
+  const bool cluster = iisan_mha_bwd_design(T, is_bf16) == 1;
+  if (!iisan::mha::supported(B, T, D, H) || (!cluster && stats == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const iisan::mha::Dims d{T, D, H,
                            static_cast<float>(1.0 / sqrt(static_cast<double>(iisan::mha::kDk))),
@@ -700,7 +1095,8 @@ extern "C" int iisan_mha_bwd(const void* q, const void* k, const void* v, const 
   float* st = static_cast<float*>(stats);
   const cudaError_t err =
       !is_bf16  ? iisan::launch_rows<float>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
-      : drop.on ? iisan::launch_tc<true>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
-                : iisan::launch_tc<false>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s);
+      : cluster ? iisan::launch_cluster(q, k, v, bias, g, gq, gk, gv, B, d, drop, s)
+      : drop.on ? iisan::launch_streamed<true>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
+                : iisan::launch_streamed<false>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s);
   return static_cast<int>(err);
 }

@@ -80,22 +80,46 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+typedef CUresult (*CtxGetCurrent)(CUcontext*);
 
-inline EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+// A libcuda entry point of the CUDA 12.0 ABI, or null.
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &found);
 #else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  const cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+// One 128-byte-swizzled map of `rank` dimensions, zeros past the edges.
+// cuTensorMapEncodeTiled needs a context current on the calling thread; a
+// thread that has made no runtime call yet (an autograd worker whose first
+// CUDA work is a kernel of this library) has none, so such a thread first
+// binds the primary context of the pointer's device.  A thread with a
+// context keeps it, whatever the encode returns.
+inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank, void* ptr,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box, CUtensorMapL2promotion promotion) {
+  static const EncodeTiled fn = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  static const CtxGetCurrent current = reinterpret_cast<CtxGetCurrent>(driver_fn("cuCtxGetCurrent"));
+  if (fn == nullptr || current == nullptr) return cudaErrorNotSupported;
+  CUcontext ctx = nullptr;
+  if (current(&ctx) != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  if (ctx == nullptr) {
+    cudaPointerAttributes at;
+    cudaError_t err = cudaPointerGetAttributes(&at, ptr);
+    if (err == cudaSuccess) err = cudaSetDevice(at.device);
+    if (err != cudaSuccess) return err;
   }
-  return fn;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, type, rank, ptr, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // A row-major (outer, inner) matrix of `type` (elements of `elem` bytes)
@@ -105,17 +129,11 @@ inline EncodeTiled encode_fn() {
 inline cudaError_t encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
                              uint64_t elem, uint64_t inner, uint64_t outer, uint32_t box_inner,
                              uint32_t box_outer) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {inner * elem};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 // `planes` row-major (rows, cols) bf16 matrices one after another (rows
@@ -123,17 +141,11 @@ inline cudaError_t encode_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataT
 // plane, 128-byte swizzled, zeros past each plane's edges.
 inline cudaError_t encode_planes(CUtensorMap* map, const void* ptr, uint64_t cols, uint64_t rows,
                                  uint64_t planes) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cols, rows, planes};
   const cuuint64_t strides[2] = {cols * sizeof(bf16), rows * cols * sizeof(bf16)};
   const cuuint32_t box[3] = {kBoxN, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 // The result's tensor map: `planes` bf16 (rows, cols) matrices one after
@@ -142,16 +154,11 @@ inline cudaError_t encode_planes(CUtensorMap* map, const void* ptr, uint64_t col
 // written.
 inline cudaError_t encode_out(CUtensorMap* map, void* ptr, uint64_t cols, uint64_t rows,
                               uint64_t planes, uint64_t ld) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cols, rows, planes};
   const cuuint64_t strides[2] = {ld * sizeof(bf16), rows * ld * sizeof(bf16)};
   const cuuint32_t box[3] = {kBoxN, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE);
 }
 
 inline int sm_count() {

@@ -9,11 +9,14 @@ and ViT layer of the uncached towers.  Three kernels:
   held whole up to 320 (one pass a query tile) and streamed beyond (two),
   so T up to 46,340 fits; heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
-  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; two
-  kernels, one over query tiles (gQ and each row's softmax statistics and
-  row term, into an fp32 scratch) and one over key tiles (gK, gV), for any
-  T the forward takes; in bf16 all ten of their products run on the tensor
-  cores;
+  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; in bf16
+  up to 320 keys one launch, a thread-block cluster per (image, head) whose
+  blocks own 64 keys each and trade the rows' max, sum and row term (and
+  gQ's partials) through distributed shared memory, the five products on
+  wgmma with TMA-fed operands; beyond, and in fp32, two kernels, one over
+  query tiles (gQ and each row's softmax statistics and row term, into an
+  fp32 scratch) and one over key tiles (gK, gV), for any T the forward
+  takes (``bwd_design`` names the design a call runs);
 - ``mha_mask_replay`` (``csrc/mha_mask_replay.cu``): the scaled keep masks
   the two draw, as a (B, H, T, T) tensor, the oracle of train mode; one
   Philox call per four elements, written at the card's write rate.
@@ -49,6 +52,7 @@ from ..utils import flops
 DK = 64                     # head width the kernels take
 MAX_GRID = 65535            # B and H are grid dimensions
 MAX_T = 46340               # dropout elements i * T + j stay below 2^31
+RESIDENT_KEYS = 320         # keys one block (#5) or one cluster (#6) holds: kResMaxKeys
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -66,12 +70,28 @@ def supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
             and D == H * DK)
 
 
+BWD_DESIGNS = ("rows", "wgmma_cluster", "tensor_cores")  # iisan_mha_bwd_design's codes
+
+
 def bwd_design(T: int, itemsize: int) -> str:
     """The backward design a call runs (``iisan_mha_bwd`` in
-    csrc/mha_bwd.cu): ``"tensor_cores"`` in bf16 (mma.sync, at every T),
-    ``"rows"`` in fp32 (the CUDA cores)."""
-    del T  # both designs take every T
-    return "tensor_cores" if itemsize == 2 else "rows"
+    csrc/mha_bwd.cu): in bf16 ``"wgmma_cluster"`` up to 320 keys (one
+    launch, a cluster of T / 64 rounded up blocks per (image, head)) and
+    ``"tensor_cores"`` beyond (the streamed mma.sync pair with its fp32
+    scratch); ``"rows"`` in fp32 (the CUDA cores) at every T.  The CPU's
+    copy of ``library_bwd_design``, held to it on the card."""
+    if itemsize != 2:
+        return "rows"
+    return "wgmma_cluster" if T <= RESIDENT_KEYS else "tensor_cores"
+
+
+def library_bwd_design(T: int, itemsize: int) -> str:
+    """The backward design as the library chooses it
+    (``iisan_mha_bwd_design``; needs the built library).  ``mha_bwd`` takes
+    a call's buffers and alignment from here."""
+    from ..kernels.build import library
+
+    return BWD_DESIGNS[library().iisan_mha_bwd_design(T, int(itemsize == 2))]
 
 
 def bwd_supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
@@ -273,13 +293,19 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g must be {tuple(q.shape)} {q.dtype} on {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
+    design = library_bwd_design(T, q.element_size())
+    if design == "wgmma_cluster" and any(t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError("mha_bwd: bf16 q, k, v and g must start on 16-byte "
+                         "boundaries (the kernel reads them by TMA)")
     bias = None if bias is None else bias.contiguous()
     gq, gk, gv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    # each query row's (max, sum, row term), from the first kernel to the second
-    stats = torch.empty((B, n_heads, T, 3), dtype=torch.float32, device=q.device)
+    # the two-kernel designs: each query row's (max, sum, row term), from
+    # the first kernel to the second
+    stats = (None if design == "wgmma_cluster" else
+             torch.empty((B, n_heads, T, 3), dtype=torch.float32, device=q.device))
     err = library().iisan_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
-        gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), stats.data_ptr(),
+        gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), _ptr(stats),
         B, T, D, n_heads, int(q.dtype == torch.bfloat16),
         *_dropout_args(seed, rate, layer),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -353,7 +379,10 @@ class FusedMHAFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
-        gq, gk, gv = mha_bwd(q, k, v, bias, g.to(q.dtype), **ctx.kw)
+        g = g.to(q.dtype).contiguous()
+        if g.is_cuda and g.data_ptr() % 16:  # the kernel reads g by TMA
+            g = g.clone()
+        gq, gk, gv = mha_bwd(q, k, v, bias, g, **ctx.kw)
         return gq, gk, gv, None, None, None, None, None
 
 

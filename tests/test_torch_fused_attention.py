@@ -285,8 +285,11 @@ def test_all_pad_rows_are_uniform_and_finite():
 def test_kernel_geometry():
     assert fa.supported(704, 197, 768, 12) and fa.bwd_supported(704, 197, 768, 12)
     assert fa.supported(704, 30, 768, 12) and fa.bwd_supported(704, 30, 768, 12)
-    # bf16 runs the tensor-core backward, fp32 the CUDA-core one
-    assert fa.bwd_design(197, 2) == fa.bwd_design(30, 2) == "tensor_cores"
+    # bf16 runs the cluster design up to 320 keys and the streamed
+    # tensor-core pair beyond, fp32 the CUDA-core one
+    assert fa.bwd_design(197, 2) == fa.bwd_design(30, 2) == "wgmma_cluster"
+    assert fa.bwd_design(320, 2) == "wgmma_cluster"
+    assert fa.bwd_design(321, 2) == "tensor_cores"
     assert fa.bwd_design(197, 4) == fa.bwd_design(30, 4) == "rows"
     assert not fa.supported(8, 30, 96, 2)            # head width 48
     assert fa.supported(8, 257, 768, 12)             # keys stream in tiles
@@ -299,11 +302,13 @@ def test_kernel_geometry():
 @pytest.mark.parametrize("T", [1, 197, 256, 257, 1024, 46340])
 def test_kernels_take_any_number_of_keys(T):
     """#5 and #6 take every T, in bf16 and fp32; the backward's design
-    depends on the dtype alone."""
+    depends on the dtype and, in bf16, on whether a cluster holds the keys
+    (up to 320)."""
     for itemsize in (2, 4):
         assert fa.supported(704, T, 768, 12, itemsize)
         assert fa.bwd_supported(88, T, 768, 12, itemsize)
-        want = "tensor_cores" if itemsize == 2 else "rows"
+        want = ("rows" if itemsize == 4 else
+                "wgmma_cluster" if T <= 320 else "tensor_cores")
         assert fa.bwd_design(T, itemsize) == want
 
 
@@ -334,3 +339,108 @@ def test_backward_matches_jax_bf16_at_tile_edges(interpret_pallas, T, with_bias)
         got = t.grad.float().numpy()
         assert np.isfinite(got).all()
         assert _rel(got, np.asarray(jg, np.float32)) < 0.05
+
+
+def _cluster_bwd(q, k, v, bias, g, *, n_heads, seed=0, rate=0.0, layer=0):
+    """The bf16 backward's cluster design (csrc/mha_bwd.cu, up to 320
+    keys) in plain PyTorch: each block of the cluster holds 64 keys, and
+    the rows' max, sum of exp(s - max) and term sum_j gP p are combined
+    from the blocks' partials in rank order 0, 1, ..., as are the blocks'
+    partial products gS . K_r of gQ; every other step is
+    ``mha_bwd_plain``'s cast chain."""
+    dt = q.dtype
+    B, T, D = q.shape
+    H = n_heads
+    inv = 1.0 / np.sqrt(D // H)
+    qh, kh, vh, gh = (fa._split(t, H) for t in (q, k, v, g))
+    s = (qh @ kh.transpose(-1, -2)) * inv
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    ranks = [slice(j0, min(j0 + 64, T)) for j0 in range(0, T, 64)]
+    mx = s[..., ranks[0]].amax(-1, keepdim=True)
+    for r in ranks[1:]:
+        mx = torch.maximum(mx, s[..., r].amax(-1, keepdim=True))
+    e = torch.exp(s - mx)
+    total = sum(e[..., r].sum(-1, keepdim=True) for r in ranks)
+    p = e / total
+    masks = fa._masks(seed, rate, layer, B, T, H, q.device)
+    pd = p.to(dt).float()
+    g_p = gh @ vh.transpose(-1, -2)
+    if masks is not None:
+        pd = (pd * masks).to(dt).float()
+        g_p = g_p * masks
+    term = sum((g_p * p)[..., r].sum(-1, keepdim=True) for r in ranks)
+    g_s = (p * (g_p - term) * inv).to(dt).float()
+    g_q = sum(g_s[..., r] @ kh[..., r, :] for r in ranks)
+    g_k = g_s.transpose(-1, -2) @ qh
+    g_v = pd.transpose(-1, -2) @ gh
+    return fa._merge(g_q, dt), fa._merge(g_k, dt), fa._merge(g_v, dt)
+
+
+def _hashed_keep(b, h, i, j, T, H, rate, xp):
+    """A scaled keep mask from an integer hash of (image, head, query,
+    key) in uint32 arithmetic, the same in numpy and in jax.numpy: the
+    masks both frameworks take in train mode below."""
+    x = ((b * H + h) * T + i) * T + j
+    x = x * xp.uint32(2654435761)
+    x = x ^ (x >> xp.uint32(15))
+    x = x * xp.uint32(2246822519)
+    x = x ^ (x >> xp.uint32(13))
+    keep = (x >> xp.uint32(8)) >= xp.uint32(int(np.ceil(rate * 2 ** 24)))
+    return keep.astype(xp.float32) * xp.float32(1.0 / (1.0 - rate))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", [197, 257])
+def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtype, rate,
+                                                          T):
+    """The cluster design's combine (4 and 5 blocks of 64 keys at ViT's 197
+    and 257 tokens) against ``mha_bwd_plain`` and against the JAX
+    ``_mha_bwd_kernel`` (interpret mode, through ``fused_mha``'s VJP), in
+    eval and train mode.  In train mode the three take one set of masks:
+    the JAX kernels' per-head mask draw and the port's ``_masks`` are both
+    patched, in this test only, to ``_hashed_keep`` (a Pallas kernel takes
+    no captured array, so the port's Philox masks cannot be handed in).
+    Tolerances: fp32 1e-5 (summation order only); bf16 max |diff| / max
+    |want| < 0.05, the file's bf16 bound (a probability may round to the
+    neighbouring bf16 value on one side)."""
+    B, D, H, seed, layer = 2, 128, 2, 19, 4
+    assert jfa._pick_batch_block(B, T, D, 2) == B  # one grid program: masks in draw order
+    q, k, v, g, bias = _inputs(B=B, T=T, D=D, seed=T)
+    tq, tk, tv, tg = (_t(x, dtype) for x in (q, k, v, g))
+    kw = dict(n_heads=H, seed=seed, rate=rate, layer=layer)
+    idx = np.ix_(np.arange(B, dtype=np.uint32), np.arange(H, dtype=np.uint32),
+                 np.arange(T, dtype=np.uint32), np.arange(T, dtype=np.uint32))
+    masks = torch.from_numpy(_hashed_keep(*idx, T, H, rate, np)) if rate else None
+    draws = iter(range(10 ** 6))
+
+    def jax_mask(shape, rate_):
+        assert shape == (B, T, T) and rate_ == rate
+        b, i, j = (jax.lax.broadcasted_iota(jnp.uint32, shape, d) for d in range(3))
+        return _hashed_keep(b, jnp.uint32(next(draws) % H), i, j, T, H, rate, jnp)
+
+    def jloss(q_, k_, v_):
+        out = jfa.fused_mha(q_, k_, v_, n_heads=H, key_bias=_j(bias), drop_rate=rate,
+                            dropout_rng=jax.random.PRNGKey(0) if rate else None)
+        return jnp.sum(out.astype(jnp.float32) * _j(g)), out
+
+    from iisan_tpu.ops import fused_user_encoder as jfue
+
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    with mock.patch.object(fa, "_masks", lambda *a: masks), \
+            mock.patch.object(jfue, "_dropout_mask", jax_mask), \
+            mock.patch.object(jfa.pltpu, "prng_seed", lambda *a: None):
+        mine = _cluster_bwd(tq, tk, tv, _t(bias), tg, **kw)
+        plain = fa.mha_bwd_plain(tq, tk, tv, _t(bias), tg, **kw)
+        _, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+            _j(q, jd), _j(k, jd), _j(v, jd))
+    for got, want, jg in zip(mine, plain, jgrads):
+        got, want, jg = (np.asarray(x, np.float32) for x in
+                         (got.float().numpy(), want.float().numpy(), jg))
+        assert np.isfinite(got).all()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(got, jg, rtol=1e-5, atol=1e-5)
+        else:
+            assert _rel(got, want) < 0.05 and _rel(got, jg) < 0.05

@@ -58,13 +58,16 @@ JAX package's dispatch names, at the once-refused geometries too.
 Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
 + |plain|), tol 1e-4 fp32 and 2e-2 (forward) / 5e-2 (backward) bf16: a
 probability may round to the neighbouring bf16 value on one side only; the
-mask replay kernel is bit-equal to its plain version.  Planted faults (the
-key bias dropped on a padded batch, the backward run with another seed,
-the softmax row term dropped from the backward; and of the bf16
-backward's split, the dkv kernel's dropout element transposed, the row
-term taken as FlashAttention's rowsum(g * o), another head's statistics
-read in dkv) must break those bounds, and the backward repeats bit for
-bit.
+mask replay kernel is bit-equal to its plain version.  The bf16 backward
+runs its cluster design (wgmma, HGMMA and no HMMA in its SASS) at every
+edge of it, one to five key blocks (1 to 320 keys), and the streamed pair
+at 321, each case's design asserted.  Planted faults (the key bias
+dropped on a padded batch, the backward run with another seed, the
+softmax row term dropped from the backward; the dkv kernel's dropout
+element transposed, the row term taken as FlashAttention's rowsum(g * o),
+another head's statistics read in dkv; and of the cluster design, block
+0's partial of the rows' sums or of gQ dropped, each block's own row
+term) must break those bounds, and the backward repeats bit for bit.
 The bf16 forward runs on wgmma (HGMMA in the SASS of every instance, no
 HMMA) and is held to its plain version in eval and train mode, with and
 without the key bias, at every edge of its tiling (1 to 4,097 keys), an
@@ -825,6 +828,71 @@ def test_mha_fwd_matches_plain_at_the_tile_edges(cuda_device, rate, with_bias, B
         assert torch.equal(got[1:], alone)
 
 
+# Key counts at every edge of the bf16 backward's designs: the cluster
+# design's one to five blocks of 64 keys (1, 2, 16, 30, 63 and 64 in one
+# block; 65 in two; 128, 192, 197 (ViT) in two to four; 257, 319 and 320 in
+# five) and the streamed pair one key past it (321).
+MHA_BWD_EDGES = (1, 2, 16, 30, 63, 64, 65, 128, 192, 197, 257, 319, 320, 321)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 88])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("T", MHA_BWD_EDGES)
+def test_mha_bwd_designs_match_plain(cuda_device, T, with_bias, rate, B):
+    """#6 in bf16 at each edge of its designs, one image and the FFT
+    step's 88, eval and train mode, with and without the key bias: the
+    design ``bwd_design`` names (one cluster of T / 64 rounded up blocks up
+    to 320 keys, the streamed pair beyond), one launch of the wrapper, and
+    the bf16 bound against ``mha_bwd_plain``.  ``bwd_design``, the CPU's
+    copy, names what the library chooses in both dtypes."""
+    dt = torch.bfloat16
+    q, k, v, g, bias = _mha_inputs(cuda_device, B, T, 768, dt, seed=T)
+    bias = bias if with_bias else None
+    kw = dict(n_heads=12, seed=4242, rate=rate, layer=7)
+    assert fa.bwd_design(T, 2) == ("wgmma_cluster" if T <= 320 else "tensor_cores")
+    assert fa.library_bwd_design(T, 2) == fa.bwd_design(T, 2)
+    assert fa.library_bwd_design(T, 4) == fa.bwd_design(T, 4) == "rows"
+    b0 = fa.mha_bwd.launches
+    got = fa.mha_bwd(q, k, v, bias, g, **kw)
+    want = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
+    torch.cuda.synchronize()
+    assert fa.mha_bwd.launches == b0 + 1
+    assert _mha_ratio(got, want) <= MHA_TOL[dt, "bwd"]
+
+
+@pytest.mark.cuda
+def test_attention_backward_cluster_kernels_run_on_wgmma(cuda_device):
+    """Each instance of #6's cluster design (one to five key blocks, eval
+    and train) has HGMMA (wgmma) in its SASS and no HMMA (mma.sync)."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts("mha_bwd_cluster_kernel")
+    assert len(counts) == 10
+    assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_mha_bwd_raises_on_a_misaligned_bf16_view_and_autograd_aligns_g(cuda_device):
+    """The cluster design reads q, k, v and g by TMA (16-byte aligned
+    starts): a misaligned view raises with no launch, and ``FusedMHAFn``
+    hands the kernel an aligned copy of a misaligned incoming gradient."""
+    dt = torch.bfloat16
+    q, k, v, g, bias = _mha_inputs(cuda_device, 2, 197, 768, dt)
+    flat = torch.zeros(g.numel() + 1, dtype=dt, device=cuda_device)
+    odd = flat[1:].view(g.shape).copy_(g)
+    b0 = fa.mha_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.mha_bwd(q, k, v, bias, odd, n_heads=12)
+    assert fa.mha_bwd.launches == b0
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.fused_mha(*leaves, 12, key_bias=bias).backward(odd)
+    assert fa.mha_bwd.launches == b0 + 1
+    want = fa.mha_bwd_plain(q, k, v, bias, g, n_heads=12)
+    assert _mha_ratio([t.grad for t in leaves], want) <= MHA_TOL[dt, "bwd"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [197, 257])
 def test_train_mode_forward_and_its_gradient_through_both_kernels(cuda_device, T):
@@ -934,12 +1002,16 @@ def test_mha_planted_faults_break_the_bounds(cuda_device, dtype, B, T, D, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rate", [(torch.bfloat16, 0.0), (torch.bfloat16, 0.1),
-                                        (torch.float32, 0.1)])
-def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate):
-    """Two launches on the same inputs (the FFT step's ViT shape) give the
-    same bits: no atomics, every sum in a fixed order."""
-    q, k, v, g, bias = _mha_inputs(cuda_device, 88, 197, 768, dtype, seed=4)
+@pytest.mark.parametrize("dtype,rate,T", [(torch.bfloat16, 0.0, 197), (torch.bfloat16, 0.1, 197),
+                                          (torch.float32, 0.1, 197), (torch.bfloat16, 0.1, 30),
+                                          (torch.bfloat16, 0.0, 257), (torch.bfloat16, 0.1, 257),
+                                          (torch.bfloat16, 0.1, 321)])
+def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate, T):
+    """Two launches on the same inputs (the FFT step's 88 images) give the
+    same bits: no atomics, every sum in a fixed order (the cluster design
+    combines its blocks' partials in rank order, from one block at 30 keys
+    to five at 257; the streamed pair at 321)."""
+    q, k, v, g, bias = _mha_inputs(cuda_device, 88, T, 768, dtype, seed=4)
     kw = dict(n_heads=12, seed=5, rate=rate, layer=6)
     first = fa.mha_bwd(q, k, v, bias, g, **kw)
     second = fa.mha_bwd(q, k, v, bias, g, **kw)
@@ -949,10 +1021,13 @@ def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate):
 
 def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=0):
     """``mha_bwd_plain``'s function with one planted fault of the bf16
-    backward's split (fault None: the function itself): the dkv kernel's
-    dropout element transposed to key * T + query; the row term taken as
-    FlashAttention's rowsum(g * o); the dkv kernel reading the statistics
-    (max, sum, row term) of the neighbouring head."""
+    backward (fault None: the function itself).  Of the streamed split: the
+    dkv kernel's dropout element transposed to key * T + query; the row
+    term taken as FlashAttention's rowsum(g * o); the dkv kernel reading
+    the statistics (max, sum, row term) of the neighbouring head.  Of the
+    cluster design (blocks of 64 keys): block 0's partial of the rows'
+    sums dropped; block 0's gQ partial dropped; each block's
+    gS formed with its own partial row term instead of the cluster's."""
     dt = q.dtype
     B, T, D = q.shape
     H = n_heads
@@ -963,7 +1038,10 @@ def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=
         s = s + bias.float()[:, None, None, :]
     mx = s.amax(-1, keepdim=True)
     e = torch.exp(s - mx)
+    first = slice(0, 64)  # the keys of the cluster's block 0
     total = e.sum(-1, keepdim=True)
+    if fault == "cluster sum without block 0":
+        total = total - e[..., first].sum(-1, keepdim=True)
     p32 = e / total
     masks = fa._masks(seed, rate, layer, B, T, H, q.device)
     if masks is None:
@@ -973,11 +1051,17 @@ def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=
     if fault == "flash row term":
         o = fa.mha_fwd_plain(q, k, v, bias, n_heads=H, seed=seed, rate=rate, layer=layer)
         term = (gh * fa._split(o, H)).sum(-1, keepdim=True)
+    if fault == "cluster row term of each block alone":
+        term = torch.cat([(g_pd * masks * p32)[..., j0:j0 + 64].sum(-1, keepdim=True)
+                          .expand(*s.shape[:-1], min(64, T - j0))
+                          for j0 in range(0, T, 64)], -1)
 
     def grad_s(p, m, t):
         return (p * (g_pd * m - t) * inv).to(dt).float()
 
     g_q = grad_s(p32, masks, term) @ kh
+    if fault == "cluster gQ without block 0":
+        g_q = g_q - grad_s(p32, masks, term)[..., first] @ kh[..., first, :]
     p_kv, m_kv, t_kv = p32, masks, term
     if fault == "dkv dropout transposed":
         m_kv = masks.transpose(-1, -2)
@@ -990,10 +1074,18 @@ def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=
     return fa._merge(g_q, dt), fa._merge(g_k, dt), fa._merge(g_v, dt)
 
 
+# (T, fault): the streamed split's faults at one and four cluster blocks
+# and on the streamed pair, the cluster design's at four and five blocks
+MHA_BWD_FAULTS = (
+    [(T, f) for T in (30, 197, 321) for f in ("dkv dropout transposed", "flash row term",
+                                              "dkv statistics of another head")]
+    + [(T, f) for T in (197, 257) for f in ("cluster sum without block 0",
+                                            "cluster gQ without block 0",
+                                            "cluster row term of each block alone")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [30, 197, 321])
-@pytest.mark.parametrize("fault", ["dkv dropout transposed", "flash row term",
-                                   "dkv statistics of another head"])
+@pytest.mark.parametrize("T,fault", MHA_BWD_FAULTS)
 def test_mha_bwd_planted_faults_break_the_bound(cuda_device, T, fault):
     """Each fault breaks the bf16 bound that the kernels meet on the same
     inputs.  The dropout fault needs train mode.  FlashAttention's row term
