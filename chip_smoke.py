@@ -85,13 +85,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    images) in eval and train mode with and without the key bias, each
    image's eval output bit-equal to a launch of its own, and a train-mode
    forward with #6's gradient of it at 197 and 257 tokens; the
-   backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT
-   and 257 tokens in train mode and ViT in eval mode (bf16: the cluster
-   design), 325 tokens in train mode (past 320 keys: the streamed
+   backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT,
+   257 and 325 tokens and 448 and 512 keys in train mode and ViT in eval mode
+   (bf16: the cluster design, one to eight blocks of 64 keys), 577 tokens
+   in train mode (``CV_resize=384``, past 512 keys: the streamed
    ``mma.sync`` pair), ViT in fp32 (the CUDA-core one), and ViT at the TPME report's
    batch of 32 users (352 rows), each case's design and device time beside
-   SDPA's backward and the bound printed, and two launches bit-equal at
-   ViT's shape; the mask
+   SDPA's backward and the bound printed, and two launches bit-equal in
+   every case, with the clusters the card holds of each cluster instance
+   (``cudaOccupancyMaxActiveClusters``); the mask
    replay kernel bit for bit at the BERT step (704 x 30) and the FFT
    step's ViT attention (88 x 197), timed by CUDA events and profiler.
    Planted faults (the key bias dropped on the padded batch, the backward
@@ -385,9 +387,9 @@ MHA_TOL_FP32 = 1e-4
 # The uncached step: BERT-base titles and ViT-base images of a batch of 64
 # users x (L+1) items.
 TOWER_D, TOWER_H, TITLE_T, IMAGE_T = 768, 12, 30, 197
-# A ViT at CV_resize=256 and 288: 16 x 16 and 18 x 18 patches and the CLS
-# token.
-IMAGE_T_256, IMAGE_T_288 = 257, 325
+# A ViT at CV_resize=256, 288 and 384: 16 x 16, 18 x 18 and 24 x 24
+# patches and the CLS token.
+IMAGE_T_256, IMAGE_T_288, IMAGE_T_384 = 257, 325, 577
 STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -1260,7 +1262,9 @@ def mha_ratio(got, want):
 # The attention phase's dropout seed, and the backward's cases at the FFT
 # step's shapes (88 rows) and the TPME report's batch of 32 users (352):
 # name, rows, tokens, padded keys (a -1e9 key bias with an all-pad row),
-# dtype, dropout layer (None: eval mode).
+# dtype, dropout layer (None: eval mode).  bf16 runs the cluster design up
+# to 512 keys (325: six blocks, 448: seven, 512: eight) and the streamed
+# pair at 577.
 ATTN_SEED = 20251016
 FFT_ROWS, TPME_ROWS = FFT_BATCH * (SEQ_LEN + 1), 32 * (SEQ_LEN + 1)
 MHA_BWD_CASES = (("BERT train", FFT_ROWS, TITLE_T, True, "bfloat16", 3),
@@ -1268,6 +1272,9 @@ MHA_BWD_CASES = (("BERT train", FFT_ROWS, TITLE_T, True, "bfloat16", 3),
                  ("ViT eval fp32", FFT_ROWS, IMAGE_T, False, "float32", None),
                  ("ViT-256 train", FFT_ROWS, IMAGE_T_256, True, "bfloat16", 4),
                  ("ViT-288 train", FFT_ROWS, IMAGE_T_288, True, "bfloat16", 5),
+                 ("448 keys train", FFT_ROWS, 448, True, "bfloat16", 6),
+                 ("512 keys train", FFT_ROWS, 512, True, "bfloat16", 7),
+                 ("ViT-384 train", FFT_ROWS, IMAGE_T_384, True, "bfloat16", 8),
                  ("ViT eval batch 32", TPME_ROWS, IMAGE_T, False, "bfloat16", None))
 
 
@@ -1320,10 +1327,11 @@ def sdpa_bwd_ms(q, k, v, g, bias, rate: float, reps: int = 10):
 # The bf16 attention kernels on wgmma: #5's and the subblocks' attention
 # step's (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu: the resident design at
 # each key-chunk count, eval and train, and the streamed one) and #6's
-# cluster design (csrc/mha_bwd.cu, one to five key blocks, eval and train).
-ATTN_WGMMA_KERNELS = ("mha_fwd_resident_kernel", "mha_fwd_streamed_kernel",
-                      "subblock_attn_resident_kernel", "subblock_attn_streamed_kernel",
-                      "mha_bwd_cluster_kernel")
+# cluster design (csrc/mha_bwd.cu, one to eight key blocks, eval and train),
+# with the number of instances of each.
+ATTN_WGMMA_KERNELS = {"mha_fwd_resident_kernel": 10, "mha_fwd_streamed_kernel": 2,
+                      "subblock_attn_resident_kernel": 10, "subblock_attn_streamed_kernel": 2,
+                      "mha_bwd_cluster_kernel": 16}
 
 
 # Key counts at every edge of the bf16 forward's tiling (128 wide, 2 heads
@@ -1332,15 +1340,17 @@ ATTN_FWD_EDGES = (1, 5, 63, 64, 65, 128, 197, 256, 257, 320, 321, 1000, 4097)
 
 
 def check_attention_sass(counts):
-    """Every bf16 attention kernel of ``ATTN_WGMMA_KERNELS`` runs its
-    products on wgmma: HGMMA in its SASS, and no HMMA (mma.sync);
-    ``counts`` is ``build.sass_mma_counts``' of every kernel."""
-    for pattern in ATTN_WGMMA_KERNELS:
+    """Every instance of each bf16 attention kernel of ``ATTN_WGMMA_KERNELS``
+    is built and runs its products on wgmma: HGMMA in its SASS, and no HMMA
+    (mma.sync); ``counts`` is ``build.sass_mma_counts``' of every kernel."""
+    for pattern, instances in ATTN_WGMMA_KERNELS.items():
         mine = {name: n for name, n in counts.items() if pattern in name}
         log(f"  SASS {pattern}: {len(mine)} instances, HGMMA "
             f"{sorted({n['HGMMA'] for n in mine.values()})}, HMMA "
             f"{sorted({n['HMMA'] for n in mine.values()})}")
-        if not mine or any(n["HGMMA"] == 0 or n["HMMA"] > 0 for n in mine.values()):
+        if len(mine) != instances:
+            raise AssertionError(f"{pattern}: {len(mine)} instances built, not {instances}")
+        if any(n["HGMMA"] == 0 or n["HMMA"] > 0 for n in mine.values()):
             raise AssertionError(f"{pattern}: an instance without wgmma, or with mma.sync")
 
 
@@ -1523,8 +1533,16 @@ def check_attention(device):
         del heads
 
     # The backward at the FFT step's shapes (88 rows) and the TPME report's
-    # batch (352): bf16 runs the cluster design up to 320 keys and the
-    # streamed pair beyond, fp32 the CUDA-core one
+    # batch (352): bf16 runs the cluster design up to fa.CLUSTER_KEYS (512)
+    # and the streamed pair beyond, fp32 the CUDA-core one.  First the
+    # clusters the card holds at once of each cluster instance (the wrapper
+    # raises at 0).
+    for train in (False, True):
+        held = [fa.active_clusters(64 * nc, train, device) for nc in range(1, 9)]
+        log(f"mha_bwd cluster instances ({'train' if train else 'eval'}), one to eight "
+            f"blocks: {held} clusters the card holds at once")
+        if min(held) < 1:
+            raise AssertionError("mha_bwd: a cluster instance cannot be scheduled")
     bf16 = torch.bfloat16
     for name, B, T, padded, dtype, layer in MHA_BWD_CASES:
         q, k, v, g, b, kw = mha_bwd_case(device, gen, B, T, padded, dtype, layer)
@@ -1543,12 +1561,11 @@ def check_attention(device):
             f"|diff| / (max|plain| + |plain|) {ratio:.4g} (tol {tol}); finite "
             f"{all(torch_finite(t) for t in got)}")
         require(ratio, tol, f"mha_bwd {name}")
-        if name == "ViT eval":
-            again = fa.mha_bwd(q, k, v, b, g, **kw)
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            log(f"  two launches bit-equal: {same}")
-            if not same:
-                raise AssertionError("mha_bwd: two launches on the same inputs differ")
+        again = fa.mha_bwd(q, k, v, b, g, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        log(f"  two launches bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"mha_bwd {name}: two launches on the same inputs differ")
         faults = {}
         if padded:
             faults["backward seed != forward seed"] = fa.mha_bwd(

@@ -24,9 +24,14 @@
 // the per-element work: 41 M elements there, each an exp, a division, two
 // roundings and, in train mode, a quarter of a Philox call.
 //
-// Design (bf16, T <= 320 = kResMaxKeys): one launch, a thread-block cluster
-// of C = T / 64 rounded up blocks (1-5) per (head, image); block r owns
-// keys 64 r .. 64 r + 63 and is one warpgroup (128 threads).
+// Design (bf16, T <= 512 = kClusterMaxKeys): one launch, a thread-block
+// cluster of C = T / 64 rounded up blocks (1-8, sizes the H100 schedules
+// without opting into non-portable clusters) per (head, image); block r
+// owns keys 64 r .. 64 r + 63 and is one warpgroup (128 threads).  512 keys
+// is the whole range where the TPU kernel runs at ViT width
+// (`_pick_batch_block` in the JAX package takes no more at D = 768 in bf16);
+// the layout below does not depend on C, only the exchanges read C
+// partials.
 // - TMA (the forward's 3-D maps over (D, T, B), 64 x 64 boxes, 128-byte
 //   swizzle; rows past T read as zeros and no box reaches the next image)
 //   loads K_r and V_r once, each on its own mbarrier, and the 64-row query
@@ -44,7 +49,8 @@
 //   as the forward's), the partial sums of e (then p = e / sum, the
 //   division's reciprocal taken once a row, `div_rn`), and the partial row
 //   terms sum gP p.  Every block combines the C partials in rank order
-//   0, 1, ..., C - 1, so every block holds the same bits.  Keep bits are
+//   0, 1, ..., C - 1 as a running sum (or max), so every block holds the
+//   same bits.  Keep bits are
 //   drawn once per group of four elements (`row_keep`) while the first
 //   barrier is pending; pd is formed while the third is.
 // - pd and gS are rounded to bf16 into two swizzled 64 x 64 tiles in shared
@@ -61,18 +67,28 @@
 //   division and a quarter of a Philox call an element (train mode), and
 //   nothing goes through device memory between them: no scratch, no
 //   atomics, and two launches on the same inputs are bit-equal.
-// - 86 KB of shared memory a block, two blocks an SM; a thread holds four
-//   64 x 64 fp32 tiles (S, gPd, gK, gV; the gQ partial, a fifth, lives
-//   while S and gPd are rounded into the tiles).  ptxas: 232-241 registers
-//   a thread at two to five key blocks, 122-123 at one, no spills.  BERT's
-//   30 tokens (one block) run faster than on the mma.sync pair this design
-//   replaced, so no dispatch by T keeps that pair below 320 keys.
+// - 86 KB of shared memory a block at every C, two blocks an SM; a thread
+//   holds four 64 x 64 fp32 tiles (S, gPd, gK, gV; the gQ partial, a fifth,
+//   lives while S and gPd are rounded into the tiles).  ptxas: 232-241
+//   registers a thread at two to eight key blocks, 122-123 at one, no
+//   spills (build.log has every instance's).  BERT's 30
+//   tokens (one block) run faster than on the mma.sync pair this design
+//   replaced, so no dispatch by T keeps that pair below 512 keys.
+// - An H100 holds 264, 132, 79, 62, 47, 39, 32 and 30 clusters of one to
+//   eight blocks at once (cudaOccupancyMaxActiveClusters), so from three
+//   blocks on 6-15% of its 264 block slots stay idle (15% at seven), where
+//   a GPC's SMs do not divide into whole clusters.  The wrapper asks
+//   `iisan_mha_bwd_active_clusters` once an instance and raises where a
+//   cluster of C blocks cannot be scheduled: no other design runs in its
+//   place.
 // The forward forms the rows' sums in another order, so a probability may
 // round to the other bf16 neighbour here only (within the bf16 tolerance).
 //
 // On an H100 the block's chain of loads, products, exchanges and barriers
 // sets the pace at two blocks an SM, and the elementwise steps take most
-// of a tile's cycles (PERF.md).  Tried in development and not kept:
+// of a tile's cycles (PERF.md).  A cluster's C blocks each walk C query
+// tiles, so a call's block-tiles grow as C^2.  Tried in development and
+// not kept:
 // branching around 8-key groups past T, as the forward does (slower than
 // the selects above at 197 and 257 tokens); three blocks an SM (168
 // registers, the gQ partial in the pd / gS tiles: spills, slower); two
@@ -82,9 +98,11 @@
 // cluster's) (faster by a few percent, but p would no longer be exp(s -
 // max) / sum as the forward and the plain version form it).
 //
-// T > 320 (streamed, up to 46,340 keys): two kernels on mma.sync m16n8k16
+// T > 512 (streamed, up to 46,340 keys): two kernels on mma.sync m16n8k16
 // with cp.async staging, joined by an fp32 (B, H, T, 3) scratch of each
-// query row's (max, sum, row term):
+// query row's (max, sum, row term).  This range is the port's own: the TPU
+// kernel does not run past 512 keys at ViT width (the JAX towers take the
+// XLA path there).
 // - dq: a block per (64-row query tile, head, image), a warp a 16-row
 //   m-tile with its Q and g rows as A fragments, three passes over 64-key
 //   tiles of K and V (two buffers): the rows' max and sum; S again and gP
@@ -98,7 +116,7 @@
 //   keep and gS, then gV += pd^T . g and gK += gS^T . Q; the sums stay in
 //   registers.  The dropout element stays query * T + key.
 // That split computes ten products where the function has five; it is
-// kept past 320 keys, where a cluster could not hold an (image, head).
+// kept past 512 keys, beyond the portable cluster size of 8 blocks.
 //
 // fp32 (tests, the fp32 compute dtype): the same split on the CUDA cores
 // (mha.cuh's rows kernels), 32-row query tiles against 32-key tiles; no
@@ -112,9 +130,11 @@ namespace {
 using namespace mha;
 
 // ---------------------------------------------------------------------
-// bf16, T <= kResMaxKeys: the cluster design (see the top)
+// bf16, T <= kClusterMaxKeys: the cluster design (see the top)
 // ---------------------------------------------------------------------
 
+constexpr int kClusterMaxKeys = 512;  // 8 blocks of 64 keys: the portable cluster size
+constexpr int kMaxCluster = kClusterMaxKeys / kFwdTile;
 constexpr int kBwdThreads = 128;     // a block: one warpgroup
 constexpr int kGqStr = kDk + 8;      // fp32 row stride of the gQ partial (spreads rows over banks)
 
@@ -164,18 +184,19 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
 
 // The rows (g, g + 8) of this warp's 16: their values of one exchanged
 // statistic (64 floats at `stat` in every block), combined over the NC
-// ranks in rank order by max or sum.
+// ranks in rank order by max or sum, a running one (one partial loaded a
+// step, so the registers do not grow with NC).
 template <int NC, bool kMax>
 __device__ __forceinline__ void combine_rows(float (&out)[2], uint32_t stat, int warp, int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const uint32_t row = stat + (16 * warp + lane / 4 + 8 * half) * 4;
-    float x[NC];
+    float v = ld_cluster(map_rank(row, 0));
 #pragma unroll
-    for (int r = 0; r < NC; ++r) x[r] = ld_cluster(map_rank(row, r));
-    float v = x[0];
-#pragma unroll
-    for (int r = 1; r < NC; ++r) v = kMax ? fmaxf(v, x[r]) : v + x[r];
+    for (int r = 1; r < NC; ++r) {
+      const float x = ld_cluster(map_rank(row, r));
+      v = kMax ? fmaxf(v, x) : v + x;
+    }
     out[half] = v;
   }
 }
@@ -191,7 +212,7 @@ __device__ __forceinline__ void put_rows(float* stat, const float (&v)[2], int w
 
 // Block `rank`'s share of query tile mt's gQ: the 64 x 64 tile in 4-float
 // units, 1 / NC of them a block, each summed over the NC blocks' partials
-// in rank order and written in bf16 (rows past T skipped).
+// in rank order (a running sum) and written in bf16 (rows past T skipped).
 template <int NC>
 __device__ __forceinline__ void reduce_gq(uint32_t part, bf16* __restrict__ gq, int mt, int rank,
                                           int b, int h, const Dims& d) {
@@ -201,16 +222,14 @@ __device__ __forceinline__ void reduce_gq(uint32_t part, bf16* __restrict__ gq, 
     const int row = u / (kDk / 4), c4 = u % (kDk / 4), i = mt * kFwdTile + row;
     if (i >= d.T) break;  // units run row by row
     const uint32_t at = part + (row * kGqStr + 4 * c4) * 4;
-    float4 x[NC];
+    float4 v = ld_cluster4(map_rank(at, 0));
 #pragma unroll
-    for (int r = 0; r < NC; ++r) x[r] = ld_cluster4(map_rank(at, r));
-    float4 v = x[0];
-#pragma unroll
-    for (int r = 1; r < NC; ++r) {
-      v.x += x[r].x;
-      v.y += x[r].y;
-      v.z += x[r].z;
-      v.w += x[r].w;
+    for (int r = 1; r < NC; ++r) {  // a running sum: one partial in registers at a time
+      const float4 x = ld_cluster4(map_rank(at, r));
+      v.x += x.x;
+      v.y += x.y;
+      v.z += x.z;
+      v.w += x.w;
     }
     *reinterpret_cast<uint2*>(gq + (static_cast<size_t>(b) * d.T + i) * d.D + h * kDk + 4 * c4) =
         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
@@ -474,15 +493,40 @@ typedef void (*ClusterKernel)(const CUtensorMap, const CUtensorMap, const CUtens
                               const float*, bf16*, Dims, Dropout);
 
 // [NC - 1][train]
-const ClusterKernel kClusterKernels[kResMaxKeys / kFwdTile][2] = {
+const ClusterKernel kClusterKernels[kMaxCluster][2] = {
     {mha_bwd_cluster_kernel<1, false>, mha_bwd_cluster_kernel<1, true>},
     {mha_bwd_cluster_kernel<2, false>, mha_bwd_cluster_kernel<2, true>},
     {mha_bwd_cluster_kernel<3, false>, mha_bwd_cluster_kernel<3, true>},
     {mha_bwd_cluster_kernel<4, false>, mha_bwd_cluster_kernel<4, true>},
-    {mha_bwd_cluster_kernel<5, false>, mha_bwd_cluster_kernel<5, true>}};
+    {mha_bwd_cluster_kernel<5, false>, mha_bwd_cluster_kernel<5, true>},
+    {mha_bwd_cluster_kernel<6, false>, mha_bwd_cluster_kernel<6, true>},
+    {mha_bwd_cluster_kernel<7, false>, mha_bwd_cluster_kernel<7, true>},
+    {mha_bwd_cluster_kernel<8, false>, mha_bwd_cluster_kernel<8, true>}};
 
-// One launch: grid (NC, H, B), clusters of NC blocks along x.  q, k, v, g,
-// gk and gv start on 16-byte boundaries (TMA), which the wrapper checks.
+// The launch configuration of the instance for nc key blocks: grid (nc, H,
+// B), clusters of nc blocks along x (sizes up to 8 are portable); sets the
+// instance's shared-memory limit first.
+cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int nc, bool train,
+                           int H, int B, cudaStream_t stream, ClusterKernel* kernel) {
+  *kernel = kClusterKernels[nc - 1][train ? 1 : 0];
+  const cudaError_t err = allow_smem(*kernel, ClusterLayout::bytes);
+  if (err != cudaSuccess) return err;
+  cfg = {};
+  cfg.gridDim = dim3(nc, H, B);
+  cfg.blockDim = dim3(kBwdThreads, 1, 1);
+  cfg.dynamicSmemBytes = ClusterLayout::bytes;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nc;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// One launch.  q, k, v, g, gk and gv start on 16-byte boundaries (TMA),
+// which the wrapper checks.
 cudaError_t launch_cluster(const void* q, const void* k, const void* v, const void* bias,
                            const void* g, void* gq, void* gk, void* gv, int B, const Dims& d,
                            const Dropout& drop, cudaStream_t stream) {
@@ -492,22 +536,12 @@ cudaError_t launch_cluster(const void* q, const void* k, const void* v, const vo
     const cudaError_t err = sm90::encode_planes(&maps[i], ptrs[i], d.D, d.T, B);
     if (err != cudaSuccess) return err;
   }
-  const int nc = (d.T + kFwdTile - 1) / kFwdTile;
-  const ClusterKernel kernel = kClusterKernels[nc - 1][drop.on ? 1 : 0];
-  cudaError_t err = allow_smem(kernel, ClusterLayout::bytes);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterKernel kernel;
+  cudaError_t err = cluster_config(cfg, attr, (d.T + kFwdTile - 1) / kFwdTile, drop.on, d.H, B,
+                                   stream, &kernel);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nc, d.H, B);
-  cfg.blockDim = dim3(kBwdThreads, 1, 1);
-  cfg.dynamicSmemBytes = ClusterLayout::bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nc;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
                            static_cast<const float*>(bias), static_cast<bf16*>(gq), d, drop);
   if (err != cudaSuccess) return err;
@@ -515,7 +549,7 @@ cudaError_t launch_cluster(const void* q, const void* k, const void* v, const vo
 }
 
 // ---------------------------------------------------------------------
-// bf16, T > kResMaxKeys: the streamed split on mma.sync (see the top)
+// bf16, T > kClusterMaxKeys: the streamed split on mma.sync (see the top)
 // ---------------------------------------------------------------------
 
 // One m-tile of the query side: 16 query rows (the first is i0) with their
@@ -1067,10 +1101,26 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
 }  // namespace iisan
 
 // The design iisan_mha_bwd runs at T keys: 0 the fp32 rows (CUDA cores), 1
-// the bf16 cluster (up to kResMaxKeys keys), 2 the bf16 streamed split.
+// the bf16 cluster (up to kClusterMaxKeys keys), 2 the bf16 streamed split.
 // The wrapper asks here which buffers and alignment a call needs.
 extern "C" int iisan_mha_bwd_design(int T, int is_bf16) {
-  return !is_bf16 ? 0 : T <= iisan::mha::kResMaxKeys ? 1 : 2;
+  return !is_bf16 ? 0 : T <= iisan::kClusterMaxKeys ? 1 : 2;
+}
+
+// How many clusters of the cluster design's instance for nc key blocks
+// (eval, or train when `train`) the current card can hold at once
+// (cudaOccupancyMaxActiveClusters), into *clusters; 0 means the instance
+// cannot be launched there.  Returns the CUDA error (0 on success).
+extern "C" int iisan_mha_bwd_active_clusters(int nc, int train, int* clusters) {
+  if (nc < 1 || nc > iisan::kMaxCluster || clusters == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  iisan::ClusterKernel kernel;
+  cudaError_t err = iisan::cluster_config(cfg, attr, nc, train != 0, 1, 1, nullptr, &kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  return static_cast<int>(err);
 }
 
 // q, k, v, g, gq, gk, gv (B, T, D) T; bias (B, T) fp32 or null; the dropout

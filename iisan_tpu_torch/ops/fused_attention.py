@@ -10,7 +10,7 @@ and ViT layer of the uncached towers.  Three kernels:
   so T up to 46,340 fits; heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
   dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; in bf16
-  up to 320 keys one launch, a thread-block cluster per (image, head) whose
+  up to 512 keys one launch, a thread-block cluster per (image, head) whose
   blocks own 64 keys each and trade the rows' max, sum and row term (and
   gQ's partials) through distributed shared memory, the five products on
   wgmma with TMA-fed operands; beyond, and in fp32, two kernels, one over
@@ -41,6 +41,7 @@ and no two layers share one.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -52,7 +53,8 @@ from ..utils import flops
 DK = 64                     # head width the kernels take
 MAX_GRID = 65535            # B and H are grid dimensions
 MAX_T = 46340               # dropout elements i * T + j stay below 2^31
-RESIDENT_KEYS = 320         # keys one block (#5) or one cluster (#6) holds: kResMaxKeys
+RESIDENT_KEYS = 320         # keys one block of the bf16 forward (#5) holds: kResMaxKeys
+CLUSTER_KEYS = 512          # keys one cluster of the bf16 backward (#6) holds: kClusterMaxKeys
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -75,14 +77,14 @@ BWD_DESIGNS = ("rows", "wgmma_cluster", "tensor_cores")  # iisan_mha_bwd_design'
 
 def bwd_design(T: int, itemsize: int) -> str:
     """The backward design a call runs (``iisan_mha_bwd`` in
-    csrc/mha_bwd.cu): in bf16 ``"wgmma_cluster"`` up to 320 keys (one
-    launch, a cluster of T / 64 rounded up blocks per (image, head)) and
-    ``"tensor_cores"`` beyond (the streamed mma.sync pair with its fp32
-    scratch); ``"rows"`` in fp32 (the CUDA cores) at every T.  The CPU's
-    copy of ``library_bwd_design``, held to it on the card."""
+    csrc/mha_bwd.cu): in bf16 ``"wgmma_cluster"`` up to 512 keys (one
+    launch, a cluster of T / 64 rounded up blocks per (image, head), 1 to
+    8) and ``"tensor_cores"`` beyond (the streamed mma.sync pair with its
+    fp32 scratch); ``"rows"`` in fp32 (the CUDA cores) at every T.  The
+    CPU's copy of ``library_bwd_design``, held to it on the card."""
     if itemsize != 2:
         return "rows"
-    return "wgmma_cluster" if T <= RESIDENT_KEYS else "tensor_cores"
+    return "wgmma_cluster" if T <= CLUSTER_KEYS else "tensor_cores"
 
 
 def library_bwd_design(T: int, itemsize: int) -> str:
@@ -92,6 +94,37 @@ def library_bwd_design(T: int, itemsize: int) -> str:
     from ..kernels.build import library
 
     return BWD_DESIGNS[library().iisan_mha_bwd_design(T, int(itemsize == 2))]
+
+
+def cluster_blocks(T: int) -> int:
+    """Blocks of 64 keys in one cluster of the bwd design ``"wgmma_cluster"``
+    at T keys: the instance ``mha_bwd_cluster_kernel<NC, train>`` a call
+    launches."""
+    return -(-T // 64)
+
+
+def active_clusters(T: int, train: bool, device=None) -> int:
+    """How many clusters of the cluster design's instance at T keys (eval,
+    or train mode) the card holds at once (``cudaOccupancyMaxActiveClusters``
+    through ``iisan_mha_bwd_active_clusters``; needs the built library and
+    a card, the current one where ``device`` is None); asked once an
+    instance and card.  ``mha_bwd`` raises where it is 0."""
+    index = None if device is None else torch.device(device).index
+    return _active_clusters(torch.cuda.current_device() if index is None else index,
+                            cluster_blocks(T), bool(train))
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(index: int, blocks: int, train: bool) -> int:
+    import ctypes
+
+    from ..kernels.build import check, library
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        check(library().iisan_mha_bwd_active_clusters(blocks, int(train), ctypes.byref(n)),
+              "mha_bwd (cluster occupancy)")
+    return n.value
 
 
 def bwd_supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
@@ -294,9 +327,15 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
         raise ValueError(f"g must be {tuple(q.shape)} {q.dtype} on {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
     design = library_bwd_design(T, q.element_size())
-    if design == "wgmma_cluster" and any(t.data_ptr() % 16 for t in (q, k, v, g)):
-        raise ValueError("mha_bwd: bf16 q, k, v and g must start on 16-byte "
-                         "boundaries (the kernel reads them by TMA)")
+    if design == "wgmma_cluster":
+        if any(t.data_ptr() % 16 for t in (q, k, v, g)):
+            raise ValueError("mha_bwd: bf16 q, k, v and g must start on 16-byte "
+                             "boundaries (the kernel reads them by TMA)")
+        if active_clusters(T, rate > 0.0, q.device) == 0:
+            raise RuntimeError(
+                f"mha_bwd: a cluster of {cluster_blocks(T)} blocks (T={T}) cannot "
+                "be scheduled on this card (cudaOccupancyMaxActiveClusters is 0); "
+                "no other design runs in its place")
     bias = None if bias is None else bias.contiguous()
     gq, gk, gv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     # the two-kernel designs: each query row's (max, sum, row term), from

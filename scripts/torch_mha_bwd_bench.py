@@ -8,9 +8,10 @@ and inside the training steps that run it.
 The kernel alone at ``chip_smoke.py``'s cases (``MHA_BWD_CASES``), 768 wide, 12
 heads: at the FFT step's 88 rows (8 users x 11 items) BERT titles (30
 tokens, padded key bias, dropout 0.1), ViT images (197 tokens) in bf16 and
-in fp32, 257 tokens in train mode, 325 tokens in train mode (past the
-cluster design's 320 keys: the streamed pair), and ViT at the TPME
-report's batch of 32 users (352 images).  For each case, the design the call runs
+in fp32, and in train mode 257 and 325 tokens and 448 and 512 keys (the
+cluster design, up to its 512 keys) and 577 tokens (``CV_resize=384``: the
+streamed pair), and ViT at the TPME report's batch of 32 users (352
+images).  For each case, the design the call runs
 (``bwd_design``), ``--runs`` medians of 10 CUDA-event timings of the kernel
 and of the backward alone of ``scaled_dot_product_attention`` on the same
 inputs (``sdpa_bwd_ms``: timing only in train mode, its masks are not the
@@ -20,8 +21,9 @@ the card waits for the launch: each of the call's kernels and the sum of
 the SDPA backward's.
 
 Then the steps: a full fine-tuning step at batch 8 (88 images and
-titles, ``chip_smoke.train_fft``'s trainer) and a LoRA step at batch 32
-(352), each on a staged batch of ``chip_smoke.py``'s synthetic corpus:
+titles, ``chip_smoke.train_fft``'s trainer), the same at ``CV_resize=288``
+(325 image tokens) and a LoRA step at batch 32 (352), each on a staged
+batch of ``chip_smoke.py``'s synthetic corpus:
 ``--runs`` times, the host ms of a synchronised step (median of 3), the
 step's device-busy ms over 3 profiled steps, the attention kernels' ms
 (#5 and #6) and #6's alone, a step.
@@ -48,7 +50,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 # step case: (users a batch, trainer options)
-STEPS = {"fft8": (8, dict(adding_adapter_to="None", adapter_type="houslby")),
+FFT = dict(adding_adapter_to="None", adapter_type="houslby")
+STEPS = {"fft8": (8, FFT), "fft8_288": (8, dict(FFT, CV_resize=288)),
          "lora32": (32, dict(adapter_type="lora"))}
 
 
@@ -131,7 +134,8 @@ def main() -> int:
                                   seed=0)
         tr = cs.uncached_trainer(device, corpus, batch_size=users, **options)
         batch = cs.staged_batch(tr, 0)
-        row = {"case": case, "users": users, "method": tr.method, "host_ms": [],
+        row = {"case": case, "users": users, "method": tr.method,
+               "CV_resize": tr.cfg.CV_resize, "host_ms": [],
                "busy_ms": [], "attention_ms": [], "mha_bwd_ms": []}
         for _ in range(args.runs):
             host = cs.host_timed(lambda: (tr.train_step(*batch), torch.cuda.synchronize()), 3)
@@ -145,10 +149,10 @@ def main() -> int:
             row["busy_ms"].append(sum(t for _, t in kernels))
             row["attention_ms"].append(sum(t for key, t in kernels if "mha_" in key))
             row["mha_bwd_ms"].append(sum(t for key, t in kernels if "mha_bwd" in key))
-        print(f"{tr.method} step at batch {users} ({users * (cs.SEQ_LEN + 1)} images, "
-              f"staged): device-busy {row['busy_ms']} ms, attention kernels "
-              f"{row['attention_ms']} ms, #6 {row['mha_bwd_ms']} ms, host {row['host_ms']} ms",
-              flush=True)
+        print(f"{case}: {tr.method} step at batch {users} ({users * (cs.SEQ_LEN + 1)} "
+              f"images, CV_resize={tr.cfg.CV_resize}, staged): device-busy "
+              f"{row['busy_ms']} ms, attention kernels {row['attention_ms']} ms, #6 "
+              f"{row['mha_bwd_ms']} ms, host {row['host_ms']} ms", flush=True)
         results.append(row)
         del tr, batch
         torch.cuda.empty_cache()

@@ -285,11 +285,16 @@ def test_all_pad_rows_are_uniform_and_finite():
 def test_kernel_geometry():
     assert fa.supported(704, 197, 768, 12) and fa.bwd_supported(704, 197, 768, 12)
     assert fa.supported(704, 30, 768, 12) and fa.bwd_supported(704, 30, 768, 12)
-    # bf16 runs the cluster design up to 320 keys and the streamed
-    # tensor-core pair beyond, fp32 the CUDA-core one
+    # bf16 runs the cluster design up to 512 keys (clusters of one to eight
+    # blocks of 64) and the streamed tensor-core pair beyond, fp32 the
+    # CUDA-core one
+    assert fa.CLUSTER_KEYS == 512
     assert fa.bwd_design(197, 2) == fa.bwd_design(30, 2) == "wgmma_cluster"
-    assert fa.bwd_design(320, 2) == "wgmma_cluster"
-    assert fa.bwd_design(321, 2) == "tensor_cores"
+    assert fa.bwd_design(320, 2) == fa.bwd_design(321, 2) == "wgmma_cluster"
+    assert fa.bwd_design(325, 2) == fa.bwd_design(512, 2) == "wgmma_cluster"
+    assert fa.bwd_design(513, 2) == "tensor_cores"
+    assert [fa.cluster_blocks(T) for T in (1, 64, 65, 320, 321, 448, 449, 512)] == \
+        [1, 1, 2, 5, 6, 7, 8, 8]
     assert fa.bwd_design(197, 4) == fa.bwd_design(30, 4) == "rows"
     assert not fa.supported(8, 30, 96, 2)            # head width 48
     assert fa.supported(8, 257, 768, 12)             # keys stream in tiles
@@ -299,16 +304,16 @@ def test_kernel_geometry():
     assert fa.supported(1, 46340, 64, 1) and not fa.supported(1, 46341, 64, 1)
 
 
-@pytest.mark.parametrize("T", [1, 197, 256, 257, 1024, 46340])
+@pytest.mark.parametrize("T", [1, 197, 256, 257, 325, 512, 513, 1024, 46340])
 def test_kernels_take_any_number_of_keys(T):
     """#5 and #6 take every T, in bf16 and fp32; the backward's design
     depends on the dtype and, in bf16, on whether a cluster holds the keys
-    (up to 320)."""
+    (up to 512)."""
     for itemsize in (2, 4):
         assert fa.supported(704, T, 768, 12, itemsize)
         assert fa.bwd_supported(88, T, 768, 12, itemsize)
         want = ("rows" if itemsize == 4 else
-                "wgmma_cluster" if T <= 320 else "tensor_cores")
+                "wgmma_cluster" if T <= 512 else "tensor_cores")
         assert fa.bwd_design(T, itemsize) == want
 
 
@@ -342,8 +347,9 @@ def test_backward_matches_jax_bf16_at_tile_edges(interpret_pallas, T, with_bias)
 
 
 def _cluster_bwd(q, k, v, bias, g, *, n_heads, seed=0, rate=0.0, layer=0):
-    """The bf16 backward's cluster design (csrc/mha_bwd.cu, up to 320
-    keys) in plain PyTorch: each block of the cluster holds 64 keys, and
+    """The bf16 backward's cluster design (csrc/mha_bwd.cu, up to 512
+    keys, one to eight blocks) in plain PyTorch: each block of the cluster
+    holds 64 keys, and
     the rows' max, sum of exp(s - max) and term sum_j gP p are combined
     from the blocks' partials in rank order 0, 1, ..., as are the blocks'
     partial products gS . K_r of gQ; every other step is
@@ -392,11 +398,12 @@ def _hashed_keep(b, h, i, j, T, H, rate, xp):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("T", [197, 257])
+@pytest.mark.parametrize("T", [197, 257, 325, 512])
 def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtype, rate,
                                                           T):
-    """The cluster design's combine (4 and 5 blocks of 64 keys at ViT's 197
-    and 257 tokens) against ``mha_bwd_plain`` and against the JAX
+    """The cluster design's combine (4, 5, 6 and 8 blocks of 64 keys at
+    ViT's 197, 257 and 325 tokens and at 512, the most keys the JAX kernel
+    takes at ViT width) against ``mha_bwd_plain`` and against the JAX
     ``_mha_bwd_kernel`` (interpret mode, through ``fused_mha``'s VJP), in
     eval and train mode.  In train mode the three take one set of masks:
     the JAX kernels' per-head mask draw and the port's ``_masks`` are both

@@ -60,8 +60,9 @@ Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
 probability may round to the neighbouring bf16 value on one side only; the
 mask replay kernel is bit-equal to its plain version.  The bf16 backward
 runs its cluster design (wgmma, HGMMA and no HMMA in its SASS) at every
-edge of it, one to five key blocks (1 to 320 keys), and the streamed pair
-at 321, each case's design asserted.  Planted faults (the key bias
+edge of it, one to eight key blocks (1 to 512 keys), and the streamed pair
+at 513, each case's design asserted; every cluster instance can be
+scheduled, and one that cannot raises with no launch.  Planted faults (the key bias
 dropped on a padded batch, the backward run with another seed, the
 softmax row term dropped from the backward; the dkv kernel's dropout
 element transposed, the row term taken as FlashAttention's rowsum(g * o),
@@ -829,10 +830,13 @@ def test_mha_fwd_matches_plain_at_the_tile_edges(cuda_device, rate, with_bias, B
 
 
 # Key counts at every edge of the bf16 backward's designs: the cluster
-# design's one to five blocks of 64 keys (1, 2, 16, 30, 63 and 64 in one
+# design's one to eight blocks of 64 keys (1, 2, 16, 30, 63 and 64 in one
 # block; 65 in two; 128, 192, 197 (ViT) in two to four; 257, 319 and 320 in
-# five) and the streamed pair one key past it (321).
-MHA_BWD_EDGES = (1, 2, 16, 30, 63, 64, 65, 128, 192, 197, 257, 319, 320, 321)
+# five; 321 and 325 (ViT at CV_resize=288) and 384 in six; 385 and 448 in
+# seven; 449, 511 and 512 in eight, up to fa.CLUSTER_KEYS) and the streamed
+# pair one key past it (513).
+MHA_BWD_EDGES = (1, 2, 16, 30, 63, 64, 65, 128, 192, 197, 257, 319, 320, 321, 325, 384,
+                 385, 448, 449, 511, 512, 513)
 
 
 @pytest.mark.cuda
@@ -844,14 +848,15 @@ def test_mha_bwd_designs_match_plain(cuda_device, T, with_bias, rate, B):
     """#6 in bf16 at each edge of its designs, one image and the FFT
     step's 88, eval and train mode, with and without the key bias: the
     design ``bwd_design`` names (one cluster of T / 64 rounded up blocks up
-    to 320 keys, the streamed pair beyond), one launch of the wrapper, and
-    the bf16 bound against ``mha_bwd_plain``.  ``bwd_design``, the CPU's
-    copy, names what the library chooses in both dtypes."""
+    to ``fa.CLUSTER_KEYS``, the streamed pair beyond), one launch of the
+    wrapper, and the bf16 bound against ``mha_bwd_plain``.  ``bwd_design``,
+    the CPU's copy, names what the library chooses in both dtypes."""
     dt = torch.bfloat16
     q, k, v, g, bias = _mha_inputs(cuda_device, B, T, 768, dt, seed=T)
     bias = bias if with_bias else None
     kw = dict(n_heads=12, seed=4242, rate=rate, layer=7)
-    assert fa.bwd_design(T, 2) == ("wgmma_cluster" if T <= 320 else "tensor_cores")
+    assert fa.bwd_design(T, 2) == ("wgmma_cluster" if T <= fa.CLUSTER_KEYS
+                                   else "tensor_cores")
     assert fa.library_bwd_design(T, 2) == fa.bwd_design(T, 2)
     assert fa.library_bwd_design(T, 4) == fa.bwd_design(T, 4) == "rows"
     b0 = fa.mha_bwd.launches
@@ -864,13 +869,37 @@ def test_mha_bwd_designs_match_plain(cuda_device, T, with_bias, rate, B):
 
 @pytest.mark.cuda
 def test_attention_backward_cluster_kernels_run_on_wgmma(cuda_device):
-    """Each instance of #6's cluster design (one to five key blocks, eval
+    """Each instance of #6's cluster design (one to eight key blocks, eval
     and train) has HGMMA (wgmma) in its SASS and no HMMA (mma.sync)."""
     from iisan_tpu_torch.kernels import build
 
     counts = build.sass_mma_counts("mha_bwd_cluster_kernel")
-    assert len(counts) == 10
+    assert len(counts) == 16
     assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("blocks", range(1, 9))
+def test_every_cluster_instance_can_be_scheduled(cuda_device, blocks, train):
+    """The card holds at least one cluster of each instance of #6's cluster
+    design (``cudaOccupancyMaxActiveClusters``), from one block of 64 keys
+    to eight (512 keys)."""
+    assert fa.cluster_blocks(64 * blocks) == blocks
+    assert fa.active_clusters(64 * blocks, train, cuda_device) > 0
+
+
+@pytest.mark.cuda
+def test_mha_bwd_raises_where_a_cluster_cannot_be_scheduled(cuda_device, monkeypatch):
+    """A cluster the card cannot schedule raises, naming its blocks, with no
+    launch: no other design runs in its place."""
+    dt = torch.bfloat16
+    q, k, v, g, bias = _mha_inputs(cuda_device, 1, 448, 768, dt)
+    monkeypatch.setattr(fa, "active_clusters", lambda T, train, device=None: 0)
+    b0 = fa.mha_bwd.launches
+    with pytest.raises(RuntimeError, match="cluster of 7 blocks"):
+        fa.mha_bwd(q, k, v, bias, g, n_heads=12)
+    assert fa.mha_bwd.launches == b0
 
 
 @pytest.mark.cuda
@@ -1005,12 +1034,15 @@ def test_mha_planted_faults_break_the_bounds(cuda_device, dtype, B, T, D, H):
 @pytest.mark.parametrize("dtype,rate,T", [(torch.bfloat16, 0.0, 197), (torch.bfloat16, 0.1, 197),
                                           (torch.float32, 0.1, 197), (torch.bfloat16, 0.1, 30),
                                           (torch.bfloat16, 0.0, 257), (torch.bfloat16, 0.1, 257),
-                                          (torch.bfloat16, 0.1, 321)])
+                                          (torch.bfloat16, 0.1, 321), (torch.bfloat16, 0.1, 325),
+                                          (torch.bfloat16, 0.0, 512), (torch.bfloat16, 0.1, 512),
+                                          (torch.bfloat16, 0.1, 513)])
 def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate, T):
     """Two launches on the same inputs (the FFT step's 88 images) give the
     same bits: no atomics, every sum in a fixed order (the cluster design
     combines its blocks' partials in rank order, from one block at 30 keys
-    to five at 257; the streamed pair at 321)."""
+    to five at 257, six at 321 and 325, eight at 512; the streamed pair at
+    513)."""
     q, k, v, g, bias = _mha_inputs(cuda_device, 88, T, 768, dtype, seed=4)
     kw = dict(n_heads=12, seed=5, rate=rate, layer=6)
     first = fa.mha_bwd(q, k, v, bias, g, **kw)
@@ -1074,14 +1106,15 @@ def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=
     return fa._merge(g_q, dt), fa._merge(g_k, dt), fa._merge(g_v, dt)
 
 
-# (T, fault): the streamed split's faults at one and four cluster blocks
-# and on the streamed pair, the cluster design's at four and five blocks
+# (T, fault): the streamed split's faults at one, four and six cluster
+# blocks and on the streamed pair (513), the cluster design's at four, five
+# and eight blocks
 MHA_BWD_FAULTS = (
-    [(T, f) for T in (30, 197, 321) for f in ("dkv dropout transposed", "flash row term",
-                                              "dkv statistics of another head")]
-    + [(T, f) for T in (197, 257) for f in ("cluster sum without block 0",
-                                            "cluster gQ without block 0",
-                                            "cluster row term of each block alone")])
+    [(T, f) for T in (30, 197, 321, 513) for f in ("dkv dropout transposed", "flash row term",
+                                                   "dkv statistics of another head")]
+    + [(T, f) for T in (197, 257, 512) for f in ("cluster sum without block 0",
+                                                 "cluster gQ without block 0",
+                                                 "cluster row term of each block alone")])
 
 
 @pytest.mark.cuda
@@ -1089,12 +1122,14 @@ MHA_BWD_FAULTS = (
 def test_mha_bwd_planted_faults_break_the_bound(cuda_device, T, fault):
     """Each fault breaks the bf16 bound that the kernels meet on the same
     inputs.  The dropout fault needs train mode.  FlashAttention's row term
-    equals sum_j gP p up to the rounding of pd and o, so it shows where gP
-    is nearly constant along a row: values that differ across keys by 1%
-    of their size (eval mode)."""
+    equals sum_j gP p up to the rounding of pd and o, and with random
+    values the row term is small against gP (at 512 keys a block's partial
+    in its place moves the gradients by 4.5% of their scale only), so the
+    two row-term faults show where gP is nearly constant along a row:
+    values that differ across keys by 1% of their size (eval mode)."""
     dt = torch.bfloat16
     q, k, v, g, bias = _mha_inputs(cuda_device, 4, T, 768, dt, seed=3)
-    if fault == "flash row term":
+    if fault in ("flash row term", "cluster row term of each block alone"):
         gen = torch.Generator().manual_seed(8)
         u = torch.randn(4, 1, 768, generator=gen).to(cuda_device)
         v = (u + 0.01 * v.float()).to(dt)
