@@ -75,23 +75,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``max_seq_len=20`` (the encoder backward's stash in its global
    scratch), the encoder kernels once a step.
 7. Hold the tower-attention kernels against their plain versions in bf16
+   and in fp32 (three TF32 passes; fp32 inputs use all 24 bits)
    (``check_attention``): the forward at the BERT step geometry (704
    titles x 30 tokens, D=768, 12 heads, padded key bias with an all-pad
    row) in eval mode and in train mode (dropout 0.1, the same Philox masks
-   on both sides), at the ViT step geometry (704 images x 197 tokens,
-   compared on a 64-image slice, timed at 704) in eval mode and in fp32,
-   and at 257 tokens (a 256-pixel ViT) in eval and train mode; at every
-   edge of the forward's tiling (``ATTN_FWD_EDGES``, 1 to 4,097 tokens, two
-   images) in eval and train mode with and without the key bias, each
-   image's eval output bit-equal to a launch of its own, and a train-mode
-   forward with #6's gradient of it at 197 and 257 tokens; the
+   on both sides), both dtypes, at the ViT step geometry (704 images x 197
+   tokens, compared on a 64-image slice, timed at 704) in eval mode, and
+   at 257 tokens (a 256-pixel ViT) in eval and train mode, and both in
+   fp32; at every edge of the forward's tiling (``ATTN_FWD_EDGES``, 1 to
+   4,097 tokens, two images) in both dtypes, eval and train mode, with and
+   without the key bias, each image's eval output bit-equal to a launch of
+   its own, and a train-mode forward with #6's gradient of it at 197 and
+   257 tokens; the
    backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT,
    257 and 325 tokens and 448 and 512 keys in train mode and ViT in eval mode
    (bf16: the cluster design, one to eight blocks of 64 keys), 577 tokens
    in train mode (``CV_resize=384``, past 512 keys: the streamed
-   ``mma.sync`` pair), ViT in fp32 (the CUDA-core one), and ViT at the TPME report's
-   batch of 32 users (352 rows), each case's design and device time beside
-   SDPA's backward and the bound printed, and two launches bit-equal in
+   ``mma.sync`` pair), ViT in eval mode and BERT in train mode in fp32
+   (the three-pass TF32 pair), and ViT at the TPME report's batch of 32
+   users (352 rows) in both dtypes, each case's design and device time
+   beside SDPA's backward and the bound printed (fp32: both ways, three
+   TF32 passes on the tensor cores and the function on the CUDA cores),
+   and two launches bit-equal in
    every case, with the clusters the card holds of each cluster instance
    (``cudaOccupancyMaxActiveClusters``); the mask
    replay kernel bit for bit at the BERT step (704 x 30) and the FFT
@@ -121,6 +126,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
 10. From one set of weights at tower and user-encoder dropout 0, 3 IISAN
    and 3 FFT steps through the kernels and through the module path: the
    losses agree within 2e-2.
+10a. The fp32 compute dtype (any ``--use_scale`` but "half"): one staged
+   IISAN (Uncached) step at batch 64 and one FFT step at batch 8, with the
+   counters at 0: 24 ``mha_fwd`` a step, and 0 / 24 ``mha_bwd``, as in
+   bf16 (the three-pass TF32 kernels; their launches are the fp32 kernels'
+   in the kernel line), a finite loss, the step's host and device-busy
+   time by kernel family.
 11. Hold the streamed cascade kernel (#4) against its plain version in
    bf16 at the Versa text geometry (K=7, D=8192): N=8192 (a table chunk)
    and 704 (a training step), R=64 and 128, ReLU and GELU, gated and
@@ -272,13 +283,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    reference's format (20,825 items, 12,076 users; two fp16 stores of
    (20,826, 13, 768) random rows) is written to a temporary directory;
    ``python -m iisan_tpu_torch.cli --pipeline cached`` at ``bench.py``'s
-   settings trains 2 epochs as a subprocess (checkpoints, an artifact,
+   settings trains 1 epoch as a subprocess (checkpoints, an artifact,
    finite losses, each epoch's host time and valid HR@10 / nDCG@10 from
-   its log), resumes from the latest checkpoint for one more epoch, tests
-   it (``--mode test``: its artifact's ``top_k`` ids at batch 1, 32 and
-   256 equal those of ``Recommender.from_trainer`` of the resumed trainer),
-   trains an epoch with ``--use_pallas true`` (#3 launched) and 2 epochs
-   with ``--item_tower id`` (export and ``top_k``).  In this process,
+   its log) and tests its checkpoint (``--mode test``: its artifact's
+   ``top_k`` ids at batch 1, 32 and 256 equal those of
+   ``Recommender.from_trainer`` of the trainer resumed from it).  In this
+   process (the flags' parsing, ``--load_ckpt_name`` included, is the CPU
+   tests' ``tests/test_torch_cli.py``), an epoch with ``use_pallas`` (#3
+   launched) and 1 epoch with ``item_tower="id"`` (export and ``top_k``);
    ``run_from_config`` for 2 epochs and for 1 epoch, a checkpoint, a resume
    and 1 more agree bit for bit (parameters and Adam moments), and a fresh
    trainer warm-started from a reference ``.pt`` of the trained model
@@ -394,6 +406,7 @@ STEP_ROWS, FFT_BATCH = 64 * (SEQ_LEN + 1), 8
 # The H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds.
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # the tensor cores' TF32 rate: the fp32 attention kernels take 3 passes
 # The W8A8 kernels' shapes on the step: every tower dense layer's (K, N) at
 # the ViT rows (704 images x 197 tokens) and the BERT rows (704 x 30); and
 # BERT-large's FFN output layer (K = 4096, N = 1024) at the BERT rows.
@@ -1207,6 +1220,25 @@ def mha_bound(B, T, D, H, bias: bool, bwd: bool, itemsize: int = 2):
                  PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
+def mha_bounds_fp32(B, T, D, H, bias: bool, bwd: bool):
+    """The fp32 attention kernels' two bounds at one shape: the function's
+    operations on the CUDA cores (``mha_bound`` at itemsize 4) and the
+    three TF32 passes the kernels run on the tensor cores, each product
+    three times at 495 TFLOP/s; the same bytes either way."""
+    from iisan_tpu_torch.utils import flops
+
+    tensors = 7 if bwd else 4
+    nbytes = tensors * B * T * D * 4 + (B * T * 4 if bias else 0)
+    return (mha_bound(B, T, D, H, bias, bwd, 4),
+            bound(nbytes, 3 * flops.mha(B, T, D, H, bwd), PEAK_TF32_FLOPS))
+
+
+def bounds_text(b32) -> str:
+    (c_ms, c_by), (t_ms, t_by) = b32
+    return (f"bound {t_ms:.4f} ms ({t_by}, three TF32 passes) / {c_ms:.4f} ms "
+            f"({c_by}, the CUDA cores)")
+
+
 def encoder_flops(B: int) -> float:
     """Forward operations of the user encoder over B sequences: per block
     the four projections, the two attention products and the FFN."""
@@ -1264,12 +1296,14 @@ def mha_ratio(got, want):
 # name, rows, tokens, padded keys (a -1e9 key bias with an all-pad row),
 # dtype, dropout layer (None: eval mode).  bf16 runs the cluster design up
 # to 512 keys (325: six blocks, 448: seven, 512: eight) and the streamed
-# pair at 577.
+# pair at 577; fp32 the three-pass TF32 pair at every T.
 ATTN_SEED = 20251016
 FFT_ROWS, TPME_ROWS = FFT_BATCH * (SEQ_LEN + 1), 32 * (SEQ_LEN + 1)
 MHA_BWD_CASES = (("BERT train", FFT_ROWS, TITLE_T, True, "bfloat16", 3),
                  ("ViT eval", FFT_ROWS, IMAGE_T, False, "bfloat16", None),
                  ("ViT eval fp32", FFT_ROWS, IMAGE_T, False, "float32", None),
+                 ("BERT train fp32", FFT_ROWS, TITLE_T, True, "float32", 3),
+                 ("ViT eval batch 32 fp32", TPME_ROWS, IMAGE_T, False, "float32", None),
                  ("ViT-256 train", FFT_ROWS, IMAGE_T_256, True, "bfloat16", 4),
                  ("ViT-288 train", FFT_ROWS, IMAGE_T_288, True, "bfloat16", 5),
                  ("448 keys train", FFT_ROWS, 448, True, "bfloat16", 6),
@@ -1288,13 +1322,14 @@ def padding_bias(device, gen, B: int, T: int):
 
 
 def mha_bwd_case(device, gen, B: int, T: int, padded: bool, dtype: str, layer):
-    """(q, k, v, g, bias, kw) of one backward case: bf16-rounded normal
-    values in ``dtype``, the padding bias or None, the kernels' keywords."""
+    """(q, k, v, g, bias, kw) of one backward case: normal values in
+    ``dtype`` (fp32 values use all 24 bits: bf16-rounded ones would need no
+    TF32 lo part), the padding bias or None, the kernels' keywords."""
     import torch
 
     D = TOWER_D
-    q, k, v, g = (torch.randn(B, T, D, generator=gen, device=device).to(torch.bfloat16)
-                  .to(getattr(torch, dtype)) for _ in range(4))
+    q, k, v, g = (torch.randn(B, T, D, generator=gen, device=device).to(getattr(torch, dtype))
+                  for _ in range(4))
     bias = padding_bias(device, gen, B, T) if padded else None
     kw = dict(n_heads=TOWER_H)
     if layer is not None:
@@ -1324,14 +1359,16 @@ def sdpa_bwd_ms(q, k, v, g, bias, rate: float, reps: int = 10):
     return cuda_timed(sdpa_bwd(q, k, v, g, bias, rate), reps)
 
 
-# The bf16 attention kernels on wgmma: #5's and the subblocks' attention
-# step's (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu: the resident design at
-# each key-chunk count, eval and train, and the streamed one) and #6's
-# cluster design (csrc/mha_bwd.cu, one to eight key blocks, eval and train),
-# with the number of instances of each.
+# The attention kernels on wgmma: #5's and the subblocks' attention step's
+# in bf16 (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu: the resident design
+# at each key-chunk count, eval and train, and the streamed one), #6's
+# cluster design (csrc/mha_bwd.cu, one to eight key blocks, eval and
+# train), and the fp32 kernels (#5's, #6's query-tile and key-tile pair;
+# eval and train), with the number of instances of each.
 ATTN_WGMMA_KERNELS = {"mha_fwd_resident_kernel": 10, "mha_fwd_streamed_kernel": 2,
                       "subblock_attn_resident_kernel": 10, "subblock_attn_streamed_kernel": 2,
-                      "mha_bwd_cluster_kernel": 16}
+                      "mha_bwd_cluster_kernel": 16, "mha_fwd_tf32_kernel": 2,
+                      "mha_bwd_dq_tf32_kernel": 2, "mha_bwd_dkv_tf32_kernel": 2}
 
 
 # Key counts at every edge of the bf16 forward's tiling (128 wide, 2 heads
@@ -1340,7 +1377,7 @@ ATTN_FWD_EDGES = (1, 5, 63, 64, 65, 128, 197, 256, 257, 320, 321, 1000, 4097)
 
 
 def check_attention_sass(counts):
-    """Every instance of each bf16 attention kernel of ``ATTN_WGMMA_KERNELS``
+    """Every instance of each attention kernel of ``ATTN_WGMMA_KERNELS``
     is built and runs its products on wgmma: HGMMA in its SASS, and no HMMA
     (mma.sync); ``counts`` is ``build.sass_mma_counts``' of every kernel."""
     for pattern, instances in ATTN_WGMMA_KERNELS.items():
@@ -1373,7 +1410,7 @@ def check_attention(device):
         if not ratio <= tol:
             raise AssertionError(f"{what}: |diff| / bound {ratio:.4g} > {tol}")
 
-    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd32_err": 0.0, "bwd32_err": 0.0}
 
     def err(got, want):
         return max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
@@ -1452,46 +1489,86 @@ def check_attention(device):
         f"{out['bert_fwd_plain_ms']:.4f} ms, scaled_dot_product_attention "
         f"{out['bert_sdpa_ms']:.4f} ms (medians, CUDA events); bound "
         f"{mha_bound(B, T, D, H, True, False)[0]:.4f} ms")
+    # The same titles in fp32 (the fp32 compute dtype: three TF32 passes on
+    # the tensor cores), eval and train, from fp32 values that use all 24
+    # bits; timed beside SDPA fp32, the bound both ways.
+    q32, k32, v32 = (torch.randn(B, T, D, generator=gen, device=device) for _ in range(3))
+    for name, kw in (("eval", dict(n_heads=H)),
+                     ("train", dict(n_heads=H, seed=seed, rate=rate, layer=5))):
+        got = fa.mha_fwd(q32, k32, v32, bias, **kw)
+        want = fa.mha_fwd_plain(q32, k32, v32, bias, **kw)
+        torch.cuda.synchronize()
+        ratio = mha_ratio([got], [want])
+        out["fwd32_err"] = max(out["fwd32_err"], err([got], [want]))
+        log(f"mha_fwd BERT {name} B={B} T={T} fp32, padded keys: {ratio:.4g} (tol "
+            f"{MHA_TOL_FP32}); all-pad row finite {torch_finite(got[0])}")
+        require(ratio, MHA_TOL_FP32, f"mha_fwd BERT fp32 {name}")
+        if not torch_finite(got[0]):
+            raise AssertionError("mha_fwd fp32: the all-pad row is not finite")
+    fault = mha_ratio([fa.mha_fwd(q32, k32, v32, None, n_heads=H)],
+                      [fa.mha_fwd_plain(q32, k32, v32, bias, n_heads=H)])
+    log(f"  planted fault 'key bias dropped' (fp32): {fault:.4g} (must be > {MHA_TOL_FP32})")
+    if fault <= MHA_TOL_FP32:
+        raise AssertionError("the fp32 forward bound admits a dropped key bias")
+    heads32 =[t.reshape(B, T, H, D // H).transpose(1, 2).contiguous() for t in (q32, k32, v32)]
+    mask32 = bias[:, None, None, :]
+    bert32 = cuda_timed(lambda: fa.mha_fwd(q32, k32, v32, bias, n_heads=H), 20)
+    bert32_dev = sum(t for key, t in kernel_device_ms(
+        lambda: fa.mha_fwd(q32, k32, v32, bias, n_heads=H)).items() if "mha_fwd" in key)
+    bert32_sdpa = cuda_timed(
+        lambda: F.scaled_dot_product_attention(*heads32, attn_mask=mask32), 20)
+    bert32_plain = cuda_timed(lambda: fa.mha_fwd_plain(q32, k32, v32, bias, n_heads=H), 5)
+    log(f"mha_fwd BERT eval B={B} fp32: kernel {bert32:.4f} ms, device {bert32_dev:.4f} ms; "
+        f"plain {bert32_plain:.4f} ms; scaled_dot_product_attention fp32 {bert32_sdpa:.4f} "
+        f"ms; {bounds_text(mha_bounds_fp32(B, T, D, H, True, False))}")
+    del q32, k32, v32, heads32
 
-    # The bf16 forward at every edge of its tiling (64-row query tiles,
-    # 64-key chunks, 8-key groups, the resident limit; two images, the first
-    # all padding), eval and train, with and without the key bias; an
-    # image's output bit-equal to a launch of its own (eval); and a
-    # train-mode forward with #6's gradient of it at ViT's token counts.
-    worst = 0.0
+    # The forward at every edge of its tiling (64-row query tiles, 64-key
+    # chunks, 8-key groups, the bf16 resident limit; two images, the first
+    # all padding) in bf16 and fp32, eval and train, with and without the
+    # key bias; an image's output bit-equal to a launch of its own (eval);
+    # and a train-mode forward with #6's gradient of it at ViT's token
+    # counts.
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for T in ATTN_FWD_EDGES:
         Dn, Hn = (D, H) if T <= 321 else (128, 2)
-        qe, ke, ve, ge = (torch.randn(2, T, Dn, generator=gen, device=device).to(torch.bfloat16)
-                          for _ in range(4))
-        be = padding_bias(device, gen, 2, T)
-        for mode, kw in (("eval", dict(n_heads=Hn)),
-                         ("train", dict(n_heads=Hn, seed=seed, rate=rate, layer=6))):
-            for b_ in (None, be):
-                got = fa.mha_fwd(qe, ke, ve, b_, **kw)
-                ratio = mha_ratio([got], [fa.mha_fwd_plain(qe, ke, ve, b_, **kw)])
-                worst = max(worst, ratio)
-                require(ratio, MHA_TOL["fwd"], f"mha_fwd T={T} {mode} bias {b_ is not None}")
-                if mode == "eval" and not torch.equal(got[1:], fa.mha_fwd(
-                        qe[1:], ke[1:], ve[1:], None if b_ is None else b_[1:], **kw)):
-                    raise AssertionError(f"mha_fwd T={T}: an image's output depends on its batch")
-        if T in (IMAGE_T, IMAGE_T_256):
-            kw = dict(n_heads=Hn, seed=seed, rate=rate, layer=6)
-            leaves = [t.clone().requires_grad_(True) for t in (qe, ke, ve)]
-            o = fa.fused_mha(*leaves, Hn, key_bias=be, drop_rate=rate, seed=seed, layer=6)
-            o.backward(ge)
-            fr = mha_ratio([o.detach()], [fa.mha_fwd_plain(qe, ke, ve, be, **kw)])
-            gr = mha_ratio([t.grad for t in leaves], fa.mha_bwd_plain(qe, ke, ve, be, ge, **kw))
-            log(f"fused_mha train T={T}: forward {fr:.4g} (tol {MHA_TOL['fwd']}), #6's "
-                f"gradient of it {gr:.4g} (tol {MHA_TOL['bwd']})")
-            require(fr, MHA_TOL["fwd"], f"fused_mha train T={T} forward")
-            require(gr, MHA_TOL["bwd"], f"fused_mha train T={T} gradient")
+        for dt in worst:
+            ftol, btol = ((MHA_TOL["fwd"], MHA_TOL["bwd"]) if dt == torch.bfloat16
+                          else (MHA_TOL_FP32, MHA_TOL_FP32))
+            qe, ke, ve, ge = (torch.randn(2, T, Dn, generator=gen, device=device).to(dt)
+                              for _ in range(4))
+            be = padding_bias(device, gen, 2, T)
+            for mode, kw in (("eval", dict(n_heads=Hn)),
+                             ("train", dict(n_heads=Hn, seed=seed, rate=rate, layer=6))):
+                for b_ in (None, be):
+                    got = fa.mha_fwd(qe, ke, ve, b_, **kw)
+                    ratio = mha_ratio([got], [fa.mha_fwd_plain(qe, ke, ve, b_, **kw)])
+                    worst[dt] = max(worst[dt], ratio)
+                    require(ratio, ftol, f"mha_fwd T={T} {dt} {mode} bias {b_ is not None}")
+                    if mode == "eval" and not torch.equal(got[1:], fa.mha_fwd(
+                            qe[1:], ke[1:], ve[1:], None if b_ is None else b_[1:], **kw)):
+                        raise AssertionError(f"mha_fwd T={T} {dt}: an image's output "
+                                             "depends on its batch")
+            if T in (IMAGE_T, IMAGE_T_256):
+                kw = dict(n_heads=Hn, seed=seed, rate=rate, layer=6)
+                leaves = [t.clone().requires_grad_(True) for t in (qe, ke, ve)]
+                o = fa.fused_mha(*leaves, Hn, key_bias=be, drop_rate=rate, seed=seed, layer=6)
+                o.backward(ge)
+                fr = mha_ratio([o.detach()], [fa.mha_fwd_plain(qe, ke, ve, be, **kw)])
+                gr = mha_ratio([t.grad for t in leaves],
+                               fa.mha_bwd_plain(qe, ke, ve, be, ge, **kw))
+                log(f"fused_mha train T={T} {dt}: forward {fr:.4g} (tol {ftol}), #6's "
+                    f"gradient of it {gr:.4g} (tol {btol})")
+                require(fr, ftol, f"fused_mha train T={T} {dt} forward")
+                require(gr, btol, f"fused_mha train T={T} {dt} gradient")
     log(f"mha_fwd at the tile edges T={list(ATTN_FWD_EDGES)}, eval and train, with and "
-        f"without the key bias: worst ratio {worst:.4g} (tol {MHA_TOL['fwd']}); each "
+        f"without the key bias: worst ratio bf16 {worst[torch.bfloat16]:.4g} (tol "
+        f"{MHA_TOL['fwd']}), fp32 {worst[torch.float32]:.4g} (tol {MHA_TOL_FP32}); each "
         "image's eval output bit-equal to its own launch")
 
     # ViT images: 197 tokens (224 pixels) and 257 (256 pixels), no bias;
     # compared on the first 64 images, timed at 704.  257 in eval and train
-    # mode; 197 also in fp32 (the fp32 compute dtype's CUDA-core path).
+    # mode; then both in fp32.
     for T in (IMAGE_T, IMAGE_T_256):
         q, k, v, g = qkvg(B, T)
         modes = [("eval", dict(n_heads=H))]
@@ -1516,25 +1593,45 @@ def check_attention(device):
             f"ms ({bnd[1]})")
         if T == IMAGE_T:
             out.update(fwd_ms=ms, fwd_sdpa_ms=sdpa_ms, fwd_plain_ms=plain_ms, fwd_bound=bnd)
-            q32, k32, v32 = (t.float() for t in (q, k, v))
-            got = fa.mha_fwd(q32, k32, v32, None, n_heads=H)[:64]
-            want = fa.mha_fwd_plain(q32[:64], k32[:64], v32[:64], None, n_heads=H)
-            torch.cuda.synchronize()
-            ratio = mha_ratio([got], [want])
-            ms32 = cuda_timed(lambda: fa.mha_fwd(q32, k32, v32, None, n_heads=H), 3)
-            heads32 = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous()
-                       for t in (q32, k32, v32)]
-            sdpa32 = cuda_timed(lambda: F.scaled_dot_product_attention(*heads32), 3)
-            log(f"mha_fwd ViT eval B={B} T={T} fp32 (first 64 rows vs plain): {ratio:.4g} "
-                f"(tol {MHA_TOL_FP32}); kernel {ms32:.4f} ms (CUDA cores), "
-                f"scaled_dot_product_attention fp32 {sdpa32:.4f} ms")
-            require(ratio, MHA_TOL_FP32, "mha_fwd ViT fp32")
-            del q32, k32, v32, heads32
         del heads
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    for T in (IMAGE_T, IMAGE_T_256):
+        q32, k32, v32 = (torch.randn(B, T, D, generator=gen, device=device) for _ in range(3))
+        got = fa.mha_fwd(q32, k32, v32, None, n_heads=H)[:64]
+        want = fa.mha_fwd_plain(q32[:64], k32[:64], v32[:64], None, n_heads=H)
+        torch.cuda.synchronize()
+        ratio = mha_ratio([got], [want])
+        out["fwd32_err"] = max(out["fwd32_err"], err([got], [want]))
+        log(f"mha_fwd ViT eval B={B} T={T} fp32 (first 64 rows vs plain): {ratio:.4g} "
+            f"(tol {MHA_TOL_FP32})")
+        require(ratio, MHA_TOL_FP32, f"mha_fwd ViT T={T} fp32")
+
+        def call32():
+            return fa.mha_fwd(q32, k32, v32, None, n_heads=H)
+
+        heads32 = [t.reshape(B, T, H, D // H).transpose(1, 2).contiguous()
+                   for t in (q32, k32, v32)]
+        ms32 = cuda_timed(call32, 10)
+        dev32 = sum(t for key, t in kernel_device_ms(call32).items() if "mha_fwd" in key)
+        sdpa32 = cuda_timed(lambda: F.scaled_dot_product_attention(*heads32), 10)
+        sdpa32_dev = sum(kernel_device_ms(
+            lambda: F.scaled_dot_product_attention(*heads32)).values())
+        del heads32
+        plain32 = cuda_timed(lambda: fa.mha_fwd_plain(q32, k32, v32, None, n_heads=H), 3)
+        b32 = mha_bounds_fp32(B, T, D, H, False, False)
+        log(f"mha_fwd ViT eval B={B} T={T} fp32: kernel {ms32:.4f} ms, device {dev32:.4f} "
+            f"ms; plain {plain32:.4f} ms; scaled_dot_product_attention fp32 {sdpa32:.4f} ms, "
+            f"device {sdpa32_dev:.4f} ms; {bounds_text(b32)}")
+        if T == IMAGE_T:
+            out.update(fwd32_ms=ms32, fwd32_device_ms=dev32, fwd32_plain_ms=plain32,
+                       fwd32_sdpa_ms=sdpa32, fwd32_bound=b32[1])
+        del q32, k32, v32
+        torch.cuda.empty_cache()
 
     # The backward at the FFT step's shapes (88 rows) and the TPME report's
     # batch (352): bf16 runs the cluster design up to fa.CLUSTER_KEYS (512)
-    # and the streamed pair beyond, fp32 the CUDA-core one.  First the
+    # and the streamed pair beyond, fp32 the three-pass TF32 pair.  First the
     # clusters the card holds at once of each cluster instance (the wrapper
     # raises at 0).
     for train in (False, True):
@@ -1551,8 +1648,8 @@ def check_attention(device):
         want = fa.mha_bwd_plain(q, k, v, b, g, **kw)
         torch.cuda.synchronize()
         ratio = mha_ratio(got, want)
-        if q.dtype == bf16:
-            out["bwd_err"] = max(out["bwd_err"], err(got, want))
+        err_key = "bwd_err" if q.dtype == bf16 else "bwd32_err"
+        out[err_key] = max(out[err_key], err(got, want))
         design = fa.library_bwd_design(T, q.element_size())
         if design != fa.bwd_design(T, q.element_size()):
             raise AssertionError(f"mha_bwd {name}: the library runs {design}, "
@@ -1588,14 +1685,22 @@ def check_attention(device):
             lambda: fa.mha_bwd(q, k, v, b, g, **kw)).items() if "mha_bwd" in key)
         lib_dev_ms = sum(kernel_device_ms(sdpa_bwd(q, k, v, g, b, kw.get("rate", 0.0))).values())
         bnd = mha_bound(B, T, D, H, padded, True, q.element_size())
+        if q.dtype == bf16:
+            bound_line = f"bound {bnd[0]:.4f} ms ({bnd[1]})"
+        else:
+            b32 = mha_bounds_fp32(B, T, D, H, padded, True)
+            bound_line, bnd = bounds_text(b32), b32[1]
         if name == "ViT eval":
             out.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound=bnd, bwd_sdpa_ms=lib_ms,
                        bwd_device_ms=dev_ms)
+        if name == "ViT eval fp32":
+            out.update(bwd32_ms=ms, bwd32_plain_ms=plain_ms, bwd32_bound=bnd,
+                       bwd32_sdpa_ms=lib_ms, bwd32_device_ms=dev_ms)
         log(f"mha_bwd {name} B={B} T={T} ({design}): kernel {ms:.4f} ms, device "
             f"{dev_ms:.4f} ms; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
             f"backward {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms"
             f"{' (timing only: other dropout masks)' if 'rate' in kw else ''}; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"{bound_line}")
     return out
 
 
@@ -1760,6 +1865,44 @@ def train_fft(device, counters, stats):
         raise AssertionError(f"FFT: loss {losses}, no gradient for {dead[:5]}")
     stats["FFT"] = (host, busy, peak)
     return launches
+
+
+# The fp32 compute dtype's steps (any --use_scale but "half"): IISAN
+# (Uncached) at batch 64 and FFT at batch 8, with their #5 and #6 launches
+# a step, which are bf16's.
+FP32_STEPS = (("IISAN uncached", 64, {}, {"mha_fwd": 24, "mha_bwd": 0}),
+              ("FFT", FFT_BATCH, dict(adding_adapter_to="None", adapter_type="houslby"),
+               {"mha_fwd": 24, "mha_bwd": 24}))
+
+
+def train_fp32_steps(device, counters):
+    """Phase 10a: one staged step of each of ``FP32_STEPS`` in fp32 with
+    the counters at 0 (the launches of #5 and #6 a step, which must be
+    bf16's), then the step's host ms and device-busy ms (profiler, 3 steps)
+    by kernel family; returns the launches of the two steps."""
+    import torch
+
+    from iisan_tpu_torch.data.synthetic import synthetic_corpus
+
+    totals = None
+    for name, users, kw, want in FP32_STEPS:
+        corpus = synthetic_corpus(n_users=users, item_num=800, max_seq_len=SEQ_LEN, seed=0)
+        tr = uncached_trainer(device, corpus, batch_size=users, compute_dtype="float32", **kw)
+        batch = staged_batch(tr, 0)
+        loss, launches = counted(counters, lambda: tr.train_step(*batch))
+        torch.cuda.synchronize()
+        host, busy, families = uncached_breakdown(tr, batch, 3)
+        log(f"fp32 {name} step at batch {users} ({users * (SEQ_LEN + 1)} images and "
+            f"titles, staged): loss {float(loss):.5f}; launches {nonzero(launches)}; host "
+            f"{host:.2f} ms (median of 3, synchronised), device-busy {busy:.2f} ms "
+            "(profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in families.items()))
+        if any(launches[k] != v for k, v in want.items()) or not torch_finite(loss):
+            raise AssertionError(f"fp32 {name}: loss {loss}, launches {launches}, "
+                                 f"expected {want} a step")
+        totals = launches if totals is None else {k: totals[k] + launches[k] for k in totals}
+        del tr, batch
+        torch.cuda.empty_cache()
+    return totals
 
 
 def check_uncached_routes(device, cases):
@@ -3500,7 +3643,7 @@ def run_versa_caches(device, counters, tmp, vit_base_per_1000):
     return totals
 
 
-CLI_EPOCHS = 2
+CLI_EPOCHS = 1
 # The fp16 stores of phase 31 are written in chunks of this many rows.
 STORE_CHUNK = 4096
 
@@ -3617,7 +3760,7 @@ def run_cli_path(device, counters, root: Path):
         f"{time.perf_counter() - t0:.2f} s")
     steps = -(-USERS // 64)
 
-    # train from the command line, then resume
+    # train from the command line
     rec_path = root / "rec.npz"
     _, train = run_cli(cli_args(device, root, "cli", "--epoch", str(CLI_EPOCHS),
                                 "--export_recommender", str(rec_path)), "train")
@@ -3638,29 +3781,19 @@ def run_cli_path(device, counters, root: Path):
     if (train["launches"]["user_encoder_bwd"] != CLI_EPOCHS * steps
             or train["launches"]["user_encoder_fwd"] < CLI_EPOCHS * steps):
         raise AssertionError(f"phase 31 train: launches {train['launches']}")
-    saved = int(latest.split("-")[1])
-    _, resumed = run_cli(cli_args(device, root, "cli", "--epoch", "1", "--load_ckpt_name",
-                                  latest), "resume")
-    add(resumed["launches"])
-    log(f"phase 31 CLI resume from {latest}: logged epochs "
-        f"{[e[0] for e in resumed['epochs']]}, epoch host "
-        f"{resumed['epochs'][0][4]:.3f} s, loss {resumed['epochs'][0][1]:.5f}")
-    if [e[0] for e in resumed["epochs"]] != [saved + 1]:
-        raise AssertionError(f"phase 31 resume: epochs {resumed['epochs']}")
-
     # in this process: 2 uninterrupted epochs against 1 + resume + 1
     cfg, _ = parse_args(cli_args(device, root, "a"))
 
-    def in_process(name, **kw):
-        out, launches = counted(counters, lambda: run_from_config(
+    def in_process(name, **kw):  # (trainer, TrainResult, launches)
+        (tr, res), launches = counted(counters, lambda: run_from_config(
             cfg.replace(ckpt_dir=str(root / name), **kw), device=device))
         add(launches)
-        return out[0]
+        return tr, res, launches
 
     t0 = time.perf_counter()
-    straight = in_process("straight", epoch=2)
+    straight = in_process("straight", epoch=2)[0]
     in_process("split", epoch=1)
-    split = in_process("split", epoch=1, load_ckpt_name="epoch-1")
+    split = in_process("split", epoch=1, load_ckpt_name="epoch-1")[0]
     diffs = [float((a.float() - b.float()).abs().max()) for a, b in
              zip(straight.model.parameters(), split.model.parameters())]
     moments = [float((sa[k] - sb[k]).abs().max())
@@ -3728,21 +3861,19 @@ def run_cli_path(device, counters, root: Path):
     del loaded, warm, a, b
     torch.cuda.empty_cache()
 
-    # --use_pallas true: one cached epoch through #3
-    _, pallas = run_cli(cli_args(device, root, "pallas", "--epoch", "1", "--use_pallas",
-                                 "true", "--save_checkpoints", "false"), "use_pallas")
-    add(pallas["launches"])
-    log(f"phase 31 CLI --use_pallas true: epoch host {pallas['epochs'][0][4]:.3f} s, "
-        f"loss {pallas['epochs'][0][1]:.5f}; launches {nonzero(pallas['launches'])} "
+    # --use_pallas true (one cached epoch through #3) and --item_tower id
+    # (CLI_EPOCHS epochs, the export and top_k) in this process: the flags'
+    # parsing is the CPU tests' (tests/test_torch_cli.py), and a process
+    # start-up costs more here than the epoch it runs
+    _, res, pallas = in_process("pallas", epoch=1, use_pallas=True, save_checkpoints=False)
+    log(f"phase 31 --use_pallas true (run_from_config): epoch host "
+        f"{res.epoch_times[0]:.3f} s, loss {res.losses[0]:.5f}; launches {nonzero(pallas)} "
         f"({2 * steps} of san_cascade_fwd in the steps, the rest building item tables)")
-    if pallas["launches"]["san_cascade_fwd"] < 2 * steps:
-        raise AssertionError(f"phase 31 use_pallas: launches {pallas['launches']}")
-
-    # --item_tower id: two epochs, the export and top_k
+    if pallas["san_cascade_fwd"] < 2 * steps:
+        raise AssertionError(f"phase 31 use_pallas: launches {pallas}")
     id_path = root / "id.npz"
-    _, ided = run_cli(cli_args(device, root, "id", "--epoch", str(CLI_EPOCHS), "--item_tower",
-                               "id", "--export_recommender", str(id_path)), "id")
-    add(ided["launches"])
+    _, res, ided = in_process("id", epoch=CLI_EPOCHS, item_tower="id",
+                              export_recommender=str(id_path))
     rec = Recommender.load(str(id_path), device=device)
     for n, seqs in requests.items():
         ids = rec.top_k(seqs, k=10)[0]
@@ -3750,14 +3881,14 @@ def run_cli_path(device, counters, root: Path):
         if ids.shape != (n, 10) or ids.min() < 1 or any(
                 set(row) & h for row, h in zip(ids.tolist(), hist)):
             raise AssertionError(f"phase 31 id: top_k at batch {n}: {ids[:2]}")
-    log(f"phase 31 CLI --item_tower id ({CLI_EPOCHS} epochs): "
-        + "; ".join(f"epoch {e} host {s:.3f} s, loss {loss:.5f}, valid HR@10 {h:.6f}"
-                    for e, loss, h, n, s in ided["epochs"])
+    log(f"phase 31 --item_tower id (run_from_config, {CLI_EPOCHS} epochs): "
+        + "; ".join(f"epoch {e + 1} host {t:.3f} s, loss {loss:.5f}, valid HR@10 {h:.6f}"
+                    for e, (t, loss, (h, _)) in enumerate(zip(res.epoch_times, res.losses,
+                                                              res.valid_history)))
         + f"; table {tuple(rec.fused_table.shape)}, top_k at batch 1, 32, 256 "
-        f"(history excluded); launches {nonzero(ided['launches'])}")
-    if (ided["launches"]["user_encoder_bwd"] != CLI_EPOCHS * steps
-            or not np.isfinite([e[1] for e in ided["epochs"]]).all()):
-        raise AssertionError(f"phase 31 id: {ided['epochs']} {ided['launches']}")
+        f"(history excluded); launches {nonzero(ided)}")
+    if ided["user_encoder_bwd"] != CLI_EPOCHS * steps or not np.isfinite(res.losses).all():
+        raise AssertionError(f"phase 31 id: {res.losses} {ided}")
     log(f"phase 31 wall time {time.perf_counter() - t_phase:.2f} s; launches {totals}")
     return totals
 
@@ -4802,6 +4933,9 @@ def main() -> int:
             ("FFT", 3 * FFT_BATCH, dict(batch_size=FFT_BATCH, adding_adapter_to="None",
                                         adapter_type="houslby"))))
     uncached = {k: iisan_counts[k] + fft_counts[k] for k in iisan_counts}
+    with phase("10a fp32 IISAN and FFT steps"):
+        fp32_counts = train_fp32_steps(device, ucounters)
+    torch.cuda.empty_cache()
 
     # IISAN-Versa: the streamed cascade kernel and the dispatch on the card,
     # then training, int8 tap tables and serving at the published geometry.
@@ -4951,6 +5085,14 @@ def main() -> int:
               + tpme["mha_bwd"],
               attn["bwd_err"], attn["bwd_ms"], attn["bwd_plain_ms"],
               attn["bwd_bound"], attn["bwd_sdpa_ms"], device=attn["bwd_device_ms"]),
+        entry("mha_fwd_tf32", "iisan_tpu/ops/fused_attention.py:73", fp32_counts["mha_fwd"],
+              attn["fwd32_err"], attn["fwd32_ms"], attn["fwd32_plain_ms"],
+              attn["fwd32_bound"], attn["fwd32_sdpa_ms"], "mha_fwd",
+              device=attn["fwd32_device_ms"]),
+        entry("mha_bwd_tf32", "iisan_tpu/ops/fused_attention.py:106", fp32_counts["mha_bwd"],
+              attn["bwd32_err"], attn["bwd32_ms"], attn["bwd32_plain_ms"],
+              attn["bwd32_bound"], attn["bwd32_sdpa_ms"], "mha_bwd",
+              device=attn["bwd32_device_ms"]),
         entry("mha_mask_replay", "iisan_tpu/ops/fused_attention.py:165",
               uncached["mha_mask_replay"] + peft["mha_mask_replay"]
               + tpme["mha_mask_replay"], 0.0,

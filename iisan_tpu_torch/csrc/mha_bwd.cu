@@ -118,9 +118,47 @@
 // That split computes ten products where the function has five; it is
 // kept past 512 keys, beyond the portable cluster size of 8 blocks.
 //
-// fp32 (tests, the fp32 compute dtype): the same split on the CUDA cores
-// (mha.cuh's rows kernels), 32-row query tiles against 32-key tiles; no
-// TF32, which keeps about three digits.
+// fp32 (the fp32 compute dtype: any --use_scale but "half"), every T from
+// 1 to 46,340: the same split, each product in three TF32 passes on wgmma
+// m64n64k8 (mha.cuh's fp32 section), so the function stays the plain fp32
+// one within 1e-4.  What bounds it: its five products, 26 GFLOP at the FFT
+// geometry (88 x 197), three times over on TF32's 495 TFLOP/s (0.159 ms;
+// 0.392 ms on the CUDA cores' 67 TFLOP/s), against 0.111 ms of bytes.
+// - Both kernels are blocks of two warpgroups that share every tile they
+//   stream: with one warpgroup (64 rows) a block, and one block an SM for
+//   its 160-192 KB of shared memory, each tile's load, split, products and
+//   elementwise steps ran in series and measured slower.  Holding an A
+//   fragment across iterations so that a product runs on beside the next
+//   split measured slower still (ptxas then serialises the wgmmas).
+// - Query-tile kernel: a block per (128-row query tile, head, image),
+//   warpgroup w on rows 64 w .. 64 w + 63.  Each warpgroup's Q and g (TMA,
+//   two 32-column boxes a tile) are split in place into hi and lo once;
+//   64-key K and V tiles stream through one TMA stage each, twice, split in
+//   place by the block's threads and refilled once every product has read
+//   them.  Pass 0: S = Q . K^T and gPd = g . V^T (A and B K-major in shared
+//   memory), the rows' running max, sum and row term sum_j gP e (sum and
+//   term rescaled by exp(old max - new max) as the max grows; term / sum
+//   at the end is sum_j gP p over fp32 p).  Pass 1: both products again, p
+//   = exp(s - max) / sum, gS = p (gP - term) / sqrt(dk), and gQ += gS . K
+//   with gS from the accumulators as the register A operand and K^T
+//   transposed by the threads while S and gPd run.  Writes gQ and the
+//   (B, H, T, 3) scratch of each row's (max, sum, term).  224 KB of shared
+//   memory, one block an SM.
+// - Key-tile kernel: a block per (128-key tile, head, image), warpgroup w
+//   on keys 64 w .. 64 w + 63, its K and V split once and resident as the
+//   A operands of S^T = K . Q^T and gPd^T = V . g^T; the query tiles walked
+//   in order, Q and g by TMA into stages of their own (the next tile loads
+//   while one is worked on), split, then transposed in place once those
+//   products have read them; p from the scratch's statistics, pd = p keep,
+//   gS, then gV += pd^T . g and gK += gS^T . Q with pd^T and gS^T as
+//   register A operands.  The dropout element stays query * T + key (a
+//   Philox call an element here: the accumulator's rows are keys).  226 KB,
+//   one block an SM.
+// - No atomics: both kernels sum in a fixed order, so two launches are
+//   bit-equal.  This replaced a CUDA-core pair (32-row tiles, scalar
+//   FMA loops): at 88 x 197 4.07-4.12 -> 1.25 ms of device time, against
+//   SDPA fp32's backward at 1.34-1.37 (scripts/torch_mha_bwd_bench.py on
+//   an H100 at 700 W; PERF.md has every case).
 
 #include "mha.cuh"
 
@@ -242,30 +280,6 @@ __device__ __forceinline__ void put_pair(unsigned char* tile, int r, int j, int 
                                          float b) {
   *reinterpret_cast<__nv_bfloat162*>(tile + r * 128 + ((j ^ (r & 7)) * 16) + t * 4) =
       __floats2bfloat162_rn(a, b);
-}
-
-// The block's S tile in place: fp32(q . k) * scale [+ the key bias], -inf
-// at keys past T, and this lane's share of the rows' (g, g + 8) max.  Every
-// element takes the same instructions (a key past T is selected away, not
-// branched around), so the 32 values of a thread stay independent work;
-// every step below reads -inf past T as exp 0, p 0, pd 0 and gS 0.
-__device__ __forceinline__ void block_scores(float (&s)[32], float (&m)[2], const float* bias,
-                                             int j0, int Tn, float scale, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = j0 + 8 * j + 2 * t + e;
-      const float bv = bias != nullptr ? bias[col - j0] : 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v = __fmul_rn(s[4 * j + 2 * half + e], scale);
-        if (bias != nullptr) v = __fadd_rn(v, bv);
-        v = col < Tn ? v : -INFINITY;
-        s[4 * j + 2 * half + e] = v;
-        m[half] = fmaxf(m[half], v);
-      }
-    }
 }
 
 // One block of the cluster design: NC key chunks (the cluster's size and
@@ -907,201 +921,420 @@ cudaError_t launch_streamed(const void* q, const void* k, const void* v, const v
 }
 
 // ---------------------------------------------------------------------
-// fp32 backward on the CUDA cores
+// fp32: the query-tile and key-tile pair in three TF32 passes (see the
+// top; mha.cuh has the arithmetic)
 // ---------------------------------------------------------------------
 
-// First kernel: a block per (32-row query tile, head, image).  Pass 1: the
-// rows' max and sum; pass 2: the row term sum_j gP p (fp32 p); pass 3: gS
-// and gQ = gS . k_h.  Writes gq's rows and, per row, (max, sum, term) to
-// stats[((b * H + h) * T + i) * 3 + 0..2].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ bias, const T* __restrict__ g,
-                      T* __restrict__ gq, float* __restrict__ stats, Dims d, Dropout drop) {
-  __shared__ float Qs[kRowTile * kFStr], Gs[kRowTile * kFStr];
-  __shared__ float Ks[kRowTile * kFStr], Vs[kRowTile * kFStr], Bt[kRowTile];
-  const int Tn = d.T, i0 = blockIdx.x * kRowTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  const bool has_bias = bias != nullptr;
+// Both fp32 kernels are blocks of two warpgroups.
+constexpr int kBwdF32Threads = 2 * kF32Threads;
+
+// The query-tile kernel: 128 query rows a block, sharing each key tile.
+// Shared memory from the 1024-aligned base: each warpgroup's Q and g (hi,
+// lo), the key tile's K and V (hi over the raw TMA tile, lo), K^T (hi,
+// lo), the key biases, the barriers (Q and g, K, V).
+
+struct F32DqLayout {
+  static constexpr int q = 0, g = 4 * kF32Tile;  // warpgroup w's hi, lo: + 2 w tiles
+  static constexpr int kh = 8 * kF32Tile, kl = 9 * kF32Tile, vh = 10 * kF32Tile, vl = 11 * kF32Tile;
+  static constexpr int kth = 12 * kF32Tile, ktl = 13 * kF32Tile, bias = 14 * kF32Tile;
+  static constexpr int bars = bias + kFwdTile * 4;
+  static constexpr size_t bytes = bars + 3 * sizeof(uint64_t) + 1024;  // + alignment
+};
+
+// A block per (128-row query tile, head, image), warpgroup w on rows 64 w
+// .. 64 w + 63.  Item it of its walk is key tile it % n_kt of pass it /
+// n_kt, the tile split once for both warpgroups: pass 0 takes S = Q . K^T
+// and gPd = g . V^T for the rows' running max, sum and row term (both sums
+// rescaled by exp(old max - new max) as the max grows); pass 1 takes them
+// again, p = exp(s - max) / sum, gS = p (gP - term) / sqrt(dk), and gQ +=
+// gS . K (gS from registers, K^T transposed by the block's threads while S
+// and gPd run).  Writes gQ and each row's (max, sum, term) to stats.  A
+// warpgroup whose 64 rows lie past T issues no products.
+template <bool kDrop>
+__global__ void __launch_bounds__(kBwdF32Threads, 1)
+    mha_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm,
+                           const __grid_constant__ CUtensorMap gm,
+                           const float* __restrict__ bias, float* __restrict__ gq,
+                           float* __restrict__ stats, Dims d, Dropout drop) {
+  typedef F32DqLayout L;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  unsigned char* base = align1024(f32_smem);
+  float* Bs = reinterpret_cast<float*>(base + L::bias);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L::bars);  // Q and g, K, V
+  const int Tn = d.T, h = blockIdx.y, b = blockIdx.z, c0 = h * kDk;
+  const int tid = threadIdx.x, wg = tid / kF32Threads, warp = (tid / 32) & 3, lane = tid % 32;
+  const int t = lane & 3, i0 = blockIdx.x * 2 * kFwdTile + wg * kFwdTile;  // the warpgroup's rows
+  const bool live = i0 < Tn;
+  const int n_kt = (Tn + kFwdTile - 1) / kFwdTile, items = 2 * n_kt;
   const unsigned site = d.site0 + h;
-  load_rows_f32(Qs, q, row0 + i0, min(kRowTile, Tn - i0), d.D, h);
-  load_rows_f32(Gs, g, row0 + i0, min(kRowTile, Tn - i0), d.D, h);
-  auto load_keys = [&](int j0, bool with_v) {
-    __syncthreads();  // the previous tile is used
-    load_rows_f32(Ks, k, row0 + j0, min(kRowTile, Tn - j0), d.D, h);
-    if (with_v) load_rows_f32(Vs, v, row0 + j0, min(kRowTile, Tn - j0), d.D, h);
-    load_bias(Bt, bias, row0, j0, Tn);
-    __syncthreads();
+  unsigned char* Qw = base + L::q + 2 * wg * kF32Tile;
+  unsigned char* Gw = base + L::g + 2 * wg * kF32Tile;
+  const uint32_t qh = sm90::smem_u32(Qw), ql = qh + kF32Tile;
+  const uint32_t gh = sm90::smem_u32(Gw), gl = gh + kF32Tile;
+  const uint32_t kh = sm90::smem_u32(base + L::kh), kl = sm90::smem_u32(base + L::kl);
+  const uint32_t vh = sm90::smem_u32(base + L::vh), vl = sm90::smem_u32(base + L::vl);
+  const uint32_t kth = sm90::smem_u32(base + L::kth), ktl = sm90::smem_u32(base + L::ktl);
+  auto load_keys = [&](int kt) {  // thread 0: key tile kt's K and V
+    sm90::mbar_expect_tx(&bar[1], kF32Tile);
+    load_f32_tile(base + L::kh, &km, &bar[1], c0, kt * kFwdTile, b);
+    sm90::mbar_expect_tx(&bar[2], kF32Tile);
+    load_f32_tile(base + L::vh, &vm, &bar[2], c0, kt * kFwdTile, b);
   };
-
-  float s[kRowsPerWarp], m[kRowsPerWarp], l[kRowsPerWarp], gp[kRowsPerWarp];
-  float term[kRowsPerWarp] = {};
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -FLT_MAX;
-    l[r] = 0.f;
-  }
-  for (int j0 = 0; j0 < Tn; j0 += kRowTile) {
-    load_keys(j0, false);
-    row_scores(s, Qs, Ks, Bt, has_bias, j0, Tn, d.inv_sqrt_dk, warp, lane);
-    row_stats(m, l, s);
-  }
-  // p and gP = (g . v^T) * keep of element (i, j); p = 0 past T.
-  auto probs_and_grads = [&](int j0) {
-    row_scores(s, Qs, Ks, Bt, has_bias, j0, Tn, d.inv_sqrt_dk, warp, lane);
-    row_dots(gp, Gs, Vs, warp, lane);
-    const int j = j0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int i = i0 + kRowsPerWarp * warp + r;
-      s[r] = j < Tn ? __fdiv_rn(expf(s[r] - m[r]), l[r]) : 0.f;
-      if (drop.on) gp[r] *= drop.keep(site, b, static_cast<unsigned>(i * Tn + j));
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) sm90::mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm90::mbar_expect_tx(&bar[0], 4 * kF32Tile);
+    for (int w = 0; w < 2; ++w) {
+      const int row = blockIdx.x * 2 * kFwdTile + w * kFwdTile;
+      load_f32_tile(base + L::q + 2 * w * kF32Tile, &qm, &bar[0], c0, row, b);
+      load_f32_tile(base + L::g + 2 * w * kF32Tile, &gm, &bar[0], c0, row, b);
     }
-  };
-  for (int j0 = 0; j0 < Tn; j0 += kRowTile) {
-    load_keys(j0, true);
-    probs_and_grads(j0);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) term[r] += gp[r] * s[r];
+    load_keys(0);
   }
+  __syncthreads();
+  sm90::mbar_wait(&bar[0], 0);
+  split_tile(Qw, Qw, Qw + kF32Tile);
+  split_tile(Gw, Gw, Gw + kF32Tile);
+  const float* brow = bias != nullptr ? bias + static_cast<size_t>(b) * Tn : nullptr;
+  const int r0 = i0 + 16 * warp + lane / 4;  // this thread's rows r0 and r0 + 8
+  RowKeep keep[2];
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, term[2] = {0.f, 0.f}, rl[2] = {1.f, 1.f};
+  float acc[32];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) term[r] = warp_sum(term[r]);
-
-  float acc[kRowsPerWarp][2] = {};
-  for (int j0 = 0; j0 < Tn; j0 += kRowTile) {
-    load_keys(j0, true);
-    probs_and_grads(j0);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int it = 0; it < items; ++it) {
+    const int kt = it % n_kt, j0 = kt * kFwdTile;
+    const bool grads = it >= n_kt;
+    const unsigned par = it & 1;
+    if (brow != nullptr && tid < kFwdTile) Bs[tid] = j0 + tid < Tn ? brow[j0 + tid] : 0.f;
+    sm90::mbar_wait(&bar[1], par);
+    sm90::mbar_wait(&bar[2], par);
+    split_tile<kBwdF32Threads>(base + L::kh, base + L::kh, base + L::kl);
+    split_tile<kBwdF32Threads>(base + L::vh, base + L::vh, base + L::vl);
+    sm90::fence_async_shared();
+    __syncthreads();  // K and V (and Q and g) split, the biases staged
+    float s[32], x[32];
+    if (live) {
+      sm90::fence_acc(s);
+      sm90::fence_acc(x);
+      sm90::wgmma_fence();
+      mma3_ss(s, qh, ql, kh, kl, 0);
+      mma3_ss(x, gh, gl, vh, vl, 0);
+      sm90::wgmma_commit();
+    }
+    if (grads)
+      transpose_pair<kBwdF32Threads>(base + L::kth, base + L::ktl, base + L::kh, base + L::kl);
+    if (kDrop && live) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      s[r] = round_to<T>(__fmul_rn(__fmul_rn(s[r], __fsub_rn(gp[r], term[r])), d.inv_sqrt_dk));
-    for (int key = 0; key < kRowTile; ++key) {
-      const float k0 = Ks[key * kFStr + lane], k1 = Ks[key * kFStr + lane + 32];
+      for (int half = 0; half < 2; ++half)
+        keep[half] = row_keep(drop, site, b, r0 + 8 * half, j0, Tn, lane);
+    }
+    if (live) {
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(s);
+      sm90::fence_acc(x);
+    }
+    sm90::fence_async_shared();
+    __syncthreads();  // every warpgroup's products have read K and V; K^T written
+    if (tid == 0 && it + 1 < items) load_keys((it + 1) % n_kt);
+    if (live) {
+      float tm[2] = {-FLT_MAX, -FLT_MAX};
+      block_scores(s, tm, brow != nullptr ? Bs : nullptr, j0, Tn, d.inv_sqrt_dk, t);
+      if (!grads) {
+        quad_max(tm);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float gs = __shfl_sync(0xffffffffu, s[r], key);
-        acc[r][0] = fmaf(gs, k0, acc[r][0]);
-        acc[r][1] = fmaf(gs, k1, acc[r][1]);
+        for (int half = 0; half < 2; ++half) {
+          const float mn = fmaxf(m[half], tm[half]), corr = expf(m[half] - mn);
+          m[half] = mn;
+          l[half] *= corr;
+          term[half] *= corr;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const int i = 4 * j + e4, half = e4 >> 1;
+            const float e = expf(s[i] - m[half]);
+            float gp = x[i];
+            if (kDrop) gp *= keep[half].keeps(j, e4 & 1) ? drop.scale : 0.f;
+            l[half] += e;
+            term[half] += gp * e;
+          }
+        if (it == n_kt - 1) {  // the rows' sums and terms from the quad's shares
+          finish_sums(l);
+          finish_sums(term);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            rl[half] = __frcp_rn(l[half]);
+            term[half] = div_rn(term[half], l[half], rl[half]);
+          }
+        }
+      } else {
+        // gS into S's registers, then gQ += gS . K.
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const int i = 4 * j + e4, half = e4 >> 1;
+            const float p = div_rn(expf(s[i] - m[half]), l[half], rl[half]);
+            float gp = x[i];
+            if (kDrop) gp *= keep[half].keeps(j, e4 & 1) ? drop.scale : 0.f;
+            s[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(gp, term[half])), d.inv_sqrt_dk);
+          }
+        Frags f;
+        make_frags(f, s);
+        sm90::fence_acc(acc);
+        sm90::wgmma_fence();
+        mma3_rs(acc, f, kth, ktl, live_steps(j0, Tn));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(acc);
+        fence_frags(f);
       }
     }
+    __syncthreads();  // K^T and the biases read before the next item writes them
   }
+  if (!live) return;
+  const float one[2] = {1.f, 1.f};
+  store_f32(gq + (static_cast<size_t>(b) * Tn + i0) * d.D + c0, acc, one, i0, Tn, d.D, warp,
+            lane);
+  if (t == 0) {
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = i0 + kRowsPerWarp * warp + r;
-    if (i >= Tn) break;
-    T* o = gq + (row0 + i) * d.D + h * kDk;
-    o[lane] = from_f32<T>(acc[r][0]);
-    o[lane + 32] = from_f32<T>(acc[r][1]);
-    if (lane < 3) {
-      const float st[3] = {m[r], l[r], term[r]};
-      stats[((static_cast<size_t>(b) * d.H + h) * Tn + i) * 3 + lane] = st[lane];
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r >= Tn) continue;
+      float* st = stats + ((static_cast<size_t>(b) * d.H + h) * Tn + r) * 3;
+      st[0] = m[half];
+      st[1] = l[half];
+      st[2] = term[half];
     }
   }
 }
 
-// Second kernel: a block per (32-key tile, head, image).
-// It walks every query tile in order, recomputes p, pd and gS of the (32 x
-// 32) tile from the rows' statistics, and sums gV = pd^T g and gK = gS^T q
-// for its keys: warp w owns keys 4w..4w+3, a lane two of their columns.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ bias,
-                       const T* __restrict__ g, const float* __restrict__ stats,
-                       T* __restrict__ gk, T* __restrict__ gv, Dims d, Dropout drop) {
-  constexpr int PS = kRowTile + 1;
-  __shared__ float Ks[kRowTile * kFStr], Vs[kRowTile * kFStr];
-  __shared__ float Qs[kRowTile * kFStr], Gs[kRowTile * kFStr];
-  __shared__ float Pd[kRowTile * PS], GS[kRowTile * PS], St[kRowTile * 3], Bt[kRowTile];
-  const int Tn = d.T, j0 = blockIdx.x * kRowTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  const bool has_bias = bias != nullptr;
+// The key-tile kernel: 128 keys a block, sharing each query tile.  Shared
+// memory from the 1024-aligned base: each warpgroup's K and V (hi, lo;
+// resident), the TMA stages of the query tile's Q and g, its Q and g split
+// (hi, lo), which become Q^T and g^T once S^T and gPd^T have read them,
+// the tile's statistics (max, sum, 1 / sum, term a row), the block's key
+// biases, the barriers (K and V, Q and g).
+
+struct F32DkvLayout {
+  static constexpr int k = 0, v = 4 * kF32Tile;  // warpgroup w's hi, lo: + 2 w tiles
+  static constexpr int qraw = 8 * kF32Tile, graw = 9 * kF32Tile;
+  static constexpr int qh = 10 * kF32Tile, ql = 11 * kF32Tile, gh = 12 * kF32Tile,
+                       gl = 13 * kF32Tile;
+  static constexpr int st = 14 * kF32Tile, bias = st + kFwdTile * 16;
+  static constexpr int bars = bias + 2 * kFwdTile * 4;
+  static constexpr size_t bytes = bars + 2 * sizeof(uint64_t) + 1024;  // + alignment
+};
+
+// In place: the split tile pair (hi, lo) at t becomes its transposed copy
+// (the block's threads each hold their chunks in registers across a block
+// barrier).
+__device__ __forceinline__ void transpose_in_place(unsigned char* t) {
+  float v[4][4], w[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    gather_chunk<kBwdF32Threads>(v[k], t, k);
+    gather_chunk<kBwdF32Threads>(w[k], t + kF32Tile, k);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    scatter_chunk<kBwdF32Threads>(t, v[k], k);
+    scatter_chunk<kBwdF32Threads>(t + kF32Tile, w[k], k);
+  }
+}
+
+// A block per (128-key tile, head, image), warpgroup w on keys 64 w .. 64
+// w + 63, walking the query tiles in order: S^T = K . Q^T and gPd^T = V .
+// g^T (the warpgroup's keys as the 64 rows, so K and V are A operands split
+// once), p from the rows' statistics, pd = p keep and gS as in the
+// query-tile kernel, then gV += pd^T . g and gK += gS^T . Q, pd^T and gS^T
+// from registers, Q^T and g^T transposed in place by the block's threads.
+// The next tile's Q and g load while a tile is worked on.  The dropout
+// element stays query * T + key.  A warpgroup whose keys lie past T issues
+// no products.
+template <bool kDrop>
+__global__ void __launch_bounds__(kBwdF32Threads, 1)
+    mha_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap vm,
+                            const __grid_constant__ CUtensorMap gm,
+                            const float* __restrict__ bias, const float* __restrict__ stats,
+                            float* __restrict__ gk, float* __restrict__ gv, Dims d,
+                            Dropout drop) {
+  typedef F32DkvLayout L;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  unsigned char* base = align1024(f32_smem);
+  float* St = reinterpret_cast<float*>(base + L::st);
+  float* Bs = reinterpret_cast<float*>(base + L::bias);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L::bars);  // K and V, Q and g
+  const int Tn = d.T, h = blockIdx.y, b = blockIdx.z, c0 = h * kDk;
+  const int tid = threadIdx.x, wg = tid / kF32Threads, warp = (tid / 32) & 3, lane = tid % 32;
+  const int t = lane & 3, j0 = blockIdx.x * 2 * kFwdTile + wg * kFwdTile;  // the warpgroup's keys
+  const bool live = j0 < Tn;
+  const int n_qt = (Tn + kFwdTile - 1) / kFwdTile;
   const unsigned site = d.site0 + h;
+  unsigned char* Kw = base + L::k + 2 * wg * kF32Tile;
+  unsigned char* Vw = base + L::v + 2 * wg * kF32Tile;
+  const uint32_t kh = sm90::smem_u32(Kw), kl = kh + kF32Tile;
+  const uint32_t vh = sm90::smem_u32(Vw), vl = vh + kF32Tile;
+  const uint32_t qh = sm90::smem_u32(base + L::qh), ql = sm90::smem_u32(base + L::ql);
+  const uint32_t gh = sm90::smem_u32(base + L::gh), gl = sm90::smem_u32(base + L::gl);
+  auto load_queries = [&](int qt) {  // thread 0: query tile qt's Q and g
+    sm90::mbar_expect_tx(&bar[1], 2 * kF32Tile);
+    load_f32_tile(base + L::qraw, &qm, &bar[1], c0, qt * kFwdTile, b);
+    load_f32_tile(base + L::graw, &gm, &bar[1], c0, qt * kFwdTile, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) sm90::mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm90::mbar_expect_tx(&bar[0], 4 * kF32Tile);
+    for (int w = 0; w < 2; ++w) {
+      const int row = blockIdx.x * 2 * kFwdTile + w * kFwdTile;
+      load_f32_tile(base + L::k + 2 * w * kF32Tile, &km, &bar[0], c0, row, b);
+      load_f32_tile(base + L::v + 2 * w * kF32Tile, &vm, &bar[0], c0, row, b);
+    }
+    load_queries(0);
+  }
+  if (tid < 2 * kFwdTile) {
+    const int key = blockIdx.x * 2 * kFwdTile + tid;
+    Bs[tid] = bias != nullptr && key < Tn ? bias[static_cast<size_t>(b) * Tn + key] : 0.f;
+  }
+  __syncthreads();
+  sm90::mbar_wait(&bar[0], 0);
+  split_tile(Kw, Kw, Kw + kF32Tile);
+  split_tile(Vw, Vw, Vw + kF32Tile);
+  const int kr = 16 * warp + lane / 4;  // this thread's keys j0 + kr and j0 + kr + 8
+  const float kb[2] = {Bs[wg * kFwdTile + kr], Bs[wg * kFwdTile + kr + 8]};
   const float* st_h = stats + (static_cast<size_t>(b) * d.H + h) * Tn * 3;
-  load_rows_f32(Ks, k, row0 + j0, min(kRowTile, Tn - j0), d.D, h);
-  load_rows_f32(Vs, v, row0 + j0, min(kRowTile, Tn - j0), d.D, h);
-  load_bias(Bt, bias, row0, j0, Tn);
-
-  float agk[kRowsPerWarp][2] = {}, agv[kRowsPerWarp][2] = {};
-  for (int i0 = 0; i0 < Tn; i0 += kRowTile) {
-    const int n = min(kRowTile, Tn - i0);
-    __syncthreads();  // the previous query tile is used
-    load_rows_f32(Qs, q, row0 + i0, n, d.D, h);
-    load_rows_f32(Gs, g, row0 + i0, n, d.D, h);
-    for (int idx = threadIdx.x; idx < kRowTile * 3; idx += blockDim.x)
-      St[idx] = idx < n * 3 ? st_h[static_cast<size_t>(i0) * 3 + idx] : 1.f;
-    __syncthreads();
-    // the tile's elements: warp w's query rows 4w..4w+3, key j0 + lane
-    float s[kRowsPerWarp], gp[kRowsPerWarp];
-    row_scores(s, Qs, Ks, Bt, has_bias, j0, Tn, d.inv_sqrt_dk, warp, lane);
-    row_dots(gp, Gs, Vs, warp, lane);
-    const int j = j0 + lane;
+  float ak[32], av[32];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int il = kRowsPerWarp * warp + r, i = i0 + il;
-      float pd = 0.f, gs = 0.f;
-      if (il < n && j < Tn) {
-        const unsigned e = static_cast<unsigned>(i * Tn + j);
-        const float p = __fdiv_rn(expf(s[r] - St[il * 3]), St[il * 3 + 1]);
-        pd = dropped<T>(p, drop, site, b, e);
-        const float x = drop.on ? gp[r] * drop.keep(site, b, e) : gp[r];
-        gs = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(x, St[il * 3 + 2])), d.inv_sqrt_dk));
+  for (int i = 0; i < 32; ++i) ak[i] = av[i] = 0.f;
+#pragma unroll 1
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int i0 = qt * kFwdTile;
+    if (tid < kFwdTile) {  // rows past T: finite values, their p is 0
+      const int i = i0 + tid;
+      float4 val = make_float4(0.f, 1.f, 1.f, 0.f);
+      if (i < Tn) {
+        const float* src = st_h + static_cast<size_t>(i) * 3;
+        val = make_float4(src[0], src[1], __frcp_rn(src[1]), src[2]);
       }
-      Pd[il * PS + lane] = pd;
-      GS[il * PS + lane] = gs;
+      reinterpret_cast<float4*>(St)[tid] = val;
     }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float g0 = Gs[i * kFStr + lane], g1 = Gs[i * kFStr + lane + 32];
-      const float q0 = Qs[i * kFStr + lane], q1 = Qs[i * kFStr + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int jl = kRowsPerWarp * warp + r;
-        const float pd = Pd[i * PS + jl], gs = GS[i * PS + jl];
-        agv[r][0] = fmaf(pd, g0, agv[r][0]);
-        agv[r][1] = fmaf(pd, g1, agv[r][1]);
-        agk[r][0] = fmaf(gs, q0, agk[r][0]);
-        agk[r][1] = fmaf(gs, q1, agk[r][1]);
-      }
+    sm90::mbar_wait(&bar[1], qt & 1);
+    split_tile<kBwdF32Threads>(base + L::qraw, base + L::qh, base + L::ql);
+    split_tile<kBwdF32Threads>(base + L::graw, base + L::gh, base + L::gl);
+    sm90::fence_async_shared();
+    __syncthreads();  // Q and g (and K and V) split, their stages read, the statistics staged
+    if (tid == 0 && qt + 1 < n_qt) load_queries(qt + 1);
+    float s[32], x[32];
+    if (live) {
+      sm90::fence_acc(s);
+      sm90::fence_acc(x);
+      sm90::wgmma_fence();
+      mma3_ss(s, kh, kl, qh, ql, 0);
+      mma3_ss(x, vh, vl, gh, gl, 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(s);
+      sm90::fence_acc(x);
     }
-  }
+    __syncthreads();  // every warpgroup's products have read Q and g
+    transpose_in_place(base + L::qh);
+    transpose_in_place(base + L::gh);
+    sm90::fence_async_shared();
+    if (live) {
+      // pd^T into S^T's registers, gS^T into gPd^T's: element 4 j + e4 is
+      // key j0 + kr + 8 (e4 / 2), query i0 + 8 j + 2t + e4 % 2.
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int jj = j0 + kRowsPerWarp * warp + r;
-    if (jj >= Tn) break;
-    const size_t o = (row0 + jj) * d.D + h * kDk;
-    gk[o + lane] = from_f32<T>(agk[r][0]);
-    gk[o + lane + 32] = from_f32<T>(agk[r][1]);
-    gv[o + lane] = from_f32<T>(agv[r][0]);
-    gv[o + lane + 32] = from_f32<T>(agv[r][1]);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int i = 4 * j + e4, half = e4 >> 1, c = 8 * j + 2 * t + (e4 & 1);
+          const int key = j0 + kr + 8 * half, query = i0 + c;
+          const float4 sc = reinterpret_cast<const float4*>(St)[c];  // max, sum, 1 / sum, term
+          float val = __fmul_rn(s[i], d.inv_sqrt_dk);
+          if (bias != nullptr) val = __fadd_rn(val, kb[half]);
+          const float p = key < Tn && query < Tn ? div_rn(expf(val - sc.x), sc.y, sc.z) : 0.f;
+          float gp = x[i], pd = p;
+          if (kDrop && p != 0.f) {
+            const float keep = drop.keep(site, b, static_cast<unsigned>(query) * Tn + key);
+            pd = p * keep;
+            gp *= keep;
+          }
+          s[i] = pd;
+          x[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(gp, sc.w)), d.inv_sqrt_dk);
+        }
+    }
+    __syncthreads();  // Q^T and g^T written
+    if (live) {
+      Frags f;
+      make_frags(f, s);
+      sm90::fence_acc(av);
+      sm90::wgmma_fence();
+      mma3_rs(av, f, gh, gl, live_steps(i0, Tn));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(av);
+      fence_frags(f);
+      make_frags(f, x);
+      sm90::fence_acc(ak);
+      sm90::wgmma_fence();
+      mma3_rs(ak, f, qh, ql, live_steps(i0, Tn));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(ak);
+      fence_frags(f);
+    }
+    __syncthreads();  // every warpgroup's products have read Q^T and g^T, the statistics used
   }
+  if (!live) return;
+  const float one[2] = {1.f, 1.f};
+  const size_t o = (static_cast<size_t>(b) * Tn + j0) * d.D + c0;
+  store_f32(gk + o, ak, one, j0, Tn, d.D, warp, lane);
+  store_f32(gv + o, av, one, j0, Tn, d.D, warp, lane);
 }
 
-template <typename T>
-cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* bias,
-                       const void* g, void* gq, void* gk, void* gv, float* stats, int B,
-                       const Dims& d, const Dropout& drop, cudaStream_t stream) {
-  const dim3 grid((d.T + kRowTile - 1) / kRowTile, d.H, B);
-  mha_bwd_dq_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<const T*>(g), static_cast<T*>(gq), stats, d,
-      drop);
-  cudaError_t err = cudaGetLastError();
+// The two launches of the fp32 design; q, k, v and g start on 16-byte
+// boundaries (TMA), which the wrapper checks.
+template <bool kDrop>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* bias,
+                        const void* g, void* gq, void* gk, void* gv, float* stats, int B,
+                        const Dims& d, const Dropout& drop, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, g};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = sm90::encode_planes_f32(&maps[i], ptrs[i], d.D, d.T, B);
+    if (err != cudaSuccess) return err;
+  }
+  const float* bs = static_cast<const float*>(bias);
+  const dim3 grid((d.T + 2 * kFwdTile - 1) / (2 * kFwdTile), d.H, B);  // 128 rows or keys
+  cudaError_t err = allow_smem(mha_bwd_dq_tf32_kernel<kDrop>, F32DqLayout::bytes);
   if (err != cudaSuccess) return err;
-  mha_bwd_dkv_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<const T*>(g), stats, static_cast<T*>(gk),
-      static_cast<T*>(gv), d, drop);
+  mha_bwd_dq_tf32_kernel<kDrop><<<grid, kBwdF32Threads, F32DqLayout::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bs, static_cast<float*>(gq), stats, d, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = allow_smem(mha_bwd_dkv_tf32_kernel<kDrop>, F32DkvLayout::bytes);
+  if (err != cudaSuccess) return err;
+  mha_bwd_dkv_tf32_kernel<kDrop><<<grid, kBwdF32Threads, F32DkvLayout::bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bs, stats, static_cast<float*>(gk),
+      static_cast<float*>(gv), d, drop);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace iisan
 
-// The design iisan_mha_bwd runs at T keys: 0 the fp32 rows (CUDA cores), 1
-// the bf16 cluster (up to kClusterMaxKeys keys), 2 the bf16 streamed split.
+// The design iisan_mha_bwd runs at T keys: 0 the fp32 pair in three TF32
+// passes, 1 the bf16 cluster (up to kClusterMaxKeys keys), 2 the bf16
+// streamed split.
 // The wrapper asks here which buffers and alignment a call needs.
 extern "C" int iisan_mha_bwd_design(int T, int is_bf16) {
   return !is_bf16 ? 0 : T <= iisan::kClusterMaxKeys ? 1 : 2;
@@ -1124,12 +1357,13 @@ extern "C" int iisan_mha_bwd_active_clusters(int nc, int train, int* clusters) {
 }
 
 // q, k, v, g, gq, gk, gv (B, T, D) T; bias (B, T) fp32 or null; the dropout
-// arguments are the forward's.  T is bf16 when is_bf16 (tensor cores: the
-// cluster design, whose q, k, v, g, gk and gv start on 16-byte boundaries,
-// or the streamed split), else fp32 (CUDA cores).  stats: an fp32 (B, H,
-// T, 3) scratch for each query row's (max, sum, row term), for the
-// two-kernel designs (the streamed split and fp32); the cluster design
-// takes null.  Returns the CUDA error of the launches (0 on success).
+// arguments are the forward's.  T is bf16 when is_bf16 (the cluster
+// design, whose q, k, v, g, gk and gv start on 16-byte boundaries, or the
+// streamed split), else fp32 (the TF32 pair, whose q, k, v and g start on
+// 16-byte boundaries).  stats: an fp32 (B, H, T, 3) scratch for each query
+// row's (max, sum, row term), for the two-kernel designs (the streamed
+// split and fp32); the cluster design takes null.  Returns the CUDA error
+// of the launches (0 on success).
 extern "C" int iisan_mha_bwd(const void* q, const void* k, const void* v, const void* bias,
                              const void* g, void* gq, void* gk, void* gv, void* stats, int B,
                              int T, int D, int H, int is_bf16, int seed, float rate, float scale,
@@ -1143,8 +1377,9 @@ extern "C" int iisan_mha_bwd(const void* q, const void* k, const void* v, const 
   const iisan::Dropout drop = iisan::make_dropout(seed, rate, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
+  const auto tf32 = drop.on ? iisan::launch_tf32<true> : iisan::launch_tf32<false>;
   const cudaError_t err =
-      !is_bf16  ? iisan::launch_rows<float>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
+      !is_bf16  ? tf32(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
       : cluster ? iisan::launch_cluster(q, k, v, bias, g, gq, gk, gv, B, d, drop, s)
       : drop.on ? iisan::launch_streamed<true>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
                 : iisan::launch_streamed<false>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s);

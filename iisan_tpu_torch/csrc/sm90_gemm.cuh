@@ -148,6 +148,17 @@ inline cudaError_t encode_planes(CUtensorMap* map, const void* ptr, uint64_t col
                 box, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
+// The same for fp32 matrices, in boxes of 64 rows x 32 columns (128 bytes,
+// the swizzle's row): a 64-column head tile is two boxes.
+inline cudaError_t encode_planes_f32(CUtensorMap* map, const void* ptr, uint64_t cols,
+                                     uint64_t rows, uint64_t planes) {
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {cols * sizeof(float), rows * cols * sizeof(float)};
+  const cuuint32_t box[3] = {32, 64, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+                box, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+}
+
 // The result's tensor map: `planes` bf16 (rows, cols) matrices one after
 // another, rows `ld` elements apart (ld >= cols, a multiple of 8), in 64 x
 // 64 boxes, 128-byte swizzled; rows and columns past the edges are not

@@ -4,19 +4,22 @@ Port of ``iisan_tpu/ops/fused_attention.py``, the attention of every BERT
 and ViT layer of the uncached towers.  Three kernels:
 
 - ``mha_fwd`` (``csrc/mha_fwd.cu``): per head, scores, an fp32 softmax with
-  the optional key bias, train-mode dropout, and the product with V; in
-  bf16 the operands arrive by TMA and both products run on wgmma, keys
-  held whole up to 320 (one pass a query tile) and streamed beyond (two),
-  so T up to 46,340 fits; heads unsplit in and out;
+  the optional key bias, train-mode dropout, and the product with V; the
+  operands arrive by TMA and both products run on wgmma: in bf16 keys held
+  whole up to 320 (one pass a query tile) and streamed beyond (two); in
+  fp32 one streaming pass at every T, each product in three TF32 passes
+  (hi . hi + hi . lo + lo . hi of x = hi + lo), so T up to 46,340 fits;
+  heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
   dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; in bf16
   up to 512 keys one launch, a thread-block cluster per (image, head) whose
   blocks own 64 keys each and trade the rows' max, sum and row term (and
   gQ's partials) through distributed shared memory, the five products on
-  wgmma with TMA-fed operands; beyond, and in fp32, two kernels, one over
-  query tiles (gQ and each row's softmax statistics and row term, into an
-  fp32 scratch) and one over key tiles (gK, gV), for any T the forward
-  takes (``bwd_design`` names the design a call runs);
+  wgmma with TMA-fed operands; beyond (on mma.sync), and in fp32 (on wgmma
+  in three TF32 passes), two kernels, one over query tiles (gQ and each
+  row's softmax statistics and row term, into an fp32 scratch) and one over
+  key tiles (gK, gV), for any T the forward takes (``bwd_design`` names the
+  design a call runs);
 - ``mha_mask_replay`` (``csrc/mha_mask_replay.cu``): the scaled keep masks
   the two draw, as a (B, H, T, T) tensor, the oracle of train mode; one
   Philox call per four elements, written at the card's write rate.
@@ -31,7 +34,9 @@ The cast chain is the Pallas kernels' (T is the compute dtype): scores
 exp(s - max) / sum`` in fp32, ``pd = T(T(p) * keep)`` (train) or ``T(p)``,
 ``o = T(pd . v_h)``.  The backward follows ``_mha_bwd_kernel``: ``gS`` is
 rounded to T before its two products, and every product takes T operands
-with fp32 sums.
+with fp32 sums.  In fp32 the kernels split each operand x into hi =
+tf32(x) and lo = tf32(x - hi) and sum hi . hi + hi . lo + lo . hi, which
+keeps this fp32 function within 1e-4 (one TF32 pass does not).
 
 Dropout masks are Philox (``ops/philox.py``) at (seed, image b, site =
 ``layer * H + head``, element ``query * T + key``): one seed per tower
@@ -72,7 +77,7 @@ def supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
             and D == H * DK)
 
 
-BWD_DESIGNS = ("rows", "wgmma_cluster", "tensor_cores")  # iisan_mha_bwd_design's codes
+BWD_DESIGNS = ("wgmma_tf32", "wgmma_cluster", "tensor_cores")  # iisan_mha_bwd_design's codes
 
 
 def bwd_design(T: int, itemsize: int) -> str:
@@ -80,10 +85,11 @@ def bwd_design(T: int, itemsize: int) -> str:
     csrc/mha_bwd.cu): in bf16 ``"wgmma_cluster"`` up to 512 keys (one
     launch, a cluster of T / 64 rounded up blocks per (image, head), 1 to
     8) and ``"tensor_cores"`` beyond (the streamed mma.sync pair with its
-    fp32 scratch); ``"rows"`` in fp32 (the CUDA cores) at every T.  The
-    CPU's copy of ``library_bwd_design``, held to it on the card."""
+    fp32 scratch); ``"wgmma_tf32"`` in fp32 at every T (the query-tile and
+    key-tile pair, each product in three TF32 passes on wgmma with TMA).
+    The CPU's copy of ``library_bwd_design``, held to it on the card."""
     if itemsize != 2:
-        return "rows"
+        return "wgmma_tf32"
     return "wgmma_cluster" if T <= CLUSTER_KEYS else "tensor_cores"
 
 
@@ -288,8 +294,8 @@ def mha_fwd(q, k, v, bias, *, n_heads: int, seed: int = 0, rate: float = 0.0,
     _check("mha_fwd", q, k, v, bias, n_heads, seed, rate,
            supported(B, T, D, n_heads, q.element_size()))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("mha_fwd: bf16 q, k and v must start on 16-byte "
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mha_fwd: q, k and v must start on 16-byte "
                          "boundaries (the kernel reads them by TMA)")
     bias = None if bias is None else bias.contiguous()
     out = torch.empty_like(q)
@@ -327,10 +333,10 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
         raise ValueError(f"g must be {tuple(q.shape)} {q.dtype} on {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
     design = library_bwd_design(T, q.element_size())
+    if design != "tensor_cores" and any(t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError(f"mha_bwd: {q.dtype} q, k, v and g must start on 16-byte "
+                         "boundaries (the kernels read them by TMA)")
     if design == "wgmma_cluster":
-        if any(t.data_ptr() % 16 for t in (q, k, v, g)):
-            raise ValueError("mha_bwd: bf16 q, k, v and g must start on 16-byte "
-                             "boundaries (the kernel reads them by TMA)")
         if active_clusters(T, rate > 0.0, q.device) == 0:
             raise RuntimeError(
                 f"mha_bwd: a cluster of {cluster_blocks(T)} blocks (T={T}) cannot "

@@ -7,13 +7,14 @@ and inside the training steps that run it.
 
 The kernel alone at ``chip_smoke.py``'s cases (``MHA_BWD_CASES``), 768 wide, 12
 heads: at the FFT step's 88 rows (8 users x 11 items) BERT titles (30
-tokens, padded key bias, dropout 0.1), ViT images (197 tokens) in bf16 and
-in fp32, and in train mode 257 and 325 tokens and 448 and 512 keys (the
-cluster design, up to its 512 keys) and 577 tokens (``CV_resize=384``: the
-streamed pair), and ViT at the TPME report's batch of 32 users (352
-images).  For each case, the design the call runs
-(``bwd_design``), ``--runs`` medians of 10 CUDA-event timings of the kernel
-and of the backward alone of ``scaled_dot_product_attention`` on the same
+tokens, padded key bias, dropout 0.1) in bf16 and in fp32, ViT images (197
+tokens) in bf16 and in fp32, and in train mode 257 and 325 tokens and 448
+and 512 keys (the cluster design, up to its 512 keys) and 577 tokens
+(``CV_resize=384``: the streamed pair), and ViT at the TPME report's batch
+of 32 users (352 images) in bf16 and in fp32 (fp32: the three-pass TF32
+pair, its bound both ways, ``chip_smoke.mha_bounds_fp32``).  For each
+case, the design the call runs (``bwd_design``), ``--runs`` medians of
+10 CUDA-event timings of the kernel and of the backward alone of ``scaled_dot_product_attention`` on the same
 inputs (``sdpa_bwd_ms``: timing only in train mode, its masks are not the
 port's), beside the bound; and device times from torch.profiler over 5
 calls, which leave out the host time that the CUDA-event window holds when
@@ -22,8 +23,8 @@ the SDPA backward's.
 
 Then the steps: a full fine-tuning step at batch 8 (88 images and
 titles, ``chip_smoke.train_fft``'s trainer), the same at ``CV_resize=288``
-(325 image tokens) and a LoRA step at batch 32 (352), each on a staged
-batch of ``chip_smoke.py``'s synthetic corpus:
+(325 image tokens) and in fp32 (``fft8_fp32``), and a LoRA step at batch
+32 (352), each on a staged batch of ``chip_smoke.py``'s synthetic corpus:
 ``--runs`` times, the host ms of a synchronised step (median of 3), the
 step's device-busy ms over 3 profiled steps, the attention kernels' ms
 (#5 and #6) and #6's alone, a step.
@@ -52,6 +53,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # step case: (users a batch, trainer options)
 FFT = dict(adding_adapter_to="None", adapter_type="houslby")
 STEPS = {"fft8": (8, FFT), "fft8_288": (8, dict(FFT, CV_resize=288)),
+         "fft8_fp32": (8, dict(FFT, compute_dtype="float32")),
          "lora32": (32, dict(adapter_type="lora"))}
 
 
@@ -115,15 +117,20 @@ def main() -> int:
         sdpa_dev = sum(device_ms(cs.sdpa_bwd(q, k, v, g, bias,
                                              kw.get("rate", 0.0))).values())
         bnd = cs.mha_bound(B, T, cs.TOWER_D, cs.TOWER_H, padded, True, q.element_size())
+        row = {}
+        if dtype == "float32":  # the kernels' three TF32 passes; the CUDA cores' beside
+            row.update(cuda_core_bound_ms=bnd[0], cuda_core_bound_by=bnd[1])
+            bnd = cs.mha_bounds_fp32(B, T, cs.TOWER_D, cs.TOWER_H, padded, True)[1]
         design = fa.bwd_design(T, q.element_size())
         results.append({"case": name, "B": B, "T": T, "dtype": dtype, "design": design,
                         "ms": ms, "sdpa_bwd_ms": lib, "bound_ms": bnd[0],
-                        "bound_by": bnd[1], "kernels_ms": split,
+                        "bound_by": bnd[1], **row, "kernels_ms": split,
                         "device_ms": sum(split.values()),
                         "sdpa_bwd_device_ms": sdpa_dev})
         print(f"{name} {B} x {T}: kernel {median(ms):.4f} ms ({design}), SDPA backward "
-              f"{median(lib):.4f} ms, bound {bnd[0]:.4f} ms; "
-              + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())
+              f"{median(lib):.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+              + (f", on the CUDA cores {row['cuda_core_bound_ms']:.4f} ms" if row else "")
+              + "; " + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())
               + f" (device); SDPA backward {sdpa_dev:.4f} ms (device)", flush=True)
         del q, k, v, g, bias
         torch.cuda.empty_cache()
@@ -135,7 +142,7 @@ def main() -> int:
         tr = cs.uncached_trainer(device, corpus, batch_size=users, **options)
         batch = cs.staged_batch(tr, 0)
         row = {"case": case, "users": users, "method": tr.method,
-               "CV_resize": tr.cfg.CV_resize, "host_ms": [],
+               "CV_resize": tr.cfg.CV_resize, "dtype": tr.cfg.compute_dtype, "host_ms": [],
                "busy_ms": [], "attention_ms": [], "mha_bwd_ms": []}
         for _ in range(args.runs):
             host = cs.host_timed(lambda: (tr.train_step(*batch), torch.cuda.synchronize()), 3)

@@ -4,20 +4,25 @@
 attention step on one NVIDIA GPU.
 
     python3 scripts/torch_mha_fwd_bench.py [--runs 3] [--package-root DIR]
-                                           [--cases bert,bert_train,vit,257,325,subblock,uncached]
+        [--cases bert,bert_train,vit,257,325,bert_fp32,bert_fp32_train,vit_fp32,
+                 subblock,uncached,uncached_fp32]
 
 The cases are at the uncached step's 704 rows (64 users x 11 items), 768
 wide, 12 heads, bf16: BERT titles (30 tokens, a padded key bias with an
 all-pad row) in eval mode and in train mode at dropout 0.1; ViT images
 (197 tokens), a 256-pixel ViT (257) and a 288-pixel one (325, past the
-resident keys' limit) in eval mode; and #8's attention step at ViT
+resident keys' limit) in eval mode; the fp32 compute dtype's BERT eval and
+train and ViT (``*_fp32``: fp32 values that use all 24 bits, the kernel's
+three TF32 passes, the fp32 bound 1e-4, and the bound both ways,
+``chip_smoke.mha_bounds_fp32``); and #8's attention step at ViT
 (``subblock``: the device time of its attention kernel within a
 ``fused_attn_subblock`` call, ``chip_smoke.subblock_split``); and the
 IISAN (Uncached) training step at the published batch of 64 users
 (``uncached``: ``chip_smoke.uncached_trainer`` over chip_smoke phase 8's
 synthetic corpus, one staged batch, ``chip_smoke.uncached_breakdown``:
 host ms, device-busy ms and the attention kernels' ms a step from the
-profiler, ``--runs`` times).  For each #5 case: max |kernel - plain| /
+profiler, ``--runs`` times; ``uncached_fp32`` the same step in fp32).
+For each #5 case: max |kernel - plain| /
 (max|plain| + |plain|) over the first 64 images (``chip_smoke.mha_ratio``,
 against ``mha_fwd_plain``); ``--runs`` medians of 10 CUDA-event timings
 of the call; the device time of its kernels from torch.profiler over 5
@@ -43,11 +48,16 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-# name: (tokens, padded keys, train mode)
-CASES = {"bert": (30, True, False), "bert_train": (30, True, True),
-         "vit": (197, False, False), "257": (257, False, False),
-         "325": (325, False, False), "subblock": (197, False, False),
-         "uncached": (197, False, False)}
+# name: (tokens, padded keys, train mode, dtype)
+CASES = {"bert": (30, True, False, "bfloat16"), "bert_train": (30, True, True, "bfloat16"),
+         "vit": (197, False, False, "bfloat16"), "257": (257, False, False, "bfloat16"),
+         "325": (325, False, False, "bfloat16"),
+         "bert_fp32": (30, True, False, "float32"),
+         "bert_fp32_train": (30, True, True, "float32"),
+         "vit_fp32": (197, False, False, "float32"),
+         "subblock": (197, False, False, "bfloat16"),
+         "uncached": (197, False, False, "bfloat16"),
+         "uncached_fp32": (197, False, False, "float32")}
 
 
 def main() -> int:
@@ -86,21 +96,22 @@ def main() -> int:
     print(smi, flush=True)
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(cs.SEED + 5)
-    D, H, B, dt = cs.TOWER_D, cs.TOWER_H, cs.STEP_ROWS, torch.bfloat16
+    D, H, B = cs.TOWER_D, cs.TOWER_H, cs.STEP_ROWS
     results = []
     for case in args.cases.split(","):
-        T, padded, train = CASES[case]
-        row = {"case": case, "B": B, "T": T, "train": train}
-        if case == "uncached":
+        T, padded, train, dtype = CASES[case]
+        dt = getattr(torch, dtype)
+        row = {"case": case, "B": B, "T": T, "train": train, "dtype": dtype}
+        if case.startswith("uncached"):
             from iisan_tpu_torch.data.synthetic import synthetic_corpus
 
             corpus = synthetic_corpus(n_users=512, item_num=800, max_seq_len=cs.SEQ_LEN, seed=0)
-            tr = cs.uncached_trainer(device, corpus)
+            tr = cs.uncached_trainer(device, corpus, compute_dtype=dtype)
             batch = cs.staged_batch(tr, 1)
             steps = [cs.uncached_breakdown(tr, batch, 5) for _ in range(args.runs)]
             row.update(host_ms=[h for h, _, _ in steps], busy_ms=[b for _, b, _ in steps],
                        attention_ms=[f["attention kernels"] for _, _, f in steps])
-            print(f"IISAN uncached step (staged batch of 64 users): device-busy "
+            print(f"IISAN uncached step ({dtype}, staged batch of 64 users): device-busy "
                   f"{row['busy_ms']} ms, attention kernels {row['attention_ms']} ms, host "
                   f"{row['host_ms']} ms", flush=True)
             results.append(row)
@@ -148,14 +159,20 @@ def main() -> int:
             return F.scaled_dot_product_attention(*heads, attn_mask=mask,
                                                   dropout_p=cs.DROP if train else 0.0)
 
-        bnd = cs.mha_bound(B, T, D, H, padded, False)
+        if dt == torch.bfloat16:
+            tol, bnd = cs.MHA_TOL["fwd"], cs.mha_bound(B, T, D, H, padded, False)
+            bound_text = f"bound {bnd[0]:.4f} ms ({bnd[1]})"
+        else:
+            tol, b32 = cs.MHA_TOL_FP32, cs.mha_bounds_fp32(B, T, D, H, padded, False)
+            bnd, bound_text = b32[1], cs.bounds_text(b32)
+            row.update(cuda_core_bound_ms=b32[0][0], cuda_core_bound_by=b32[0][1])
         row.update(ms=[cs.cuda_timed(call, 10) for _ in range(args.runs)],
                    device_ms=device_ms(call, "mha_fwd"), sdpa_device_ms=device_ms(sdpa),
                    bound_ms=bnd[0], bound_by=bnd[1])
         print(f"#5 {case} {B} x {T}{' train' if train else ''}: ratio to plain "
-              f"{row['ratio']:.4g} (tol {cs.MHA_TOL['fwd']}); kernel {median(row['ms']):.4f} ms "
+              f"{row['ratio']:.4g} (tol {tol}); kernel {median(row['ms']):.4f} ms "
               f"(runs {row['ms']}), device {row['device_ms']:.4f} ms; SDPA device "
-              f"{row['sdpa_device_ms']:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+              f"{row['sdpa_device_ms']:.4f} ms; {bound_text}", flush=True)
         results.append(row)
         del q, k, v, heads, got, want
         torch.cuda.empty_cache()

@@ -8,11 +8,14 @@ forward and backward (its custom VJP), from the same numpy inputs.
 Tolerances: fp32 1e-5 (summation order only); bf16 max |diff| / max
 |want| < 0.05, the JAX package's own bf16 bound for this kernel (a
 probability may round to the neighbouring bf16 value in one framework and
-not the other).  Train mode cannot be matched with JAX (its masks come
+not the other).  On the card fp32 runs every product in three TF32 passes; the emulation
+below (``_tf32_attention``) holds that split within 1e-4 of JAX's fp32 and
+shows one pass outside it.  Train mode cannot be matched with JAX (its masks come
 from the TPU's generator or threefry), so it is held to the explicit-mask
 oracle ``reference_mha_masked`` with the port's Philox masks.
 """
 
+import math
 from unittest import mock
 
 import jax
@@ -151,6 +154,100 @@ def test_forward_and_backward_match_jax_bf16_at_257_keys(interpret_pallas):
         assert _rel(t.grad.float().numpy(), np.asarray(jg, np.float32)) < 0.05
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits) as the kernels' cvt.rna.tf32.f32
+    rounds it: to nearest, ties away from zero, on the bits (half of the 13
+    dropped bits added to the magnitude, then the 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _hi_lo(x: torch.Tensor):
+    """The kernels' split x = hi + lo: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_tf32(passes: int):
+    """a @ b as wgmma's .tf32 path takes it: three passes lo_a hi_b + hi_a
+    lo_b + hi_a hi_b (the kernels'), or the one pass hi_a hi_b; each product
+    of two TF32 values is exact in fp32, the sums are fp32."""
+    def mm(a, b):
+        (ah, al), (bh, bl) = _hi_lo(a), _hi_lo(b)
+        return ah @ bh if passes == 1 else al @ bh + ah @ bl + ah @ bh
+    return mm
+
+
+def _tf32_attention(q, k, v, bias, g, H, mm):
+    """The fp32 kernels' eval-mode forward and backward with each product
+    taken by ``mm`` on the operands the kernels split: S = Q . K^T, O = e .
+    V / sum (e = exp(s - max), unnormalised, as #5 streams it), gPd = g .
+    V^T, gV = p^T . g, gS = p (gPd - sum_j gPd p) / sqrt(dk), gQ = gS . K,
+    gK = gS^T . Q.  q, k, v, g (B, T, D) fp32, bias (B, T) or None;
+    returns (out, gq, gk, gv)."""
+    inv = 1.0 / math.sqrt(q.shape[-1] // H)
+    qh, kh, vh, gh = (fa._split(t, H) for t in (q, k, v, g))
+    s = mm(qh, kh.transpose(-1, -2)) * inv
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    total = e.sum(-1, keepdim=True)
+    p = e / total
+    g_s = fa._softmax_bwd(p, mm(gh, vh.transpose(-1, -2))) * inv
+    return tuple(fa._merge(t, torch.float32) for t in (
+        mm(e, vh) / total, mm(g_s, kh), mm(g_s.transpose(-1, -2), qh),
+        mm(p.transpose(-1, -2), gh)))
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    """The emulation's TF32 rounding is cvt.rna's (ties away from zero, in
+    both signs), and hi + lo holds x to 2^-21 of its size."""
+    u = 2.0 ** -10  # TF32's ulp at 1
+    x = torch.tensor([1 + u / 2, -(1 + u / 2), 1 + u / 2 - 2.0 ** -23, 1 + 1.5 * u,
+                      -(1 + 1.5 * u), 3.0, 0.0])
+    want = torch.tensor([1 + u, -(1 + u), 1.0, 1 + 2 * u, -(1 + 2 * u), 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32))
+    hi, lo = _hi_lo(r)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert int((lo.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    err = (r.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -21 * r.double().abs()).all())
+    assert bool(((r - hi).abs() > 2.0 ** -14 * r.abs()).any())  # one pass drops bits
+
+
+# The fp32 JAX parity inputs above: 13 keys at two widths, with and without
+# the key bias, and 257 keys.
+_TF32_CASES = {"13 keys D=128": dict(D=128, with_bias=False),
+               "13 keys D=128 bias": dict(D=128),
+               "13 keys D=32": dict(D=32, with_bias=False),
+               "13 keys D=32 bias": dict(D=32),
+               "257 keys": dict(B=2, T=257, D=128, with_bias=False, seed=5),
+               "257 keys bias": dict(B=2, T=257, D=128, seed=5)}
+
+
+@pytest.mark.parametrize("case", list(_TF32_CASES))
+def test_three_pass_tf32_keeps_jax_fp32_and_one_pass_does_not(interpret_pallas, case):
+    """The fp32 kernels' arithmetic (``_tf32_attention`` with three TF32
+    passes) against JAX's fp32 ``fused_mha`` (Pallas in interpret mode):
+    forward and gradients within 1e-4 (max |diff| / max |JAX|); one pass,
+    on the same inputs, outside 1e-4 in every tensor."""
+    q, k, v, g, bias = _inputs(**_TF32_CASES[case])
+
+    def jloss(q_, k_, v_):
+        out = jfa.fused_mha(q_, k_, v_, n_heads=2, key_bias=_j(bias))
+        return jnp.sum(out * _j(g)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(_j(q), _j(k), _j(v))
+    want = [np.asarray(x, np.float32) for x in (jout, *jgrads)]
+    args = (_t(q), _t(k), _t(v), _t(bias), _t(g), 2)
+    three = [_rel(t.numpy(), w) for t, w in zip(_tf32_attention(*args, _mm_tf32(3)), want)]
+    one = [_rel(t.numpy(), w) for t, w in zip(_tf32_attention(*args, _mm_tf32(1)), want)]
+    assert max(three) < 1e-4, three
+    assert min(one) > 1e-4, one
+
+
 def test_hand_backward_is_the_autograd_of_the_forward():
     """mha_bwd_plain against autograd of reference_mha, fp32."""
     q, k, v, g, bias = _inputs(B=3, T=11, D=128, seed=4)
@@ -287,7 +384,7 @@ def test_kernel_geometry():
     assert fa.supported(704, 30, 768, 12) and fa.bwd_supported(704, 30, 768, 12)
     # bf16 runs the cluster design up to 512 keys (clusters of one to eight
     # blocks of 64) and the streamed tensor-core pair beyond, fp32 the
-    # CUDA-core one
+    # query-tile and key-tile pair in three TF32 passes on wgmma
     assert fa.CLUSTER_KEYS == 512
     assert fa.bwd_design(197, 2) == fa.bwd_design(30, 2) == "wgmma_cluster"
     assert fa.bwd_design(320, 2) == fa.bwd_design(321, 2) == "wgmma_cluster"
@@ -295,7 +392,8 @@ def test_kernel_geometry():
     assert fa.bwd_design(513, 2) == "tensor_cores"
     assert [fa.cluster_blocks(T) for T in (1, 64, 65, 320, 321, 448, 449, 512)] == \
         [1, 1, 2, 5, 6, 7, 8, 8]
-    assert fa.bwd_design(197, 4) == fa.bwd_design(30, 4) == "rows"
+    assert fa.bwd_design(197, 4) == fa.bwd_design(30, 4) == "wgmma_tf32"
+    assert fa.BWD_DESIGNS == ("wgmma_tf32", "wgmma_cluster", "tensor_cores")
     assert not fa.supported(8, 30, 96, 2)            # head width 48
     assert fa.supported(8, 257, 768, 12)             # keys stream in tiles
     assert fa.supported(8, 197, 768, 12, 4) and fa.bwd_supported(8, 197, 768, 12, 4)
@@ -312,7 +410,7 @@ def test_kernels_take_any_number_of_keys(T):
     for itemsize in (2, 4):
         assert fa.supported(704, T, 768, 12, itemsize)
         assert fa.bwd_supported(88, T, 768, 12, itemsize)
-        want = ("rows" if itemsize == 4 else
+        want = ("wgmma_tf32" if itemsize == 4 else
                 "wgmma_cluster" if T <= 512 else "tensor_cores")
         assert fa.bwd_design(T, itemsize) == want
 

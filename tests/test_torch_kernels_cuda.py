@@ -858,13 +858,78 @@ def test_mha_bwd_designs_match_plain(cuda_device, T, with_bias, rate, B):
     assert fa.bwd_design(T, 2) == ("wgmma_cluster" if T <= fa.CLUSTER_KEYS
                                    else "tensor_cores")
     assert fa.library_bwd_design(T, 2) == fa.bwd_design(T, 2)
-    assert fa.library_bwd_design(T, 4) == fa.bwd_design(T, 4) == "rows"
+    assert fa.library_bwd_design(T, 4) == fa.bwd_design(T, 4) == "wgmma_tf32"
     b0 = fa.mha_bwd.launches
     got = fa.mha_bwd(q, k, v, bias, g, **kw)
     want = fa.mha_bwd_plain(q, k, v, bias, g, **kw)
     torch.cuda.synchronize()
     assert fa.mha_bwd.launches == b0 + 1
     assert _mha_ratio(got, want) <= MHA_TOL[dt, "bwd"]
+
+
+# Key counts at every edge of the fp32 kernels' tiling (64-row query and
+# key tiles, 8-key product steps, the forward's one streaming pass and the
+# backward's pair at every T): one and two keys, 31 / 32 / 33 and 63 / 64
+# / 65, ViT's 197, 257, 320 / 321 and 325, 512 / 513, 577 (ViT at
+# CV_resize=384), and a long row (4,097 keys, 128 wide).
+MHA_FP32_EDGES = (1, 2, 31, 32, 33, 63, 64, 65, 197, 257, 320, 321, 325, 512, 513, 577, 4097)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("T", MHA_FP32_EDGES)
+def test_mha_fp32_kernels_match_plain_at_the_tile_edges(cuda_device, T, with_bias, rate):
+    """#5 and #6 in fp32 (three TF32 passes on wgmma) at each edge of
+    their tiling, eval and train mode, with and without the key bias (the
+    first image all padding): one launch of each wrapper, both within the
+    fp32 bound (1e-4) of their plain versions, the backward's design
+    ``"wgmma_tf32"``, and two launches of each bit-equal."""
+    D, H = (768, 12) if T <= 577 else (128, 2)
+    q, k, v, g, bias = _mha_inputs(cuda_device, 2, T, D, torch.float32, seed=T)
+    bias = bias if with_bias else None
+    kw = dict(n_heads=H, seed=808, rate=rate, layer=4)
+    assert fa.library_bwd_design(T, 4) == fa.bwd_design(T, 4) == "wgmma_tf32"
+    f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
+    out = fa.mha_fwd(q, k, v, bias, **kw)
+    grads = fa.mha_bwd(q, k, v, bias, g, **kw)
+    torch.cuda.synchronize()
+    assert fa.mha_fwd.launches == f0 + 1 and fa.mha_bwd.launches == b0 + 1
+    assert out.dtype == torch.float32
+    assert _mha_ratio([out], [fa.mha_fwd_plain(q, k, v, bias, **kw)]) <= \
+        MHA_TOL[torch.float32, "fwd"]
+    assert _mha_ratio(grads, fa.mha_bwd_plain(q, k, v, bias, g, **kw)) <= \
+        MHA_TOL[torch.float32, "bwd"]
+    assert torch.equal(out, fa.mha_fwd(q, k, v, bias, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(grads, fa.mha_bwd(q, k, v, bias, g, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["mha_fwd_tf32_kernel", "mha_bwd_dq_tf32_kernel",
+                                     "mha_bwd_dkv_tf32_kernel"])
+def test_attention_fp32_kernels_run_on_wgmma(cuda_device, pattern):
+    """Each fp32 attention kernel (eval and train) has HGMMA (wgmma) in
+    its SASS and no HMMA (mma.sync): the products run on the tensor cores."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts(pattern)
+    assert len(counts) == 2
+    assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_mha_fp32_raises_on_a_misaligned_view(cuda_device):
+    """The fp32 kernels read q, k, v and g by TMA (16-byte aligned
+    starts): a misaligned view raises in both wrappers with no launch."""
+    q, k, v, g, bias = _mha_inputs(cuda_device, 2, 197, 768, torch.float32)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.float32, device=cuda_device)
+    odd = flat[1:].view(q.shape).copy_(q)
+    f0, b0 = fa.mha_fwd.launches, fa.mha_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.mha_fwd(odd, k, v, bias, n_heads=12)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.mha_bwd(q, k, v, bias, odd, n_heads=12)
+    assert fa.mha_fwd.launches == f0 and fa.mha_bwd.launches == b0
 
 
 @pytest.mark.cuda
@@ -1011,8 +1076,10 @@ def test_mask_replay_is_bit_equal_to_the_plain_masks(cuda_device, B, T, H, layer
 @pytest.mark.parametrize("dtype,B,T,D,H", [(torch.bfloat16, 8, 30, 768, 12),
                                            (torch.bfloat16, 4, 197, 768, 12),
                                            (torch.bfloat16, 2, 257, 768, 12),
+                                           (torch.float32, 8, 30, 768, 12),
                                            (torch.float32, 2, 197, 768, 12),
-                                           (torch.float32, 2, 257, 768, 12)])
+                                           (torch.float32, 2, 257, 768, 12),
+                                           (torch.float32, 2, 577, 768, 12)])
 def test_mha_planted_faults_break_the_bounds(cuda_device, dtype, B, T, D, H):
     q, k, v, g, bias = _mha_inputs(cuda_device, B, T, D, dtype, seed=2)
     kw = dict(n_heads=H, seed=31, rate=0.1, layer=0)
@@ -1036,7 +1103,8 @@ def test_mha_planted_faults_break_the_bounds(cuda_device, dtype, B, T, D, H):
                                           (torch.bfloat16, 0.0, 257), (torch.bfloat16, 0.1, 257),
                                           (torch.bfloat16, 0.1, 321), (torch.bfloat16, 0.1, 325),
                                           (torch.bfloat16, 0.0, 512), (torch.bfloat16, 0.1, 512),
-                                          (torch.bfloat16, 0.1, 513)])
+                                          (torch.bfloat16, 0.1, 513), (torch.float32, 0.0, 197),
+                                          (torch.float32, 0.1, 30), (torch.float32, 0.0, 577)])
 def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate, T):
     """Two launches on the same inputs (the FFT step's 88 images) give the
     same bits: no atomics, every sum in a fixed order (the cluster design
@@ -1146,7 +1214,7 @@ def test_mha_bwd_planted_faults_break_the_bound(cuda_device, T, fault):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("T", [197, 257])
+@pytest.mark.parametrize("T", [30, 197, 257, 577])
 def test_mha_all_pad_rows_stay_finite(cuda_device, dtype, T):
     q, k, v, g, _ = _mha_inputs(cuda_device, 3, T, 768, dtype)
     bias = torch.full((3, T), -1e9, device=cuda_device)
@@ -1236,7 +1304,8 @@ def test_fft_step_fp32_at_197_tokens_runs_the_kernels(cuda_device):
         b0 = fa.mha_bwd.launches
         tr.run_epoch(1)
         losses[route] = float(tr._last_step_losses[-1])
-        # 2 text + 2 image layers; the image layers' T is 197 (fp32: CUDA cores)
+        # 2 text + 2 image layers; the image layers' T is 197 (fp32: the
+        # three-pass TF32 pair)
         assert fa.mha_bwd.launches - b0 == (4 if route else 0)
     assert abs(losses[True] - losses[False]) <= 1e-4 * abs(losses[False])
 
