@@ -90,8 +90,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    backward at the FFT step's shapes (88 rows, ``MHA_BWD_CASES``), BERT,
    257 and 325 tokens and 448 and 512 keys in train mode and ViT in eval mode
    (bf16: the cluster design, one to eight blocks of 64 keys), 577 tokens
-   in train mode (``CV_resize=384``, past 512 keys: the streamed
-   ``mma.sync`` pair), ViT in eval mode and BERT in train mode in fp32
+   in train mode (``CV_resize=384``, past 512 keys: the split design, a
+   query-tile and a key-tile kernel) and at ViT-tiny's width (192, 3
+   heads) in eval mode, ViT in eval mode and BERT in train mode in fp32
    (the three-pass TF32 pair), and ViT at the TPME report's batch of 32
    users (352 rows) in both dtypes, each case's design and device time
    beside SDPA's backward and the bound printed (fp32: both ways, three
@@ -1294,22 +1295,28 @@ def mha_ratio(got, want):
 # The attention phase's dropout seed, and the backward's cases at the FFT
 # step's shapes (88 rows) and the TPME report's batch of 32 users (352):
 # name, rows, tokens, padded keys (a -1e9 key bias with an all-pad row),
-# dtype, dropout layer (None: eval mode).  bf16 runs the cluster design up
-# to 512 keys (325: six blocks, 448: seven, 512: eight) and the streamed
-# pair at 577; fp32 the three-pass TF32 pair at every T.
+# dtype, dropout layer (None: eval mode), heads of 64 (12: ViT-base's and
+# BERT-base's 768 wide; 3: ViT-tiny's 192).  bf16 runs the cluster design
+# up to 512 keys (325: six blocks, 448: seven, 512: eight) and the split
+# design at 577 (ViT at CV_resize=384; at ViT-tiny's width the JAX kernel
+# itself takes these keys); fp32 the three-pass TF32 pair at every T.
 ATTN_SEED = 20251016
 FFT_ROWS, TPME_ROWS = FFT_BATCH * (SEQ_LEN + 1), 32 * (SEQ_LEN + 1)
-MHA_BWD_CASES = (("BERT train", FFT_ROWS, TITLE_T, True, "bfloat16", 3),
-                 ("ViT eval", FFT_ROWS, IMAGE_T, False, "bfloat16", None),
-                 ("ViT eval fp32", FFT_ROWS, IMAGE_T, False, "float32", None),
-                 ("BERT train fp32", FFT_ROWS, TITLE_T, True, "float32", 3),
-                 ("ViT eval batch 32 fp32", TPME_ROWS, IMAGE_T, False, "float32", None),
-                 ("ViT-256 train", FFT_ROWS, IMAGE_T_256, True, "bfloat16", 4),
-                 ("ViT-288 train", FFT_ROWS, IMAGE_T_288, True, "bfloat16", 5),
-                 ("448 keys train", FFT_ROWS, 448, True, "bfloat16", 6),
-                 ("512 keys train", FFT_ROWS, 512, True, "bfloat16", 7),
-                 ("ViT-384 train", FFT_ROWS, IMAGE_T_384, True, "bfloat16", 8),
-                 ("ViT eval batch 32", TPME_ROWS, IMAGE_T, False, "bfloat16", None))
+VIT_TINY_H = 3
+MHA_BWD_CASES = (("BERT train", FFT_ROWS, TITLE_T, True, "bfloat16", 3, TOWER_H),
+                 ("ViT eval", FFT_ROWS, IMAGE_T, False, "bfloat16", None, TOWER_H),
+                 ("ViT eval fp32", FFT_ROWS, IMAGE_T, False, "float32", None, TOWER_H),
+                 ("BERT train fp32", FFT_ROWS, TITLE_T, True, "float32", 3, TOWER_H),
+                 ("ViT eval batch 32 fp32", TPME_ROWS, IMAGE_T, False, "float32", None,
+                  TOWER_H),
+                 ("ViT-256 train", FFT_ROWS, IMAGE_T_256, True, "bfloat16", 4, TOWER_H),
+                 ("ViT-288 train", FFT_ROWS, IMAGE_T_288, True, "bfloat16", 5, TOWER_H),
+                 ("448 keys train", FFT_ROWS, 448, True, "bfloat16", 6, TOWER_H),
+                 ("512 keys train", FFT_ROWS, 512, True, "bfloat16", 7, TOWER_H),
+                 ("ViT-384 train", FFT_ROWS, IMAGE_T_384, True, "bfloat16", 8, TOWER_H),
+                 ("ViT-tiny-384 eval", FFT_ROWS, IMAGE_T_384, False, "bfloat16", None,
+                  VIT_TINY_H),
+                 ("ViT eval batch 32", TPME_ROWS, IMAGE_T, False, "bfloat16", None, TOWER_H))
 
 
 def padding_bias(device, gen, B: int, T: int):
@@ -1321,17 +1328,19 @@ def padding_bias(device, gen, B: int, T: int):
     return torch.where(torch.arange(T, device=device)[None] < lengths[:, None], 0.0, -1e9)
 
 
-def mha_bwd_case(device, gen, B: int, T: int, padded: bool, dtype: str, layer):
-    """(q, k, v, g, bias, kw) of one backward case: normal values in
-    ``dtype`` (fp32 values use all 24 bits: bf16-rounded ones would need no
-    TF32 lo part), the padding bias or None, the kernels' keywords."""
+def mha_bwd_case(device, gen, B: int, T: int, padded: bool, dtype: str, layer,
+                 heads: int = TOWER_H):
+    """(q, k, v, g, bias, kw) of one backward case, ``heads`` heads of 64:
+    normal values in ``dtype`` (fp32 values use all 24 bits: bf16-rounded
+    ones would need no TF32 lo part), the padding bias or None, the
+    kernels' keywords."""
     import torch
 
-    D = TOWER_D
+    D = 64 * heads
     q, k, v, g = (torch.randn(B, T, D, generator=gen, device=device).to(getattr(torch, dtype))
                   for _ in range(4))
     bias = padding_bias(device, gen, B, T) if padded else None
-    kw = dict(n_heads=TOWER_H)
+    kw = dict(n_heads=heads)
     if layer is not None:
         kw.update(seed=ATTN_SEED, rate=DROP, layer=layer)
     return q, k, v, g, bias, kw
@@ -1347,7 +1356,7 @@ def sdpa_bwd(q, k, v, g, bias, rate: float):
     import torch.nn.functional as F
 
     B, T, D = q.shape
-    heads = [t.reshape(B, T, TOWER_H, D // TOWER_H).transpose(1, 2) for t in (q, k, v, g)]
+    heads = [t.reshape(B, T, D // 64, 64).transpose(1, 2) for t in (q, k, v, g)]
     hq = [t.detach().requires_grad_(True) for t in heads[:3]]
     mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
     ho = F.scaled_dot_product_attention(*hq, attn_mask=mask, dropout_p=rate)
@@ -1363,11 +1372,13 @@ def sdpa_bwd_ms(q, k, v, g, bias, rate: float, reps: int = 10):
 # in bf16 (csrc/mha_fwd.cu, csrc/attn_subblock_fwd.cu: the resident design
 # at each key-chunk count, eval and train, and the streamed one), #6's
 # cluster design (csrc/mha_bwd.cu, one to eight key blocks, eval and
-# train), and the fp32 kernels (#5's, #6's query-tile and key-tile pair;
-# eval and train), with the number of instances of each.
+# train) and split design (its query-tile and key-tile kernels), and the
+# fp32 kernels (#5's, #6's query-tile and key-tile pair; eval and train),
+# with the number of instances of each: every #6 instance.
 ATTN_WGMMA_KERNELS = {"mha_fwd_resident_kernel": 10, "mha_fwd_streamed_kernel": 2,
                       "subblock_attn_resident_kernel": 10, "subblock_attn_streamed_kernel": 2,
-                      "mha_bwd_cluster_kernel": 16, "mha_fwd_tf32_kernel": 2,
+                      "mha_bwd_cluster_kernel": 16, "mha_bwd_dq_split_kernel": 2,
+                      "mha_bwd_dkv_split_kernel": 2, "mha_fwd_tf32_kernel": 2,
                       "mha_bwd_dq_tf32_kernel": 2, "mha_bwd_dkv_tf32_kernel": 2}
 
 
@@ -1389,6 +1400,9 @@ def check_attention_sass(counts):
             raise AssertionError(f"{pattern}: {len(mine)} instances built, not {instances}")
         if any(n["HGMMA"] == 0 or n["HMMA"] > 0 for n in mine.values()):
             raise AssertionError(f"{pattern}: an instance without wgmma, or with mma.sync")
+    listed = sum(n for pattern, n in ATTN_WGMMA_KERNELS.items() if "mha_bwd" in pattern)
+    if sum("mha_bwd" in name for name in counts) != listed:
+        raise AssertionError(f"#6 has instances outside the {listed} listed")
 
 
 def check_attention(device):
@@ -1631,7 +1645,7 @@ def check_attention(device):
 
     # The backward at the FFT step's shapes (88 rows) and the TPME report's
     # batch (352): bf16 runs the cluster design up to fa.CLUSTER_KEYS (512)
-    # and the streamed pair beyond, fp32 the three-pass TF32 pair.  First the
+    # and the split design beyond, fp32 the three-pass TF32 pair.  First the
     # clusters the card holds at once of each cluster instance (the wrapper
     # raises at 0).
     for train in (False, True):
@@ -1641,8 +1655,9 @@ def check_attention(device):
         if min(held) < 1:
             raise AssertionError("mha_bwd: a cluster instance cannot be scheduled")
     bf16 = torch.bfloat16
-    for name, B, T, padded, dtype, layer in MHA_BWD_CASES:
-        q, k, v, g, b, kw = mha_bwd_case(device, gen, B, T, padded, dtype, layer)
+    out["bwd_designs"] = {}
+    for name, B, T, padded, dtype, layer, heads in MHA_BWD_CASES:
+        q, k, v, g, b, kw = mha_bwd_case(device, gen, B, T, padded, dtype, layer, heads)
         tol = MHA_TOL["bwd"] if q.dtype == bf16 else MHA_TOL_FP32
         got = fa.mha_bwd(q, k, v, b, g, **kw)
         want = fa.mha_bwd_plain(q, k, v, b, g, **kw)
@@ -1654,7 +1669,7 @@ def check_attention(device):
         if design != fa.bwd_design(T, q.element_size()):
             raise AssertionError(f"mha_bwd {name}: the library runs {design}, "
                                  f"bwd_design names {fa.bwd_design(T, q.element_size())}")
-        log(f"mha_bwd {name} B={B} T={T} {dtype} ({design}): gq, gk, gv max "
+        log(f"mha_bwd {name} B={B} T={T} D={64 * heads} {dtype} ({design}): gq, gk, gv max "
             f"|diff| / (max|plain| + |plain|) {ratio:.4g} (tol {tol}); finite "
             f"{all(torch_finite(t) for t in got)}")
         require(ratio, tol, f"mha_bwd {name}")
@@ -1684,11 +1699,16 @@ def check_attention(device):
         dev_ms = sum(t for key, t in kernel_device_ms(
             lambda: fa.mha_bwd(q, k, v, b, g, **kw)).items() if "mha_bwd" in key)
         lib_dev_ms = sum(kernel_device_ms(sdpa_bwd(q, k, v, g, b, kw.get("rate", 0.0))).values())
-        bnd = mha_bound(B, T, D, H, padded, True, q.element_size())
+        bnd = mha_bound(B, T, 64 * heads, heads, padded, True, q.element_size())
         if q.dtype == bf16:
             bound_line = f"bound {bnd[0]:.4f} ms ({bnd[1]})"
+            # each bf16 design's first case, for the kernel line
+            out["bwd_designs"].setdefault(design, {
+                "case": name, "B": B, "T": T, "D": 64 * heads, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": lib_ms})
         else:
-            b32 = mha_bounds_fp32(B, T, D, H, padded, True)
+            b32 = mha_bounds_fp32(B, T, 64 * heads, heads, padded, True)
             bound_line, bnd = bounds_text(b32), b32[1]
         if name == "ViT eval":
             out.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound=bnd, bwd_sdpa_ms=lib_ms,
@@ -5035,7 +5055,7 @@ def main() -> int:
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd, library_ms, source=None,
-              device=None):
+              device=None, designs=None):
         row = {"name": name, "route": "cuda",
                "source": f"iisan_tpu_torch/csrc/{source or name}.cu",
                "replaces": replaces, "launches": launches,
@@ -5043,6 +5063,8 @@ def main() -> int:
                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
         if device is not None:
             row["device_ms"] = device
+        if designs is not None:
+            row["designs"] = designs
         return row
 
     kernels = [
@@ -5084,7 +5106,8 @@ def main() -> int:
               uncached["mha_bwd"] + towers["mha_bwd"] + peft["mha_bwd"]
               + tpme["mha_bwd"],
               attn["bwd_err"], attn["bwd_ms"], attn["bwd_plain_ms"],
-              attn["bwd_bound"], attn["bwd_sdpa_ms"], device=attn["bwd_device_ms"]),
+              attn["bwd_bound"], attn["bwd_sdpa_ms"], device=attn["bwd_device_ms"],
+              designs=attn["bwd_designs"]),
         entry("mha_fwd_tf32", "iisan_tpu/ops/fused_attention.py:73", fp32_counts["mha_fwd"],
               attn["fwd32_err"], attn["fwd32_ms"], attn["fwd32_plain_ms"],
               attn["fwd32_bound"], attn["fwd32_sdpa_ms"], "mha_fwd",

@@ -72,8 +72,8 @@
 //   lives while S and gPd are rounded into the tiles).  ptxas: 232-241
 //   registers a thread at two to eight key blocks, 122-123 at one, no
 //   spills (build.log has every instance's).  BERT's 30
-//   tokens (one block) run faster than on the mma.sync pair this design
-//   replaced, so no dispatch by T keeps that pair below 512 keys.
+//   tokens (one block) ran faster here than on the mma.sync pair that
+//   took every T before this design.
 // - An H100 holds 264, 132, 79, 62, 47, 39, 32 and 30 clusters of one to
 //   eight blocks at once (cudaOccupancyMaxActiveClusters), so from three
 //   blocks on 6-15% of its 264 block slots stay idle (15% at seven), where
@@ -98,26 +98,39 @@
 // cluster's) (faster by a few percent, but p would no longer be exp(s -
 // max) / sum as the forward and the plain version form it).
 //
-// T > 512 (streamed, up to 46,340 keys): two kernels on mma.sync m16n8k16
-// with cp.async staging, joined by an fp32 (B, H, T, 3) scratch of each
-// query row's (max, sum, row term).  This range is the port's own: the TPU
-// kernel does not run past 512 keys at ViT width (the JAX towers take the
-// XLA path there).
-// - dq: a block per (64-row query tile, head, image), a warp a 16-row
-//   m-tile with its Q and g rows as A fragments, three passes over 64-key
-//   tiles of K and V (two buffers): the rows' max and sum; S again and gP
-//   = g . V^T, the keep factors, the row term summed across the quad; S
-//   and gP again and gS, taken as the A fragment of gS . K.  It writes gQ
-//   and the statistics.
-// - dkv: a block per (64-key tile, head, image), a warp per 16 keys with
-//   their K and V rows as A fragments.  It walks the query tiles in order
-//   (Q, g and the statistics staged by cp.async, two buffers), 16 queries
-//   at a time: S^T = K . Q^T, p from the statistics, pd, gP^T = (V . g^T) *
-//   keep and gS, then gV += pd^T . g and gK += gS^T . Q; the sums stay in
-//   registers.  The dropout element stays query * T + key.
-// That split computes ten products where the function has five; it is
-// kept past 512 keys, beyond the portable cluster size of 8 blocks.
-//
+// T > 512 (up to 46,340 keys): the split design, two kernels on wgmma with
+// TMA, joined by an fp32 (B, H, T, 3) scratch of each query row's (max,
+// sum, row term).  The TPU kernel runs here too at narrower heads:
+// `_pick_batch_block` takes up to 961, 903, 849, 709 and 512 keys at D =
+// 64, 128, 192, 384 and 768 in bf16 (ViT-tiny's 192 wide at 384 pixels,
+// 577 tokens, among them), past the 8 blocks of 64 keys a portable
+// cluster holds.
+// - Query-tile kernel: a block per (64-row query tile, head, image), one
+//   warpgroup.  Q and g load once by TMA; 64-key K and V tiles stream
+//   through a three-stage TMA ring, twice.  Pass 0: S = Q . K^T and gPd =
+//   g . V^T on wgmma (query-major, so `row_keep` serves as it is), then the
+//   rows' running max, sum and row term sum_j gP e (both sums rescaled by
+//   exp(old max - new max) as the max grows, as the fp32 query-tile kernel
+//   does; term / sum at the end is sum_j gP p over fp32 p).  Pass 1: both
+//   products again, p = exp(s - max) / sum, gS = T(p (gP - term) /
+//   sqrt(dk)) in registers as the A operand of gQ += gS . K (K MN-major as
+//   B, as the forward's pd . V).  Five products a (query tile, key tile).
+//   Writes gQ by TMA and the scratch.
+// - Key-tile kernel: a block per (64-key tile, head, image), one
+//   warpgroup: the cluster design's block at one block a cluster, its
+//   three exchanges replaced by a read of the scratch.  K_r and V_r
+//   resident; each query tile's Q, g and 64 rows of statistics through a
+//   two-stage ring (TMA boxes and a bulk copy on one mbarrier a stage); S
+//   and gPd recomputed, pd and gS rounded into swizzled tiles, then gV +=
+//   pd^T . g and gK += gS^T . Q with both tiles read MN-major as A.  Four
+//   products a tile: nine in all, where the function has five.
+// - Keys past T are -inf scores, selected and not branched around; the
+//   dropout element stays query * T + key.  No atomics: both kernels sum
+//   in a fixed order, so two launches are bit-equal.
+// - This replaced a pair on mma.sync m16n8k16 with cp.async staging (three
+//   passes over the keys for dq, ten products a tile pair); PERF.md has
+//   both designs' times.
+
 // fp32 (the fp32 compute dtype: any --use_scale but "half"), every T from
 // 1 to 46,340: the same split, each product in three TF32 passes on wgmma
 // m64n64k8 (mha.cuh's fp32 section), so the function stays the plain fp32
@@ -563,360 +576,457 @@ cudaError_t launch_cluster(const void* q, const void* k, const void* v, const vo
 }
 
 // ---------------------------------------------------------------------
-// bf16, T > kClusterMaxKeys: the streamed split on mma.sync (see the top)
+// bf16, T > kClusterMaxKeys: the split design (see the top)
 // ---------------------------------------------------------------------
 
-// One m-tile of the query side: 16 query rows (the first is i0) with their
-// Q and g rows as A fragments, the rows' statistics and their gQ sums.
-// kDrop: train mode (eval builds carry no Philox code).
-template <bool kDrop>
-struct DqTile {
-  unsigned qf[kDk / 16][4], gf[kDk / 16][4];
-  float m[2], l[2], term[2], acc[kDk / 8][4];
-  int i0;
+constexpr int kSplitStages = 3;  // the query-tile kernel's ring of K and V tiles
+// A query tile's 64 rows of (max, sum, term) in the fp32 scratch, copied
+// from the 16-byte boundary at or before its first row: 768 bytes and up to
+// 12 before them, rounded up to 16.  The scratch holds kStatTail floats
+// past its last row, so the last tile's copy stays inside it.
+constexpr int kStatBytes = 784;
+constexpr int kStatTail = kStatBytes / 4;
 
-  __device__ void reset(int first_row) {
-    i0 = first_row;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      m[half] = -FLT_MAX;
-      l[half] = 0.f;
-      term[half] = 0.f;
-    }
-  }
-
-  // Pass 1, one 64-key tile: the rows' running max and sum.
-  __device__ void stats_tile(const bf16* ks, const float* bias_t, int j0, const Dims& d,
-                             int lane) {
-    stats_pass_tile(m, l, qf, ks, bias_t, j0, d, lane);
-  }
-
-  __device__ void finish_stats() { finish_sums(l); }
-
-  // 16 keys (K and V rows at ks / vs, the first is key j0): p (fp32) and
-  // gP = (g . v^T) * keep, both 0 past T.
-  __device__ void probs_grads(float (&p)[2][4], float (&gp)[2][4], const bf16* ks, const bf16* vs,
-                              const float* bias_c, int j0, const Dims& d, const Dropout& drop,
-                              unsigned site, unsigned b, int lane) const {
-    const int g = lane / 4, t = lane % 4;
-    score_tile(p, qf, ks, bias_c, j0, d.T, d.inv_sqrt_dk, lane);
-    dot_rows(gp, gf, vs, lane);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + nt * 8 + 2 * t + (e & 1);
-        const unsigned i = i0 + g + 8 * (e >> 1);
-        if (j < d.T) {
-          p[nt][e] = __fdiv_rn(expf(p[nt][e] - m[e >> 1]), l[e >> 1]);
-          if (kDrop) gp[nt][e] *= drop.keep(site, b, i * d.T + j);
-        } else {
-          p[nt][e] = 0.f;
-          gp[nt][e] = 0.f;
-        }
-      }
-  }
-
-  // Pass 2, one 64-key tile: this lane's share of the rows' sum_j gP p.
-  __device__ void term_tile(const bf16* ks, const bf16* vs, const float* bias_t, int j0,
-                            const Dims& d, const Dropout& drop, unsigned site, unsigned b,
-                            int lane) {
-#pragma unroll
-    for (int c = 0; c < kKeyTile / 16; ++c) {
-      if (j0 + c * 16 >= d.T) break;  // chunks wholly past T add nothing
-      float p[2][4], gp[2][4];
-      probs_grads(p, gp, ks + c * 16 * kStr, vs + c * 16 * kStr,
-                  bias_t != nullptr ? bias_t + c * 16 : nullptr, j0 + c * 16, d, drop, site, b,
-                  lane);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) term[e >> 1] += gp[nt][e] * p[nt][e];
-    }
-  }
-
-  // The rows' terms from the quad's shares; clears the gQ sums.
-  __device__ void finish_term() {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      term[half] += __shfl_xor_sync(0xffffffffu, term[half], 1);
-      term[half] += __shfl_xor_sync(0xffffffffu, term[half], 2);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kDk / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  }
-
-  // Pass 3, one 64-key tile: gS = T(p (gP - term) / sqrt(dk)), then gQ +=
-  // gS . K with gS's C fragments as the A fragments.
-  __device__ void grad_tile(const bf16* ks, const bf16* vs, const float* bias_t, int j0,
-                            const Dims& d, const Dropout& drop, unsigned site, unsigned b,
-                            int lane) {
-#pragma unroll
-    for (int c = 0; c < kKeyTile / 16; ++c) {
-      if (j0 + c * 16 >= d.T) break;  // chunks wholly past T add nothing
-      float p[2][4], gp[2][4];
-      probs_grads(p, gp, ks + c * 16 * kStr, vs + c * 16 * kStr,
-                  bias_t != nullptr ? bias_t + c * 16 : nullptr, j0 + c * 16, d, drop, site, b,
-                  lane);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[nt][e] = round_to<bf16>(
-              __fmul_rn(__fmul_rn(p[nt][e], __fsub_rn(gp[nt][e], term[e >> 1])), d.inv_sqrt_dk));
-      unsigned a[4];
-      pack_a(a, p[0], p[1]);
-      pv_step(acc, a, ks + c * 16 * kStr, lane);
-    }
-  }
-
-  // gQ's first `rows` rows (row stride D) and their (max, sum, term) at st.
-  __device__ void finish(bf16* gq, float* st, int rows, int D, int lane) const {
-    store_o(gq, acc, rows, D, lane);
-    if (lane % 4 != 0) return;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = lane / 4 + 8 * half;
-      if (r >= rows) continue;
-      st[r * 3] = m[half];
-      st[r * 3 + 1] = l[half];
-      st[r * 3 + 2] = term[half];
-    }
-  }
+// The query-tile kernel's shared memory from the 1024-aligned base: its Q
+// and g boxes (Q's becomes gQ's staging tile at the end), the ring's
+// stages (a K box and a V box each), the barriers (Q and g, the stages).
+struct SplitDqLayout {
+  static constexpr int q = 0, g = kFwdBox, ring = 2 * kFwdBox;
+  static constexpr int bars = ring + 2 * kSplitStages * kFwdBox;
+  static constexpr size_t bytes = bars + (1 + kSplitStages) * sizeof(uint64_t) + 1024;
 };
 
-// dq with keys streamed (any T): a block per (64-row query tile, head,
-// image), K and V through two 64-key buffers in each of the three passes.
-struct DqLayout {
-  static constexpr size_t tile = static_cast<size_t>(kKeyTile) * kStr * sizeof(bf16);
-  static constexpr size_t q = 0, g = static_cast<size_t>(kQTile) * kStr * sizeof(bf16);
-  static constexpr size_t k = 2 * g, v = k + 2 * tile, bias = v + 2 * tile;
-  static constexpr size_t bytes = bias + 2 * kKeyTile * sizeof(float);
-};
-
-template <bool kDrop>
-__global__ void __launch_bounds__(kTcThreads, 4)
-    mha_bwd_dq_streamed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const float* __restrict__ bias,
-                               const bf16* __restrict__ g, bf16* __restrict__ gq,
-                               float* __restrict__ stats, Dims d, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + DqLayout::q);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + DqLayout::g);
-  bf16* Ks[2] = {reinterpret_cast<bf16*>(smem + DqLayout::k),
-                 reinterpret_cast<bf16*>(smem + DqLayout::k + DqLayout::tile)};
-  bf16* Vs[2] = {reinterpret_cast<bf16*>(smem + DqLayout::v),
-                 reinterpret_cast<bf16*>(smem + DqLayout::v + DqLayout::tile)};
-  float* Bs = reinterpret_cast<float*>(smem + DqLayout::bias);
-  const int Tn = d.T, i0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_kt = (Tn + kKeyTile - 1) / kKeyTile;
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  const int r0 = i0 + 16 * warp;  // the warp's first query row
-  const bool active = r0 < Tn;
-  const unsigned site = d.site0 + h;
-
-  auto stage = [&](int kt, bool with_v) {
-    const int j0 = kt * kKeyTile, n = min(kKeyTile, Tn - j0);
-    stage_rows(Ks[kt & 1], k, row0 + j0, n, kKeyTile, d.D, h);
-    if (with_v) stage_rows(Vs[kt & 1], v, row0 + j0, n, kKeyTile, d.D, h);
-    if (bias != nullptr)
-      for (int j = threadIdx.x; j < kKeyTile; j += blockDim.x)
-        Bs[(kt & 1) * kKeyTile + j] = j < n ? bias[row0 + j0 + j] : 0.f;
-  };
-  const float* no_bias = nullptr;
-  auto bias_of = [&](int kt) { return bias != nullptr ? Bs + (kt & 1) * kKeyTile : no_bias; };
-  // body(kt) for every key tile, with K (and V) of tile kt landed.
-  auto over_tiles = [&](bool with_v, auto&& body) {
-    stage(0, with_v);
-    cp_async_commit();
-    for (int kt = 0; kt < n_kt; ++kt) {
-      if (kt + 1 < n_kt) stage(kt + 1, with_v);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();  // tile kt landed
-      if (active) body(kt);
-      __syncthreads();  // tile kt's buffers are free
+// This lane's key biases of a 64-key tile from the image's bias row brow
+// in device memory (null: none), 0 past T: bv[2 j + e] is key j0 + 8 j + 2t
+// + e's.  The query-tile kernel reads them while the tile's products run.
+__device__ __forceinline__ void lane_biases(float (&bv)[16], const float* brow, int j0, int Tn,
+                                            int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = j0 + 8 * j + 2 * t + e;
+      bv[2 * j + e] = brow != nullptr && col < Tn ? brow[col] : 0.f;
     }
-  };
-
-  stage_rows(Qs, q, row0 + i0, min(kQTile, Tn - i0), kQTile, d.D, h);
-  stage_rows(Gs, g, row0 + i0, min(kQTile, Tn - i0), kQTile, d.D, h);
-  DqTile<kDrop> w;
-  w.reset(r0);
-  over_tiles(false, [&](int kt) {
-    if (kt == 0) {  // Q and g landed with the first tile
-      load_q_frags(w.qf, Qs + 16 * warp * kStr, lane);
-      load_q_frags(w.gf, Gs + 16 * warp * kStr, lane);
-    }
-    w.stats_tile(Ks[kt & 1], bias_of(kt), kt * kKeyTile, d, lane);
-  });
-  w.finish_stats();
-  over_tiles(true, [&](int kt) {
-    w.term_tile(Ks[kt & 1], Vs[kt & 1], bias_of(kt), kt * kKeyTile, d, drop, site, b, lane);
-  });
-  w.finish_term();
-  over_tiles(true, [&](int kt) {
-    w.grad_tile(Ks[kt & 1], Vs[kt & 1], bias_of(kt), kt * kKeyTile, d, drop, site, b, lane);
-  });
-  cp_async_wait<0>();
-  if (active)
-    w.finish(gq + (row0 + r0) * d.D + h * kDk,
-             stats + ((static_cast<size_t>(b) * d.H + h) * Tn + r0) * 3, min(16, Tn - r0), d.D,
-             lane);
 }
 
-// dkv: two buffers of a query tile's Q and g rows and statistics; the
-// block's K and V rows pass through buffer 1 before the walk starts.
-struct DkvLayout {
-  static constexpr size_t tile = static_cast<size_t>(kQTile) * kStr * sizeof(bf16);
-  static constexpr size_t q = 0, g = 2 * tile, st = 4 * tile;
-  static constexpr size_t bytes = st + 2 * kQTile * 3 * sizeof(float);
-};
-
-template <bool kDrop>
-__global__ void __launch_bounds__(kTcThreads, 3)
-    mha_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                          const bf16* __restrict__ g, const float* __restrict__ stats,
-                          bf16* __restrict__ gk, bf16* __restrict__ gv, Dims d, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs[2] = {reinterpret_cast<bf16*>(smem + DkvLayout::q),
-                 reinterpret_cast<bf16*>(smem + DkvLayout::q + DkvLayout::tile)};
-  bf16* Gs[2] = {reinterpret_cast<bf16*>(smem + DkvLayout::g),
-                 reinterpret_cast<bf16*>(smem + DkvLayout::g + DkvLayout::tile)};
-  float* St[2] = {reinterpret_cast<float*>(smem + DkvLayout::st),
-                  reinterpret_cast<float*>(smem + DkvLayout::st) + kQTile * 3};
-  const int Tn = d.T, j0 = blockIdx.x * kKeyTile, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
-  const int jw = j0 + 16 * warp;  // the warp's first key
-  const bool active = jw < Tn;
-  const size_t row0 = static_cast<size_t>(b) * Tn;
-  const unsigned site = d.site0 + h;
-  const float* st_h = stats + (static_cast<size_t>(b) * d.H + h) * Tn * 3;
-  const int n_qt = (Tn + kQTile - 1) / kQTile;
-
-  auto stage = [&](int qt) {
-    const int i0 = qt * kQTile, n = min(kQTile, Tn - i0), buf = qt & 1;
-    stage_rows(Qs[buf], q, row0 + i0, n, kQTile, d.D, h);
-    stage_rows(Gs[buf], g, row0 + i0, n, kQTile, d.D, h);
-    for (int idx = threadIdx.x; idx < kQTile * 3; idx += blockDim.x) {
-      if (idx < n * 3)
-        cp_async4(St[buf] + idx, st_h + static_cast<size_t>(i0) * 3 + idx);
-      else
-        St[buf][idx] = 0.f;  // rows past T: never read
-    }
-  };
-
-  const int n_keys = min(kKeyTile, Tn - j0);
-  stage_rows(Qs[1], k, row0 + j0, n_keys, kKeyTile, d.D, h);
-  stage_rows(Gs[1], v, row0 + j0, n_keys, kKeyTile, d.D, h);
-  stage(0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  unsigned kf[kDk / 16][4], vf[kDk / 16][4];
-  float kb[2] = {0.f, 0.f};  // the biases of keys jw + gr and jw + gr + 8
-  if (active) {
-    load_q_frags(kf, Qs[1] + 16 * warp * kStr, lane);
-    load_q_frags(vf, Gs[1] + 16 * warp * kStr, lane);
-    if (bias != nullptr) {
+// mha.cuh's block_scores with the biases in registers (lane_biases').
+__device__ __forceinline__ void lane_scores(float (&s)[32], float (&m)[2], const float (&bv)[16],
+                                            bool biased, int j0, int Tn, float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = j0 + 8 * j + 2 * t + e;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int j = jw + gr + 8 * half;
-        kb[half] = j < Tn ? bias[row0 + j] : 0.f;
+        float v = __fmul_rn(s[4 * j + 2 * half + e], scale);
+        if (biased) v = __fadd_rn(v, bv[2 * j + e]);
+        v = col < Tn ? v : -INFINITY;
+        s[4 * j + 2 * half + e] = v;
+        m[half] = fmaxf(m[half], v);
       }
     }
-  }
-  __syncthreads();  // buffer 1 is free
+}
 
-  float ak[kDk / 8][4], av[kDk / 8][4];
+// The A fragments of gS = T(p (gP - term) / sqrt(dk)) over one 64-key tile
+// (the layout of probs_frags) from its scores s (scaled, -inf past T) and
+// gPd x: p = exp(s - max) / sum (rl = 1 / sum rounded), gP = gPd * keep.
+// 0 past T, where p is 0.
+template <bool kDrop>
+__device__ __forceinline__ void grad_frags(unsigned (&a)[4][4], const float (&s)[32],
+                                           const float (&x)[32], const float (&m)[2],
+                                           const float (&l)[2], const float (&rl)[2],
+                                           const float (&term)[2], const RowKeep (&keep)[2],
+                                           float scale, float inv_sqrt_dk) {
 #pragma unroll
-  for (int nt = 0; nt < kDk / 8; ++nt)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ak[nt][e] = av[nt][e] = 0.f;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    if (qt + 1 < n_qt) stage(qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // query tile qt landed
-    const int buf = qt & 1;
-    if (active) {
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = 2 * kk + jj;
 #pragma unroll
-      for (int c = 0; c < kQTile / 16; ++c) {
-        const bf16* qc = Qs[buf] + c * 16 * kStr;
-        const bf16* gc = Gs[buf] + c * 16 * kStr;
-        const float* sc = St[buf] + c * 16 * 3;
-        const int ic = qt * kQTile + c * 16;  // the chunk's first query
-        if (ic >= Tn) break;                   // chunks wholly past T add nothing
-        // element (nt, e): key jw + gr + 8 (e / 2), query ic + 8 nt + 2t + e % 2
-        float s[2][4], x[2][4];
-        dot_rows(s, kf, qc, lane);
-        dot_rows(x, vf, gc, lane);
+      for (int half = 0; half < 2; ++half) {
+        float gs[2];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int il = nt * 8 + 2 * t + (e & 1), i = ic + il, j = jw + gr + 8 * (e >> 1);
-            float pd = 0.f, gs = 0.f;
-            if (i < Tn && j < Tn) {
-              float sv = __fmul_rn(s[nt][e], d.inv_sqrt_dk);
-              if (bias != nullptr) sv = __fadd_rn(sv, kb[e >> 1]);
-              const float* st = sc + il * 3;
-              const float p = __fdiv_rn(expf(sv - st[0]), st[1]);
-              float gp = x[nt][e];
-              pd = round_to<bf16>(p);
-              if (kDrop) {
-                const float keep = drop.keep(site, b, static_cast<unsigned>(i) * Tn + j);
-                pd = round_to<bf16>(pd * keep);
-                gp *= keep;
-              }
-              gs = round_to<bf16>(__fmul_rn(__fmul_rn(p, __fsub_rn(gp, st[2])), d.inv_sqrt_dk));
-            }
-            s[nt][e] = pd;
-            x[nt][e] = gs;
-          }
-        unsigned a[4];
-        pack_a(a, s[0], s[1]);
-        pv_step(av, a, gc, lane);
-        pack_a(a, x[0], x[1]);
-        pv_step(ak, a, qc, lane);
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * half + e;
+          const float p = div_rn(expf(s[i] - m[half]), l[half], rl[half]);
+          float gp = x[i];
+          if (kDrop) gp *= keep[half].keeps(j, e) ? scale : 0.f;
+          gs[e] = __fmul_rn(__fmul_rn(p, __fsub_rn(gp, term[half])), inv_sqrt_dk);
+        }
+        a[kk][2 * jj + half] = pack_bf16(gs[0], gs[1]);
       }
     }
-    __syncthreads();  // query tile qt's buffers are free
+}
+
+// A block per (64-row query tile, head, image), one warpgroup.  Q and g
+// come once by TMA; item it of the ring is key tile it % n_kt of pass it /
+// n_kt (a K and a V box), and thread 0 refills a stage with the item
+// kSplitStages on once every warp's products have read it.  Pass 0: S = Q
+// . K^T and gPd = g . V^T on wgmma, the stage released, then the rows'
+// running max, sum of e = exp(s - max) and term sum_j gP e, both sums
+// rescaled by exp(old max - new max) as the max grows (term / sum at the
+// end is sum_j gP p over fp32 p).  Pass 1: both products again, gS in
+// registers as the A operand of gQ += gS . K (K MN-major), the stage
+// released after it.  Writes gQ (through Q's box, by TMA, clipped at T)
+// and each row's (max, sum, term) to stats.  A warp whose 16 rows lie past
+// T feeds zeros to gQ's product.
+template <bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    mha_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap vm,
+                            const __grid_constant__ CUtensorMap gm,
+                            const __grid_constant__ CUtensorMap gqm,
+                            const float* __restrict__ bias, float* __restrict__ stats, Dims d,
+                            Dropout drop) {
+  typedef SplitDqLayout L;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* base = align1024(bwd_smem);
+  unsigned char* ring = base + L::ring;
+  uint64_t* bar_qg = reinterpret_cast<uint64_t*>(base + L::bars);
+  uint64_t* full = bar_qg + 1;
+  const int Tn = d.T, i0 = blockIdx.x * kFwdTile, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
+  const int n_kt = (Tn + kFwdTile - 1) / kFwdTile, items = 2 * n_kt;
+  const unsigned site = d.site0 + h;
+  auto load = [&](int it) {  // thread 0: ring item it into its stage
+    const int st = it % kSplitStages, j0 = (it % n_kt) * kFwdTile;
+    unsigned char* dst = ring + st * 2 * kFwdBox;
+    sm90::mbar_expect_tx(&full[st], 2 * kFwdBox);
+    sm90::tma_load_3d(dst, &km, &full[st], h * kDk, j0, b);
+    sm90::tma_load_3d(dst + kFwdBox, &vm, &full[st], h * kDk, j0, b);
+  };
+  if (tid == 0) {
+    sm90::mbar_init(bar_qg, 1);
+    for (int st = 0; st < kSplitStages; ++st) sm90::mbar_init(&full[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm90::mbar_expect_tx(bar_qg, 2 * kFwdBox);
+    sm90::tma_load_3d(base + L::q, &qm, bar_qg, h * kDk, i0, b);
+    sm90::tma_load_3d(base + L::g, &gm, bar_qg, h * kDk, i0, b);
+    for (int it = 0; it < kSplitStages && it < items; ++it) load(it);
   }
-  cp_async_wait<0>();
-  if (active) {
-    const size_t o = (row0 + jw) * d.D + h * kDk;
-    store_o(gk + o, ak, min(16, Tn - jw), d.D, lane);
-    store_o(gv + o, av, min(16, Tn - jw), d.D, lane);
+  __syncthreads();
+  auto release = [&](int it) {  // item it's products are done
+    __syncthreads();
+    if (tid == 0 && it + kSplitStages < items) load(it + kSplitStages);
+  };
+  const int r0 = i0 + 16 * warp;  // the warp's first query row
+  const bool live = r0 < Tn;
+  const float* brow = bias != nullptr ? bias + static_cast<size_t>(b) * Tn : nullptr;
+  const uint32_t qa = sm90::smem_u32(base + L::q), ga = sm90::smem_u32(base + L::g);
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, term[2] = {0.f, 0.f}, rl[2] = {1.f, 1.f};
+  float acc[32];
+  sm90::fence_acc(acc);
+  sm90::mbar_wait(bar_qg, 0);
+#pragma unroll 1
+  for (int it = 0; it < items; ++it) {
+    const int j0 = (it % n_kt) * kFwdTile, st = it % kSplitStages;
+    sm90::mbar_wait(&full[st], (it / kSplitStages) & 1);
+    const uint32_t ka = sm90::smem_u32(ring + st * 2 * kFwdBox), va = ka + kFwdBox;
+    float s[32], x[32];
+    sm90::fence_acc(s);
+    sm90::fence_acc(x);
+    sm90::wgmma_fence();
+    qk_chunk(s, qa, ka);
+    sm90::wgmma_commit();
+    qk_chunk(x, ga, va);
+    sm90::wgmma_commit();
+    float bv[16];
+    lane_biases(bv, brow, j0, Tn, t);
+    RowKeep keep[2];
+    if (kDrop && live) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        keep[half] = row_keep(drop, site, b, r0 + lane / 4 + 8 * half, j0, Tn, lane);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(s);
+    sm90::fence_acc(x);
+    float tm[2] = {-FLT_MAX, -FLT_MAX};
+    if (live) lane_scores(s, tm, bv, brow != nullptr, j0, Tn, d.inv_sqrt_dk, t);
+    if (it < n_kt) {
+      release(it);
+      if (!live) continue;
+      quad_max(tm);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float mn = fmaxf(m[half], tm[half]), corr = expf(m[half] - mn);
+        m[half] = mn;
+        l[half] *= corr;
+        term[half] *= corr;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int i = 4 * j + e4, half = e4 >> 1;
+          const float e = expf(s[i] - m[half]);
+          float gp = x[i];
+          if (kDrop) gp *= keep[half].keeps(j, e4 & 1) ? drop.scale : 0.f;
+          l[half] += e;
+          term[half] += gp * e;
+        }
+      if (it == n_kt - 1) {  // the rows' sums and terms from the quad's shares
+        finish_sums(l);
+        finish_sums(term);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          rl[half] = __frcp_rn(l[half]);
+          term[half] = div_rn(term[half], l[half], rl[half]);
+        }
+      }
+    } else {
+      unsigned a[4][4];
+      if (live)
+        grad_frags<kDrop>(a, s, x, m, l, rl, term, keep, drop.scale, d.inv_sqrt_dk);
+      else
+        zero_frags(a);
+      pv_chunk(acc, a, ka, j0, Tn);  // gQ += gS . K: the first key tile starts the sum
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_frag(a[kk]);
+      release(it);
+    }
+  }
+  // gQ through Q's box (every product has read it), then the statistics.
+  stage_o(base + L::q, acc, warp, lane);
+  sm90::fence_async_shared();
+  __syncthreads();
+  if (tid == 0) {
+    sm90::tma_store_3d(&gqm, base + L::q, h * kDk, i0, b);
+    sm90::bulk_commit();
+  }
+  if (live && t == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + lane / 4 + 8 * half;
+      if (r >= Tn) continue;
+      float* row = stats + ((static_cast<size_t>(b) * d.H + h) * Tn + r) * 3;
+      row[0] = m[half];
+      row[1] = l[half];
+      row[2] = term[half];
+    }
+  }
+  if (tid == 0) sm90::bulk_wait();
+}
+
+// The key-tile kernel's shared memory from the 1024-aligned base: K_r, V_r,
+// the ring's two Q and two g boxes, the pd and gS tiles (then the gK and
+// gV staging tiles), the ring's two stages of statistics, the key biases,
+// the barriers (K, V, ring stage 0, 1).
+struct SplitDkvLayout {
+  static constexpr int k = 0, v = kFwdBox, q = 2 * kFwdBox, g = 4 * kFwdBox;
+  static constexpr int pd = 6 * kFwdBox, gs = 7 * kFwdBox, stats = 8 * kFwdBox;
+  static constexpr int bias = stats + 2 * kStatBytes;
+  static constexpr int bars = bias + kFwdTile * 4;
+  static constexpr size_t bytes = bars + 4 * sizeof(uint64_t) + 1024;  // + alignment
+};
+
+// A block per (64-key tile, head, image), one warpgroup: the cluster
+// design's block at one block a cluster, its three exchanges replaced by
+// a read of the statistics the query-tile kernel wrote.  K_r and V_r load
+// once; each query tile's Q, g and 64 rows of statistics come through a
+// two-stage ring (one mbarrier a stage), refilled once the block's
+// products and its threads have read the stage.  Per query tile: S and
+// gPd on wgmma, p = exp(s - max) / sum, pd and gS rounded into the
+// swizzled tiles, then gV += pd^T . g and gK += gS^T . Q (both tiles read
+// MN-major as A).  A query row past T takes max +inf, sum 1 and term 0 in
+// place of the scratch's bytes, so its p, pd and gS are 0.  gK and gV
+// leave by TMA, clipped at T.
+template <bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    mha_bwd_dkv_split_kernel(const __grid_constant__ CUtensorMap qm,
+                             const __grid_constant__ CUtensorMap km,
+                             const __grid_constant__ CUtensorMap vm,
+                             const __grid_constant__ CUtensorMap gm,
+                             const __grid_constant__ CUtensorMap gkm,
+                             const __grid_constant__ CUtensorMap gvm,
+                             const float* __restrict__ bias, const float* __restrict__ stats,
+                             Dims d, Dropout drop) {
+  typedef SplitDkvLayout L;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* base = align1024(bwd_smem);
+  unsigned char* Pt = base + L::pd;
+  unsigned char* St = base + L::gs;
+  float* Bs = reinterpret_cast<float*>(base + L::bias);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L::bars);  // K, V, ring stage 0, 1
+  const int Tn = d.T, j0 = blockIdx.x * kFwdTile, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane & 3;
+  const int n_qt = (Tn + kFwdTile - 1) / kFwdTile;
+  const unsigned site = d.site0 + h;
+  const size_t plane = (static_cast<size_t>(b) * d.H + h) * Tn;  // the (image, head)'s first row
+  const uint32_t ka = sm90::smem_u32(base + L::k), va = sm90::smem_u32(base + L::v);
+  const uint32_t pa = sm90::smem_u32(Pt), sa = sm90::smem_u32(St);
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) sm90::mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = tid; j < kFwdTile; j += kBwdThreads)
+    Bs[j] = bias != nullptr && j0 + j < Tn ? bias[static_cast<size_t>(b) * Tn + j0 + j] : 0.f;
+  __syncthreads();
+  // Query tile mt's statistics start (plane + 64 mt) * 3 floats into the
+  // scratch (16-byte aligned): the copy starts that many floats mod 4
+  // before them.
+  auto stat_skip = [&](int mt) { return static_cast<int>(((plane + mt * kFwdTile) * 3) & 3); };
+  auto load_tile = [&](int mt) {  // thread 0: query tile mt into ring stage mt & 1
+    const int st = mt & 1;
+    const float* src = stats + (plane + mt * kFwdTile) * 3 - stat_skip(mt);
+    sm90::mbar_expect_tx(&bar[2 + st], 2 * kFwdBox + kStatBytes);
+    sm90::tma_load_3d(base + L::q + st * kFwdBox, &qm, &bar[2 + st], h * kDk, mt * kFwdTile, b);
+    sm90::tma_load_3d(base + L::g + st * kFwdBox, &gm, &bar[2 + st], h * kDk, mt * kFwdTile, b);
+    sm90::bulk_load(base + L::stats + st * kStatBytes, src, kStatBytes, &bar[2 + st]);
+  };
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar[0], kFwdBox);
+    sm90::tma_load_3d(base + L::k, &km, &bar[0], h * kDk, j0, b);
+    sm90::mbar_expect_tx(&bar[1], kFwdBox);
+    sm90::tma_load_3d(base + L::v, &vm, &bar[1], h * kDk, j0, b);
+    for (int mt = 0; mt < 2 && mt < n_qt; ++mt) load_tile(mt);
+  }
+  const float* bias_s = bias != nullptr ? Bs : nullptr;
+  float gk[32], gv[32];
+#pragma unroll 1
+  for (int mt = 0; mt < n_qt; ++mt) {
+    const int st = mt & 1;
+    const uint32_t qa = sm90::smem_u32(base + L::q + st * kFwdBox);
+    const uint32_t ga = sm90::smem_u32(base + L::g + st * kFwdBox);
+    sm90::mbar_wait(&bar[2 + st], (mt >> 1) & 1);
+    if (mt == 0) {
+      sm90::mbar_wait(&bar[0], 0);
+      sm90::mbar_wait(&bar[1], 0);
+    }
+    // S = Q . K_r^T and gPd = g . V_r^T, a commit group each.
+    float s[32], x[32];
+    sm90::fence_acc(s);
+    sm90::fence_acc(x);
+    sm90::wgmma_fence();
+    qk_chunk(s, qa, ka);
+    sm90::wgmma_commit();
+    qk_chunk(x, ga, va);
+    sm90::wgmma_commit();
+    const int r0 = mt * kFwdTile + 16 * warp;  // the warp's first query row
+    const bool live = r0 < Tn;  // a warp whose 16 rows lie past T feeds zeros to the products
+    // This thread's rows' (max, sum, term), and 1 / sum rounded.
+    const float* sv =
+        reinterpret_cast<const float*>(base + L::stats + st * kStatBytes) + stat_skip(mt);
+    float m[2], l[2], rl[2], term[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * warp + lane / 4 + 8 * half;
+      const bool in = mt * kFwdTile + row < Tn;
+      m[half] = in ? sv[3 * row] : INFINITY;
+      l[half] = in ? sv[3 * row + 1] : 1.f;
+      term[half] = in ? sv[3 * row + 2] : 0.f;
+      rl[half] = __frcp_rn(l[half]);
+    }
+    RowKeep keep[2];
+    if (kDrop && live) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        keep[half] = row_keep(drop, site, b, r0 + lane / 4 + 8 * half, j0, Tn, lane);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(s);
+    sm90::fence_acc(x);
+    // pd = T(p), dropped in train mode, and gS = T(p (gP - term) / sqrt(dk))
+    // into their tiles; 0 past T and in warps past T.
+    if (live) {
+      float unused[2] = {-FLT_MAX, -FLT_MAX};
+      block_scores(s, unused, bias_s, j0, Tn, d.inv_sqrt_dk, t);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float pd[2] = {0.f, 0.f}, gs[2] = {0.f, 0.f};
+        if (live) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * half + e;
+            const float p = div_rn(expf(s[i] - m[half]), l[half], rl[half]);
+            float gp = x[i];
+            pd[e] = round_to<bf16>(p);
+            if (kDrop) {
+              const bool kept = keep[half].keeps(j, e);
+              pd[e] = kept ? round_to<bf16>(pd[e] * drop.scale) : 0.f;
+              gp *= kept ? drop.scale : 0.f;
+            }
+            gs[e] = round_to<bf16>(__fmul_rn(__fmul_rn(p, __fsub_rn(gp, term[half])),
+                                             d.inv_sqrt_dk));
+          }
+        }
+        const int r = 16 * warp + lane / 4 + 8 * half;
+        put_pair(Pt, r, j, t, pd[0], pd[1]);
+        put_pair(St, r, j, t, gs[0], gs[1]);
+      }
+    sm90::fence_async_shared();
+    __syncthreads();  // both tiles written
+    // gV += pd^T . g and gK += gS^T . Q over the tile's query rows (k16
+    // steps past T skipped; the first tile's first step starts the sums).
+    sm90::fence_acc(gk);
+    sm90::fence_acc(gv);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (mt * kFwdTile + 16 * kk >= Tn) break;
+      const int acc = mt > 0 || kk > 0;
+      wgmma_ss<1, 1>(gv, sm90::desc_w(pa + kk * 2048), sm90::desc_w(ga + kk * 2048), acc);
+      wgmma_ss<1, 1>(gk, sm90::desc_w(sa + kk * 2048), sm90::desc_w(qa + kk * 2048), acc);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(gk);
+    sm90::fence_acc(gv);
+    // The statistics were read by generic loads, which the refill (the
+    // async proxy) must follow.
+    sm90::fence_async_shared();
+    __syncthreads();  // every warp's products have read ring stage st and the tiles
+    if (tid == 0 && mt + 2 < n_qt) load_tile(mt + 2);
+  }
+  // gK and gV of the block's keys through the (free) pd and gS tiles.
+  stage_o(Pt, gk, warp, lane);
+  stage_o(St, gv, warp, lane);
+  sm90::fence_async_shared();
+  __syncthreads();
+  if (tid == 0) {
+    sm90::tma_store_3d(&gkm, Pt, h * kDk, j0, b);
+    sm90::tma_store_3d(&gvm, St, h * kDk, j0, b);
+    sm90::bulk_commit();
+    sm90::bulk_wait();
   }
 }
 
-template <bool kDrop>
-cudaError_t launch_streamed(const void* q, const void* k, const void* v, const void* bias,
-                            const void* g, void* gq, void* gk, void* gv, float* stats, int B,
-                            const Dims& d, const Dropout& drop, cudaStream_t stream) {
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
-             *V = static_cast<const bf16*>(v), *G = static_cast<const bf16*>(g);
+// The two launches of the split design: grid (T / 64 rounded up, H, B)
+// each.  q, k, v, g, gq, gk and gv start on 16-byte boundaries (TMA), which
+// the wrapper checks; stats is a 16-byte aligned (B, H, T, 3) fp32 scratch
+// followed by kStatTail floats.
+cudaError_t launch_split(const void* q, const void* k, const void* v, const void* bias,
+                         const void* g, void* gq, void* gk, void* gv, float* stats, int B,
+                         const Dims& d, const Dropout& drop, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(stats) % 16 != 0) return cudaErrorInvalidValue;
+  CUtensorMap maps[7];
+  const void* ptrs[7] = {q, k, v, g, gq, gk, gv};
+  for (int i = 0; i < 7; ++i) {
+    const cudaError_t err = sm90::encode_planes(&maps[i], ptrs[i], d.D, d.T, B);
+    if (err != cudaSuccess) return err;
+  }
   const float* bs = static_cast<const float*>(bias);
-  cudaError_t err = allow_smem(mha_bwd_dq_streamed_kernel<kDrop>, DqLayout::bytes);
+  const dim3 grid((d.T + kFwdTile - 1) / kFwdTile, d.H, B);
+  const auto dq = drop.on ? mha_bwd_dq_split_kernel<true> : mha_bwd_dq_split_kernel<false>;
+  cudaError_t err = allow_smem(dq, SplitDqLayout::bytes);
   if (err != cudaSuccess) return err;
-  mha_bwd_dq_streamed_kernel<kDrop><<<dim3((d.T + kQTile - 1) / kQTile, d.H, B), kTcThreads,
-                                      DqLayout::bytes, stream>>>(Q, K, V, bs, G,
-                                                                 static_cast<bf16*>(gq), stats,
-                                                                 d, drop);
+  dq<<<grid, kBwdThreads, SplitDqLayout::bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                          maps[4], bs, stats, d, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = allow_smem(mha_bwd_dkv_tc_kernel<kDrop>, DkvLayout::bytes);
+  const auto dkv = drop.on ? mha_bwd_dkv_split_kernel<true> : mha_bwd_dkv_split_kernel<false>;
+  err = allow_smem(dkv, SplitDkvLayout::bytes);
   if (err != cudaSuccess) return err;
-  const int kv_warps = min(kTcWarps, (d.T + 15) / 16);
-  mha_bwd_dkv_tc_kernel<kDrop><<<dim3((d.T + kKeyTile - 1) / kKeyTile, d.H, B), kv_warps * 32,
-                                  DkvLayout::bytes, stream>>>(Q, K, V, bs, G, stats,
-                                                              static_cast<bf16*>(gk),
-                                                              static_cast<bf16*>(gv), d, drop);
+  dkv<<<grid, kBwdThreads, SplitDkvLayout::bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                            maps[5], maps[6], bs, stats, d, drop);
   return cudaGetLastError();
 }
 
@@ -1334,11 +1444,15 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void*
 
 // The design iisan_mha_bwd runs at T keys: 0 the fp32 pair in three TF32
 // passes, 1 the bf16 cluster (up to kClusterMaxKeys keys), 2 the bf16
-// streamed split.
+// split (beyond).
 // The wrapper asks here which buffers and alignment a call needs.
 extern "C" int iisan_mha_bwd_design(int T, int is_bf16) {
   return !is_bf16 ? 0 : T <= iisan::kClusterMaxKeys ? 1 : 2;
 }
+
+// Floats the scratch of the bf16 split design holds past its (B, H, T, 3)
+// rows.
+extern "C" int iisan_mha_bwd_stats_tail() { return iisan::kStatTail; }
 
 // How many clusters of the cluster design's instance for nc key blocks
 // (eval, or train when `train`) the current card can hold at once
@@ -1358,12 +1472,14 @@ extern "C" int iisan_mha_bwd_active_clusters(int nc, int train, int* clusters) {
 
 // q, k, v, g, gq, gk, gv (B, T, D) T; bias (B, T) fp32 or null; the dropout
 // arguments are the forward's.  T is bf16 when is_bf16 (the cluster
-// design, whose q, k, v, g, gk and gv start on 16-byte boundaries, or the
-// streamed split), else fp32 (the TF32 pair, whose q, k, v and g start on
-// 16-byte boundaries).  stats: an fp32 (B, H, T, 3) scratch for each query
-// row's (max, sum, row term), for the two-kernel designs (the streamed
-// split and fp32); the cluster design takes null.  Returns the CUDA error
-// of the launches (0 on success).
+// design or the split design, which read q, k, v and g and write gq, gk
+// and gv by TMA: 16-byte boundaries), else fp32 (the TF32 pair, whose q,
+// k, v and g start on 16-byte boundaries).  stats: an fp32 (B, H, T, 3)
+// scratch for each query row's (max, sum, row term), for the two-kernel
+// designs (the split design's on a 16-byte boundary and followed by
+// iisan_mha_bwd_stats_tail() floats, which its copies may read); the
+// cluster design takes null.  Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int iisan_mha_bwd(const void* q, const void* k, const void* v, const void* bias,
                              const void* g, void* gq, void* gk, void* gv, void* stats, int B,
                              int T, int D, int H, int is_bf16, int seed, float rate, float scale,
@@ -1381,7 +1497,6 @@ extern "C" int iisan_mha_bwd(const void* q, const void* k, const void* v, const 
   const cudaError_t err =
       !is_bf16  ? tf32(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
       : cluster ? iisan::launch_cluster(q, k, v, bias, g, gq, gk, gv, B, d, drop, s)
-      : drop.on ? iisan::launch_streamed<true>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s)
-                : iisan::launch_streamed<false>(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s);
+                : iisan::launch_split(q, k, v, bias, g, gq, gk, gv, st, B, d, drop, s);
   return static_cast<int>(err);
 }

@@ -1,8 +1,8 @@
-// Tensor-core and asynchronous-copy helpers of the attention and
-// user-encoder kernels (mha.cuh, mha_bwd.cu, user_encoder_tc.cuh):
-// `mma.sync` on bf16 tiles, `ldmatrix` of bf16 tiles (plain and
-// transposed), `cp.async` 16-byte (and 4-byte) copies into shared memory,
-// and paired stores.
+// Tensor-core and asynchronous-copy helpers of the user-encoder kernels
+// (user_encoder_tc.cuh): `mma.sync` on bf16 tiles, `ldmatrix` of bf16
+// tiles (plain and transposed), zero-filling `cp.async` 16-byte copies
+// into shared memory; the attention kernels (mha.cuh) take `pack_bf16`
+// from here.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16), with g = lane / 4 and t = lane
 // % 4, for A a row-major (16, k) tile and B an (8, k) tile stored row by
@@ -13,8 +13,7 @@
 // So every register is one aligned 32-bit load from shared memory, and the
 // C tiles of n-columns 16c..16c+15 are, packed to bf16 in pairs, the A
 // fragment of a product over k = those columns.  A B operand stored (k, n)
-// row by row (attention's V: keys x head width) comes through
-// `ldsm_x4_trans`.
+// row by row comes through `ldsm_x4_trans`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,16 +23,6 @@ namespace iisan {
 
 __device__ __forceinline__ unsigned lds32(const void* p) {
   return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 // A 16-byte copy that reads src_bytes (0 or 16) of gmem and fills the rest
@@ -97,15 +86,6 @@ __device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* row)
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Two neighbouring outputs, rounded to T (8-byte or 4-byte aligned store).
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 }  // namespace iisan

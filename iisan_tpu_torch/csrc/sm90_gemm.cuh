@@ -243,6 +243,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from device memory at src to shared memory at
+// dst, both on 16-byte boundaries; completes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // The box of shared memory at src to (c0, c1, c2) of `map`, as one bulk
 // group of this thread.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,

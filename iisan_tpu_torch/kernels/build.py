@@ -128,6 +128,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.iisan_mha_bwd.restype = i
     lib.iisan_mha_bwd_design.argtypes = [i, i]
     lib.iisan_mha_bwd_design.restype = i
+    lib.iisan_mha_bwd_stats_tail.argtypes = []
+    lib.iisan_mha_bwd_stats_tail.restype = i
     lib.iisan_mha_bwd_active_clusters.argtypes = [i, i, p]
     lib.iisan_mha_bwd_active_clusters.restype = i
     lib.iisan_mha_mask_replay.argtypes = [p] + [i] * 4 + [u, f, u, p]

@@ -11,14 +11,14 @@ and ViT layer of the uncached towers.  Three kernels:
   (hi . hi + hi . lo + lo . hi of x = hi + lo), so T up to 46,340 fits;
   heads unsplit in and out;
 - ``mha_bwd`` (``csrc/mha_bwd.cu``): recomputes the probabilities (and the
-  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv; in bf16
-  up to 512 keys one launch, a thread-block cluster per (image, head) whose
-  blocks own 64 keys each and trade the rows' max, sum and row term (and
-  gQ's partials) through distributed shared memory, the five products on
-  wgmma with TMA-fed operands; beyond (on mma.sync), and in fp32 (on wgmma
-  in three TF32 passes), two kernels, one over query tiles (gQ and each
-  row's softmax statistics and row term, into an fp32 scratch) and one over
-  key tiles (gK, gV), for any T the forward takes (``bwd_design`` names the
+  dropout masks) from (q, k, v, bias, seed) and returns gq, gk, gv, every
+  product on wgmma with TMA-fed operands; in bf16 up to 512 keys one
+  launch, a thread-block cluster per (image, head) whose blocks own 64 keys
+  each and trade the rows' max, sum and row term (and gQ's partials)
+  through distributed shared memory; beyond, and in fp32 (each product in
+  three TF32 passes), two kernels, one over query tiles (gQ and each row's
+  softmax statistics and row term, into an fp32 scratch) and one over key
+  tiles (gK, gV), for any T the forward takes (``bwd_design`` names the
   design a call runs);
 - ``mha_mask_replay`` (``csrc/mha_mask_replay.cu``): the scaled keep masks
   the two draw, as a (B, H, T, T) tensor, the oracle of train mode; one
@@ -77,20 +77,22 @@ def supported(B: int, T: int, D: int, H: int, itemsize: int = 2) -> bool:
             and D == H * DK)
 
 
-BWD_DESIGNS = ("wgmma_tf32", "wgmma_cluster", "tensor_cores")  # iisan_mha_bwd_design's codes
+BWD_DESIGNS = ("wgmma_tf32", "wgmma_cluster", "wgmma_split")  # iisan_mha_bwd_design's codes
 
 
 def bwd_design(T: int, itemsize: int) -> str:
     """The backward design a call runs (``iisan_mha_bwd`` in
     csrc/mha_bwd.cu): in bf16 ``"wgmma_cluster"`` up to 512 keys (one
     launch, a cluster of T / 64 rounded up blocks per (image, head), 1 to
-    8) and ``"tensor_cores"`` beyond (the streamed mma.sync pair with its
-    fp32 scratch); ``"wgmma_tf32"`` in fp32 at every T (the query-tile and
-    key-tile pair, each product in three TF32 passes on wgmma with TMA).
-    The CPU's copy of ``library_bwd_design``, held to it on the card."""
+    8) and ``"wgmma_split"`` beyond (a query-tile and a key-tile kernel of
+    64 rows or keys a block, joined by an fp32 scratch of each row's
+    statistics); ``"wgmma_tf32"`` in fp32 at every T (the query-tile and
+    key-tile pair, each product in three TF32 passes).  Every design runs
+    on wgmma with TMA.  The CPU's copy of ``library_bwd_design``, held to
+    it on the card."""
     if itemsize != 2:
         return "wgmma_tf32"
-    return "wgmma_cluster" if T <= CLUSTER_KEYS else "tensor_cores"
+    return "wgmma_cluster" if T <= CLUSTER_KEYS else "wgmma_split"
 
 
 def library_bwd_design(T: int, itemsize: int) -> str:
@@ -333,7 +335,7 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
         raise ValueError(f"g must be {tuple(q.shape)} {q.dtype} on {q.device}")
     q, k, v, g = q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous()
     design = library_bwd_design(T, q.element_size())
-    if design != "tensor_cores" and any(t.data_ptr() % 16 for t in (q, k, v, g)):
+    if any(t.data_ptr() % 16 for t in (q, k, v, g)):
         raise ValueError(f"mha_bwd: {q.dtype} q, k, v and g must start on 16-byte "
                          "boundaries (the kernels read them by TMA)")
     if design == "wgmma_cluster":
@@ -345,9 +347,11 @@ def mha_bwd(q, k, v, bias, g, *, n_heads: int, seed: int = 0,
     bias = None if bias is None else bias.contiguous()
     gq, gk, gv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     # the two-kernel designs: each query row's (max, sum, row term), from
-    # the first kernel to the second
+    # the first kernel to the second, as (B, H, T, 3) followed by the tail
+    # that the split design's copies may read
     stats = (None if design == "wgmma_cluster" else
-             torch.empty((B, n_heads, T, 3), dtype=torch.float32, device=q.device))
+             torch.empty(B * n_heads * T * 3 + library().iisan_mha_bwd_stats_tail(),
+                         dtype=torch.float32, device=q.device))
     err = library().iisan_mha_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
         gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), _ptr(stats),

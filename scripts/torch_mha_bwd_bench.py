@@ -10,9 +10,10 @@ heads: at the FFT step's 88 rows (8 users x 11 items) BERT titles (30
 tokens, padded key bias, dropout 0.1) in bf16 and in fp32, ViT images (197
 tokens) in bf16 and in fp32, and in train mode 257 and 325 tokens and 448
 and 512 keys (the cluster design, up to its 512 keys) and 577 tokens
-(``CV_resize=384``: the streamed pair), and ViT at the TPME report's batch
-of 32 users (352 images) in bf16 and in fp32 (fp32: the three-pass TF32
-pair, its bound both ways, ``chip_smoke.mha_bounds_fp32``).  For each
+(``CV_resize=384``: the split design), 577 tokens at ViT-tiny's 192 wide (3
+heads, eval mode), and ViT at the TPME report's batch of 32 users (352
+images) in bf16 and in fp32 (fp32: the three-pass TF32 pair, its bound
+both ways, ``chip_smoke.mha_bounds_fp32``).  For each
 case, the design the call runs (``bwd_design``), ``--runs`` medians of
 10 CUDA-event timings of the kernel and of the backward alone of ``scaled_dot_product_attention`` on the same
 inputs (``sdpa_bwd_ms``: timing only in train mode, its masks are not the
@@ -23,7 +24,8 @@ the SDPA backward's.
 
 Then the steps: a full fine-tuning step at batch 8 (88 images and
 titles, ``chip_smoke.train_fft``'s trainer), the same at ``CV_resize=288``
-(325 image tokens) and in fp32 (``fft8_fp32``), and a LoRA step at batch
+(325 image tokens) and ``CV_resize=384`` (577) and in fp32 (``fft8_fp32``),
+and a LoRA step at batch
 32 (352), each on a staged batch of ``chip_smoke.py``'s synthetic corpus:
 ``--runs`` times, the host ms of a synchronised step (median of 3), the
 step's device-busy ms over 3 profiled steps, the attention kernels' ms
@@ -53,6 +55,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # step case: (users a batch, trainer options)
 FFT = dict(adding_adapter_to="None", adapter_type="houslby")
 STEPS = {"fft8": (8, FFT), "fft8_288": (8, dict(FFT, CV_resize=288)),
+         "fft8_384": (8, dict(FFT, CV_resize=384)),
          "fft8_fp32": (8, dict(FFT, compute_dtype="float32")),
          "lora32": (32, dict(adapter_type="lora"))}
 
@@ -102,11 +105,11 @@ def main() -> int:
     cases = list(cs.MHA_BWD_CASES)
     if args.both_modes:
         cases += [(f"{name} as {'eval' if layer is not None else 'train'}", B, T, padded,
-                   dtype, None if layer is not None else 0)
-                  for name, B, T, padded, dtype, layer in cs.MHA_BWD_CASES
+                   dtype, None if layer is not None else 0, heads)
+                  for name, B, T, padded, dtype, layer, heads in cs.MHA_BWD_CASES
                   if dtype == "bfloat16"]
-    for name, B, T, padded, dtype, layer in cases:
-        q, k, v, g, bias, kw = cs.mha_bwd_case(device, gen, B, T, padded, dtype, layer)
+    for name, B, T, padded, dtype, layer, heads in cases:
+        q, k, v, g, bias, kw = cs.mha_bwd_case(device, gen, B, T, padded, dtype, layer, heads)
         ms = [cs.cuda_timed(lambda: fa.mha_bwd(q, k, v, bias, g, **kw), 10)
               for _ in range(args.runs)]
         lib = [cs.sdpa_bwd_ms(q, k, v, g, bias, kw.get("rate", 0.0))
@@ -116,18 +119,19 @@ def main() -> int:
                  if "mha_bwd" in key}
         sdpa_dev = sum(device_ms(cs.sdpa_bwd(q, k, v, g, bias,
                                              kw.get("rate", 0.0))).values())
-        bnd = cs.mha_bound(B, T, cs.TOWER_D, cs.TOWER_H, padded, True, q.element_size())
+        D = 64 * heads
+        bnd = cs.mha_bound(B, T, D, heads, padded, True, q.element_size())
         row = {}
         if dtype == "float32":  # the kernels' three TF32 passes; the CUDA cores' beside
             row.update(cuda_core_bound_ms=bnd[0], cuda_core_bound_by=bnd[1])
-            bnd = cs.mha_bounds_fp32(B, T, cs.TOWER_D, cs.TOWER_H, padded, True)[1]
+            bnd = cs.mha_bounds_fp32(B, T, D, heads, padded, True)[1]
         design = fa.bwd_design(T, q.element_size())
-        results.append({"case": name, "B": B, "T": T, "dtype": dtype, "design": design,
+        results.append({"case": name, "B": B, "T": T, "D": D, "dtype": dtype, "design": design,
                         "ms": ms, "sdpa_bwd_ms": lib, "bound_ms": bnd[0],
                         "bound_by": bnd[1], **row, "kernels_ms": split,
                         "device_ms": sum(split.values()),
                         "sdpa_bwd_device_ms": sdpa_dev})
-        print(f"{name} {B} x {T}: kernel {median(ms):.4f} ms ({design}), SDPA backward "
+        print(f"{name} {B} x {T} x {D}: kernel {median(ms):.4f} ms ({design}), SDPA backward "
               f"{median(lib):.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
               + (f", on the CUDA cores {row['cuda_core_bound_ms']:.4f} ms" if row else "")
               + "; " + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items())

@@ -383,17 +383,18 @@ def test_kernel_geometry():
     assert fa.supported(704, 197, 768, 12) and fa.bwd_supported(704, 197, 768, 12)
     assert fa.supported(704, 30, 768, 12) and fa.bwd_supported(704, 30, 768, 12)
     # bf16 runs the cluster design up to 512 keys (clusters of one to eight
-    # blocks of 64) and the streamed tensor-core pair beyond, fp32 the
-    # query-tile and key-tile pair in three TF32 passes on wgmma
+    # blocks of 64) and the split design (a query-tile and a key-tile kernel
+    # on wgmma) beyond, fp32 the query-tile and key-tile pair in three TF32
+    # passes on wgmma
     assert fa.CLUSTER_KEYS == 512
     assert fa.bwd_design(197, 2) == fa.bwd_design(30, 2) == "wgmma_cluster"
     assert fa.bwd_design(320, 2) == fa.bwd_design(321, 2) == "wgmma_cluster"
     assert fa.bwd_design(325, 2) == fa.bwd_design(512, 2) == "wgmma_cluster"
-    assert fa.bwd_design(513, 2) == "tensor_cores"
+    assert fa.bwd_design(513, 2) == "wgmma_split"
     assert [fa.cluster_blocks(T) for T in (1, 64, 65, 320, 321, 448, 449, 512)] == \
         [1, 1, 2, 5, 6, 7, 8, 8]
     assert fa.bwd_design(197, 4) == fa.bwd_design(30, 4) == "wgmma_tf32"
-    assert fa.BWD_DESIGNS == ("wgmma_tf32", "wgmma_cluster", "tensor_cores")
+    assert fa.BWD_DESIGNS == ("wgmma_tf32", "wgmma_cluster", "wgmma_split")
     assert not fa.supported(8, 30, 96, 2)            # head width 48
     assert fa.supported(8, 257, 768, 12)             # keys stream in tiles
     assert fa.supported(8, 197, 768, 12, 4) and fa.bwd_supported(8, 197, 768, 12, 4)
@@ -411,18 +412,24 @@ def test_kernels_take_any_number_of_keys(T):
         assert fa.supported(704, T, 768, 12, itemsize)
         assert fa.bwd_supported(88, T, 768, 12, itemsize)
         want = ("wgmma_tf32" if itemsize == 4 else
-                "wgmma_cluster" if T <= 512 else "tensor_cores")
+                "wgmma_cluster" if T <= 512 else "wgmma_split")
         assert fa.bwd_design(T, itemsize) == want
 
 
 @pytest.mark.parametrize("T,with_bias", [(30, True), (64, False), (65, True),
-                                         (197, False)])
+                                         (197, False)]
+                         + [(T, b) for T in (513, 577, 640) for b in (False, True)])
 def test_backward_matches_jax_bf16_at_tile_edges(interpret_pallas, T, with_bias):
-    """bf16 at the tensor-core backward's tile edges (16-row m-tiles, 64-key
-    tiles): BERT's 30 tokens with a padded key bias and an all-pad row, one
-    whole key tile, one key past it, ViT's 197.  The JAX kernels' gradients
-    and the port's (its plain backward on the CPU) agree within the bf16
-    bound; the card's tests hold the kernels to this plain version."""
+    """bf16 at the backward's tile edges (64-row query tiles, 64-key tiles):
+    BERT's 30 tokens with a padded key bias and an all-pad row, one whole
+    key tile, one key past it, ViT's 197, and past the cluster design's 512
+    keys, where the split design runs on the card: one key past it, ViT's
+    577 tokens at 384 pixels and ten whole tiles, at D = 128, where the JAX
+    kernel itself takes these keys (``_pick_batch_block`` 2, 2 and 1 at B =
+    2; it stops at 903).  The JAX kernels' gradients and the port's (its
+    plain backward on the CPU) agree within the bf16 bound; the card's
+    tests hold the kernels to this plain version."""
+    assert jfa._pick_batch_block(2, T, 128, 2) > 0  # the Pallas kernel runs
     q, k, v, g, bias = _inputs(B=2, T=T, D=128, with_bias=with_bias, seed=7)
     bf = jnp.bfloat16
 
@@ -494,24 +501,19 @@ def _hashed_keep(b, h, i, j, T, H, rate, xp):
     return keep.astype(xp.float32) * xp.float32(1.0 / (1.0 - rate))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("T", [197, 257, 325, 512])
-def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtype, rate,
-                                                          T):
-    """The cluster design's combine (4, 5, 6 and 8 blocks of 64 keys at
-    ViT's 197, 257 and 325 tokens and at 512, the most keys the JAX kernel
-    takes at ViT width) against ``mha_bwd_plain`` and against the JAX
-    ``_mha_bwd_kernel`` (interpret mode, through ``fused_mha``'s VJP), in
-    eval and train mode.  In train mode the three take one set of masks:
-    the JAX kernels' per-head mask draw and the port's ``_masks`` are both
-    patched, in this test only, to ``_hashed_keep`` (a Pallas kernel takes
-    no captured array, so the port's Philox masks cannot be handed in).
-    Tolerances: fp32 1e-5 (summation order only); bf16 max |diff| / max
-    |want| < 0.05, the file's bf16 bound (a probability may round to the
-    neighbouring bf16 value on one side)."""
-    B, D, H, seed, layer = 2, 128, 2, 19, 4
-    assert jfa._pick_batch_block(B, T, D, 2) == B  # one grid program: masks in draw order
+def _three_backwards(model, B, T, dtype, rate):
+    """(``model``'s, ``mha_bwd_plain``'s, JAX's) gradients at B images of T
+    tokens, D = 128, 2 heads, the padded key bias, from one set of numpy
+    inputs: JAX's ``fused_mha`` VJP runs ``_mha_bwd_kernel`` (interpret
+    mode).  In train mode the three take one set of masks: the JAX kernels'
+    per-head mask draw and the port's ``_masks`` are both patched, in the
+    calling test only, to ``_hashed_keep`` (a Pallas kernel takes no
+    captured array, so the port's Philox masks cannot be handed in).  Each
+    JAX kernel draws H masks of (B / grid, T, T) in head order as it is
+    traced, its images offset by the grid program's index."""
+    D, H, seed, layer = 128, 2, 19, 4
+    bb = jfa._pick_batch_block(B, T, D, 4 if dtype == torch.float32 else 2)
+    assert bb > 0  # the Pallas kernel runs, not the XLA path
     q, k, v, g, bias = _inputs(B=B, T=T, D=D, seed=T)
     tq, tk, tv, tg = (_t(x, dtype) for x in (q, k, v, g))
     kw = dict(n_heads=H, seed=seed, rate=rate, layer=layer)
@@ -521,8 +523,9 @@ def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtyp
     draws = iter(range(10 ** 6))
 
     def jax_mask(shape, rate_):
-        assert shape == (B, T, T) and rate_ == rate
+        assert shape == (bb, T, T) and rate_ == rate
         b, i, j = (jax.lax.broadcasted_iota(jnp.uint32, shape, d) for d in range(3))
+        b = b + pl.program_id(0).astype(jnp.uint32) * jnp.uint32(bb)
         return _hashed_keep(b, jnp.uint32(next(draws) % H), i, j, T, H, rate, jnp)
 
     def jloss(q_, k_, v_):
@@ -536,10 +539,17 @@ def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtyp
     with mock.patch.object(fa, "_masks", lambda *a: masks), \
             mock.patch.object(jfue, "_dropout_mask", jax_mask), \
             mock.patch.object(jfa.pltpu, "prng_seed", lambda *a: None):
-        mine = _cluster_bwd(tq, tk, tv, _t(bias), tg, **kw)
+        mine = model(tq, tk, tv, _t(bias), tg, **kw)
         plain = fa.mha_bwd_plain(tq, tk, tv, _t(bias), tg, **kw)
         _, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
             _j(q, jd), _j(k, jd), _j(v, jd))
+    return mine, plain, jgrads
+
+
+def _assert_three_agree(mine, plain, jgrads, dtype):
+    """fp32 1e-5 (summation order only); bf16 max |diff| / max |want| <
+    0.05, the file's bf16 bound (a probability may round to the
+    neighbouring bf16 value on one side)."""
     for got, want, jg in zip(mine, plain, jgrads):
         got, want, jg = (np.asarray(x, np.float32) for x in
                          (got.float().numpy(), want.float().numpy(), jg))
@@ -549,3 +559,74 @@ def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtyp
             np.testing.assert_allclose(got, jg, rtol=1e-5, atol=1e-5)
         else:
             assert _rel(got, want) < 0.05 and _rel(got, jg) < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", [197, 257, 325, 512])
+def test_cluster_rank_order_combine_matches_plain_and_jax(interpret_pallas, dtype, rate,
+                                                          T):
+    """The cluster design's combine (4, 5, 6 and 8 blocks of 64 keys at
+    ViT's 197, 257 and 325 tokens and at 512, the most keys the JAX kernel
+    takes at ViT width) against ``mha_bwd_plain`` and against the JAX
+    ``_mha_bwd_kernel`` (interpret mode, through ``fused_mha``'s VJP), in
+    eval and train mode (``_three_backwards``'s shared masks), within
+    ``_assert_three_agree``'s bounds."""
+    assert jfa._pick_batch_block(2, T, 128, 2) == 2  # one grid program
+    _assert_three_agree(*_three_backwards(_cluster_bwd, 2, T, dtype, rate),
+                        dtype)
+
+
+def _split_bwd(q, k, v, bias, g, *, n_heads, seed=0, rate=0.0, layer=0):
+    """The bf16 backward's split design (csrc/mha_bwd.cu, past 512 keys) in
+    plain PyTorch: the query-tile kernel forms each row's max, sum of exp(s
+    - max) and term sum_j gP e over 64-key tiles in order, both sums
+    rescaled by exp(old max - new max) as the max grows, and the term
+    divided by the sum at the end; gQ sums gS . K over the key tiles in
+    order; the key-tile kernel takes p = exp(s - max) / sum from those
+    statistics.  Every other step is ``mha_bwd_plain``'s cast chain."""
+    dt = q.dtype
+    B, T, D = q.shape
+    H = n_heads
+    inv = 1.0 / np.sqrt(D // H)
+    qh, kh, vh, gh = (fa._split(t, H) for t in (q, k, v, g))
+    s = (qh @ kh.transpose(-1, -2)) * inv
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    masks = fa._masks(seed, rate, layer, B, T, H, q.device)
+    g_p = gh @ vh.transpose(-1, -2)
+    if masks is not None:
+        g_p = g_p * masks
+    tiles = [slice(j0, min(j0 + 64, T)) for j0 in range(0, T, 64)]
+    mx = torch.full(s.shape[:-1] + (1,), -torch.finfo(torch.float32).max)
+    total, term = torch.zeros_like(mx), torch.zeros_like(mx)
+    for r in tiles:
+        new = torch.maximum(mx, s[..., r].amax(-1, keepdim=True))
+        corr = torch.exp(mx - new)
+        e = torch.exp(s[..., r] - new)
+        mx, total = new, total * corr + e.sum(-1, keepdim=True)
+        term = term * corr + (g_p[..., r] * e).sum(-1, keepdim=True)
+    term = term / total
+    p = torch.exp(s - mx) / total
+    pd = p.to(dt).float()
+    if masks is not None:
+        pd = (pd * masks).to(dt).float()
+    g_s = (p * (g_p - term) * inv).to(dt).float()
+    g_q = sum(g_s[..., r] @ kh[..., r, :] for r in tiles)
+    g_k = g_s.transpose(-1, -2) @ qh
+    g_v = pd.transpose(-1, -2) @ gh
+    return fa._merge(g_q, dt), fa._merge(g_k, dt), fa._merge(g_v, dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", [577, 640])
+def test_split_order_of_sums_matches_plain_and_jax(interpret_pallas, dtype, rate, T):
+    """The split design's order of sums (``_split_bwd``: the rows'
+    statistics over ten 64-key tiles in order with the online rescale)
+    against ``mha_bwd_plain`` and the JAX ``_mha_bwd_kernel`` (interpret
+    mode; two grid programs at 640 keys in bf16 and at both in fp32), in
+    eval and train mode (``_three_backwards``'s shared masks), within
+    ``_assert_three_agree``'s bounds."""
+    _assert_three_agree(*_three_backwards(_split_bwd, 2, T, dtype, rate),
+                        dtype)

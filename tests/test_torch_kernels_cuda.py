@@ -59,9 +59,11 @@ Attention kernels (mha_fwd, mha_bwd): per tensor, |diff| <= tol * (max|plain|
 + |plain|), tol 1e-4 fp32 and 2e-2 (forward) / 5e-2 (backward) bf16: a
 probability may round to the neighbouring bf16 value on one side only; the
 mask replay kernel is bit-equal to its plain version.  The bf16 backward
-runs its cluster design (wgmma, HGMMA and no HMMA in its SASS) at every
-edge of it, one to eight key blocks (1 to 512 keys), and the streamed pair
-at 513, each case's design asserted; every cluster instance can be
+runs its cluster design at every edge of it, one to eight key blocks (1
+to 512 keys), and its split design (a query-tile and a key-tile kernel)
+past it (513 to 4,097 keys, and ViT-tiny's 192 wide at 577), each case's
+design asserted and two launches bit-equal; every #6 instance has HGMMA
+(wgmma) and no HMMA (mma.sync) in its SASS; every cluster instance can be
 scheduled, and one that cannot raises with no launch.  Planted faults (the key bias
 dropped on a padded batch, the backward run with another seed, the
 softmax row term dropped from the backward; the dkv kernel's dropout
@@ -833,30 +835,36 @@ def test_mha_fwd_matches_plain_at_the_tile_edges(cuda_device, rate, with_bias, B
 # design's one to eight blocks of 64 keys (1, 2, 16, 30, 63 and 64 in one
 # block; 65 in two; 128, 192, 197 (ViT) in two to four; 257, 319 and 320 in
 # five; 321 and 325 (ViT at CV_resize=288) and 384 in six; 385 and 448 in
-# seven; 449, 511 and 512 in eight, up to fa.CLUSTER_KEYS) and the streamed
-# pair one key past it (513).
+# seven; 449, 511 and 512 in eight, up to fa.CLUSTER_KEYS), and the split
+# design's 64-row query and 64-key tiles past it: one key past the cluster
+# (513), nine whole tiles and one past (576, 577: ViT at CV_resize=384),
+# ten and one past (640, 641), and at one image 16 tiles and a long row
+# (1,024, 4,097).  Each at 768 wide (12 heads), and ViT-tiny's 192 (3
+# heads) at 577 keys, where the JAX kernel itself runs.
 MHA_BWD_EDGES = (1, 2, 16, 30, 63, 64, 65, 128, 192, 197, 257, 319, 320, 321, 325, 384,
-                 385, 448, 449, 511, 512, 513)
+                 385, 448, 449, 511, 512, 513, 576, 577, 640, 641)
+MHA_BWD_CASES = ([(T, B, 12) for T in MHA_BWD_EDGES for B in (1, 88)]
+                 + [(1024, 1, 12), (4097, 1, 12), (577, 88, 3)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 88])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("T", MHA_BWD_EDGES)
-def test_mha_bwd_designs_match_plain(cuda_device, T, with_bias, rate, B):
+@pytest.mark.parametrize("T,B,H", MHA_BWD_CASES)
+def test_mha_bwd_designs_match_plain(cuda_device, T, B, H, with_bias, rate):
     """#6 in bf16 at each edge of its designs, one image and the FFT
     step's 88, eval and train mode, with and without the key bias: the
     design ``bwd_design`` names (one cluster of T / 64 rounded up blocks up
-    to ``fa.CLUSTER_KEYS``, the streamed pair beyond), one launch of the
-    wrapper, and the bf16 bound against ``mha_bwd_plain``.  ``bwd_design``,
-    the CPU's copy, names what the library chooses in both dtypes."""
+    to ``fa.CLUSTER_KEYS``, the split design beyond), one launch of the
+    wrapper, the bf16 bound against ``mha_bwd_plain``, and two launches
+    bit-equal.  ``bwd_design``, the CPU's copy, names what the library
+    chooses in both dtypes."""
     dt = torch.bfloat16
-    q, k, v, g, bias = _mha_inputs(cuda_device, B, T, 768, dt, seed=T)
+    q, k, v, g, bias = _mha_inputs(cuda_device, B, T, 64 * H, dt, seed=T)
     bias = bias if with_bias else None
-    kw = dict(n_heads=12, seed=4242, rate=rate, layer=7)
+    kw = dict(n_heads=H, seed=4242, rate=rate, layer=7)
     assert fa.bwd_design(T, 2) == ("wgmma_cluster" if T <= fa.CLUSTER_KEYS
-                                   else "tensor_cores")
+                                   else "wgmma_split")
     assert fa.library_bwd_design(T, 2) == fa.bwd_design(T, 2)
     assert fa.library_bwd_design(T, 4) == fa.bwd_design(T, 4) == "wgmma_tf32"
     b0 = fa.mha_bwd.launches
@@ -865,6 +873,7 @@ def test_mha_bwd_designs_match_plain(cuda_device, T, with_bias, rate, B):
     torch.cuda.synchronize()
     assert fa.mha_bwd.launches == b0 + 1
     assert _mha_ratio(got, want) <= MHA_TOL[dt, "bwd"]
+    assert all(torch.equal(a, b) for a, b in zip(got, fa.mha_bwd(q, k, v, bias, g, **kw)))
 
 
 # Key counts at every edge of the fp32 kernels' tiling (64-row query and
@@ -940,6 +949,19 @@ def test_attention_backward_cluster_kernels_run_on_wgmma(cuda_device):
 
     counts = build.sass_mma_counts("mha_bwd_cluster_kernel")
     assert len(counts) == 16
+    assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_every_attention_backward_kernel_runs_on_wgmma(cuda_device):
+    """Every #6 instance, of each design (the cluster's 16, the split
+    design's query-tile and key-tile kernels, the fp32 pair; eval and
+    train), has HGMMA (wgmma) in its SASS and no HMMA (mma.sync)."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts("mha_bwd_")
+    split = [name for name in counts if "_split_kernel" in name]
+    assert len(counts) == 24 and len(split) == 4, sorted(counts)
     assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
 
 
@@ -1109,7 +1131,7 @@ def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate, T):
     """Two launches on the same inputs (the FFT step's 88 images) give the
     same bits: no atomics, every sum in a fixed order (the cluster design
     combines its blocks' partials in rank order, from one block at 30 keys
-    to five at 257, six at 321 and 325, eight at 512; the streamed pair at
+    to five at 257, six at 321 and 325, eight at 512; the split design at
     513)."""
     q, k, v, g, bias = _mha_inputs(cuda_device, 88, T, 768, dtype, seed=4)
     kw = dict(n_heads=12, seed=5, rate=rate, layer=6)
@@ -1121,10 +1143,10 @@ def test_mha_bwd_repeats_bit_for_bit(cuda_device, dtype, rate, T):
 
 def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=0):
     """``mha_bwd_plain``'s function with one planted fault of the bf16
-    backward (fault None: the function itself).  Of the streamed split: the
-    dkv kernel's dropout element transposed to key * T + query; the row
-    term taken as FlashAttention's rowsum(g * o); the dkv kernel reading
-    the statistics (max, sum, row term) of the neighbouring head.  Of the
+    backward (fault None: the function itself).  Of the split design: the
+    key-tile kernel's dropout element transposed to key * T + query; the
+    row term taken as FlashAttention's rowsum(g * o); the key-tile kernel
+    reading the statistics (max, sum, row term) of the neighbouring head.  Of the
     cluster design (blocks of 64 keys): block 0's partial of the rows'
     sums dropped; block 0's gQ partial dropped; each block's
     gS formed with its own partial row term instead of the cluster's."""
@@ -1174,9 +1196,9 @@ def mha_bwd_faulty(q, k, v, bias, g, fault, *, n_heads, seed=0, rate=0.0, layer=
     return fa._merge(g_q, dt), fa._merge(g_k, dt), fa._merge(g_v, dt)
 
 
-# (T, fault): the streamed split's faults at one, four and six cluster
-# blocks and on the streamed pair (513), the cluster design's at four, five
-# and eight blocks
+# (T, fault): the split design's faults at one, four and six cluster
+# blocks and on the split design itself (513), the cluster design's at
+# four, five and eight blocks
 MHA_BWD_FAULTS = (
     [(T, f) for T in (30, 197, 321, 513) for f in ("dkv dropout transposed", "flash row term",
                                                    "dkv statistics of another head")]
