@@ -20,7 +20,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. Build the CUDA kernels from ``iisan_tpu_torch/csrc`` and print the
    build time, ptxas's per-kernel report and the count of tensor-core
    instructions (HMMA, HGMMA, from ``cuobjdump -sass``) in each
-   user-encoder kernel; the bf16 route's three must have some; every
+   user-encoder kernel; the bf16 route's three (seven instances) must
+   have HMMA and no HGMMA, the fp32 route's three HGMMA and no HMMA; every
    instance of the bf16 attention forward (#5's and the subblocks'
    resident and streamed kernels) must have HGMMA and no HMMA.
 3. Hold each kernel against its plain PyTorch version on the card, in
@@ -32,7 +33,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit for bit and timed beside its bound.  Planted faults (a dropped bias,
    the other activation, step 0's weights at every step; at the step, one
    cluster rank's partial of z dropped) must each break the cascade's bound
-   in every branch.  Then #3 at the geometries it once refused:
+   in every branch.  The fp32 user-encoder forward (three TF32 passes on
+   wgmma, tiles of whole sequences) at batch 1, 64 and 256 in eval mode,
+   with the serving image, within 1e-4.  Then #3 at the geometries it once
+   refused:
    (K, D, R) = (1, 4096, 64) and (2, 3584, 64) bf16, (1, 2048, 64) fp32,
    (7, 768, 48) bf16.  Times are medians of CUDA-event timings.
 4. Run the slice at the published cached configuration (the defaults of
@@ -49,14 +53,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    launch counters are reset before the runs and must show both kernels
    on the path.
 5. Hold the training kernels against their plain versions: the
-   user-encoder forward in train mode (dropout 0.1, bf16, batch 64, the
+   user-encoder forward in train mode (dropout 0.1, batch 64 and 1, the
    same Philox masks on both sides) and the user-encoder backward at
-   batch 64 and 1, train mode, bf16 (tensor cores) and fp32 (CUDA cores),
-   ``gx`` and every parameter gradient.  Planted faults (the backward run
-   with another seed than the forward, the ReLU's gradient dropped, and in
-   bf16 the weight-gradient pass run without the last layer's gq|gk|gv
-   rows) must break the backward's bound; the bf16 backward's device
-   memory at batch 64 must stay under 4 MB.  Both encoder kernels report
+   batch 64 and 1, train mode, bf16 (mma.sync) and fp32 (three TF32 passes
+   on wgmma; also batch 399, tiles of four sequences with a short last
+   one), ``gx`` and every parameter gradient, each at the kernel's
+   own FFN ReLU decisions (the flips printed).  Planted faults (the
+   backward run with another seed than the forward, the ReLU's gradient
+   dropped, the weight-gradient pass run without the last layer's
+   gq|gk|gv rows, a ReLU decision flipped just outside the route's
+   rounding band) must break the backward's bound on both routes; the
+   backward's device memory at batch 64 must stay under 4 MB in bf16 and
+   8 MiB in fp32 (its weight image made in the call included).  Both
+   routes' kernels are timed; after the cached training phase, three
+   cached steps at bench.py's settings in fp32 (compute_dtype "float32")
+   launch the fp32 encoder kernels once a step with a finite loss, and
+   print the step's device time by kernel family.  Both encoder kernels report
    their device time by kernel name (profiler) beside their CUDA-event
    times, per call and over 50 back-to-back calls.
 6. Train at the benchmark's cached configuration (``bench.py``: the
@@ -385,6 +397,7 @@ SEED = 12345
 # whose every term moves the carry by O(1), and shows that the bound
 # rejects a planted fault in each branch.
 UE_TOL = (5e-2, 5e-2)
+UE_TOL_FP32 = (1e-4, 1e-4)  # the fp32 route (three TF32 passes) against its fp32 plain version
 # Encoder backward: per tensor (gx and each parameter gradient), |diff| <=
 # tol * (max|plain| + |plain|): the kernel sums a sequence's rows and then
 # the sequences, the plain version all rows at once.  bf16 as the forward;
@@ -613,6 +626,49 @@ def check_user_encoder(device):
     return rows
 
 
+def check_user_encoder_fp32(device):
+    """#1 on the fp32 route (three TF32 passes on wgmma, tiles of whole
+    sequences) in eval mode at B=1, 64 and 256 with the module's cached
+    serving image: within 1e-4 of its plain version; per call kernel,
+    plain and device ms.  Returns {B: (err, ms, plain ms, device ms)}."""
+    import torch
+
+    from iisan_tpu_torch.models.user_encoder import (UserEncoder,
+                                                     causal_additive_mask)
+    from iisan_tpu_torch.ops import fused_user_encoder as fue
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    enc = UserEncoder(EMB, SEQ_LEN, HEADS, BLOCKS, DROP, dtype=torch.float32,
+                      generator=gen).to(device)
+    params, image = enc._serving_params(torch.float32)
+    kw = dict(n_layers=BLOCKS, n_heads=HEADS, d_ff=4 * EMB, n_position=SEQ_LEN)
+    rows = {}
+    for b in (1, 64, 256):
+        x = torch.randn(b, SEQ_LEN, EMB, generator=gen).to(device)
+        lengths = torch.randint(1, SEQ_LEN + 1, (b,), generator=gen)
+        lengths[-1] = 0 if b > 1 else lengths[-1]  # an all-pad row
+        log_mask = (torch.arange(SEQ_LEN)[None] >= SEQ_LEN - lengths[:, None])
+        mask3 = causal_additive_mask(log_mask.float().to(device)).reshape(
+            b, SEQ_LEN, SEQ_LEN)
+
+        def call():
+            return fue.user_encoder_fwd(x, mask3, params, image=image, **kw)
+
+        err = max_err(call(), fue.user_encoder_fwd_plain(x, mask3, params, **kw),
+                      UE_TOL_FP32)
+        ms = cuda_timed(call, 50)
+        plain_ms = cuda_timed(lambda: fue.user_encoder_fwd_plain(x, mask3, params, **kw), 20)
+        split = kernel_device_ms(call)
+        rows[b] = (err, ms, plain_ms, sum(split.values()))
+        plan = fue.encoder_plan(b, SEQ_LEN, EMB, HEADS, 4 * EMB, BLOCKS, torch.float32,
+                                n_sm=fue.sm_count())
+        log(f"user_encoder_fwd fp32 eval B={b} ({-(-b // plan.tile_seqs)} tiles of "
+            f"{plan.tile_seqs} sequences): max|kernel-plain| {err:.6g} (tol atol "
+            f"{UE_TOL_FP32[0]} rtol {UE_TOL_FP32[1]}); per call kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (medians, CUDA events); device {split_text(split)}")
+    return rows
+
+
 def split_text(split) -> str:
     """'a ms (kernel b ms, ...)' of a kernel_device_ms split."""
     parts = ", ".join(f"{k.split('(')[0].split(' ')[-1]} {v:.4f}"
@@ -796,17 +852,19 @@ def relu_grad_dropped(x, mask3, params, gout, kw):
 
 
 def check_relu_band_fault(x, mask3, params, gout, kw):
-    """A planted fault for the bf16 backward's reference: the kernel's
-    ReLU decisions with one more flipped just outside the rounding band
-    must be refused."""
+    """A planted fault for the backward's reference (bf16, or fp32 with
+    the three TF32 passes' band): the kernel's ReLU decisions with one
+    more flipped just outside the rounding band must be refused."""
     import torch
 
     from iisan_tpu_torch import testing as et
 
-    positive, x1 = et.tc_relu_inputs(x, mask3, params, gout, **kw)
-    bad, ratio = et.flip_outside_band(x, mask3, params, positive, **kw)
+    tf32 = x.dtype != torch.bfloat16
+    read = et.f32_relu_inputs if tf32 else et.tc_relu_inputs
+    positive, x1 = read(x, mask3, params, gout, **kw)
+    bad, ratio = et.flip_outside_band(x, mask3, params, positive, tf32=tf32, **kw)
     try:
-        et.plain_bwd_at_decisions(x, mask3, params, gout, bad, x1, **kw)
+        et.plain_bwd_at_decisions(x, mask3, params, gout, bad, x1, tf32=tf32, **kw)
     except ValueError as e:
         log(f"  planted fault 'a ReLU decision flipped at {ratio:.4g} x the "
             f"rounding band': refused ({e})")
@@ -839,8 +897,21 @@ def check_encoder_layout(device):
         if not same:
             raise AssertionError(f"encoder_plan differs from the library's layout "
                                  f"at B={B} L={L}: {lib}")
-    log("encoder_plan equals the library's bf16 layout at B=1, 64, 256 (L=10) "
-        "and B=16 L=20")
+        lib = fue.library_f32_layout(B, L, EMB, HEADS, 4 * EMB, BLOCKS)
+        bwd = fue.encoder_plan(B, L, EMB, HEADS, 4 * EMB, BLOCKS, torch.float32,
+                               backward=True, n_sm=fue.sm_count())
+        py = fue.f32_work_layout(B, L, EMB, HEADS, 4 * EMB, BLOCKS, bwd.tile_seqs,
+                                 bwd.scratch_bytes)
+        same = (all(fue.f32_tile_plan(L, EMB, HEADS, 4 * EMB, back, B, fue.sm_count())
+                    == tuple(lib[f"{tag}_{k}"] for k in ("G", "place", "smem", "scratch"))
+                    for back, tag in ((False, "fwd"), (True, "bwd")))
+                and lib["image"] == fue.f32_image_floats(EMB, 4 * EMB, BLOCKS)
+                and all(lib[k] == v for k, v in py.items()))
+        if not same:
+            raise AssertionError(f"encoder_plan differs from the library's fp32 layout "
+                                 f"at B={B} L={L}: {lib}")
+    log("encoder_plan equals the library's bf16 and fp32 layouts at B=1, 64, 256 "
+        "(L=10) and B=16 L=20")
 
 
 def check_user_encoder_train(device):
@@ -870,7 +941,8 @@ def check_user_encoder_train(device):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         params = enc.packed_params(dtype)
-        for b in (64, 1):
+        # fp32 also at B = 399: tiles of four sequences on 132 SMs, the last of three
+        for b in (64, 1) if dtype == torch.bfloat16 else (64, 1, 399):
             x = torch.randn(b, SEQ_LEN, EMB, generator=gen).to(device, dtype)
             lengths = torch.randint(1, SEQ_LEN + 1, (b,), generator=gen)
             lengths[-1] = 0 if b > 1 else lengths[-1]  # an all-pad row
@@ -879,23 +951,32 @@ def check_user_encoder_train(device):
                 b, SEQ_LEN, SEQ_LEN)
             gout = torch.randn(b, SEQ_LEN, EMB, generator=gen).to(device, dtype)
             tkw = dict(kw, seed=seed, rate=rate)
-            if b == 64 and dtype == torch.bfloat16:
-                got = fue.user_encoder_fwd(x, mask3, params, **tkw)
-                want = fue.user_encoder_fwd_plain(x, mask3, params, **tkw)
-                torch.cuda.synchronize()
-                out["fwd_err"] = max_err(got, want, UE_TOL)
+            tag = "" if dtype == torch.bfloat16 else "32"
+            tol = UE_TOL if dtype == torch.bfloat16 else UE_TOL_FP32
+            got = fue.user_encoder_fwd(x, mask3, params, **tkw)
+            want = fue.user_encoder_fwd_plain(x, mask3, params, **tkw)
+            torch.cuda.synchronize()
+            err = max_err(got, want, tol)
+            out["fwd" + tag + "_err"] = max(out.get("fwd" + tag + "_err", 0.0), err)
+            tiles = ""
+            if dtype == torch.float32:
+                G = fue.encoder_plan(b, SEQ_LEN, EMB, HEADS, 4 * EMB, BLOCKS, dtype,
+                                     n_sm=fue.sm_count()).tile_seqs
+                tiles = f" ({-(-b // G)} tiles of {G} sequences, the last of {b - (-(-b // G) - 1) * G})"
+            log(f"user_encoder_fwd train B={b}{tiles} rate {rate} {name}: max|kernel-plain| "
+                f"{err:.6g} (tol atol {tol[0]} rtol {tol[1]})")
+            if b == 64:
                 def fwd():
                     return fue.user_encoder_fwd(x, mask3, params, **tkw)
 
-                out["fwd_ms"] = cuda_timed(fwd, 50)
-                out["fwd_plain_ms"] = cuda_timed(
+                out["fwd" + tag + "_ms"] = cuda_timed(fwd, 50)
+                out["fwd" + tag + "_plain_ms"] = cuda_timed(
                     lambda: fue.user_encoder_fwd_plain(x, mask3, params, **tkw), 10)
                 split = kernel_device_ms(fwd)
-                out["fwd_device_ms"] = sum(split.values())
-                log(f"user_encoder_fwd train B=64 rate {rate} bf16: max|kernel-"
-                    f"plain| {out['fwd_err']:.6g} (tol atol {UE_TOL[0]} rtol "
-                    f"{UE_TOL[1]}); kernel {out['fwd_ms']:.4f} ms, plain "
-                    f"{out['fwd_plain_ms']:.4f} ms (medians, CUDA events), "
+                out["fwd" + tag + "_device_ms"] = sum(split.values())
+                log(f"user_encoder_fwd train B=64 rate {rate} {name}: kernel "
+                    f"{out['fwd' + tag + '_ms']:.4f} ms, plain "
+                    f"{out['fwd' + tag + '_plain_ms']:.4f} ms (medians, CUDA events), "
                     f"{cuda_loop_ms(fwd, 50):.4f} ms a call over 50 back to back; "
                     f"device {split_text(split)}")
             # bf16: the plain backward at the tensor-core kernel's own ReLU
@@ -921,7 +1002,7 @@ def check_user_encoder_train(device):
             if ratio > 1.0:
                 raise AssertionError(f"user_encoder_bwd B={b} {name} disagrees "
                                      "with its plain version")
-            out["bwd_err"] = max(out.get("bwd_err", 0.0), err)
+            out["bwd" + tag + "_err"] = max(out.get("bwd" + tag + "_err", 0.0), err)
             if b != 64:
                 continue
             faults = {
@@ -930,50 +1011,54 @@ def check_user_encoder_train(device):
                 "ReLU gradient dropped": relu_grad_dropped(
                     x, mask3, params, gout, tkw),
             }
-            if dtype == torch.bfloat16:
-                faults["weight gradients without the last layer's gq|gk|gv rows"] = \
-                    et.wgrad_rows_dropped(x, mask3, params, gout, tkw)
-                check_relu_band_fault(x, mask3, params, gout, tkw)
+            faults["weight gradients without the last layer's gq|gk|gv rows"] = \
+                et.wgrad_rows_dropped(x, mask3, params, gout, tkw)
+            check_relu_band_fault(x, mask3, params, gout, tkw)
             for fault, fgot in faults.items():
                 fr = grad_ratio(fgot, want, tol, unpack)
                 log(f"  planted fault '{fault}': max |diff| / bound {fr:.4g} "
                     "(must be > 1)")
                 if fr <= 1.0:
                     raise AssertionError(f"the backward bound admits '{fault}'")
-            if dtype == torch.bfloat16:
-                # as in a training step: the forward's weight image
-                image = fue.weight_image(params, EMB, 4 * EMB, BLOCKS, SEQ_LEN)
+            # as in a training step: the forward's weight image
+            image = fue.weight_image(params, EMB, 4 * EMB, BLOCKS, SEQ_LEN, dtype)
 
-                def bwd():
-                    return fue.user_encoder_bwd(x, mask3, params, gout,
-                                                image=image, **tkw)
+            def bwd():
+                return fue.user_encoder_bwd(x, mask3, params, gout, image=image, **tkw)
 
-                out["bwd_ms"] = cuda_timed(bwd, 50)
-                out["bwd_plain_ms"] = cuda_timed(
-                    lambda: fue.user_encoder_bwd_plain(x, mask3, params, gout,
-                                                       **tkw), 10)
-                split = kernel_device_ms(bwd)
-                out["bwd_device_ms"] = sum(split.values())
-                torch.cuda.synchronize()
+            out["bwd" + tag + "_ms"] = cuda_timed(bwd, 50)
+            out["bwd" + tag + "_plain_ms"] = cuda_timed(
+                lambda: fue.user_encoder_bwd_plain(x, mask3, params, gout, **tkw), 10)
+            split = kernel_device_ms(bwd)
+            out["bwd" + tag + "_device_ms"] = sum(split.values())
+            torch.cuda.synchronize()
+            extra = {}
+            for made in (False, True):  # the forward's image, or one made in the call
                 before = torch.cuda.memory_allocated(device)
                 torch.cuda.reset_peak_memory_stats(device)
-                bwd()
+                if made:
+                    fue.user_encoder_bwd(x, mask3, params, gout, **tkw)
+                else:
+                    bwd()
                 torch.cuda.synchronize()
-                extra = torch.cuda.max_memory_allocated(device) - before
-                log(f"user_encoder_bwd B=64 bf16 train: kernel "
-                    f"{out['bwd_ms']:.4f} ms, plain {out['bwd_plain_ms']:.4f} ms "
-                    f"(medians, CUDA events), {cuda_loop_ms(bwd, 50):.4f} ms a "
-                    f"call over 50 back to back; device {split_text(split)}; "
-                    f"peak device memory beyond its inputs {extra} bytes")
-                if extra > 4 * 2 ** 20:
-                    raise AssertionError("the bf16 encoder backward takes more "
-                                         "than 4 MB of device memory")
+                extra[made] = torch.cuda.max_memory_allocated(device) - before
+            log(f"user_encoder_bwd B=64 {name} train: kernel "
+                f"{out['bwd' + tag + '_ms']:.4f} ms, plain "
+                f"{out['bwd' + tag + '_plain_ms']:.4f} ms (medians, CUDA events), "
+                f"{cuda_loop_ms(bwd, 50):.4f} ms a call over 50 back to back; device "
+                f"{split_text(split)}; peak device memory beyond its inputs "
+                f"{extra[False]} bytes ({extra[True]} with its weight image made "
+                "in the call)")
+            limit = 4 * 2 ** 20 if dtype == torch.bfloat16 else 8 * 2 ** 20
+            if max(extra.values()) > limit:
+                raise AssertionError(f"the {name} encoder backward takes more than "
+                                     f"{limit} bytes of device memory")
     return out
 
 
 # Device-kernel families of a training step, by kernel name (the first
 # pattern that matches wins).
-KERNEL_FAMILIES = (("encoder kernels", ("user_encoder", "grad_reduce")),
+KERNEL_FAMILIES = (("encoder kernels", ("user_encoder",)),
                    ("cascade #3", ("cascade::resident", "san_cascade_f32")),
                    ("cascade #4", ("cascade::streamed",)),
                    ("w8a8", ("w8a8",)),
@@ -1123,6 +1208,38 @@ def train_route(device, corpus, taps, cfg_kw, counters, per_step, name):
     return tr, total
 
 
+def train_cached_fp32(device, corpus, taps, counters):
+    """Phase 6a: three cached steps at bench.py's settings (TRAIN_CFG) with
+    ``compute_dtype="float32"``, the route of any ``--use_scale`` but
+    "half": each step launches the fp32 encoder kernels once and the loss
+    is finite; then the step's host-clock phases and device time by kernel
+    family, with the encoder kernels' share.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from iisan_tpu_torch.config import IISANConfig
+    from iisan_tpu_torch.train.cached import CachedTrainer
+
+    tr = CachedTrainer(IISANConfig(**dict(TRAIN_CFG, compute_dtype="float32")), corpus,
+                       *taps, device=device)
+    perm = torch.as_tensor(tr.epoch_permutation(1), device=device).long()
+    batches = [(tr.train_seqs[perm[i]], tr.train_log_mask[perm[i]]) for i in range(3)]
+    losses, launches = counted(counters, lambda: [float(tr.train_step(*b)) for b in batches])
+    busy = device_ms(lambda: tr.train_step(*batches[0]), 10)
+    phases, families = step_breakdown(tr, batches[0], 10)
+    share = families["encoder kernels"] / sum(families.values())
+    log(f"cached fp32 (compute_dtype float32, bench.py's settings): 3 steps, losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + f"; launches {nonzero(launches)}; "
+        f"device-busy {busy:.3f} ms/step (profiler, 10 steps), the encoder kernels "
+        f"{families['encoder kernels']:.3f} ms ({100 * share:.1f}%); host-clock "
+        "phases: " + ", ".join(f"{k} {v:.3f} ms" for k, v in phases.items())
+        + "; device by family: " + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items()))
+    if (launches["user_encoder_fwd"] != 3 or launches["user_encoder_bwd"] != 3
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"cached fp32: launches {launches}, losses {losses}")
+    return launches
+
+
 def check_gradients_reach_parameters(device, corpus, taps, cfg_kw, name):
     """Five steps through the kernels (use_pallas, fused encoder) and five
     through the module path (default route, fused=False) from the same
@@ -1266,6 +1383,18 @@ def encoder_bounds(B_fwd: int, B_bwd: int):
                 encoder_flops(B_fwd))
     bwd = bound(3 * B_bwd * L * D * 2 + B_bwd * L * L * 4 + 2 * P * 4,
                 3 * encoder_flops(B_bwd))
+    return fwd, bwd
+
+
+def encoder_bounds_tf32(B: int):
+    """Bounds of the fp32 encoder kernels at train B: bytes as
+    ``encoder_bounds`` with fp32 activations, operations three times (three
+    TF32 passes) at 495 TFLOP/s; the forward, then the backward."""
+    P, L, D = encoder_param_count(), SEQ_LEN, EMB
+    fwd = bound(2 * B * L * D * 4 + B * L * L * 4 + P * 4, 3 * encoder_flops(B),
+                PEAK_TF32_FLOPS)
+    bwd = bound(3 * B * L * D * 4 + B * L * L * 4 + 2 * P * 4, 9 * encoder_flops(B),
+                PEAK_TF32_FLOPS)
     return fwd, bwd
 
 
@@ -2444,10 +2573,10 @@ def train_cached_long(device, taps, counters):
                        device=device)
     _, launches = counted(counters, lambda: tr.run_epoch(1))
     losses = tr._last_step_losses.float().cpu().numpy()
-    plan = fue.bwd_plan(L, EMB, HEADS, 4 * EMB, BLOCKS)
+    plan = fue.encoder_plan(64, L, EMB, HEADS, 4 * EMB, BLOCKS, torch.bfloat16, True)
     log(f"cached, max_seq_len={L}: 3 steps, losses " + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; launches {launches}; backward placement {plan[0]} (0 shared, 1 slots "
-        f"global), {plan[2]} scratch floats a sequence")
+        + f"; launches {launches}; backward placement {plan.place} (0 shared, 1 slots "
+        f"global), {plan.scratch_bytes} scratch bytes a sequence")
     if launches["user_encoder_fwd"] != 3 or launches["user_encoder_bwd"] != 3 \
             or not np.isfinite(losses).all():
         raise AssertionError(f"cached at L={L}: launches {launches}, losses {losses}")
@@ -4832,14 +4961,24 @@ def main() -> int:
         for name, n in sorted(mma.items()):
             if "user_encoder" in name:
                 log(f"  SASS: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA in {name}")
-        for kernel in ("user_encoder_fwd_tc_kernel", "user_encoder_bwd_tc_kernel",
-                       "user_encoder_wgrad_kernel"):
-            if not any(kernel in name and sum(n.values()) > 0 for name, n in mma.items()):
-                raise AssertionError(f"{kernel}: no tensor-core instruction in its SASS")
+        # the bf16 route keeps mma.sync (HMMA) in every instance; every fp32
+        # instance runs on wgmma (HGMMA)
+        for kernel, instances, op in (("user_encoder_fwd_tc_kernel", 3, "HMMA"),
+                                      ("user_encoder_bwd_tc_kernel", 3, "HMMA"),
+                                      ("user_encoder_wgrad_kernel", 1, "HMMA"),
+                                      ("user_encoder_fwd_f32_kernel", 1, "HGMMA"),
+                                      ("user_encoder_bwd_f32_kernel", 1, "HGMMA"),
+                                      ("user_encoder_wgrad_f32_kernel", 1, "HGMMA")):
+            mine = [n for name, n in mma.items() if kernel in name]
+            other = "HGMMA" if op == "HMMA" else "HMMA"
+            if len(mine) != instances or any(n[op] == 0 or n[other] > 0 for n in mine):
+                raise AssertionError(f"{kernel}: {len(mine)} instances, {mine}; each "
+                                     f"must have {op} and no {other}")
         check_attention_sass(mma)
 
     with phase("1-3 encoder and cascade kernels"):
         ue = check_user_encoder(device)
+        ue32 = check_user_encoder_fp32(device)
         cascade = check_cascade(device)
 
     import numpy as np
@@ -4925,6 +5064,8 @@ def main() -> int:
         log_step_split("cached", ("default", "use_pallas"))
         check_gradients_reach_parameters(device, corpus, taps, TRAIN_CFG, "cached")
         long_counts = train_cached_long(device, taps, counters)
+    with phase("6a fp32 cached steps"):
+        cached32_counts = train_cached_fp32(device, corpus, taps, counters)
     train_counts = {k: trained[False][k] + trained[True][k] + long_counts[k]
                     for k in trained[False]}
     del taps
@@ -5051,6 +5192,7 @@ def main() -> int:
                          fue.user_encoder_bwd, fs.san_cascade_fwd), Path(tmp), smi)
     torch.cuda.empty_cache()
     ue_bound, ue_bwd_bound = encoder_bounds(256, 64)
+    ue32_bound, ue32_bwd_bound = encoder_bounds_tf32(64)
     log("uncached IISAN step device-busy by tower route, this run (staged batch, "
         "profiler): " + ", ".join(f"{k} {v:.2f} ms" for k, v in busy_by_route.items()))
 
@@ -5085,6 +5227,15 @@ def main() -> int:
               + par["user_encoder_bwd"] + tpme["user_encoder_bwd"],
               train["bwd_err"], train["bwd_ms"], train["bwd_plain_ms"],
               ue_bwd_bound, None, "user_encoder_bwd_tc", device=train["bwd_device_ms"]),
+        entry("user_encoder_fwd_f32", "iisan_tpu/ops/fused_user_encoder.py:264",
+              fp32_counts["user_encoder_fwd"] + cached32_counts["user_encoder_fwd"],
+              max([r[0] for r in ue32.values()] + [train["fwd32_err"]]),
+              train["fwd32_ms"], train["fwd32_plain_ms"], ue32_bound, None, "user_encoder_f32",
+              device=train["fwd32_device_ms"]),
+        entry("user_encoder_bwd_f32", "iisan_tpu/ops/fused_user_encoder.py:327",
+              fp32_counts["user_encoder_bwd"] + cached32_counts["user_encoder_bwd"],
+              train["bwd32_err"], train["bwd32_ms"], train["bwd32_plain_ms"],
+              ue32_bwd_bound, None, "user_encoder_f32", device=train["bwd32_device_ms"]),
         entry("san_cascade_fwd", "iisan_tpu/ops/fused_san.py:49",
               counts[1] + train_counts["san_cascade_fwd"]
               + versa["san_cascade_fwd"] + caches["san_cascade_fwd"]

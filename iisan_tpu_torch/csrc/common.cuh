@@ -41,6 +41,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Sum and max over the gs lanes of an aligned group (gs a power of two).
+__device__ __forceinline__ float group_sum(float v, int gs) {
+  for (int off = gs >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float group_max(float v, int gs) {
+  for (int off = gs >> 1; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // Sets the dynamic shared-memory limit when a launch needs more than the
 // default 48 KB; returns the CUDA error of the attribute call.
 template <typename Kernel>

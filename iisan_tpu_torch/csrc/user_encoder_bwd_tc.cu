@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` (with `_attn_bwd` and
 // `_layernorm_bwd`) in iisan_tpu/ops/fused_user_encoder.py.  Like it, the
-// only residuals are (x, mask, seed).  The fp32 route keeps the CUDA-core
-// kernel of user_encoder_bwd.cu.
+// only residuals are (x, mask, seed).  The fp32 route is
+// user_encoder_f32.cu.
 //
 // 1. user_encoder_bwd_tc_kernel, a block a sequence: reruns the forward
 //    with user_encoder_tc.cuh's code, keeping each layer's operands and
@@ -28,7 +28,7 @@
 //    partial and position rows over the batch in order.  Every gradient is
 //    written once, so the result repeats bit for bit.
 //
-// This replaces the CUDA-core kernel's (B, P) gradient scratch (25.7 MB at
+// This replaced the CUDA-core kernel's (B, P) gradient scratch (25.7 MB at
 // B = 64) and its grad_reduce pass: at the training geometry (B = 64,
 // L = 10, D = 64, F = 256, 2 layers) the device buffer is 3.1 MB.  What
 // bounds it on the H100: as the forward, the latency of a sequence's chain

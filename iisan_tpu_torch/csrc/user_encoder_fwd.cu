@@ -1,7 +1,7 @@
-// Fused SASRec user-encoder forward, one launch for the whole post-LN
-// encoder, eval or train mode.  Two routes, chosen by the compute type:
-// bf16 runs the tensor-core body of user_encoder_tc.cuh (the main path),
-// fp32 the CUDA-core body of user_encoder.cuh (tests and fp32 runs).
+// Fused SASRec user-encoder forward, bf16 route: one launch for the whole
+// post-LN encoder, eval or train mode, on the tensor-core body of
+// user_encoder_tc.cuh (the main path).  The fp32 route is
+// user_encoder_f32.cu.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` / `_encoder_fwd_body` in
 // iisan_tpu/ops/fused_user_encoder.py.  Train mode draws its dropout bits
@@ -13,17 +13,14 @@
 // activations and about 1 M multiply-adds, and the unfused module path is
 // some forty small launches per call.  One launch removes those; what is
 // left is the latency of a chain of small products on one SM, since a
-// block runs one sequence.  A clock64() split of the CUDA-core design at
-// eval B=1 (PERF.md) put 54% of a sequence's 66 us in its fp32 FMA chains,
-// 16% in staging fp32 weights and 11% in its LayerNorms.  The bf16 route
-// therefore runs every product on mma.sync, streams the weights through a
-// cp.async ring a few chunks ahead of their use (across the ends of
-// products), and keeps its areas and ring to 106 KB (two blocks an SM).
-// The fp32 route keeps every activation
-// in fp32 shared memory and stages fp32 weights (see linear()); a long
-// sequence (L = 50) moves its layer slot, and at larger sizes its head
-// area too, to a per-sequence global scratch (user_encoder.cuh's
-// Placement), as the bf16 route does with its own layout.
+// block runs one sequence.  A clock64() split of the CUDA-core design it
+// replaced, at eval B=1 (PERF.md), put 54% of a sequence's 66 us in its
+// fp32 FMA chains, 16% in staging fp32 weights and 11% in its LayerNorms.
+// This route therefore runs every product on mma.sync, streams the weights
+// through a cp.async ring a few chunks ahead of their use (across the ends
+// of products), and keeps its areas and ring to 106 KB (two blocks an SM);
+// a long sequence (L = 50) moves its layer slot, and at larger sizes its
+// head area too, to a per-sequence global scratch (TcLayout's placement).
 
 #include <algorithm>
 
@@ -31,59 +28,6 @@
 
 namespace iisan {
 namespace {
-
-template <typename T, int kPlace>
-__global__ void __launch_bounds__(kThreads)
-    user_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask,
-                            const float* __restrict__ params, T* __restrict__ out,
-                            float* __restrict__ scratch, long long per_seq, EncoderDims dims,
-                            float inv_sqrt_dk, Dropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  const EncoderLayout lay(dims);
-  const int LD = dims.L * dims.D;
-  const size_t b = blockIdx.x;
-  const EncoderAreas ar(static_cast<Placement>(kPlace), lay, 1, smem, scratch, b, per_seq);
-  float* y = ar.slots;  // one slot for every layer
-  encoder_forward<T>(x + b * LD, mask + b * dims.L * dims.L, params, dims, lay, inv_sqrt_dk,
-                     drop, static_cast<unsigned>(b), ar, 0, y);
-  T* ob = out + b * LD;
-  for (int i = threadIdx.x; i < LD; i += blockDim.x) ob[i] = from_f32<T>(y[i]);
-}
-
-template <typename T, int kPlace>
-cudaError_t launch_at(const void* x, const void* mask, const void* params, void* out,
-                      float* scratch, int B, const EncoderDims& dims, const Dropout& drop,
-                      cudaStream_t stream) {
-  const EncoderLayout lay(dims);
-  const Placement pl = static_cast<Placement>(kPlace);
-  const size_t smem = sizeof(float) * smem_floats(lay, pl, 1, 0);
-  const long long per_seq = scratch_floats(lay, pl, 1, 0);
-  if (per_seq > 0 && scratch == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(user_encoder_fwd_kernel<T, kPlace>, smem);
-  if (err != cudaSuccess) return err;
-  const float inv_sqrt_dk = static_cast<float>(1.0 / sqrt(static_cast<double>(dims.D / dims.H)));
-  user_encoder_fwd_kernel<T, kPlace><<<B, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mask),
-      static_cast<const float*>(params), static_cast<T*>(out), scratch, per_seq, dims,
-      inv_sqrt_dk, drop);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_f32(const void* x, const void* mask, const void* params, void* out,
-                       float* scratch, long long scratch_bytes, int B, const EncoderDims& dims,
-                       const Dropout& drop, cudaStream_t s) {
-  const EncoderLayout lay(dims);
-  const Placement pl = place(lay, 1, 0);
-  if (scratch_bytes < static_cast<long long>(B) * scratch_floats(lay, pl, 1, 0) * 4)
-    return cudaErrorInvalidValue;
-  switch (pl) {
-    case kResident:
-      return launch_at<float, kResident>(x, mask, params, out, scratch, B, dims, drop, s);
-    case kSlotsGlobal:
-      return launch_at<float, kSlotsGlobal>(x, mask, params, out, scratch, B, dims, drop, s);
-    default: return launch_at<float, kSpilled>(x, mask, params, out, scratch, B, dims, drop, s);
-  }
-}
 
 template <int kPlace>
 __global__ void __launch_bounds__(tc::kThreads, 2)
@@ -194,28 +138,21 @@ extern "C" int iisan_user_encoder_weights(const void* params, void* image, long 
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B, L, D) T; mask (B, L, L) fp32; params: the packed fp32 parameter
-// vector; image: its bf16 weight image (iisan_user_encoder_weights; bf16
-// only, else null); out (B, L, D) T; scratch: scratch_bytes of device
-// memory, B times the route's per-sequence scratch where the working set
-// does not fit shared memory (checked), else null.  T is bf16 (the
-// tensor-core route) when is_bf16, else fp32 (the CUDA-core route).
-// Dropout is on when rate > 0: Philox key `seed`, keep factor `scale`
-// (1/(1-rate) in fp32).  Returns the CUDA error of the launch (0 on
-// success).
+// x (B, L, D) bf16; mask (B, L, L) fp32; params: the packed fp32 parameter
+// vector; image: its bf16 weight image (iisan_user_encoder_weights); out
+// (B, L, D) bf16; scratch: scratch_bytes of device memory, B times the
+// per-sequence scratch where the working set does not fit shared memory
+// (checked), else null.  Dropout is on when rate > 0: Philox key `seed`,
+// keep factor `scale` (1/(1-rate) in fp32).  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int iisan_user_encoder_fwd(const void* x, const void* mask, const void* params,
                                       const void* image, void* out, void* scratch,
                                       long long scratch_bytes, int B, int L, int D, int H, int F,
-                                      int n_layers, int n_position, int is_bf16, int seed,
-                                      float rate, float scale, void* stream) {
+                                      int n_layers, int n_position, int seed, float rate,
+                                      float scale, void* stream) {
   const iisan::EncoderDims dims{L, D, H, F, n_layers, n_position};
   const iisan::Dropout drop = iisan::make_dropout(seed, rate, scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? iisan::launch_tc(x, mask, params, image, out, static_cast<char*>(scratch),
-                                 scratch_bytes, B, dims, drop, s)
-              : iisan::launch_f32(x, mask, params, out, static_cast<float*>(scratch),
-                                  scratch_bytes, B, dims, drop, s);
-  return static_cast<int>(err);
+  return static_cast<int>(iisan::launch_tc(x, mask, params, image, out,
+                                           static_cast<char*>(scratch), scratch_bytes, B, dims,
+                                           drop, static_cast<cudaStream_t>(stream)));
 }
-

@@ -3,7 +3,7 @@
 // the backward kernel's recompute (user_encoder_bwd_tc.cu, #2), the
 // weight-streaming product they both use, and the per-sequence layout.
 //
-// The function and its cast chain are user_encoder.cuh's (the JAX kernel's
+// The function and its cast chain are the JAX kernel's (its
 // `_encoder_fwd_body`): every product there takes bf16-valued operands and
 // sums in fp32, which is exactly `mma.sync` m16n8k16 bf16 -> fp32.  A
 // sequence's rows are 16-row m-tiles (L = 10 is one tile padded with zero
@@ -43,7 +43,7 @@
 // ldmatrix hit distinct banks) and, for the backward, its fp32 stash; a
 // head with the scores and the pre-LayerNorm sums; the backward's working
 // set.  They live in shared memory where they fit (kResident) and
-// otherwise, as in user_encoder.cuh, the slots (kSlotsGlobal) or all of
+// otherwise, as in the fp32 route, the slots (kSlotsGlobal) or all of
 // them (kSpilled) move to a per-sequence scratch in device memory; every
 // operand is read with plain 32-bit loads, so the code is the same.  The
 // ring stays in shared memory.  Pads are zero because a block zeroes its
@@ -523,16 +523,6 @@ __device__ void head_products(const bf16* A, long long a_head, int lda, const bf
     epi(h, row + 8, col, c[2]);
     epi(h, row + 8, col + 1, c[3]);
   }
-}
-
-// Sum and max over the gs lanes of an aligned group (gs a power of two).
-__device__ __forceinline__ float group_sum(float v, int gs) {
-  for (int off = gs >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float group_max(float v, int gs) {
-  for (int off = gs >> 1; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
 }
 
 // LayerNorm of the fp32 rows pre (L, D): out (bf16, row stride ldo) =

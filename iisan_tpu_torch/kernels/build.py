@@ -106,10 +106,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     u = ctypes.c_uint
     lib.iisan_user_encoder_weights.argtypes = [p, p, ll] + [i] * 4 + [p]
     lib.iisan_user_encoder_weights.restype = i
-    lib.iisan_user_encoder_fwd.argtypes = [p] * 6 + [ll] + [i] * 9 + [f, f, p]
+    lib.iisan_user_encoder_fwd.argtypes = [p] * 6 + [ll] + [i] * 8 + [f, f, p]
     lib.iisan_user_encoder_fwd.restype = i
-    lib.iisan_user_encoder_bwd.argtypes = [p] * 7 + [ll, p] + [i] * 8 + [f, f, i, p]
-    lib.iisan_user_encoder_bwd.restype = i
+    lib.iisan_user_encoder_f32_weights.argtypes = [p, p, ll] + [i] * 5 + [p]
+    lib.iisan_user_encoder_f32_weights.restype = i
+    lib.iisan_user_encoder_f32_fwd.argtypes = [p] * 4 + [ll, p, p, ll] + [i] * 8 + [f, f, i, p]
+    lib.iisan_user_encoder_f32_fwd.restype = i
+    lib.iisan_user_encoder_f32_bwd.argtypes = [p] * 4 + [ll, p, p, p, ll] + [i] * 8 + [f, f, i, p]
+    lib.iisan_user_encoder_f32_bwd.restype = i
+    lib.iisan_user_encoder_f32_wgrad.argtypes = [p, ll, p] + [i] * 8 + [p]
+    lib.iisan_user_encoder_f32_wgrad.restype = i
+    lib.iisan_user_encoder_f32_layout.argtypes = [i] * 8 + [p, i]
+    lib.iisan_user_encoder_f32_layout.restype = i
     lib.iisan_user_encoder_bwd_tc.argtypes = [p] * 7 + [ll] + [i] * 8 + [f, f, p]
     lib.iisan_user_encoder_bwd_tc.restype = i
     lib.iisan_user_encoder_wgrad.argtypes = [p, ll, p] + [i] * 7 + [p]

@@ -64,18 +64,20 @@ class UserEncoder(nn.Module):
         return self._serving_params(compute_dtype)[0]
 
     def _serving_params(self, compute_dtype: torch.dtype):
-        """(``packed_params``, the bf16 kernels' weight image of it or
-        None), both made once a parameter version."""
+        """(``packed_params``, the kernels' weight image of it (on the
+        fp32 route the forward's half) or None off the card), both made
+        once a parameter version."""
         flat = fue.flatten_encoder_params(self.transformer_encoder,
                                           self.n_layers)
         key = (compute_dtype,) + tuple((p.data_ptr(), p._version) for p in flat)
         if self._packed is None or self._packed[0] != key:
             packed = fue.pack_encoder_params(flat, compute_dtype)
             image = None
-            if packed.is_cuda and compute_dtype == torch.bfloat16:
+            if packed.is_cuda:
                 D = flat[0].shape[-1]
                 image = fue.weight_image(packed, D, 4 * D, self.n_layers,
-                                         self.max_seq_len)
+                                         self.max_seq_len, compute_dtype,
+                                         backward=False)
             self._packed = (key, packed, image)
         return self._packed[1:]
 

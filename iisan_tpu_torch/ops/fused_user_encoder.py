@@ -8,11 +8,15 @@ Port of ``iisan_tpu/ops/fused_user_encoder.py``.  Two kernels:
   back-propagates through it, writing ``gx`` and the packed parameter
   gradient.
 
-Each has two routes, chosen by the compute dtype: bf16 (the main path) on
-the tensor cores (``csrc/user_encoder_tc.cuh``; the backward is a
-per-sequence sweep and a weight-gradient pass, ``csrc/user_encoder_bwd_tc.cu``)
-and fp32 on the CUDA cores (``csrc/user_encoder.cuh``,
-``csrc/user_encoder_bwd.cu``).  ``encoder_plan`` repeats their placement
+Each has two routes, chosen by the compute dtype, both on the tensor
+cores: bf16 (the main path) on mma.sync, a block a sequence
+(``csrc/user_encoder_tc.cuh``; the backward is a per-sequence sweep and a
+weight-gradient pass, ``csrc/user_encoder_bwd_tc.cu``), and fp32 in three
+TF32 passes on wgmma, a block a tile of several sequences, its weights
+streamed by bulk copies (``csrc/user_encoder_f32.cuh``,
+``csrc/user_encoder_f32.cu``; the backward again a sweep and a
+weight-gradient pass).  Each route reads a weight image of the packed
+parameters (``weight_image``).  ``encoder_plan`` repeats their placement
 and memory arithmetic.
 
 ``FusedEncoderFn`` ties them into autograd, as the JAX package's custom VJP
@@ -116,50 +120,131 @@ def unpack_encoder_params(packed: torch.Tensor, D: int, F: int, n_layers: int,
     return [t.view(s) for t, s in zip(torch.split(packed, sizes), shapes)]
 
 
-_WBUF = 16384  # floats of the fp32 kernels' staged-weight buffer (csrc kWBuf)
-_SMEM_FLOATS = _SMEM_LIMIT // 4
 # Where a kernel's areas live (``Placement`` in csrc/user_encoder.cuh): all
-# in shared memory; the layer slots in a per-sequence global scratch; all
-# but the staged weights there.
+# in shared memory; the layer slots in a per-sequence global scratch (the
+# bf16 route); all but the ring in a scratch in device memory.
 RESIDENT, SLOTS_GLOBAL, SPILLED = 0, 1, 2
 
-
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
-def _layout(L: int, D: int, H: int, F: int):
-    """(floats of the head area, floats of one layer slot), as
-    ``EncoderLayout`` in csrc/user_encoder.cuh: the head holds the
-    pre-LayerNorm sums, the scores and the input LayerNorm's stats; a slot
-    the layer's activations, stats and probabilities."""
-    LD, HLL = L * D, H * L * L
-    slot = _pad4(8 * LD + L * F + HLL + 2 * L)
-    return LD + _pad4(HLL) + LD + _pad4(L), slot
+# The fp32 route (csrc/user_encoder_f32.cuh): a block takes a tile of
+# whole sequences; its ring holds three 64 x 64 weight tiles (TF32 hi and
+# lo halves, 16 KB each) and their barriers, after up to 1,024 bytes of
+# alignment.
+_F32_TILE = 64 * 64 * 4
+_F32_RING = 1024 + 3 * 2 * _F32_TILE + 64
 
 
-def _plan(L: int, D: int, H: int, F: int, n_slots: int, extra: int):
-    """(placement, shared-memory bytes, scratch floats per sequence) of a
-    block with n_slots layer slots and `extra` more floats of working set
-    (``place``, ``smem_floats``, ``scratch_floats``)."""
-    head, slot = _layout(L, D, H, F)
-    if _WBUF + head + n_slots * slot + extra <= _SMEM_FLOATS:
-        return RESIDENT, 4 * (_WBUF + head + n_slots * slot + extra), 0
-    if _WBUF + head + extra <= _SMEM_FLOATS:
-        return SLOTS_GLOBAL, 4 * (_WBUF + head + extra), n_slots * slot
-    return SPILLED, 4 * _WBUF, head + n_slots * slot + extra
+def _nt64(n: int) -> int:
+    return (n + 63) // 64
 
 
-def fwd_plan(L: int, D: int, H: int, F: int):
-    """The fp32 forward kernel's placement, shared bytes and scratch floats
-    per sequence: one slot, reused by every layer."""
-    return _plan(L, D, H, F, 1, 0)
+def _lds(n: int) -> int:
+    """Row stride (floats) of an fp32 area n columns wide: 4 mod 32."""
+    return (n + 31) // 32 * 32 + 4
 
 
-def bwd_plan(L: int, D: int, H: int, F: int, n_layers: int):
-    """The fp32 backward kernel's: a slot per layer (the recompute stash)
-    and the gradient working set."""
-    return _plan(L, D, H, F, n_layers, 6 * L * D + L * F + _pad4(H * L * L))
+def _f32_area_floats(G: int, L: int, D: int, H: int, F: int, backward: bool) -> int:
+    """Floats of a tile's areas (``area_floats``): the forward's res, xin,
+    x1, q|k|v beside ctx (the FFN's hidden rows over both) and scores; the
+    sweep's res, g, ga, g_o, gq|gk|gv, scores and keep factors."""
+    Ma, GHLL = G * L, G * H * L * L
+    sD, s3D, sF = _lds(D), _lds(3 * D), _lds(F)
+    if backward:
+        return Ma * (4 * sD + s3D) + 2 * GHLL
+    return Ma * (3 * sD + max(s3D + sD, sF)) + GHLL
+
+
+H100_SMS = 132  # SMs of the H100 SXM: the fp32 tile plan's default count
+
+
+def sm_count(device=None) -> int:
+    """SMs of ``device`` (the current CUDA card by default; ``H100_SMS``
+    where there is none): the count the fp32 wrappers plan their tiles
+    for."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(
+            torch.cuda.current_device() if device is None else device).multi_processor_count
+    return H100_SMS
+
+
+def f32_tile_plan(L: int, D: int, H: int, F: int, backward: bool = False, B: int = 1,
+                  n_sm: int = H100_SMS):
+    """The fp32 route's tile (``tile_plan`` in csrc/user_encoder_f32.cuh):
+    (sequences a tile, placement, shared-memory bytes, scratch bytes a
+    tile).  As many sequences as give each of the card's n_sm SMs a tile of
+    B, up to as many as fill 64 rows (one past L = 64); fewer where that
+    keeps the areas in shared memory, else that many with the areas in a
+    per-tile scratch."""
+    want = min(64 // L if L <= 64 else 1, max(1, -(-B // n_sm)))
+    for g in range(want, 0, -1):
+        nbytes = _F32_RING + 4 * _f32_area_floats(g, L, D, H, F, backward)
+        if nbytes <= _SMEM_LIMIT:
+            return g, RESIDENT, nbytes, 0
+    return want, SPILLED, _F32_RING, _r16(4 * _f32_area_floats(want, L, D, H, F, backward))
+
+
+def f32_image_floats(D: int, F: int, n_layers: int, backward: bool = True) -> int:
+    """fp32 entries of the fp32 kernels' weight image (``F32Image``): per
+    layer the fp32 64 x 64 tiles of q|k|v, wo, w1 and w2, as their products
+    read them (W^T's), and with ``backward`` the same tiles of W after
+    them."""
+    tD, t3D, tF = _nt64(D), _nt64(3 * D), _nt64(F)
+    per_layer = t3D * tD + tD * tD + 2 * tF * tD
+    return (2 if backward else 1) * per_layer * n_layers * 4096
+
+
+def f32_work_layout(B: int, L: int, D: int, H: int, F: int, n_layers: int,
+                    G: int, per_tile: int) -> dict:
+    """The fp32 backward's device buffer (``F32Work`` in
+    csrc/user_encoder_f32.cu), byte offsets: per layer the fp32 rows (B*L,
+    width) of "xin", "ctx", "x1", "hf", "qkv" (then gq|gk|gv), "xh1"
+    (LN1's xhat, then g_o2), "xh2" (LN2's xhat, then g_h2), "ghp" (g_hpre),
+    "p" (the probabilities) and "rs" (the rstds), inside a layer's block of
+    "layer" bytes; then "xh0", "rs0", the partial rows ("part", "Qp"
+    floats a tile), the tiles' scratch and the total."""
+    R4 = 4 * B * L
+    out, at = {}, 0
+    for name, w in (("xin", D), ("ctx", D), ("x1", D), ("hf", F), ("qkv", 3 * D),
+                    ("xh1", D), ("xh2", D), ("ghp", F), ("p", H * L), ("rs", 2)):
+        out[name] = at
+        at = _r16(at + R4 * w)
+    out["layer"] = at
+    at *= n_layers
+    nblk = -(-B // G)
+    out["Qp"] = 2 * D + n_layers * (5 * D + F) + L * D
+    for name, nbytes in (("xh0", R4 * D), ("rs0", R4), ("part", 4 * nblk * out["Qp"]),
+                         ("scratch", nblk * per_tile)):
+        out[name] = at
+        at = _r16(at + nbytes)
+    out["total"] = at
+    return out
+
+
+_LIBRARY_F32_LAYOUT = ("fwd_G", "fwd_place", "fwd_smem", "fwd_scratch", "bwd_G",
+                       "bwd_place", "bwd_smem", "bwd_scratch", "image_fwd", "image",
+                       "xin", "ctx", "x1", "hf", "qkv", "xh1", "xh2", "ghp", "p", "rs",
+                       "layer", "xh0", "rs0", "part", "scratch", "total", "Qp")
+
+
+def library_f32_layout(B: int, L: int, D: int, H: int, F: int,
+                       n_layers: int, n_sm: Optional[int] = None) -> dict:
+    """The fp32 route's layout as the kernels compute it for tiles planned
+    for ``n_sm`` SMs (the card's by default; ``iisan_user_encoder_f32_layout``;
+    needs the built library): each pass's tile (sequences, placement,
+    shared-memory and per-tile scratch bytes), the weight image's entries
+    (forward part, whole) and the backward buffer's offsets under
+    ``f32_work_layout``'s names.  ``f32_tile_plan``, ``f32_image_floats``
+    and ``f32_work_layout`` are the CPU's copy of this arithmetic, held to
+    it on the card."""
+    import ctypes
+
+    from ..kernels.build import library
+
+    out = (ctypes.c_longlong * len(_LIBRARY_F32_LAYOUT))()
+    n = library().iisan_user_encoder_f32_layout(
+        B, L, D, H, F, n_layers, L, sm_count() if n_sm is None else n_sm, out, len(out))
+    if n != len(out):
+        raise RuntimeError(f"iisan_user_encoder_f32_layout returned {n}")
+    return dict(zip(_LIBRARY_F32_LAYOUT, out))
 
 
 # The bf16 kernels' ring of staged weights (csrc/user_encoder_tc.cuh): two
@@ -258,28 +343,33 @@ def library_tc_layout(B: int, L: int, D: int, H: int, F: int,
 
 
 class EncoderPlan(NamedTuple):
-    """How a kernel lays out a call: ``route`` "tensor cores" (bf16) or
-    "cuda cores" (fp32); where the areas live (``RESIDENT``,
+    """How a kernel lays out a call: ``route`` "tensor cores" (bf16,
+    mma.sync) or "tf32 wgmma" (fp32); where the areas live (``RESIDENT``,
     ``SLOTS_GLOBAL``, ``SPILLED``); the block's shared-memory bytes; the
-    per-sequence scratch bytes in device memory; the bf16 backward's whole
-    device buffer (``tc_work_layout``; 0 elsewhere)."""
+    scratch bytes in device memory a sequence (bf16) or a tile (fp32); the
+    backward's whole device buffer (0 in the forward); the sequences a
+    block takes (fp32: planned for ``encoder_plan``'s ``n_sm`` SMs)."""
     route: str
     place: int
     smem_bytes: int
     scratch_bytes: int
     work_bytes: int
+    tile_seqs: int = 1
 
 
 @functools.lru_cache(maxsize=256)
 def encoder_plan(B: int, L: int, D: int, H: int, F: int, n_layers: int,
-                 dtype: torch.dtype, backward: bool = False) -> EncoderPlan:
+                 dtype: torch.dtype, backward: bool = False,
+                 n_sm: int = H100_SMS) -> EncoderPlan:
     """The placement and memory of the kernel a CUDA call at these shapes
-    launches; the only arithmetic the kernels check it against is their
-    own (a smaller buffer is refused)."""
+    launches, the fp32 route's tiles planned for ``n_sm`` SMs (the
+    wrappers pass the card's); the only arithmetic the kernels check it
+    against is their own (a smaller buffer is refused)."""
     if dtype != torch.bfloat16:
-        place, smem, floats = (bwd_plan(L, D, H, F, n_layers) if backward
-                               else fwd_plan(L, D, H, F))
-        return EncoderPlan("cuda cores", place, smem, 4 * floats, 0)
+        G, place, smem, scratch = f32_tile_plan(L, D, H, F, backward, B, n_sm)
+        work = (f32_work_layout(B, L, D, H, F, n_layers, G, scratch)["total"]
+                if backward else 0)
+        return EncoderPlan("tf32 wgmma", place, smem, scratch, work, G)
     slot, head, work = _tc_layout(L, D, H, F, n_layers, backward)
     n = n_layers if backward else 1
     if _TC_RING + head + n * slot + work <= _SMEM_LIMIT:
@@ -305,8 +395,7 @@ def supported(B: int, L: int, D: int, H: int, F: int = None,
     """Shapes the forward kernels take: every width the JAX kernel takes
     (heads dividing D, D >= 8), any F >= 1 (4D by default), any batch, and
     any L up to the position table (what does not fit shared memory goes to
-    a global scratch, ``encoder_plan``; weights that do not fit a staging
-    buffer go in panels).  The one limit is arithmetic: the packed
+    a global scratch, ``encoder_plan``; the weights stream in tiles).  The one limit is arithmetic: the packed
     parameters are indexed with 32-bit ints, so a block's, with the
     position table, stays below 2^31 entries (D up to 13,376 at F = 4D;
     the whole vector is checked at the call)."""
@@ -576,44 +665,68 @@ def _dropout_args(seed: int, rate: float):
     return seed, rate, 1.0 / (1.0 - rate)
 
 
-def weight_image(params, D: int, F: int, n_layers: int, n_position: int):
-    """The bf16 weight image of the packed parameters that the bf16 kernels
-    stream (one launch of the image kernel, ``iisan_user_encoder_weights``;
-    a CUDA ``params``).  Made once, it serves every call on the same
-    parameters: ``FusedEncoderFn`` passes the forward's to the backward,
-    and ``UserEncoder.packed_params`` caches one for serving."""
+def weight_image(params, D: int, F: int, n_layers: int, n_position: int,
+                 dtype: torch.dtype = torch.bfloat16, backward: bool = True):
+    """The weight image of the packed parameters that the kernels of
+    ``dtype``'s route stream (one launch of its image kernel; a CUDA
+    ``params``): bf16, the bf16 matrices (``iisan_user_encoder_weights``);
+    fp32, the 64 x 64 tiles (``iisan_user_encoder_f32_weights``), the
+    backward's half only with ``backward``.  Made once, it serves every
+    call on the same parameters: ``FusedEncoderFn`` passes the forward's to
+    the backward, and ``UserEncoder.packed_params`` caches one for
+    serving."""
     from ..kernels.build import check, library
 
+    stream = torch.cuda.current_stream(params.device).cuda_stream
+    if dtype != torch.bfloat16:
+        n = f32_image_floats(D, F, n_layers, backward)
+        image = torch.empty(n, dtype=torch.float32, device=params.device)
+        err = library().iisan_user_encoder_f32_weights(
+            params.data_ptr(), image.data_ptr(), n, D, F, n_layers, n_position,
+            int(backward), stream)
+        check(err, "user_encoder fp32 weight image")
+        return image
     n = tc_image_elems(D, F, n_layers)
     image = torch.empty(n, dtype=torch.bfloat16, device=params.device)
     err = library().iisan_user_encoder_weights(
-        params.data_ptr(), image.data_ptr(), n, D, F, n_layers, n_position,
-        torch.cuda.current_stream(params.device).cuda_stream)
+        params.data_ptr(), image.data_ptr(), n, D, F, n_layers, n_position, stream)
     check(err, "user_encoder weight image")
     return image
 
 
-def _image_for(image, params, D: int, F: int, n_layers: int, n_position: int):
-    """``image`` checked against the parameters' shapes, or made anew."""
+def _image_for(image, params, D: int, F: int, n_layers: int, n_position: int,
+               dtype: torch.dtype, backward: bool):
+    """``image`` checked against the parameters' shapes and the route, or
+    made anew (an fp32 forward makes the forward's half only)."""
     if image is None:
-        return weight_image(params, D, F, n_layers, n_position)
-    if (image.dtype != torch.bfloat16 or image.device != params.device
-            or image.numel() != tc_image_elems(D, F, n_layers)):
-        raise ValueError("image must be the bf16 weight image of params "
-                         "(weight_image)")
+        return weight_image(params, D, F, n_layers, n_position, dtype, backward)
+    if dtype == torch.bfloat16:
+        ok = image.dtype == torch.bfloat16 and image.numel() == tc_image_elems(D, F, n_layers)
+    else:
+        sizes = {f32_image_floats(D, F, n_layers, True)}
+        if not backward:
+            sizes.add(f32_image_floats(D, F, n_layers, False))
+        ok = image.dtype == torch.float32 and image.numel() in sizes
+    if not ok or image.device != params.device:
+        raise ValueError("image must be the weight image of params for this "
+                         "route (weight_image)")
     return image.contiguous()
 
 
 def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
                      d_ff: int, n_position: int, seed: int = 0,
-                     rate: float = 0.0, image=None) -> torch.Tensor:
-    """Encoder forward; the CUDA kernel for a CUDA ``x`` (bf16: the
-    tensor-core route, fp32: the CUDA-core route).
+                     rate: float = 0.0, image=None,
+                     n_sm: Optional[int] = None) -> torch.Tensor:
+    """Encoder forward; the CUDA kernel for a CUDA ``x`` (bf16: mma.sync,
+    a block a sequence; fp32: three-pass TF32 on wgmma, a block a tile of
+    sequences).
 
     Same arguments and result as ``user_encoder_fwd_plain``, which runs
-    for a CPU ``x``.  ``image``: on the bf16 route, ``weight_image`` of
-    ``params`` where the caller holds one (made here when None).
-    ``user_encoder_fwd.launches`` counts kernel launches.
+    for a CPU ``x``.  ``image``: ``weight_image`` of ``params`` for x's
+    route where the caller holds one (made here when None).  ``n_sm``: the
+    SMs the fp32 route plans its tiles for (x's card's when None; the
+    result is the same for any count).  ``user_encoder_fwd.launches``
+    counts kernel launches.
     """
     if not x.is_cuda:
         return user_encoder_fwd_plain(x, mask3, params, n_layers=n_layers,
@@ -628,17 +741,25 @@ def user_encoder_fwd(x, mask3, params, *, n_layers: int, n_heads: int,
            supported(B, L, D, n_heads, d_ff, n_position))
     x, mask3, params = x.contiguous(), mask3.contiguous(), params.contiguous()
     out = torch.empty_like(x)
-    plan = encoder_plan(B, L, D, n_heads, d_ff, n_layers, x.dtype)
-    scratch = _bytes(B * plan.scratch_bytes, x.device)
+    n_sm = _plan_sms(x, n_sm)
+    plan = encoder_plan(B, L, D, n_heads, d_ff, n_layers, x.dtype, n_sm=n_sm)
+    image = _image_for(image, params, D, d_ff, n_layers, n_position, x.dtype, False)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
-        image = _image_for(image, params, D, d_ff, n_layers, n_position)
-    err = library().iisan_user_encoder_fwd(
-        x.data_ptr(), mask3.data_ptr(), params.data_ptr(),
-        _ptr(image if x.dtype == torch.bfloat16 else None),
-        out.data_ptr(), _ptr(scratch), B * plan.scratch_bytes,
-        B, L, D, n_heads, d_ff, n_layers, n_position,
-        int(x.dtype == torch.bfloat16), *_dropout_args(seed, rate),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        scratch = _bytes(B * plan.scratch_bytes, x.device)
+        err = library().iisan_user_encoder_fwd(
+            x.data_ptr(), mask3.data_ptr(), params.data_ptr(), image.data_ptr(),
+            out.data_ptr(), _ptr(scratch), B * plan.scratch_bytes,
+            B, L, D, n_heads, d_ff, n_layers, n_position,
+            *_dropout_args(seed, rate), stream)
+    else:
+        n = -(-B // plan.tile_seqs) * plan.scratch_bytes
+        scratch = _bytes(n, x.device)
+        err = library().iisan_user_encoder_f32_fwd(
+            x.data_ptr(), mask3.data_ptr(), params.data_ptr(), image.data_ptr(),
+            image.numel(), out.data_ptr(), _ptr(scratch), n,
+            B, L, D, n_heads, d_ff, n_layers, n_position,
+            *_dropout_args(seed, rate), n_sm, stream)
     check(err, "user_encoder_fwd")
     user_encoder_fwd.launches += 1
     user_encoder_fwd.flops += flops.encoder(B, L, D, d_ff, n_layers)
@@ -649,59 +770,79 @@ user_encoder_fwd.launches = 0
 user_encoder_fwd.flops = 0
 
 
+def _plan_sms(x, n_sm: Optional[int]) -> int:
+    """The SMs a call on x plans its fp32 tiles for: n_sm, else x's card's."""
+    if n_sm is None:
+        return sm_count(x.device)
+    if n_sm < 1:
+        raise ValueError(f"n_sm must be at least 1, got {n_sm}")
+    return n_sm
+
+
 def _bwd_sweep(x, mask3, params, image, gout, gx, work, n_layers, n_heads,
-               d_ff, n_position, seed, rate):
-    """The bf16 backward's first kernel, the sweep: gx, and the
-    weight-gradient operands, partial rows and fp32 input gradient in
-    ``work`` (``tc_work_layout``)."""
+               d_ff, n_position, seed, rate, n_sm):
+    """The backward's first kernel, the sweep (x's route): gx, and in
+    ``work`` (``tc_work_layout`` or ``f32_work_layout``, for tiles planned
+    for n_sm SMs) the weight-gradient operands and the partial rows."""
     from ..kernels.build import check, library
 
     B, L, D = x.shape
-    err = library().iisan_user_encoder_bwd_tc(
-        x.data_ptr(), mask3.data_ptr(), params.data_ptr(), image.data_ptr(),
-        gout.data_ptr(),
-        gx.data_ptr(), work.data_ptr(), work.numel(), B, L, D, n_heads, d_ff,
-        n_layers, n_position, *_dropout_args(seed, rate),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        err = library().iisan_user_encoder_bwd_tc(
+            x.data_ptr(), mask3.data_ptr(), params.data_ptr(), image.data_ptr(),
+            gout.data_ptr(), gx.data_ptr(), work.data_ptr(), work.numel(), B, L, D,
+            n_heads, d_ff, n_layers, n_position, *_dropout_args(seed, rate), stream)
+    else:
+        err = library().iisan_user_encoder_f32_bwd(
+            x.data_ptr(), mask3.data_ptr(), params.data_ptr(), image.data_ptr(),
+            image.numel(), gout.data_ptr(), gx.data_ptr(), work.data_ptr(),
+            work.numel(), B, L, D, n_heads, d_ff, n_layers, n_position,
+            *_dropout_args(seed, rate), n_sm, stream)
     check(err, "user_encoder_bwd (sweep)")
 
 
-def _bwd_wgrad(work, gparams, B, L, D, n_layers, n_heads, d_ff, n_position):
-    """The bf16 backward's second kernel: every entry of ``gparams`` from
-    the sweep's ``work``."""
+def _bwd_wgrad(work, gparams, B, L, D, n_layers, n_heads, d_ff, n_position,
+               dtype=torch.bfloat16, n_sm: int = H100_SMS):
+    """The backward's second kernel: every entry of ``gparams`` from the
+    sweep's ``work`` (``dtype``'s route; fp32: the sweep's ``n_sm``)."""
     from ..kernels.build import check, library
 
-    err = library().iisan_user_encoder_wgrad(
-        work.data_ptr(), work.numel(), gparams.data_ptr(), B, L, D, n_heads,
-        d_ff, n_layers, n_position,
-        torch.cuda.current_stream(work.device).cuda_stream)
+    stream = torch.cuda.current_stream(work.device).cuda_stream
+    if dtype == torch.bfloat16:
+        err = library().iisan_user_encoder_wgrad(
+            work.data_ptr(), work.numel(), gparams.data_ptr(), B, L, D, n_heads,
+            d_ff, n_layers, n_position, stream)
+    else:
+        err = library().iisan_user_encoder_f32_wgrad(
+            work.data_ptr(), work.numel(), gparams.data_ptr(), B, L, D, n_heads,
+            d_ff, n_layers, n_position, n_sm, stream)
     check(err, "user_encoder_bwd (weight gradients)")
 
 
 def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
                      d_ff: int, n_position: int, seed: int = 0,
-                     rate: float = 0.0, image=None):
+                     rate: float = 0.0, image=None, n_sm: Optional[int] = None):
     """Encoder backward; the CUDA kernels for a CUDA ``x``.
 
     Same arguments and results as ``user_encoder_bwd_plain``, which runs
-    for a CPU ``x``.  bf16: a per-sequence sweep on the tensor cores that
-    writes gx and the bf16 operands of every weight gradient, then a
-    weight-gradient pass that forms them over all rows in a fixed order,
-    through one device buffer (``encoder_plan(...).work_bytes``: 3.1 MB at
-    B=64, L=10, D=64, 2 blocks).  fp32: the CUDA-core kernel writes each
-    sequence's parameter gradient to a row of an fp32 (B, P) scratch, which
-    its second pass sums in a fixed order.  A stash that does not fit
-    shared memory goes to a per-sequence scratch (``encoder_plan``).
-    ``image`` as in ``user_encoder_fwd``.  ``user_encoder_bwd.launches``
-    counts calls that launch the kernels.
+    for a CPU ``x``.  On both routes a sweep reruns the forward and writes
+    gx and the operands of every weight gradient to one device buffer,
+    then a weight-gradient pass forms them over all rows in a fixed order
+    (``encoder_plan(...).work_bytes``; at B=64, L=10, D=64, 2 blocks: 3.1
+    MB in bf16, whose operands are bf16, and 6.0 MB in fp32).  bf16: a
+    block a sequence on mma.sync; fp32: a block a tile of sequences, three
+    TF32 passes on wgmma.  Areas that do not fit shared memory go to a
+    scratch in the buffer (``encoder_plan``).  ``image`` as in
+    ``user_encoder_fwd`` (on the fp32 route with its backward half), and
+    ``n_sm`` too.  ``user_encoder_bwd.launches`` counts calls that launch
+    the kernels.
     """
     if not x.is_cuda:
         return user_encoder_bwd_plain(x, mask3, params, gout,
                                       n_layers=n_layers, n_heads=n_heads,
                                       d_ff=d_ff, n_position=n_position,
                                       seed=seed, rate=rate)
-    from ..kernels.build import check, library
-
     B, L, D = x.shape
     _check("user_encoder_bwd", x, mask3, params, n_layers, n_heads, d_ff,
            n_position, seed, rate,
@@ -710,26 +851,17 @@ def user_encoder_bwd(x, mask3, params, gout, *, n_layers: int, n_heads: int,
         raise ValueError(f"gout must be {tuple(x.shape)} {x.dtype} on {x.device}")
     x, mask3, params = x.contiguous(), mask3.contiguous(), params.contiguous()
     gout = gout.contiguous()
-    P = params.numel()
     gx = torch.empty_like(x)
-    gparams = torch.empty(P, dtype=torch.float32, device=x.device)
-    plan = encoder_plan(B, L, D, n_heads, d_ff, n_layers, x.dtype, backward=True)
-    if x.dtype == torch.bfloat16:
-        image = _image_for(image, params, D, d_ff, n_layers, n_position)
-        work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=x.device)
-        _bwd_sweep(x, mask3, params, image, gout, gx, work, n_layers, n_heads,
-                   d_ff, n_position, seed, rate)
-        _bwd_wgrad(work, gparams, B, L, D, n_layers, n_heads, d_ff, n_position)
-    else:
-        part = torch.empty((B, P), dtype=torch.float32, device=x.device)
-        scratch = _bytes(B * plan.scratch_bytes, x.device)
-        err = library().iisan_user_encoder_bwd(
-            x.data_ptr(), mask3.data_ptr(), params.data_ptr(), gout.data_ptr(),
-            gx.data_ptr(), part.data_ptr(), _ptr(scratch), B * plan.scratch_bytes,
-            gparams.data_ptr(), B, L, D, n_heads, d_ff, n_layers, n_position,
-            *_dropout_args(seed, rate), P,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        check(err, "user_encoder_bwd")
+    gparams = torch.empty(params.numel(), dtype=torch.float32, device=x.device)
+    n_sm = _plan_sms(x, n_sm)
+    plan = encoder_plan(B, L, D, n_heads, d_ff, n_layers, x.dtype, backward=True,
+                        n_sm=n_sm)
+    image = _image_for(image, params, D, d_ff, n_layers, n_position, x.dtype, True)
+    work = torch.empty(plan.work_bytes, dtype=torch.uint8, device=x.device)
+    _bwd_sweep(x, mask3, params, image, gout, gx, work, n_layers, n_heads,
+               d_ff, n_position, seed, rate, n_sm)
+    _bwd_wgrad(work, gparams, B, L, D, n_layers, n_heads, d_ff, n_position, x.dtype,
+               n_sm)
     user_encoder_bwd.launches += 1
     user_encoder_bwd.flops += flops.encoder(B, L, D, d_ff, n_layers, bwd=True)
     return gx, gparams
@@ -742,21 +874,26 @@ user_encoder_bwd.flops = 0
 class FusedEncoderFn(torch.autograd.Function):
     """The fused encoder under autograd: forward ``user_encoder_fwd``,
     backward ``user_encoder_bwd``, which recomputes the forward (and its
-    dropout masks) from the saved (x, mask, seed).  On the bf16 route both
-    read one weight image, the caller's or one made in the forward.
+    dropout masks) from the saved (x, mask, seed).  Both read one weight
+    image, the caller's or one made in the forward (on the fp32 route with
+    the backward's half where a gradient is needed).
 
     apply(x, mask3, packed, seed, rate, dims, image) with ``dims`` =
-    (n_layers, n_heads, d_ff, n_position) and ``image`` the bf16 weight
-    image of ``packed`` or None; ``rate`` > 0 is train mode.  The gradient
-    reaches ``x`` and ``packed``."""
+    (n_layers, n_heads, d_ff, n_position) and ``image`` the weight image of
+    ``packed`` for x's route or None; ``rate`` > 0 is train mode.  The
+    gradient reaches ``x`` and ``packed``."""
 
     @staticmethod
     def forward(ctx, x, mask3, packed, seed: int, rate: float, dims, image=None):
         n_layers, n_heads, d_ff, n_position = dims
         ctx.kw = dict(n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
                       n_position=n_position, seed=seed, rate=rate)
-        if image is None and x.is_cuda and x.dtype == torch.bfloat16:
-            image = weight_image(packed, x.shape[-1], d_ff, n_layers, n_position)
+        backward = any(ctx.needs_input_grad[:3])
+        if x.is_cuda and (image is None or (
+                backward and x.dtype != torch.bfloat16
+                and image.numel() != f32_image_floats(x.shape[-1], d_ff, n_layers))):
+            image = weight_image(packed, x.shape[-1], d_ff, n_layers, n_position,
+                                 x.dtype, backward)
         ctx.save_for_backward(x, mask3, packed, image)
         return user_encoder_fwd(x, mask3, packed, **_image_kw(image), **ctx.kw)
 
@@ -784,7 +921,7 @@ def apply_fused_encoder(params, x, additive_mask, *, n_layers: int,
     ``compute_dtype``); x (B, L, D); additive_mask (B, 1, L, L) fp32.
     ``seed`` (in [0, 2^31)) with ``drop_rate`` > 0 is train mode; None is
     eval mode.  ``image``: ``weight_image`` of ``params`` where the caller
-    keeps one (bf16 on the card), else None.  Returns (B, L, D) in x's
+    keeps one (on the card, for x's route), else None.  Returns (B, L, D) in x's
     dtype.
     """
     B, L, _ = x.shape

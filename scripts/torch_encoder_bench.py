@@ -5,9 +5,12 @@ one NVIDIA GPU.
 
     python3 scripts/torch_encoder_bench.py [--runs 3] [--package-root DIR]
                                            [--cases eval1,eval32,eval256,train64,topk1]
+                                           [--dtype bfloat16|float32] [--n-sm N]
 
 Shapes are ``chip_smoke.py``'s serving and training geometry (L=10, D=64,
-H=2, F=256, 2 blocks, bf16): the eval-mode forward at batch 1, 32 and 256
+H=2, F=256, 2 blocks), in ``--dtype`` (bf16, the main path, by default;
+float32 is the route of every ``--use_scale`` but "half"): the eval-mode
+forward at batch 1, 32 and 256
 ("evalB"), and at batch 64 the train-mode forward and the backward
 (dropout 0.1, "train64"), each called as its main path calls it: serving
 with the module's cached weight image, the training forward making one,
@@ -22,13 +25,15 @@ For each call, ``--runs`` times:
   (``chip_smoke.cuda_loop_ms``);
 - the host time of the call alone (enqueue, no synchronise; ``top_k``
   synchronises, so there it is the latency), median of 50;
-- for the backward, its peak extra device memory: the most allocated
-  during the call beyond what was allocated before it (outputs included).
+- its peak extra device memory: the most allocated during the call
+  beyond what was allocated before it (outputs included).
 
 Prints the card's name and power limit, one line a case, then one JSON
 line.  ``--package-root`` imports ``iisan_tpu_torch`` from another
 checkout (its kernels build there), so that two versions can be timed in
-turns in one call: parent, change, change, parent.
+turns in one call: parent, change, change, parent.  ``--n-sm N`` plans the
+fp32 route's tiles for N SMs instead of the card's (``--n-sm 256`` at
+batch 256: one sequence a tile, against two on the H100's 132).
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--package-root", default=str(ROOT))
     ap.add_argument("--cases", default="eval1,eval32,eval256,train64,topk1")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--n-sm", type=int, default=None)
     args = ap.parse_args()
     package_root = Path(args.package_root).resolve()
     sys.path.insert(0, str(package_root))
@@ -73,12 +80,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     L, D, H, NL = cs.SEQ_LEN, cs.EMB, cs.HEADS, cs.BLOCKS
     gen = torch.Generator().manual_seed(cs.SEED + 11)
+    dtype = getattr(torch, args.dtype)
     enc = UserEncoder(D, L, H, NL, cs.DROP, generator=gen).to(device)
-    params = enc.packed_params(torch.bfloat16)
+    params = enc.packed_params(dtype)
     kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L)
+    if args.n_sm is not None:
+        kw["n_sm"] = args.n_sm
 
     def inputs(B):
-        x = torch.randn(B, L, D, generator=gen).to(device, torch.bfloat16)
+        x = torch.randn(B, L, D, generator=gen).to(device, dtype)
         lengths = torch.randint(1, L + 1, (B,), generator=gen)
         log_mask = torch.arange(L)[None] >= L - lengths[:, None]
         mask3 = causal_additive_mask(log_mask.float().to(device)).reshape(B, L, L)
@@ -95,7 +105,7 @@ def main() -> int:
             torch.cuda.synchronize()
         return median(times)
 
-    def measure(name, fn, extra_memory=False):
+    def measure(name, fn, extra_memory=True):
         row = {"case": name, "device_ms": [], "kernels": [], "event_ms": [], "host_ms": []}
         for _ in range(args.runs):
             split = cs.kernel_device_ms(fn)
@@ -124,8 +134,14 @@ def main() -> int:
         return row
 
     # the weight image as the main path holds it, where the wrappers take one
-    image = ({"image": fue.weight_image(params, D, 4 * D, NL, L)}
-             if hasattr(fue, "weight_image") else {})
+    # for this dtype: serving's (the forward's half on the fp32 route) and
+    # the training step's, which the forward makes and the backward reads
+    image = train_image = {}
+    if dtype == torch.bfloat16 and hasattr(fue, "weight_image"):
+        image = train_image = {"image": fue.weight_image(params, D, 4 * D, NL, L)}
+    elif hasattr(fue, "f32_image_floats"):
+        image = {"image": fue.weight_image(params, D, 4 * D, NL, L, dtype, backward=False)}
+        train_image = {"image": fue.weight_image(params, D, 4 * D, NL, L, dtype)}
     results = []
     for case in args.cases.split(","):
         if case.startswith("eval"):
@@ -140,25 +156,25 @@ def main() -> int:
 
             model = IISANRecModel(san=None, embedding_dim=D, max_seq_len=L,
                                   num_attention_heads=H, transformer_block=NL,
-                                  drop_rate=cs.DROP, dtype=torch.bfloat16,
+                                  drop_rate=cs.DROP, dtype=dtype,
                                   generator=gen).to(device).eval()
-            table = torch.randn(20826, D, generator=gen).to(device, torch.bfloat16)
+            table = torch.randn(20826, D, generator=gen).to(device, dtype)
             rec = Recommender(model, table, L)
             seqs = [[int(i) for i in torch.randint(1, 20826, (L,), generator=gen)]]
             results.append(measure("top_k B=1", lambda: rec.top_k(seqs, k=10)))
         else:
             B = int(case[5:])
             x, mask3 = inputs(B)
-            gout = torch.randn(B, L, D, generator=gen).to(device, torch.bfloat16)
+            gout = torch.randn(B, L, D, generator=gen).to(device, dtype)
             tkw = dict(kw, seed=20251016, rate=cs.DROP)
             results.append(measure(f"user_encoder_fwd train B={B}",
                                    lambda: fue.user_encoder_fwd(x, mask3, params, **tkw)))
             results.append(measure(
                 f"user_encoder_bwd train B={B}",
-                lambda: fue.user_encoder_bwd(x, mask3, params, gout, **image, **tkw),
-                True))
+                lambda: fue.user_encoder_bwd(x, mask3, params, gout, **train_image, **tkw)))
     print(json.dumps({"package_root": str(package_root), "device": smi,
-                      "cases": results}), flush=True)
+                      "dtype": args.dtype, "n_sm": args.n_sm, "cases": results}),
+          flush=True)
     return 0
 
 

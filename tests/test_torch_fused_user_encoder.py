@@ -118,22 +118,28 @@ def test_plain_matches_pallas_kernel_long_sequences(interpret_pallas, seq,
 
 @pytest.mark.parametrize("width", [64, 128])
 def test_kernels_take_long_sequences_and_deep_encoders(width):
-    """Every L up to 50 at widths 64 and 128, at any depth: where a block's
-    areas do not fit shared memory they go to a global scratch."""
+    """Every L up to 50 at widths 64 and 128, at any depth, on both routes:
+    where a block's areas do not fit shared memory they go to a global
+    scratch (the fp32 backward's stash is its device buffer)."""
     F = 4 * width
     for seq in (10, 20, 50):
         for layers in (1, 2, 6):
             assert fue.supported(64, seq, width, H, F, seq)
             assert fue.bwd_supported(64, seq, width, H, F, layers, seq)
-    assert fue.fwd_plan(50, width, H, F)[0] == fue.SLOTS_GLOBAL
-    assert fue.bwd_plan(50, width, H, F, 2)[0] == fue.SPILLED
-    for plan in (fue.fwd_plan(50, width, H, F), fue.bwd_plan(50, width, H, F, 6)):
-        assert plan[1] <= 227 * 1024 and plan[2] > 0
-    # the serving and training geometry keeps its all-shared blocks
-    assert fue.fwd_plan(10, 64, 2, 256) == (fue.RESIDENT, 103104, 0)
-    assert fue.bwd_plan(10, 64, 2, 256, 2) == (fue.RESIDENT, 161104, 0)
-    assert fue.bwd_plan(10, 64, 2, 256, 6)[0] == fue.SLOTS_GLOBAL
-    assert fue.bwd_plan(20, 64, 2, 256, 2)[0] == fue.SLOTS_GLOBAL
+            for dtype in (torch.float32, torch.bfloat16):
+                for backward in (False, True):
+                    plan = fue.encoder_plan(64, seq, width, H, F, layers, dtype, backward)
+                    assert plan.smem_bytes <= 227 * 1024
+                    assert (plan.scratch_bytes > 0) == (plan.place != fue.RESIDENT)
+                    assert (plan.work_bytes > 0) == backward
+    # fp32: a tile of 50 rows at width 128 leaves shared memory, not the kernel
+    assert fue.encoder_plan(4, 50, 64, H, 256, 2, torch.float32).place == fue.RESIDENT
+    assert fue.encoder_plan(4, 50, 128, H, 512, 2, torch.float32).place == fue.SPILLED
+    assert fue.encoder_plan(4, 50, 128, H, 512, 2, torch.float32, True).place == fue.SPILLED
+    # the serving and training geometry keeps its tiles in shared memory
+    assert fue.encoder_plan(256, 10, 64, 2, 256, 2, torch.float32) == fue.EncoderPlan(
+        "tf32 wgmma", fue.RESIDENT, 138432, 0, 0, 2)
+    assert fue.encoder_plan(64, 10, 64, 2, 256, 2, torch.float32, True).place == fue.RESIDENT
 
 
 def test_supported_takes_serving_batches():

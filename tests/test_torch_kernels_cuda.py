@@ -39,7 +39,11 @@ kernel's own ReLU decisions (``_bwd_reference``), which the plain version
 accepts only where the kernel's FFN input (read back) explains them,
 within four bf16 ulps of the operands' scale and for at most 16 elements
 or one in 4,096 (``iisan_tpu_torch.testing``; its CPU tests plant
-decisions past each limit), and to the same bound.  bf16 cascade: element by element, four bf16 ulps of the row's largest
+decisions past each limit), and to the same bound.  The fp32 route's
+three TF32 passes keep about 22 bits: a pre-activation within about
+2^-20 of the scale of zero can fall on the other side (one of 20,000 at
+4 x 50 x 256, |pre| 2.4e-6), so the fp32 backward is held the same way,
+at a band of four 2^-20 units.  bf16 cascade: element by element, four bf16 ulps of the row's largest
 |carry| plus 1e-3 (``fused_san.carry_tolerance``): the carry is additive
 across the K steps, so a one-ulp rounding difference at a large
 intermediate value survives into a final value that may be small.  The
@@ -541,11 +545,13 @@ def test_cascade_loss_backward_reaches_every_input(cuda_device):
 
 @pytest.mark.cuda
 def test_user_encoder_bwd_raises_on_unsupported_shape(cuda_device):
-    # Six blocks' stash goes to a global scratch; a hidden width whose
-    # packed parameters pass the stated limit (2^31 entries) is refused
-    # before anything is read.
+    # Six blocks' stash goes to a global scratch (bf16) or the device buffer
+    # (fp32); a hidden width whose packed parameters pass the stated limit
+    # (2^31 entries) is refused before anything is read.
     assert fue.bwd_supported(2, 10, 64, 2, 256, 6, 10)
-    assert fue.bwd_plan(10, 64, 2, 256, 6)[0] == fue.SLOTS_GLOBAL
+    assert fue.encoder_plan(2, 10, 64, 2, 256, 6, torch.bfloat16, True).place == \
+        fue.SLOTS_GLOBAL
+    assert fue.encoder_plan(2, 10, 64, 2, 256, 6, torch.float32, True).work_bytes > 0
     enc, x, mask3 = _encoder_inputs(cuda_device, 2, 10, 64, 2, 1, torch.float32)
     kw = dict(n_layers=1, n_heads=2, d_ff=2 ** 24, n_position=10)
     params = enc.packed_params(torch.float32)
@@ -562,9 +568,9 @@ def test_user_encoder_bwd_raises_on_unsupported_shape(cuda_device):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D,H,F", [(64, 2, 16392), (1376, 2, 5504)])
 def test_user_encoder_kernels_take_wide_weights(cuda_device, dtype, D, H, F):
-    # Past the fp32 route's 16,384-float staging buffer: F > 16,384 (w1's
-    # rows go in column panels) and 3F > 16,384 (w2^T's rows in panels),
-    # which the bf16 route streams like any other width.
+    # Hidden widths past 16,384 (w1's rows, w2^T's columns) and past 3 x
+    # 16,384: both routes stream them like any other width (the fp32
+    # route's CUDA-core design once staged them in column panels).
     B, L, NL = 3, 10, 1
     gen = torch.Generator().manual_seed(9)
     parts = [torch.randn(s, generator=gen) / s[0] ** 0.5 if len(s) == 2
@@ -715,6 +721,229 @@ def test_user_encoder_bwd_bf16_memory_and_planted_fault(cuda_device):
                 _assert_grad_close(g, w, torch.bfloat16)
         else:
             _assert_grad_close(g, w, torch.bfloat16)
+
+
+# The fp32 route (three TF32 passes on wgmma, a block a tile of whole
+# sequences, as many as give each SM one tile): serving and training
+# batches (one sequence a tile up to B = 132 on the H100's 132 SMs, two at
+# 256), L = 20 and 50, widths 36 and 24 with three heads; an all-pad row
+# in every case.  F32_TILE_CASES has the tiles of several sequences whose
+# last tile is short.
+F32_CASES = [(1, 10, 64, 2, 2), (8, 10, 64, 2, 2), (64, 10, 64, 2, 2),
+             (256, 10, 64, 2, 2), (7, 10, 64, 2, 2), (8, 20, 64, 2, 2),
+             (4, 50, 64, 2, 2), (8, 10, 36, 3, 2), (8, 10, 24, 3, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L,D,H,NL", F32_CASES)
+def test_user_encoder_f32_route_matches_plain(cuda_device, rate, B, L, D, H, NL):
+    enc, x, mask3 = _encoder_inputs(cuda_device, B, L, D, H, NL, torch.float32)
+    gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L, seed=4242, rate=rate)
+    params = enc.packed_params(torch.float32)
+    plan = fue.encoder_plan(B, L, D, H, 4 * D, NL, torch.float32, n_sm=fue.sm_count())
+    want = min(64 // L if L <= 64 else 1, -(-B // fue.sm_count()))
+    assert plan.route == "tf32 wgmma" and plan.tile_seqs == want
+    f0, b0 = fue.user_encoder_fwd.launches, fue.user_encoder_bwd.launches
+    got = fue.user_encoder_fwd(x, mask3, params, **kw)
+    gx, gp = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    want = fue.user_encoder_fwd_plain(x, mask3, params, **kw)
+    gx_p, gp_p = _bwd_reference(x, mask3, params, gout, kw)
+    torch.cuda.synchronize()
+    assert fue.user_encoder_fwd.launches == f0 + 1
+    assert fue.user_encoder_bwd.launches == b0 + 1
+    _assert_close(got, want, torch.float32)
+    _assert_grad_close(gx, gx_p, torch.float32)
+    for g, w in zip(fue.unpack_encoder_params(gp, D, 4 * D, NL, L),
+                    fue.unpack_encoder_params(gp_p, D, 4 * D, NL, L)):
+        _assert_grad_close(g, w, torch.float32)
+
+
+# Tiles of several sequences with a short last tile (B, L, the SMs the
+# tiles are planned for: None the card's): on 132 SMs two sequences a tile
+# with the last one alone (B = 133), four with three (399), six with four
+# (700), three at L = 20 with two (395); planned for one SM, B = 7 is a
+# tile of six and one of one.
+F32_TILE_CASES = [(133, 10, None), (399, 10, None), (700, 10, None), (395, 20, None),
+                  (7, 10, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L,n_sm", F32_TILE_CASES)
+def test_user_encoder_f32_short_last_tile_matches_plain(cuda_device, rate, B, L, n_sm):
+    D, H, NL = 64, 2, 2
+    enc, x, mask3 = _encoder_inputs(cuda_device, B, L, D, H, NL, torch.float32)
+    gout = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L, seed=4242, rate=rate)
+    params = enc.packed_params(torch.float32)
+    sms = fue.sm_count() if n_sm is None else n_sm
+    for backward in (False, True):
+        G = fue.encoder_plan(B, L, D, H, 4 * D, NL, torch.float32, backward, n_sm=sms).tile_seqs
+        assert G == min(64 // L, -(-B // sms)) and G >= 2 and B % G != 0
+    got = fue.user_encoder_fwd(x, mask3, params, n_sm=n_sm, **kw)
+    gx, gp = fue.user_encoder_bwd(x, mask3, params, gout, n_sm=n_sm, **kw)
+    _assert_close(got, fue.user_encoder_fwd_plain(x, mask3, params, **kw), torch.float32)
+    # the reference's ReLU decisions come from a sweep planned for the
+    # card: a row's forward does not depend on the sequences beside it
+    gx_p, gp_p = _bwd_reference(x, mask3, params, gout, kw)
+    _assert_grad_close(gx, gx_p, torch.float32)
+    for g, w in zip(fue.unpack_encoder_params(gp, D, 4 * D, NL, L),
+                    fue.unpack_encoder_params(gp_p, D, 4 * D, NL, L)):
+        _assert_grad_close(g, w, torch.float32)
+    if n_sm is not None:
+        assert torch.equal(got, fue.user_encoder_fwd(x, mask3, params, **kw))
+        assert torch.equal(gx, fue.user_encoder_bwd(x, mask3, params, gout, **kw)[0])
+
+
+@pytest.mark.cuda
+def test_user_encoder_f32_route_at_d8192(cuda_device):
+    # D = 8192 with F = 4D, train mode: 64 x 64 weight tiles streamed from
+    # a 6.4 GB image, the tile's areas in its scratch in device memory.
+    B, L, NL, D, H = 2, 10, 1, 8192, 2
+    F = 4 * D
+    params = _wide_params(cuda_device, D, F, NL, L, 21)
+    gen = torch.Generator(cuda_device).manual_seed(22)
+    x = torch.randn(B, L, D, generator=gen, device=cuda_device)
+    gout = torch.randn(B, L, D, generator=gen, device=cuda_device)
+    log_mask = torch.ones(B, L, device=cuda_device)
+    log_mask[0] = 0.0
+    mask3 = causal_additive_mask(log_mask).reshape(B, L, L)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=F, n_position=L, seed=7, rate=0.1)
+    assert fue.encoder_plan(B, L, D, H, F, NL, torch.float32).place == fue.SPILLED
+    _assert_close(fue.user_encoder_fwd(x, mask3, params, **kw),
+                  fue.user_encoder_fwd_plain(x, mask3, params, **kw), torch.float32)
+    got = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    want = _bwd_reference(x, mask3, params, gout, kw)
+    _assert_grad_close(got[0], want[0], torch.float32)
+    for g, w in zip(fue.unpack_encoder_params(got[1], D, F, NL, L),
+                    fue.unpack_encoder_params(want[1], D, F, NL, L)):
+        _assert_grad_close(g, w, torch.float32)
+
+
+@pytest.mark.cuda
+def test_user_encoder_bwd_f32_memory_and_planted_fault(cuda_device):
+    # The fp32 backward at the training geometry: no (B, P) scratch (25.7
+    # MB), under 8 MiB beyond its inputs with its weight image, buffer and
+    # outputs made in the call.  Then its weight-gradient pass run on a
+    # buffer whose last layer lost its gq|gk|gv rows: dwq, dwk and dwv
+    # break the bound, nothing else does.
+    x, mask3, params, gout, kw = _train_case(cuda_device, torch.float32)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    gx, gp = fue.user_encoder_bwd(x, mask3, params, gout, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda_device) - before < 8 * 2 ** 20
+    want = _bwd_reference(x, mask3, params, gout, kw)
+    B, L, D = x.shape
+    NL, F = kw["n_layers"], kw["d_ff"]
+    unpack = lambda t: fue.unpack_encoder_params(t, D, F, NL, L)  # noqa: E731
+    for g, w in zip(unpack(gp), unpack(want[1])):
+        _assert_grad_close(g, w, torch.float32)
+    gx2, faulty = et.wgrad_rows_dropped(x, mask3, params, gout, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gx2, gx)
+    k0 = 3 + fue.PER_BLOCK * (NL - 1)
+    for i, (g, w) in enumerate(zip(unpack(faulty), unpack(want[1]))):
+        if k0 <= i < k0 + 3:
+            with pytest.raises(AssertionError):
+                _assert_grad_close(g, w, torch.float32)
+        else:
+            _assert_grad_close(g, w, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H,NL", [(1, 10, 64, 2, 2), (64, 10, 64, 2, 2),
+                                         (256, 10, 64, 2, 2), (7, 10, 64, 2, 2),
+                                         (8, 20, 64, 2, 2), (4, 50, 128, 2, 2),
+                                         (5, 20, 128, 4, 3), (3, 10, 64, 2, 6),
+                                         (8, 10, 36, 3, 2), (2, 10, 8192, 2, 1)])
+def test_encoder_plan_matches_the_f32_kernels_layout(cuda_device, B, L, D, H, NL):
+    # The fp32 route's Python plan against the library's arithmetic.
+    F = 4 * D
+    lib = fue.library_f32_layout(B, L, D, H, F, NL)
+    for backward, tag in ((False, "fwd"), (True, "bwd")):
+        assert fue.f32_tile_plan(L, D, H, F, backward, B, fue.sm_count()) == tuple(
+            lib[f"{tag}_{k}"] for k in ("G", "place", "smem", "scratch"))
+    assert lib["image_fwd"] == fue.f32_image_floats(D, F, NL, False)
+    assert lib["image"] == fue.f32_image_floats(D, F, NL, True)
+    bwd = fue.encoder_plan(B, L, D, H, F, NL, torch.float32, backward=True,
+                           n_sm=fue.sm_count())
+    py = fue.f32_work_layout(B, L, D, H, F, NL, bwd.tile_seqs, bwd.scratch_bytes)
+    for key, value in py.items():
+        assert lib[key] == value, key
+    assert lib["total"] == bwd.work_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,n_sm", [(7, 10, 1), (64, 10, 16), (256, 10, 256),
+                                      (395, 20, 7), (3, 50, 1)])
+def test_f32_layout_follows_the_planned_sm_count(cuda_device, B, L, n_sm):
+    # The library's plan for another SM count equals the Python one, and
+    # a count below one is refused.
+    D, H, F, NL = 64, 2, 256, 2
+    lib = fue.library_f32_layout(B, L, D, H, F, NL, n_sm)
+    for backward, tag in ((False, "fwd"), (True, "bwd")):
+        plan = fue.encoder_plan(B, L, D, H, F, NL, torch.float32, backward, n_sm=n_sm)
+        assert (plan.tile_seqs, plan.place, plan.smem_bytes, plan.scratch_bytes) == tuple(
+            lib[f"{tag}_{k}"] for k in ("G", "place", "smem", "scratch"))
+    assert lib["total"] == plan.work_bytes
+    with pytest.raises(RuntimeError):
+        fue.library_f32_layout(B, L, D, H, F, NL, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["user_encoder_fwd_f32_kernel",
+                                     "user_encoder_bwd_f32_kernel",
+                                     "user_encoder_wgrad_f32_kernel"])
+def test_user_encoder_f32_kernels_run_on_wgmma(cuda_device, pattern):
+    """Each fp32 encoder kernel has HGMMA (wgmma) in its SASS and no HMMA:
+    its products run on the tensor cores."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts(pattern)
+    assert len(counts) == 1
+    assert all(n["HGMMA"] > 0 and n["HMMA"] == 0 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,instances", [("user_encoder_fwd_tc_kernel", 3),
+                                               ("user_encoder_bwd_tc_kernel", 3),
+                                               ("user_encoder_wgrad_kernel", 1)])
+def test_user_encoder_bf16_kernels_keep_mma_sync(cuda_device, pattern, instances):
+    """The bf16 route keeps its design: HMMA (mma.sync) in every instance,
+    no HGMMA."""
+    from iisan_tpu_torch.kernels import build
+
+    counts = build.sass_mma_counts(pattern)
+    assert len(counts) == instances
+    assert all(n["HMMA"] > 0 and n["HGMMA"] == 0 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_user_encoder_f32_serving_reuses_its_weight_image(cuda_device):
+    # Under no_grad the fp32 module keeps the forward's half of the weight
+    # image per parameter version, and the forward reads it; a training
+    # step makes the whole image.
+    enc, x, mask3 = _encoder_inputs(cuda_device, 4, 10, 64, 2, 2, torch.float32)
+    log_mask = (mask3[:, -1] == 0).float()
+    kw = dict(n_layers=2, n_heads=2, d_ff=256, n_position=10)
+    with torch.no_grad():
+        first = enc(x, log_mask)
+        packed, image = enc._serving_params(torch.float32)
+        assert image.numel() == fue.f32_image_floats(64, 256, 2, backward=False)
+        assert torch.equal(enc(x, log_mask), first)
+        assert enc._serving_params(torch.float32)[1] is image
+        assert torch.equal(first, fue.user_encoder_fwd(x, mask3, packed, **kw))
+        with pytest.raises(ValueError, match="weight image"):
+            fue.user_encoder_fwd(x, mask3, packed, image=image[1:], **kw)
+        with pytest.raises(ValueError, match="weight image"):
+            fue.user_encoder_bwd(x, mask3, packed, x, image=image, **kw)
+    b0 = fue.user_encoder_bwd.launches
+    (enc(x.clone().requires_grad_(True), log_mask) * x).sum().backward()
+    assert fue.user_encoder_bwd.launches == b0 + 1
 
 
 @pytest.mark.cuda

@@ -14,7 +14,9 @@ kernels' memory plan, and the two parameter packs.
 - ``encoder_plan`` (the Python counterpart of the kernels' placement and
   memory arithmetic) at every geometry the CUDA tests and chip_smoke.py
   run: within 227 KB of shared memory on both routes, the serving and
-  training geometries resident.
+  training geometries resident; on the fp32 route the tile's sequences,
+  placement and exact bytes at L = 10, 20, 50, D = 64, 128, depth 1, 2, 6
+  and B = 1, 64, 256, from the layout written out again.
 - The plain versions give bit-equal results from the rounded pack (serving)
   and the unrounded one (training: one ``cat``).
 - The plain backward at another computation's ReLU decisions (the
@@ -150,8 +152,8 @@ def test_encoder_plan_fits_shared_memory(B_, L_, D, H, n_layers):
             assert plan.smem_bytes <= 227 * 1024
             assert (plan.scratch_bytes == 0) == (plan.place == fue.RESIDENT)
             assert plan.route == ("tensor cores" if dtype == torch.bfloat16
-                                  else "cuda cores")
-            assert (plan.work_bytes > 0) == (backward and dtype == torch.bfloat16)
+                                  else "tf32 wgmma")
+            assert (plan.work_bytes > 0) == backward
 
 
 def test_encoder_plan_at_the_main_path_geometry():
@@ -171,6 +173,90 @@ def test_encoder_plan_at_the_main_path_geometry():
     # a long or deep stash leaves shared memory, not the kernel
     assert fue.encoder_plan(4, 50, 128, 2, 512, 2, torch.bfloat16, True).place == fue.SPILLED
     assert fue.encoder_plan(3, 10, 64, 2, 256, 6, torch.bfloat16, True).place == fue.SLOTS_GLOBAL
+
+
+def _f32_expected(B_, L_, D, H, F, n_layers, backward, n_sm=132):
+    """The fp32 route's tile and buffer at n_sm SMs (an H100's 132 by
+    default), written out from the layout csrc/user_encoder_f32.cu{,h}
+    describes: a ring of three 32 KB stages (a weight tile, then its TF32
+    hi and lo halves) and 64 bytes of barriers after 1,024 bytes of
+    alignment; per tile (up to 64 rows of whole sequences, one tile an SM
+    of B) fp32 areas with row strides of 32 k + 4 floats; the backward's
+    per-layer rows (x, ctx, x1, hf, q|k|v, two xhats, g_hpre, the
+    probabilities, two rstds) over all B L rows, then the input
+    LayerNorm's xhat and rstd and a partial row a tile."""
+    def stride(n):
+        return -(-n // 32) * 32 + 4
+
+    def a16(n):
+        return -(-n // 16) * 16
+
+    sD, s3D, sF = stride(D), stride(3 * D), stride(F)
+    G = min(64 // L_ if L_ <= 64 else 1, -(-B_ // n_sm))
+    while True:
+        rows, scores = G * L_, G * H * L_ * L_
+        if backward:
+            floats = rows * (4 * sD + s3D) + 2 * scores
+        else:
+            floats = rows * (3 * sD + max(s3D + sD, sF)) + scores
+        smem = 1024 + 3 * 32768 + 64 + 4 * floats
+        if smem <= 232448 or G == 1:
+            break
+        G -= 1
+    spilled = smem > 232448
+    if spilled:  # the areas of every sequence a tile wants go to its scratch
+        G = min(64 // L_ if L_ <= 64 else 1, -(-B_ // n_sm))
+        rows, scores = G * L_, G * H * L_ * L_
+        floats = (rows * (4 * sD + s3D) + 2 * scores if backward
+                  else rows * (3 * sD + max(s3D + sD, sF)) + scores)
+    scratch = a16(4 * floats) if spilled else 0
+    work = 0
+    if backward:
+        R, nblk = B_ * L_, -(-B_ // G)
+        per_layer = 4 * R * (8 * D + 2 * F + H * L_ + 2)
+        Qp = 2 * D + n_layers * (5 * D + F) + L_ * D
+        work = (n_layers * per_layer + a16(4 * R * D) + a16(4 * R)
+                + a16(4 * nblk * Qp) + nblk * scratch)
+    return G, spilled, (1024 + 3 * 32768 + 64 if spilled else smem), scratch, work
+
+
+@pytest.mark.parametrize("B_", [1, 64, 256])
+@pytest.mark.parametrize("n_layers", [1, 2, 6])
+@pytest.mark.parametrize("L_,D", [(10, 64), (20, 64), (50, 64), (10, 128), (20, 128),
+                                  (50, 128)])
+def test_f32_encoder_plan_bytes(B_, n_layers, L_, D):
+    F, H = 4 * D, 2
+    for backward in (False, True):
+        plan = fue.encoder_plan(B_, L_, D, H, F, n_layers, torch.float32, backward)
+        G, spilled, smem, scratch, work = _f32_expected(B_, L_, D, H, F, n_layers, backward)
+        assert plan == fue.EncoderPlan("tf32 wgmma", fue.SPILLED if spilled else fue.RESIDENT,
+                                       smem, scratch, work, G)
+        assert plan.smem_bytes <= 227 * 1024
+    # the training geometry: every tile in shared memory, no (B, P) scratch
+    if (B_, L_, D, n_layers) == (64, 10, 64, 2):
+        assert plan == fue.EncoderPlan("tf32 wgmma", fue.RESIDENT, 119712, 0, 6013440, 1)
+        P = sum(np.prod(s) for s in fue.param_shapes(D, F, n_layers, L_))
+        assert 64 * P * 4 > 4 * plan.work_bytes
+
+
+@pytest.mark.parametrize("B_,L_,D,n_sm,G", [(7, 10, 64, 1, 6), (133, 10, 64, 132, 2),
+                                            (399, 10, 64, 132, 4), (700, 10, 64, 132, 6),
+                                            (395, 20, 64, 132, 3), (256, 10, 64, 256, 1),
+                                            (64, 10, 64, 16, 4), (10, 10, 128, 1, 3),
+                                            (64, 10, 1376, 1, 6)])
+def test_f32_encoder_plan_follows_the_sm_count(B_, L_, D, n_sm, G):
+    # A tile takes the fewest whole sequences that give each of n_sm SMs
+    # one tile, up to 64 rows; fewer where that keeps its areas in shared
+    # memory (three at D = 128), else that many with its areas in its
+    # scratch (D = 1,376).  The plan is the arithmetic's at any count.
+    F, H, n_layers = 4 * D, 2, 2
+    for backward in (False, True):
+        plan = fue.encoder_plan(B_, L_, D, H, F, n_layers, torch.float32, backward, n_sm=n_sm)
+        want = _f32_expected(B_, L_, D, H, F, n_layers, backward, n_sm)
+        assert plan == fue.EncoderPlan("tf32 wgmma", fue.SPILLED if want[1] else fue.RESIDENT,
+                                       *want[2:], want[0])
+        assert fue.f32_tile_plan(L_, D, H, F, backward, B_, n_sm)[0] == plan.tile_seqs
+    assert plan.tile_seqs == G
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -265,6 +351,53 @@ def test_relu_band_is_four_ulps_of_the_operands_scale():
             + 2 * 2.0 ** -24 * (x1.abs() @ w1.abs()))
     assert torch.allclose(et.explained(x1, other, w1, b1, pre, torch.float32), want)
     assert et.max_flips(164 * 1024) == 41 and et.max_flips(2 ** 15) == 16
+
+
+def _tf32_relu_case(where):
+    """An fp32 case whose last block holds one FFN pre-activation (its
+    first) at ``where`` times the fp32 route's band (``relu_band`` with
+    tf32): that block's first FFN bias moved to put it there."""
+    gen = torch.Generator().manual_seed(6)
+    D, H = 36, 2
+    enc = UserEncoder(D, L, H, NL, 0.0, generator=gen)
+    flat = fue.flatten_encoder_params(enc.transformer_encoder, NL)
+    x = torch.randn(B, L, D, generator=gen)
+    mask3 = causal_additive_mask(torch.ones(B, L)).reshape(B, L, L)
+    gout = torch.randn(B, L, D, generator=gen)
+    kw = dict(n_layers=NL, n_heads=H, d_ff=4 * D, n_position=L, seed=3, rate=0.1)
+    k0 = 3 + fue.PER_BLOCK * (NL - 1)
+    flat = [t.detach().float().clone() for t in flat]
+    for _ in range(4):
+        packed = fue.pack_encoder_params(flat, torch.float32)
+        _, _, stash, pres = et._forward_at(x, mask3, packed, None, kw)
+        band = et.relu_band(stash[NL][8], flat[k0 + 6], flat[k0 + 7], torch.float32,
+                            tf32=True).reshape(-1)[0]
+        flat[k0 + 7][0] += where * band - pres[-1].reshape(-1)[0]
+    packed = fue.pack_encoder_params(flat, torch.float32)
+    return x, mask3, packed, gout, kw
+
+
+@pytest.mark.parametrize("where", [0.5, 1.2])
+def test_tf32_band_takes_a_flip_inside_and_refuses_one_just_outside(where):
+    """The fp32 route's window (``tf32``: four 2^-20 units of the
+    operands' scale): a decision flipped at half the band is taken (the
+    three passes' own error explains it), one just outside the band, the
+    nearest past it (``flip_outside_band`` with ``tf32``), is refused."""
+    x, mask3, packed, gout, kw = _tf32_relu_case(where)
+    own, x1 = et.plain_relu_inputs(x, mask3, packed, **kw)
+    flat, _, stash, pres = et._forward_at(x, mask3, packed, None, kw)
+    apre, band, _ = et._windows(flat, stash, pres, x1, x.dtype, True)[-1]
+    assert abs(float(apre[0] / band[0]) - where) < 0.05
+    if where < 1:
+        near = [m.clone() for m in own]
+        near[-1].view(-1)[0] = ~near[-1].view(-1)[0]
+        flips = et.plain_bwd_at_decisions(x, mask3, packed, gout, near, x1, True, **kw)[2]
+        assert flips.count == 1 and flips.band <= 1.0 and flips.explained <= 1.0
+        return
+    bad, ratio = et.flip_outside_band(x, mask3, packed, own, tf32=True, **kw)
+    assert 1.0 < ratio < where + 0.05
+    with pytest.raises(ValueError, match="differ from the plain forward's"):
+        et.plain_bwd_at_decisions(x, mask3, packed, gout, bad, x1, True, **kw)
 
 
 @pytest.mark.parametrize("fault", ["just_outside", "far", "unexplained", "too_many"])
