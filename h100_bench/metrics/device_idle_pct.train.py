@@ -1,0 +1,12 @@
+"""Share of the traced window in which no operation ran on the device
+(profiler trace, a few steps after the window)."""
+
+LAYER = "device"
+MOVES = "train_users_per_s"
+
+
+def read(ctx):
+    trace = ctx["trace"]
+    if ctx["kind"] != "train" or trace is None or trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
