@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import sequence_train_loss
+from ..utils.profiling import annotate
 from .modules import TorchLinear, xavier_normal_init
 from .san import SideAdapterNetwork, san_from_config
 from .user_encoder import UserEncoder
@@ -92,7 +93,8 @@ class IISANRecModel(nn.Module):
         tensors; log_mask (bs, L); pop_prob (item_num+1,).  Train-mode
         dropout draws from ``generator``.
         """
-        emb_cv, emb_text, emb_mm = self.san(cv_states, text_states)
+        with annotate("iisan.san"):
+            emb_cv, emb_text, emb_mm = self.san(cv_states, text_states)
         score_embs = self.fuse(emb_cv, emb_text, emb_mm)
         return sequence_train_loss(self.user_encoder, score_embs, item_ids,
                                    log_mask, pop_prob,

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.losses import sequence_train_loss
+from ..utils.profiling import annotate
 from .bert import BertEncoder
 from .model import ComDense
 from .modules import TorchLinear, XavierLinear
@@ -67,18 +68,22 @@ class TextTower(nn.Module):
     def hiddens(self, tokens, deterministic: bool = True, generator=None):
         """The first block's hidden stack alone (IISAN reads no text
         vector, so the other blocks would run for nothing)."""
-        return self.bert(*next(self.blocks(tokens)), deterministic, generator)[1]
+        with annotate("iisan.text_tower"):
+            return self.bert(*next(self.blocks(tokens)), deterministic,
+                             generator)[1]
 
     def forward(self, tokens, deterministic: bool = True, generator=None):
-        vecs, hiddens0 = [], None
-        for ids, mask in self.blocks(tokens):
-            last, hiddens = self.bert(ids, mask, deterministic, generator)
-            vecs.append(F.gelu(self.fc(last[:, 0])))
-            hiddens0 = hiddens if hiddens0 is None else hiddens0
-        if len(vecs) == 1:
-            return vecs[0], hiddens0
-        # the mean accumulates in fp32 and rounds once, as jnp.mean
-        return torch.stack(vecs, 1).float().mean(1).to(vecs[0].dtype), hiddens0
+        with annotate("iisan.text_tower"):
+            vecs, hiddens0 = [], None
+            for ids, mask in self.blocks(tokens):
+                last, hiddens = self.bert(ids, mask, deterministic, generator)
+                vecs.append(F.gelu(self.fc(last[:, 0])))
+                hiddens0 = hiddens if hiddens0 is None else hiddens0
+            if len(vecs) == 1:
+                return vecs[0], hiddens0
+            # the mean accumulates in fp32 and rounds once, as jnp.mean
+            return (torch.stack(vecs, 1).float().mean(1).to(vecs[0].dtype),
+                    hiddens0)
 
 
 class ImageTower(nn.Module):
@@ -92,8 +97,9 @@ class ImageTower(nn.Module):
                                        device=device, generator=generator)
 
     def forward(self, images, deterministic: bool = True, generator=None):
-        pooled, hiddens = self.vit(images, deterministic, generator)
-        return F.gelu(self.classifier(pooled[:, 0])), hiddens
+        with annotate("iisan.image_tower"):
+            pooled, hiddens = self.vit(images, deterministic, generator)
+            return F.gelu(self.classifier(pooled[:, 0])), hiddens
 
 
 def take_cls_taps(hiddens: torch.Tensor, tap_ids: Sequence[int]) -> torch.Tensor:
@@ -154,7 +160,9 @@ class UncachedIISANModel(nn.Module):
         normalised; tokens (bs*(L+1), packed text width); log_mask (bs, L)."""
         cv_taps, text_taps = self.encode_taps(images, tokens, deterministic,
                                               generator)
-        score_embs = self.fuse(*self.san(cv_taps, text_taps))
+        with annotate("iisan.san"):
+            embs = self.san(cv_taps, text_taps)
+        score_embs = self.fuse(*embs)
         return sequence_train_loss(self.user_encoder, score_embs, item_ids,
                                    log_mask, pop_prob, self.max_seq_len,
                                    self.embedding_dim, deterministic, generator,

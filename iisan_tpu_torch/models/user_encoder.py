@@ -25,6 +25,7 @@ from torch import nn
 
 from ..ops import fused_user_encoder as fue
 from ..ops import philox
+from ..utils.profiling import annotate
 from .modules import TransformerEncoder
 
 
@@ -83,6 +84,10 @@ class UserEncoder(nn.Module):
 
     def forward(self, input_embs, log_mask, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
+        with annotate("iisan.user_encoder"):
+            return self._forward(input_embs, log_mask, deterministic, generator)
+
+    def _forward(self, input_embs, log_mask, deterministic, generator):
         mask = causal_additive_mask(log_mask)
         if not self._use_fused(input_embs):
             return self.transformer_encoder(input_embs, mask, deterministic,

@@ -54,6 +54,7 @@ import torch
 
 from . import philox
 from ..utils import flops
+from ..utils.profiling import annotate
 
 DK = 64                     # head width the kernels take
 MAX_GRID = 65535            # B and H are grid dimensions
@@ -423,15 +424,17 @@ class FusedMHAFn(torch.autograd.Function):
                 layer: int):
         ctx.kw = dict(n_heads=n_heads, seed=seed, rate=rate, layer=layer)
         ctx.save_for_backward(q, k, v, bias)
-        return mha_fwd(q, k, v, bias, **ctx.kw)
+        with annotate("iisan.attention"):
+            return mha_fwd(q, k, v, bias, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        g = g.to(q.dtype).contiguous()
-        if g.is_cuda and g.data_ptr() % 16:  # the kernel reads g by TMA
-            g = g.clone()
-        gq, gk, gv = mha_bwd(q, k, v, bias, g, **ctx.kw)
+        with annotate("iisan.attention"):
+            q, k, v, bias = ctx.saved_tensors
+            g = g.to(q.dtype).contiguous()
+            if g.is_cuda and g.data_ptr() % 16:  # the kernel reads g by TMA
+                g = g.clone()
+            gq, gk, gv = mha_bwd(q, k, v, bias, g, **ctx.kw)
         return gq, gk, gv, None, None, None, None, None
 
 

@@ -49,6 +49,7 @@ import torch
 
 from . import philox
 from ..utils import flops
+from ..utils.profiling import annotate
 
 _EPS = 1e-6
 PER_BLOCK = 12  # wq wk wv wo ln1s ln1b w1 b1 w2 b2 ln2s ln2b
@@ -899,9 +900,10 @@ class FusedEncoderFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, mask3, packed, image = ctx.saved_tensors
-        gx, gpacked = user_encoder_bwd(x, mask3, packed, g.to(x.dtype),
-                                       **_image_kw(image), **ctx.kw)
+        with annotate("iisan.user_encoder"):
+            x, mask3, packed, image = ctx.saved_tensors
+            gx, gpacked = user_encoder_bwd(x, mask3, packed, g.to(x.dtype),
+                                           **_image_kw(image), **ctx.kw)
         return gx, None, gpacked, None, None, None, None
 
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.distributed import all_gather_rows
+from ..utils.profiling import annotate
 
 
 def inbatch_ce_loss(prec_vec: torch.Tensor,    # (b, L, D) user-encoder outputs
@@ -37,34 +38,35 @@ def inbatch_ce_loss(prec_vec: torch.Tensor,    # (b, L, D) user-encoder outputs
                     row_offset: int = 0) -> torch.Tensor:
     """The loss share of the b users ``row_offset ..`` of a batch of bs
     (all of them by default: the loss)."""
-    bs, L, d = prec_vec.shape
-    n = item_ids.shape[0] * (L + 1)
-    device = prec_vec.device
-    own_ids = item_ids[row_offset:row_offset + bs]
-    flat_ids = item_ids.reshape(-1).long()
-    debias = torch.log(pop_prob[flat_ids]).float()
+    with annotate("iisan.loss"):
+        bs, L, d = prec_vec.shape
+        n = item_ids.shape[0] * (L + 1)
+        device = prec_vec.device
+        own_ids = item_ids[row_offset:row_offset + bs]
+        flat_ids = item_ids.reshape(-1).long()
+        debias = torch.log(pop_prob[flat_ids]).float()
 
-    logits = prec_vec.reshape(bs * L, d).float() @ score_embs.float().T
-    logits = logits - debias[None, :]
+        logits = prec_vec.reshape(bs * L, d).float() @ score_embs.float().T
+        logits = logits - debias[None, :]
 
-    ext_mask = torch.cat([log_mask, torch.ones((log_mask.shape[0], 1),
-                                               dtype=log_mask.dtype,
-                                               device=device)], 1).reshape(-1)
-    col_pad = ext_mask == 0
-    member = (flat_ids[None, None, :] == own_ids.long()[:, :, None]).any(1)
-    targets = ((torch.arange(row_offset, row_offset + bs, device=device)
-                * (L + 1))[:, None]
-               + torch.arange(1, L + 1, device=device)[None, :])
-    col_idx = torch.arange(n, device=device)
-    reject = member[:, None, :] & (col_idx[None, None, :] != targets[:, :, None])
-    masked = (col_pad[None, None, :] | reject).reshape(bs * L, n)
-    logits = logits.masked_fill(masked, -1e4)
+        ext_mask = torch.cat([log_mask, torch.ones((log_mask.shape[0], 1),
+                                                   dtype=log_mask.dtype,
+                                                   device=device)], 1).reshape(-1)
+        col_pad = ext_mask == 0
+        member = (flat_ids[None, None, :] == own_ids.long()[:, :, None]).any(1)
+        targets = ((torch.arange(row_offset, row_offset + bs, device=device)
+                    * (L + 1))[:, None]
+                   + torch.arange(1, L + 1, device=device)[None, :])
+        col_idx = torch.arange(n, device=device)
+        reject = member[:, None, :] & (col_idx[None, None, :] != targets[:, :, None])
+        masked = (col_pad[None, None, :] | reject).reshape(bs * L, n)
+        logits = logits.masked_fill(masked, -1e4)
 
-    labels = targets.reshape(-1)
-    ce = torch.logsumexp(logits, -1) - logits.gather(1, labels[:, None])[:, 0]
-    w = log_mask[row_offset:row_offset + bs].reshape(-1).float()
-    w_all = log_mask.reshape(-1).float()
-    return (ce * w).sum() / torch.clamp(w_all.sum(), min=1.0)
+        labels = targets.reshape(-1)
+        ce = torch.logsumexp(logits, -1) - logits.gather(1, labels[:, None])[:, 0]
+        w = log_mask[row_offset:row_offset + bs].reshape(-1).float()
+        w_all = log_mask.reshape(-1).float()
+        return (ce * w).sum() / torch.clamp(w_all.sum(), min=1.0)
 
 
 def sequence_train_loss(user_encoder, score_embs, item_ids, log_mask,

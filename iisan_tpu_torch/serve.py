@@ -54,6 +54,7 @@ from .parallel.distributed import (all_gather_rows, all_reduce_sum, barrier,
                                    shutdown_runtime)
 from .parallel.mesh import make_mesh, world_rank
 from .utils.jax_params import export_jax_params, flatten_tree, load_jax_params
+from .utils.profiling import annotate
 
 SCORE_CHUNK = 1 << 16  # int8 table rows dequantised per scoring product
 
@@ -90,12 +91,16 @@ def _catalog_rows(rec) -> int:
 @torch.no_grad()
 def _topk_step(model, fused_table, table32, tokens, log_mask, history,
                k: int):
-    input_embs = _table_lookup(fused_table, tokens)
-    prec = model.user_scores(input_embs, log_mask)[:, -1, :]
-    scores = _score_catalog(prec, fused_table, table32)
-    scores = mask_history(scores, history)
-    scores[:, 0] = float("-inf")  # never recommend the pad item
-    top_scores, top_ids = torch.topk(scores, k, dim=1)
+    with annotate("iisan.top_k.encode"):
+        input_embs = _table_lookup(fused_table, tokens)
+        prec = model.user_scores(input_embs, log_mask)[:, -1, :]
+    with annotate("iisan.top_k.score"):
+        scores = _score_catalog(prec, fused_table, table32)
+    with annotate("iisan.top_k.mask"):
+        scores = mask_history(scores, history)
+        scores[:, 0] = float("-inf")  # never recommend the pad item
+    with annotate("iisan.top_k.select"):
+        top_scores, top_ids = torch.topk(scores, k, dim=1)
     return top_ids, top_scores
 
 
@@ -239,16 +244,19 @@ class Recommender:
         """seqs: item-id sequences (most recent last).  Returns
         (item_ids, scores), each (B, k) numpy; history items are excluded
         by default."""
-        tokens, log_mask, history = self._prep(seqs, hist_len)
-        if not exclude_history:
-            history = np.zeros_like(history)
-        dev = self.device
-        ids, scores = _topk_step(
-            self.model, self.fused_table, self._table32,
-            torch.as_tensor(tokens, device=dev),
-            torch.as_tensor(log_mask, device=dev),
-            torch.as_tensor(history, device=dev), k)
-        return ids.int().cpu().numpy(), scores.cpu().numpy()
+        with annotate("iisan.top_k"):
+            with annotate("iisan.top_k.prep"):
+                tokens, log_mask, history = self._prep(seqs, hist_len)
+                if not exclude_history:
+                    history = np.zeros_like(history)
+            dev = self.device
+            with annotate("iisan.top_k.upload"):
+                args = [torch.as_tensor(a, device=dev)
+                        for a in (tokens, log_mask, history)]
+            ids, scores = _topk_step(self.model, self.fused_table,
+                                     self._table32, *args, k)
+            with annotate("iisan.top_k.fetch"):
+                return ids.int().cpu().numpy(), scores.cpu().numpy()
 
 
 class ShardedRecommender:

@@ -7,7 +7,8 @@ adapter method (IISAN: ``UncachedIISANModel`` with frozen towers; otherwise
 ``FFTRecModel``: FFT, and LoRA, Houlsby and BitFit, whose towers
 ``towers_from_config`` builds), and ``trainable_mask`` decides what the
 optimizer updates.  A step: upload the batch's uint8 images, normalise them on the
-device, the model's training forward, ``backward``, one Adam step.  Images
+device, the model's training forward, ``backward``, one Adam step, each
+phase in a span (``utils.profiling.annotate``).  Images
 are decoded on a thread pool one batch ahead (``ParallelImageLoader``);
 text items are rows of the packed token table (every active attribute's
 ``[ids | mask]`` block).  ``remat_towers`` rematerialises the towers' layers
@@ -46,6 +47,7 @@ from ..models.san import san_from_config
 from ..models.towers import FFTRecModel, UncachedIISANModel, towers_from_config
 from ..ops.int8_linear import quantize_dense_tree
 from ..utils.jax_params import load_jax_params, with_lora_factors
+from ..utils.profiling import annotate
 from .loop import TrainLoopMixin
 from .optim import build_optimizer, log_group_sizes
 from .peft_masks import trainable_mask
@@ -167,15 +169,21 @@ class UncachedTrainer(TrainLoopMixin):
         rows of this rank's users (all bs*(L+1) without a split), all on
         the device; returns the loss, this rank's share on a split batch
         (not synchronised)."""
-        images = normalize_images(images_u8, self.dtype)
-        loss = self.model(ids.long(), images, tokens, log_mask, self.pop_prob,
-                          deterministic=False, generator=self.generator,
-                          shard=self.shard)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.reduce_gradients()
-        self.optimizer.step()
-        return loss.detach()
+        with annotate("iisan.step"):
+            with annotate("iisan.inputs"):
+                images = normalize_images(images_u8, self.dtype)
+            loss = self.model(ids.long(), images, tokens, log_mask,
+                              self.pop_prob, deterministic=False,
+                              generator=self.generator, shard=self.shard)
+            with annotate("iisan.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            with annotate("iisan.backward"):
+                loss.backward()
+            with annotate("iisan.optimizer"):
+                self.reduce_gradients()
+                self.optimizer.step()
+            loss = loss.detach()  # frees the autograd graph inside the span
+        return loss
 
     def run_epoch(self, epoch: int) -> float:
         c = self.corpus

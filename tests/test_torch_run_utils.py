@@ -4,10 +4,9 @@ TPME (``utils/tpme.py``).
 
 TPME scores are equal to the JAX function's on the same records (the
 normalisation is numpy in both); ``get_time`` is the JAX one; the logger
-writes one file and one screen handler in the JAX format; ``StepTimer``
-summarises as the JAX one; ``trace`` writes a trace file; on the CPU the
-memory readers return None; ``kernel_launches`` names every counted
-kernel wrapper.
+writes one file and one screen handler in the JAX format; ``annotate``
+records a range only while a profiler runs; ``kernel_launches`` names
+every counted kernel wrapper.
 """
 
 import logging
@@ -77,21 +76,20 @@ def test_logger_and_time_lines(tmp_path):
         shared.propagate = saved[2]
 
 
-def test_step_timer_trace_and_memory(tmp_path):
+def test_annotate_spans_only_under_a_profiler():
+    """Without a profiler a span is the one shared no-op context; under a
+    CPU ``torch.profiler`` it is a range of its name."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    timer = profiling.StepTimer()
-    assert timer.summary() == {}
-    for _ in range(3):
-        with timer:
-            torch.ones(8).sum()
-    s = timer.summary()
-    assert s["n"] == 3 and 0 <= s["p50_ms"] <= s["max_ms"]
-    with profiling.trace(str(tmp_path)):
-        with profiling.annotate("region"):
+    assert profiling.annotate("iisan.a") is profiling.annotate("iisan.b")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert profiling.annotate("iisan.a") is not profiling.annotate("iisan.a")
+        with profiling.annotate("iisan.region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
-    assert profiling.log_memory("x") is None
+    names = [e.name for e in prof.events() if e.name.startswith("iisan.")]
+    assert "iisan.region" in names
+    assert profiling.annotate("iisan.a") is profiling.annotate("iisan.b")
 
 
 def test_kernel_launches_names_every_wrapper():
